@@ -1,0 +1,31 @@
+from mlio_tpu_torch.models.spec import ModelSpec, PRESETS, get_spec
+from mlio_tpu_torch.models.transformer import (
+    Impl,
+    apply_rope,
+    forward,
+    init_params,
+    rope_cos_sin,
+)
+from mlio_tpu_torch.models.loader import (
+    convert_gpt2,
+    load_model,
+    spec_from_hf_config,
+    state_dict_from_torch,
+)
+from mlio_tpu_torch.models.weights import from_jax_params
+
+__all__ = [
+    "ModelSpec",
+    "PRESETS",
+    "get_spec",
+    "Impl",
+    "forward",
+    "init_params",
+    "apply_rope",
+    "rope_cos_sin",
+    "convert_gpt2",
+    "load_model",
+    "spec_from_hf_config",
+    "state_dict_from_torch",
+    "from_jax_params",
+]

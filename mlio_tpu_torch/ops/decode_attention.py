@@ -1,0 +1,128 @@
+"""Single-token decode attention over the contiguous KV cache (K3).
+
+Replaces ``mlio_tpu/ops/decode_attention.py::_decode_kernel``. The kernel is
+CUDA C++ in ``mlio_tpu_torch/csrc/decode_attn.cu``: one block per (sequence,
+KV head) so the G query heads of a group share each K/V read, 16-byte loads
+of only the ``context_lens[b]`` valid slots of ``[layer, b]``, fp32 online
+softmax. It is bound by bytes; its source note gives the H100 bound at the
+main path's shapes and what the design does about it.
+
+On CPU tensors :func:`decode_attention` runs :func:`decode_attention_plain`;
+on CUDA tensors it launches the kernel or raises. INT8 K/V scales are not
+ported yet and raise, and so does any dtype but bf16 on CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from mlio_tpu_torch.ops import _build
+
+_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (64, 128)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    layer: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch. With one query head per KV
+    head everything stays fp32, as ``_decode_kernel``'s G == 1 path; with
+    G > 1 the scaled query and the probabilities are rounded to the cache's
+    dtype before their products, as its MXU path. A sequence with no valid
+    slot gives 0."""
+    B, Hq, D = q.shape
+    Smax, Hkv = k_cache.shape[2], k_cache.shape[3]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qs = q.float() * scale
+    if G > 1:
+        qs = qs.to(k_cache.dtype).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qs.reshape(B, Hkv, G, D), k_cache[layer].float())
+    valid = torch.arange(Smax, device=q.device)[None, :] < context_lens.to(q.device)[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    if G > 1:
+        p = p.to(v_cache.dtype).float()
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache[layer].float())
+    o = o / torch.where(l == 0, 1.0, l)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def _entry():
+    lib = _build.library("decode_attn")
+    fn = lib.mlio_decode_attn
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+        fn.restype = i
+    return lib, fn
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    layer: int,
+    scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention → [B, Hq, D] in q's dtype.
+
+    q [B, Hq, D] is one token per sequence; k_cache/v_cache are
+    [L, B, Smax, Hkv, D]; ``context_lens`` [B] counts the valid slots of each
+    sequence, the current token included; ``layer`` is the cache's layer
+    index.
+    """
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("decode_attention: INT8 K/V scales are not ported yet")
+    B, Hq, D = q.shape
+    if k_cache.ndim != 5 or k_cache.shape[1] != B or k_cache.shape[4] != D \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: caches must be [L, {B}, Smax, Hkv, {D}] "
+                         f"alike, got {tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    L, _, Smax, Hkv, _ = k_cache.shape
+    if Hq % Hkv:
+        raise ValueError("decode_attention: query heads must be a multiple of KV heads")
+    if not 0 <= layer < L:
+        raise ValueError(f"decode_attention: layer {layer} outside [0, {L})")
+    if context_lens.shape != (B,):
+        raise ValueError(f"decode_attention: context_lens must be [{B}]")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, context_lens, layer=layer,
+                                      scale=scale)
+    dev = _build.require_cuda("decode_attention", q, k_cache, v_cache, context_lens)
+    _build.require_bf16("decode_attention", q=q, k_cache=k_cache, v_cache=v_cache)
+    G = Hq // Hkv
+    if G not in _GROUPS or D not in _HEAD_DIMS:
+        raise ValueError(f"decode_attention: group {G} not in {_GROUPS} or head dim "
+                         f"{D} not in {_HEAD_DIMS}")
+    if context_lens.dtype != torch.int32 or not context_lens.is_contiguous():
+        raise ValueError("decode_attention: context_lens must be contiguous int32")
+    _build.require_contiguous_aligned("decode_attention", q=q, k_cache=k_cache,
+                                      v_cache=v_cache)
+    out = torch.empty_like(q)
+    lib, fn = _entry()
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 context_lens.data_ptr(), out.data_ptr(), B, Smax, Hkv, G, D, layer,
+                 D ** -0.5 if scale is None else scale, _build.stream_handle(dev))
+    _build.check(lib, err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

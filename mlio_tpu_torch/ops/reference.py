@@ -1,0 +1,149 @@
+"""Plain PyTorch references of the optimized ops (``mlio_tpu/ops/reference.py``).
+
+Dense, fp32-internal versions that the kernels' plain twins and the tests
+are held against. Shapes follow the JAX package, head dim last:
+q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], Hkv dividing Hq (GQA/MQA).
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+
+def attention_mask(B: int, Sq: int, Skv: int, *, causal: bool, q_offset: int,
+                   kv_len: Union[None, int, torch.Tensor],
+                   device: torch.device) -> Optional[torch.Tensor]:
+    """Boolean [B|1, 1, Sq, Skv] mask (True = attend) from causality (query i
+    sits at absolute position i + q_offset) and ``kv_len`` (int or [B]);
+    None when nothing is masked."""
+    mask = None
+    if causal:
+        q_pos = torch.arange(Sq, device=device)[:, None] + q_offset
+        mask = (q_pos >= torch.arange(Skv, device=device)[None, :])[None, None]
+    if kv_len is not None:
+        cols = torch.arange(Skv, device=device)
+        if isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1:
+            valid = (cols[None, :] < kv_len.to(device)[:, None])[:, None, None, :]
+        else:
+            valid = (cols < int(kv_len))[None, None, None, :]
+        mask = valid if mask is None else mask & valid
+    return mask
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len=None,
+    mask=None,
+    k_scale=None,
+    v_scale=None,
+    dropout_rate: float = 0.0,
+    return_probs: bool = False,
+) -> torch.Tensor:
+    """Dense softmax attention with GQA, causal and KV-length masking.
+
+    Computation in fp32, output in q's dtype; rows with no valid key give 0.
+    User masks, INT8 K/V scales, dropout and ``return_probs`` are not ported
+    yet and raise.
+    """
+    if mask is not None or k_scale is not None or v_scale is not None \
+            or dropout_rate or return_probs:
+        raise NotImplementedError(
+            "attention_reference: user masks, INT8 K/V scales, dropout and "
+            "return_probs are not ported yet")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    group = Hq // Hkv
+    kf, vf = k.float(), v.float()
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=2)
+        vf = vf.repeat_interleave(group, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len, device=q.device)
+    if valid is not None:
+        scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(probs.isnan(), 0.0, probs)  # fully masked rows
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def mlp_reference(
+    x: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    *,
+    b_up: Optional[torch.Tensor] = None,
+    b_down: Optional[torch.Tensor] = None,
+    w_gate: Optional[torch.Tensor] = None,
+    b_gate: Optional[torch.Tensor] = None,
+    activation: str = "gelu_new",
+) -> torch.Tensor:
+    """Dense MLP: up-proj → activation (→ gate for SwiGLU/GeGLU) → down-proj."""
+    h = x @ w_up
+    if b_up is not None:
+        h = h + b_up
+    if activation in ("swiglu", "geglu"):
+        g = x @ w_gate
+        if b_gate is not None:
+            g = g + b_gate
+        gated = F.silu(g) if activation == "swiglu" else F.gelu(g, approximate="tanh")
+        h = gated * h
+    elif activation in ("gelu_new", "gelu_tanh"):
+        h = F.gelu(h, approximate="tanh")
+    elif activation == "gelu":
+        h = F.gelu(h)
+    elif activation == "relu":
+        h = F.relu(h)
+    else:
+        raise ValueError(f"unknown activation {activation}")
+    out = h @ w_down
+    if b_down is not None:
+        out = out + b_down
+    return out
+
+
+def layernorm_reference(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-5,
+    residual: Optional[torch.Tensor] = None,
+    residual_alpha: float = 1.0,
+) -> torch.Tensor:
+    """LayerNorm with optional residual ``LN(x + alpha * residual)``; the
+    residual is added in x's dtype, the statistics are fp32."""
+    if residual is not None:
+        x = x + residual_alpha * residual
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def rmsnorm_reference(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """RMSNorm, fp32 statistics, optional residual added in x's dtype."""
+    if residual is not None:
+        x = x + residual
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)

@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where the port's time goes on the GPU: a torch.profiler breakdown.
+
+Run from the repository root with one card visible:
+
+    python3 profile_torch.py [--seed N] [--out DIR]
+
+Traces chip_smoke.py's workload (its ``workload``: GPT-2 small in bf16 with
+random weights from the seed, batch 8, 704-token prompt, 1024-slot cache,
+the per-op decode Impl): one prefill, then 8 decode steps, each region on
+its own after a warm-up. Prints one JSON line per region with its
+wall ms (host clock around work ending in ``torch.cuda.synchronize()``), the
+device-busy ms (the union of the kernels' intervals in the trace), the idle
+share, and the kernels by total device time. With ``--out`` it also writes
+each region's Chrome trace there.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from chip_smoke import B, CACHE, nvidia_smi, workload
+
+STEPS = 8  # decode steps traced
+
+
+def _busy_ms(events) -> float:
+    """Union of device kernel intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3  # us -> ms
+
+
+def _region(name, fn, out_dir, top=12):
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = _busy_ms(events)
+    kernels = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += (e.time_range.end - e.time_range.start) / 1e3
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    print(json.dumps(dict(
+        region=name, wall_ms=wall_ms, device_busy_ms=busy,
+        idle_share=1 - busy / wall_ms if busy else None,
+        kernels=[dict(name=n[:90], calls=c, ms=ms) for n, (c, ms) in ranked])), flush=True)
+    if not busy:
+        raise RuntimeError(f"{name}: the trace holds no device time")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mlio_tpu_torch.models import forward
+    from mlio_tpu_torch.runtime import init_cache
+
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    spec, params, ids, impl = workload(args.seed, dev)
+    print(json.dumps(dict(nvidia_smi=nvidia_smi(), torch=torch.__version__)))
+
+    def prefill():
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, device=dev)
+        return forward(params, spec, ids, impl=impl, cache=cache)
+
+    with torch.inference_mode():
+        _region("prefill", prefill, args.out)
+        logits, cache = prefill()
+        tok = logits[:, -1].argmax(-1)[:, None]
+
+        def decode():
+            c = cache
+            t = tok
+            for _ in range(STEPS):
+                lg, c = forward(params, spec, t, impl=impl, cache=c)
+                t = lg[:, -1].argmax(-1)[:, None]
+
+        _region(f"decode_{STEPS}_steps", decode, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
