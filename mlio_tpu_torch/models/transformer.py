@@ -4,15 +4,15 @@ The model is a plain function over a nested dict of tensors with the JAX
 package's layout: per-layer weights stacked on a leading ``num_layers``
 axis, matmul weights stored [in, out]. The JAX ``lax.scan`` over layers
 becomes a Python loop. :class:`Impl` keeps the JAX package's fields and
-picks the kernels: ``attention="flash"`` takes K1 for prefill and, with
-``decode_stack`` "auto" or "scan", K3 for single-token decode;
-``norm="fused"`` takes K2.
+picks the kernels: ``attention="flash"`` takes K1 for prefill and, for
+single-token decode, the megakernel K4 (``decode_stack`` "mega", or "auto"
+where :func:`~mlio_tpu_torch.ops.decode_layer.supports_decode_stack` accepts
+the model) or the per-layer scan through K3 (``"scan"``, or "auto"
+otherwise); ``norm="fused"`` takes K2.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-decode megakernel (``decode_stack="mega"``, K4) and the tiled big-model
-decode (``"tiled"``, K6); ``"auto"`` resolves to the per-layer scan decode
-until K4 lands. Also the fused MLP (K11), the fused norm+QKV (K12), ring
-attention, MoE layers and INT8 KV caches.
+tiled big-model decode (``decode_stack="tiled"``, K6), the fused MLP (K11),
+the fused norm+QKV (K12), ring attention, MoE layers and INT8 KV caches.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from mlio_tpu_torch import ops
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.ops import decode_attention as _decode
+from mlio_tpu_torch.ops import decode_layer as _stack
 
 Params = Dict[str, Any]
 
@@ -43,9 +44,9 @@ class Impl:
     mlp: str = "dense"  # "dense" | "fused"
     norm: str = "dense"  # "dense" | "fused"
     fused_ln_qkv: bool = False
-    # Decode-step layer iteration: "scan" runs layer by layer with K3;
-    # "auto" does the same until the megakernel (K4) is ported; "mega" and
-    # "tiled" raise.
+    # Decode-step layer iteration: "mega" runs every layer in one K4 launch;
+    # "scan" runs layer by layer with K3; "auto" takes mega where
+    # supports_decode_stack accepts the model, else scan; "tiled" (K6) raises.
     decode_stack: str = "auto"
     block_q: Optional[int] = None
     block_kv: Optional[int] = None
@@ -274,25 +275,38 @@ def forward(
     return _head(x, params, spec, impl), new_cache
 
 
-def _decode_forward(params, spec, x, cache, impl, cos, sin):
-    """Single-token decode, layer by layer, through K3 (the JAX package's
-    ``_decode_forward`` scan branch). Each layer writes its token's K/V into
-    the cache in place and attends over the valid prefix of its layer."""
-    if impl.decode_stack == "mega":
-        raise NotImplementedError(
-            "decode_stack='mega' needs the decode megakernel (K4, "
-            "mlio_tpu/ops/decode_layer.py::_decode_stack_kernel), not ported yet")
+def use_decode_stack(spec: ModelSpec, impl: Impl, blocks) -> bool:
+    """Whether single-token decode runs K4 (the JAX package's ``use_mega``).
+    ``"mega"`` on a model K4 does not run raises; ``"tiled"`` raises until
+    K6 is ported."""
     if impl.decode_stack == "tiled":
         raise NotImplementedError(
             "decode_stack='tiled' needs the tiled decode kernel (K6, "
             "mlio_tpu/ops/decode_tiled.py::_tiled_kernel), not ported yet")
-    if impl.decode_stack not in ("auto", "scan"):
+    if impl.decode_stack not in ("auto", "scan", "mega"):
         raise ValueError(f"unknown decode_stack {impl.decode_stack!r}")
+    supported = _stack.supports_decode_stack(spec, blocks=blocks)
+    if impl.decode_stack == "mega" and not supported:
+        raise ValueError(f"decode_stack='mega': K4 does not run {spec.name} "
+                         "(parallel residual, experts or activation)")
+    return impl.decode_stack == "mega" or (impl.decode_stack == "auto" and supported)
+
+
+def _decode_forward(params, spec, x, cache, impl, cos, sin):
+    """Single-token decode (the JAX package's ``_decode_forward``): one K4
+    launch for every layer, then the head; or layer by layer through K3.
+    Either writes the token's K/V into the cache in place."""
     B = x.shape[0]
     pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
-    ctx = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     blocks = params["blocks"]
+    if use_decode_stack(spec, impl, blocks):
+        # One position for the whole batch: the rope table collapses to [1, R].
+        cs = (cos[:1, 0], sin[:1, 0]) if cos is not None else (None, None)
+        h, _ = _stack.decode_layer_stack(x[:, 0], blocks, ck, cv, pos, cs[0], cs[1],
+                                         spec=spec)
+        return _head(h[:, None], params, spec, impl), {"k": ck, "v": cv, "pos": pos + 1}
+    ctx = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     for layer in range(spec.num_layers):
         bp = _layer(blocks, layer)
         h_norm = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)

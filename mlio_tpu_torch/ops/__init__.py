@@ -4,7 +4,10 @@
 ``attention`` and ``norm`` route to the hand-written kernels (K1, K2) or to
 the dense references. ``linear`` and ``mlp`` stay plain ``torch.matmul``,
 as the JAX package leaves them to XLA; the fused MLP kernel (K11) is not
-ported yet. Importing this package builds nothing.
+ported yet. The decode kernels are called through their modules
+(``ops.decode_attention`` for K3, ``ops.decode_layer`` for K4), as in the
+JAX package, whose ``ops`` exports neither. Importing this package builds
+nothing.
 """
 from __future__ import annotations
 

@@ -1,0 +1,381 @@
+"""The decode megakernel (K4): every layer of a decode step in one launch.
+
+Replaces ``mlio_tpu/ops/decode_layer.py::_decode_stack_kernel`` and its body
+``_decode_layer_body`` (entry ``decode_layer_stack``). The kernel is CUDA
+C++ in ``mlio_tpu_torch/csrc/decode_layer.cu``: one persistent cooperative
+launch per call that runs, for every step and every layer, norm → QKV →
+RoPE → cache write → attention → out-projection → norm → MLP, then
+optionally the greedy epilogue (final norm, lm_head, first-index argmax)
+and, with ``steps > 1``, the next step's embedding and position. Phases
+are separated by grid-wide barriers; the residual stays in fp32 across
+layers. Its source note gives the H100 bound and the design.
+
+On CPU tensors :func:`decode_layer_stack` runs
+:func:`decode_layer_stack_plain`; on CUDA tensors it launches the kernel or
+raises. The cache is the port's ``[L, B, Smax, Hkv, D]`` (the JAX package's
+flat ``[L, B, Smax, Hkv*D]`` is the same memory) and is updated in place.
+The TPU's layout and tuning knobs (``interpret``, ``vocab_chunk``,
+``cache_block``, ``kv_combined``, ``kv_depth``) have no counterpart here.
+INT8 weights and INT8 K/V scales belong to the quantization slice and raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.reference import activate
+
+_ACTIVATIONS = ("gelu_new", "gelu_tanh", "gelu", "relu", "swiglu", "geglu")
+_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (64, 128)
+MAX_BATCH = 8      # rows of the kernel's register accumulators
+MAX_HIDDEN = 8192  # the epilogue keeps [MAX_BATCH, H] bf16 in shared memory
+
+
+def supports_decode_stack(spec, cache_quant: bool = False, blocks=None,
+                          smax: Optional[int] = None) -> bool:
+    """Whether K4 applies to ``spec``: the JAX package's feature conditions
+    (sequential residual, no experts, a supported activation, unquantized
+    weights in the per-projection layout; an INT8 cache needs a 128-aligned
+    length there).
+
+    The JAX package also asks that one layer's weights fit the TPU's VMEM
+    budget and sends larger dense models to the tiled kernel (K6). That rule
+    is a TPU budget and is not kept: until K6 is ported, large dense models
+    take K4 here."""
+    if spec.parallel_residual or spec.num_experts:
+        return False
+    if cache_quant and smax is not None and smax % 128:
+        return False
+    if spec.activation not in _ACTIVATIONS:
+        return False
+    if blocks is not None:
+        w = blocks.get("wq")
+        if not isinstance(w, torch.Tensor) or not w.is_floating_point():
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _norm32(x32, scale, bias, kind, eps):
+    """``_norm`` of the JAX kernel: fp32 statistics and affine; RMSNorm takes
+    no bias."""
+    if kind == "rmsnorm":
+        return x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps) * scale.float()
+    xc = x32 - x32.mean(-1, keepdim=True)
+    y = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps) * scale.float()
+    return y if bias is None else y + bias.float()
+
+
+def _mm(h, w, b):
+    y = h.float() @ w.float()
+    return y if b is None else y + b.float()
+
+
+def _rope(x, cos, sin, D):
+    """Rotate-half over the first ``len(cos)`` lanes of each head of a flat
+    [B, heads*D] fp32 tensor; the tail passes through."""
+    B = x.shape[0]
+    x = x.reshape(B, -1, D)
+    R = cos.shape[-1]
+    xr = x[..., :R]
+    rot = torch.cat([-xr[..., R // 2:], xr[..., :R // 2]], dim=-1)
+    return torch.cat([xr * cos + rot * sin, x[..., R:]], dim=-1).reshape(B, -1)
+
+
+def decode_layer_stack_plain(
+    x: torch.Tensor,
+    blocks,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    *,
+    spec,
+    scale: Optional[float] = None,
+    head_norm=None,
+    lm_head: Optional[torch.Tensor] = None,
+    lm_head_bias: Optional[torch.Tensor] = None,
+    lm_vmajor: bool = True,
+    vocab_size: Optional[int] = None,
+    pos_embed: Optional[torch.Tensor] = None,
+    steps: int = 1,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The kernel's function in plain PyTorch, with K4's rounding points:
+    the residual stays fp32 across layers; the norm outputs, ``q * scale``,
+    the attention probabilities (for the PV product only), the attention
+    output and the activation are rounded to x's dtype; projections
+    accumulate in fp32; the RoPE tables are rounded to x's dtype first. The
+    softmax takes the row's final max where the kernel takes a running one,
+    which moves the rounded probabilities by bf16 noise only.
+
+    Writes slot ``pos + s`` of every layer of the caches in place."""
+    cd = x.dtype
+    B, H = x.shape
+    L, _, Smax, Hkv, D = k_cache.shape
+    Hq = spec.num_heads
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    norm, eps = spec.norm, spec.norm_eps
+    gated = spec.activation in ("swiglu", "geglu")
+    V = vocab_size or (lm_head.shape[0] if lm_vmajor else lm_head.shape[1]) \
+        if lm_head is not None else None
+    if cos is not None:
+        cos, sin = cos.to(cd).float(), sin.to(cd).float()
+    bp = blocks
+
+    def bias(name, layer):
+        b = bp.get(name)
+        return None if b is None else b[layer]
+
+    x32 = x.float()
+    if pos_embed is not None:
+        x32 = x32 + pos_embed[pos].float()
+    tokens = []
+    for s in range(steps):
+        p = pos + s
+        for layer in range(L):
+            h = _norm32(x32, bp["ln1_scale"][layer], bias("ln1_bias", layer), norm, eps).to(cd)
+            q = _mm(h, bp["wq"][layer], bias("bq", layer))
+            k = _mm(h, bp["wk"][layer], bias("bk", layer))
+            v = _mm(h, bp["wv"][layer], bias("bv", layer))
+            if cos is not None:
+                q = _rope(q, cos[s], sin[s], D)
+                k = _rope(k, cos[s], sin[s], D)
+            k_cache[layer, :, p] = k.reshape(B, Hkv, D).to(cd).to(k_cache.dtype)
+            v_cache[layer, :, p] = v.reshape(B, Hkv, D).to(cd).to(v_cache.dtype)
+            qs = (q * scale).to(cd).float().reshape(B, Hkv, G, D)
+            keys = k_cache[layer, :, :p + 1].float()
+            vals = v_cache[layer, :, :p + 1]
+            sc = torch.einsum("bkgd,btkd->bkgt", qs, keys)
+            pr = torch.exp(sc - sc.amax(-1, keepdim=True))
+            l = pr.sum(-1, keepdim=True)
+            o = torch.einsum("bkgt,btkd->bkgd", pr.to(vals.dtype).float(), vals.float())
+            attn = (o / torch.where(l == 0, 1.0, l)).reshape(B, Hq * D).to(cd)
+            x32 = x32 + _mm(attn, bp["wo"][layer], bias("bo", layer))
+            h2 = _norm32(x32, bp["ln2_scale"][layer], bias("ln2_bias", layer), norm, eps).to(cd)
+            u = _mm(h2, bp["w_up"][layer], bias("b_up", layer))
+            g = _mm(h2, bp["w_gate"][layer], bias("b_gate", layer)) if gated else None
+            act = activate(u, g, spec.activation).to(cd)
+            x32 = x32 + _mm(act, bp["w_down"][layer], bias("b_down", layer))
+        if lm_head is None:
+            continue
+        hf = _norm32(x32, head_norm[0], head_norm[1], norm, eps).to(cd).float()
+        if lm_vmajor:
+            logits = hf @ lm_head[:V].float().T
+        else:
+            logits = hf @ lm_head[:, :V].float()
+        if lm_head_bias is not None:
+            logits = logits + lm_head_bias[:V].float()
+        tok = logits.argmax(-1).to(torch.int32)  # the first index of the max
+        tokens.append(tok)
+        if s + 1 < steps:
+            x32 = lm_head[tok.long()].float()
+            if spec.embed_scale is not None:
+                x32 = x32 * spec.embed_scale
+            if pos_embed is not None:
+                x32 = x32 + pos_embed[p + 1].float()
+    if lm_head is None:
+        return x32.to(cd), None
+    toks = torch.stack(tokens)
+    return x32.to(cd), (toks[0] if steps == 1 else toks)
+
+
+def phase_stamps(spec, steps: int = 1, epilogue: bool = True) -> int:
+    """Timer stamps one launch writes: the start, the first step's input,
+    five phases a layer, and per step the logits and, before a next step,
+    the token."""
+    return 2 + steps * 5 * spec.num_layers + (2 * steps - 1 if epilogue else 0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_PTRS = ("x", "x_out", "k_cache", "v_cache", "ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk",
+         "wv", "bv", "wo", "bo", "ln2_scale", "ln2_bias", "w_up", "b_up", "w_gate", "b_gate",
+         "w_down", "b_down", "cos", "sin", "pos_embed", "final_scale", "final_bias",
+         "lm_head", "lm_bias", "tokens", "work", "sync", "stamps")
+_INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "steps", "rope_dim",
+         "rmsnorm", "activation", "epilogue", "lm_vmajor", "V", "nblocks", "smem")
+_FLOATS = ("eps", "scale", "embed_scale")
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``StackParams`` in ``csrc/decode_layer.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
+                + [(n, ctypes.c_int) for n in _INTS]
+                + [(n, ctypes.c_float) for n in _FLOATS])
+
+
+def _entry():
+    lib = _build.library("decode_layer")
+    plan, run = lib.mlio_decode_stack_plan, lib.mlio_decode_stack
+    if plan.argtypes is None:
+        pp = ctypes.POINTER(_Params)
+        plan.argtypes = [pp, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        run.argtypes = [pp, ctypes.c_void_p]
+        run.restype = ctypes.c_int
+    return lib, plan, run
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def decode_layer_stack(
+    x: torch.Tensor,
+    blocks,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    *,
+    spec,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    head_norm=None,
+    lm_head: Optional[torch.Tensor] = None,
+    lm_head_bias: Optional[torch.Tensor] = None,
+    lm_vmajor: bool = True,
+    vocab_size: Optional[int] = None,
+    pos_embed: Optional[torch.Tensor] = None,
+    steps: int = 1,
+    phase_times: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run every layer of ``steps`` decode steps → ``(x_out [B, H], tokens)``.
+
+    x [B, H] is the current token's hidden state (without its position when
+    ``pos_embed`` is given: the kernel adds ``pos_embed[pos]`` in fp32);
+    blocks hold the stacked ``[L, in, out]`` weights; k_cache/v_cache are
+    ``[L, B, Smax, Hkv, D]`` and get slot ``pos + s`` of every layer in
+    place; cos/sin are ``[steps, rope_dim]`` tables for RoPE models.
+
+    With ``head_norm`` = (final_scale, final_bias) and ``lm_head`` (a tied,
+    vocab-major ``[V, H]`` table, or ``[H, V]`` with ``lm_vmajor=False``)
+    the greedy epilogue returns the next token ids: ``[B]`` int32, or
+    ``[steps, B]`` when ``steps > 1``, which needs the tied head (step s+1
+    starts from the embedding row of step s's token, times
+    ``spec.embed_scale``, plus its position). Without it tokens is None.
+
+    ``phase_times``, a CUDA int64 tensor of at least
+    :func:`phase_stamps` elements, receives the kernel's global timer (ns)
+    at its start and after each grid barrier: successive differences are
+    the phases' durations (a port-only probe; the CPU ignores it).
+    """
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "decode_layer_stack: INT8 K/V scales belong to the quantization slice "
+            "(K4's INT8 KV path), not ported yet")
+    for name, w in blocks.items():
+        if w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
+            raise NotImplementedError(
+                f"decode_layer_stack: quantized weight {name!r} belongs to the quantization "
+                "slice (K4's int8 weight path), not ported yet")
+    if not supports_decode_stack(spec):
+        raise ValueError(f"decode_layer_stack: {spec.name} is not a model K4 runs "
+                         "(parallel residual, experts or activation)")
+    B, H = x.shape
+    if k_cache.ndim != 5 or k_cache.shape[1] != B or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_layer_stack: caches must be [L, {B}, Smax, Hkv, D] alike, "
+                         f"got {tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    L, _, Smax, Hkv, D = k_cache.shape
+    if (L, Hkv, D) != (spec.num_layers, spec.num_kv_heads, spec.head_size) \
+            or H != spec.hidden_size:
+        raise ValueError("decode_layer_stack: x and the caches do not match the spec")
+    if steps < 1 or pos < 0 or pos + steps > Smax:
+        raise ValueError(f"decode_layer_stack: slots {pos}..{pos + steps - 1} outside the "
+                         f"{Smax}-slot cache")
+    if pos_embed is not None and pos + steps > pos_embed.shape[0]:
+        raise ValueError(f"decode_layer_stack: position {pos + steps - 1} past pos_embed's "
+                         f"{pos_embed.shape[0]} rows")
+    epilogue = lm_head is not None
+    if epilogue and head_norm is None:
+        raise ValueError("decode_layer_stack: the epilogue needs head_norm")
+    if steps > 1 and not (epilogue and lm_vmajor):
+        raise ValueError("decode_layer_stack: steps > 1 needs the greedy epilogue with a "
+                         "tied vocab-major lm_head")
+    if (cos is None) != (spec.positional == "learned"):
+        raise ValueError("decode_layer_stack: cos/sin are given for RoPE models, and only them")
+    if cos is not None and (cos.ndim != 2 or cos.shape[0] != steps or sin.shape != cos.shape):
+        raise ValueError(f"decode_layer_stack: cos/sin must be [{steps}, rope_dim]")
+    V = (vocab_size or (lm_head.shape[0] if lm_vmajor else lm_head.shape[1])) if epilogue else 0
+    kw = dict(spec=spec, scale=scale, head_norm=head_norm, lm_head=lm_head,
+              lm_head_bias=lm_head_bias, lm_vmajor=lm_vmajor, vocab_size=vocab_size,
+              pos_embed=pos_embed, steps=steps)
+    if x.device.type == "cpu":
+        return decode_layer_stack_plain(x, blocks, k_cache, v_cache, pos, cos, sin, **kw)
+
+    gated = spec.activation in ("swiglu", "geglu")
+    bp = dict(blocks)
+    if not gated:
+        bp["w_gate"] = bp["b_gate"] = None
+    fin_scale, fin_bias = head_norm if epilogue else (None, None)
+    tensors = dict(x=x, k_cache=k_cache, v_cache=v_cache, pos_embed=pos_embed,
+                   final_scale=fin_scale, final_bias=fin_bias, lm_head=lm_head,
+                   lm_bias=lm_head_bias, **{k: v for k, v in bp.items() if v is not None})
+    dev = _build.require_cuda("decode_layer_stack",
+                              *[t for t in tensors.values() if t is not None])
+    _build.require_bf16("decode_layer_stack", **tensors)
+    G = spec.num_heads // Hkv
+    I = spec.intermediate_size
+    if G not in _GROUPS or D not in _HEAD_DIMS:
+        raise ValueError(f"decode_layer_stack: group {G} not in {_GROUPS} or head dim {D} "
+                         f"not in {_HEAD_DIMS}")
+    if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
+        raise ValueError(f"decode_layer_stack: batch {B} must be 1..{MAX_BATCH}, hidden {H} "
+                         f"at most {MAX_HIDDEN}, hidden and intermediate multiples of 8")
+    if epilogue and (lm_head.shape[1 if lm_vmajor else 0] != H
+                     or V > lm_head.shape[0 if lm_vmajor else 1]
+                     or not lm_vmajor and V != lm_head.shape[1]):
+        raise ValueError("decode_layer_stack: lm_head must be [V, H] (tied) or [H, V] with "
+                         "vocab_size at most its rows (tied) or equal to its columns (untied)")
+    _build.require_contiguous_aligned("decode_layer_stack", **tensors)
+    if cos is not None:
+        # the tables are rounded to the compute dtype first, as _rope_consts does
+        cos = cos.to(dev, x.dtype).float().contiguous()
+        sin = sin.to(dev, x.dtype).float().contiguous()
+    x_out = torch.empty_like(x)
+    tokens = torch.empty((steps, B), dtype=torch.int32, device=dev) if epilogue else None
+    if phase_times is not None and (phase_times.dtype != torch.int64
+                                    or phase_times.device != dev
+                                    or phase_times.numel() < phase_stamps(spec, steps, epilogue)):
+        raise ValueError("decode_layer_stack: phase_times must be int64 on the card, "
+                         f"with {phase_stamps(spec, steps, epilogue)} elements")
+    prm = _Params(
+        **{n: _ptr(t) for n, t in tensors.items()}, stamps=_ptr(phase_times),
+        x_out=x_out.data_ptr(), cos=_ptr(cos), sin=_ptr(sin), tokens=_ptr(tokens),
+        B=B, H=H, Hq=spec.num_heads, Hkv=Hkv, D=D, I=I, L=L, Smax=Smax, pos=pos,
+        steps=steps, rope_dim=0 if cos is None else cos.shape[1],
+        rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
+        epilogue=int(epilogue), lm_vmajor=int(lm_vmajor), V=V, eps=spec.norm_eps,
+        scale=D ** -0.5 if scale is None else scale,
+        embed_scale=1.0 if spec.embed_scale is None else spec.embed_scale)
+    lib, plan, run = _entry()
+    work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
+                               ctypes.byref(sync_ints)), "decode_layer_stack (plan)")
+        work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
+        sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
+        prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
+        err = run(ctypes.byref(prm), _build.stream_handle(dev))
+    _build.check(lib, err, "decode_layer_stack")
+    decode_layer_stack.launches += 1
+    if tokens is not None and steps == 1:
+        tokens = tokens[0]
+    return x_out, tokens
+
+
+decode_layer_stack.launches = 0

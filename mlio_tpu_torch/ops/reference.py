@@ -77,6 +77,22 @@ def attention_reference(
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
+def activate(u: torch.Tensor, g: Optional[torch.Tensor], activation: str) -> torch.Tensor:
+    """The MLP activation of the up projection ``u`` (gated by ``g`` for
+    SwiGLU/GeGLU)."""
+    if activation == "swiglu":
+        return F.silu(g) * u
+    if activation == "geglu":
+        return F.gelu(g, approximate="tanh") * u
+    if activation in ("gelu_new", "gelu_tanh"):
+        return F.gelu(u, approximate="tanh")
+    if activation == "gelu":
+        return F.gelu(u)
+    if activation == "relu":
+        return F.relu(u)
+    raise ValueError(f"unknown activation {activation}")
+
+
 def mlp_reference(
     x: torch.Tensor,
     w_up: torch.Tensor,
@@ -92,21 +108,12 @@ def mlp_reference(
     h = x @ w_up
     if b_up is not None:
         h = h + b_up
+    g = None
     if activation in ("swiglu", "geglu"):
         g = x @ w_gate
         if b_gate is not None:
             g = g + b_gate
-        gated = F.silu(g) if activation == "swiglu" else F.gelu(g, approximate="tanh")
-        h = gated * h
-    elif activation in ("gelu_new", "gelu_tanh"):
-        h = F.gelu(h, approximate="tanh")
-    elif activation == "gelu":
-        h = F.gelu(h)
-    elif activation == "relu":
-        h = F.relu(h)
-    else:
-        raise ValueError(f"unknown activation {activation}")
-    out = h @ w_down
+    out = activate(h, g, activation) @ w_down
     if b_down is not None:
         out = out + b_down
     return out

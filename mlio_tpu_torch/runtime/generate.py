@@ -1,10 +1,15 @@
 """Autoregressive generation: prefill, then one forward per new token
 (``mlio_tpu/runtime/generate.py``).
 
-The JAX package runs the decode loop as one ``lax.scan`` inside jit; here it
-is a Python loop over :func:`forward` on a cache updated in place. With
-``Impl(attention="flash", norm="fused")`` the prefill goes through K1 and
-K2, each decode step through K3 and K2.
+The prefill is one :func:`forward` (K1 and K2 with
+``Impl(attention="flash", norm="fused")``). The decode is routed as the JAX
+package's ``_generate_impl`` routes it. Where the decode megakernel K4 runs
+the model (``decode_stack`` "auto" or "mega") and decoding is greedy with
+``attention != "dense"``, K4 runs the greedy epilogue itself: with a tied
+lm_head the whole decode is ONE launch of ``max_new_tokens - 1`` steps,
+with an untied one a launch per token. Otherwise each token is a
+:func:`forward` on the cache, updated in place: K4 with the head after it,
+or the per-layer scan through K3.
 """
 from __future__ import annotations
 
@@ -14,7 +19,8 @@ import torch
 
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
-from mlio_tpu_torch.models.transformer import Impl, forward
+from mlio_tpu_torch.models.transformer import Impl, forward, rope_cos_sin, use_decode_stack
+from mlio_tpu_torch.ops import decode_layer as _stack
 from mlio_tpu_torch.runtime import sampling
 from mlio_tpu_torch.runtime.kv_cache import init_cache
 
@@ -51,11 +57,57 @@ def generate(
     logits, cache = forward(params, spec, input_ids, impl=impl, cache=cache)
     token = sampling.sample(logits[:, -1, :], generator, method)
     new = [token]
-    for _ in range(max_new_tokens - 1):
-        logits, cache = forward(params, spec, token[:, None], impl=impl, cache=cache)
-        token = sampling.sample(logits[:, -1, :], generator, method)
-        new.append(token)
+    if method.temperature == 0.0 and impl.attention != "dense" \
+            and use_decode_stack(spec, impl, params["blocks"]):
+        new += _greedy_decode_stack(params, spec, token, cache, max_new_tokens - 1)
+    else:
+        for _ in range(max_new_tokens - 1):
+            logits, cache = forward(params, spec, token[:, None], impl=impl, cache=cache)
+            token = sampling.sample(logits[:, -1, :], generator, method)
+            new.append(token)
     return torch.cat([input_ids, torch.stack(new, dim=1).to(input_ids.dtype)], dim=1)
+
+
+def _greedy_decode_stack(params, spec, token, cache, steps):
+    """``steps`` greedy tokens after ``token`` through K4's fused epilogue;
+    advances ``cache["pos"]`` by ``steps``. A tied lm_head runs them all in
+    one multi-step launch, an untied one launches once per token."""
+    if steps < 1:
+        return []
+    tied = params["lm_head"] is None
+    learned = spec.positional == "learned"
+    kw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
+              lm_head=params["tok_embed"] if tied else params["lm_head"],
+              lm_head_bias=params.get("lm_head_bias"), lm_vmajor=tied,
+              pos_embed=params["pos_embed"] if learned else None)
+
+    def embed(tok):
+        x = params["tok_embed"][tok]
+        if spec.embed_scale is not None:  # rounded to x's dtype first, as in JAX
+            x = x * torch.tensor(spec.embed_scale, dtype=x.dtype).item()
+        return x
+
+    def rope(pos, n):
+        if learned:
+            return None, None
+        positions = torch.arange(pos, pos + n, device=token.device)
+        return rope_cos_sin(positions, spec.rope_dim, spec.rope_theta)
+
+    pos, dtype = cache["pos"], token.dtype
+    if tied:
+        cos, sin = rope(pos, steps)
+        _, toks = _stack.decode_layer_stack(embed(token), params["blocks"], cache["k"],
+                                            cache["v"], pos, cos, sin, steps=steps, **kw)
+        cache["pos"] = pos + steps
+        return list(toks.reshape(steps, -1).to(dtype).unbind(0))
+    new = []
+    for s in range(steps):
+        cos, sin = rope(pos + s, 1)
+        _, token = _stack.decode_layer_stack(embed(token), params["blocks"], cache["k"],
+                                             cache["v"], pos + s, cos, sin, **kw)
+        new.append(token.to(dtype))
+    cache["pos"] = pos + steps
+    return new
 
 
 def greedy_generate(params, spec, input_ids, *, max_new_tokens=16, impl: Impl = Impl(),

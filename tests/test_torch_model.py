@@ -22,6 +22,7 @@ from mlio_tpu.models import load_model as jax_load_model
 from mlio_tpu.runtime import greedy_generate as jax_greedy_generate
 from mlio_tpu.runtime import init_cache as jax_init_cache
 from mlio_tpu_torch.models import PRESETS, Impl, forward, from_jax_params, get_spec, load_model
+from mlio_tpu_torch.ops.decode_layer import decode_layer_stack
 from mlio_tpu_torch.runtime import greedy_generate, init_cache
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -153,10 +154,22 @@ def test_unported_paths_raise():
     _, params = load_model("gpt2-tiny", dtype=torch.float32, device="cpu")
     cache = init_cache(spec, 1, 8, dtype=torch.float32, device="cpu")
     _, cache = forward(params, spec, torch.zeros(1, 2, dtype=torch.long), cache=cache)
-    for stack, kernel in (("mega", "K4"), ("tiled", "K6")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            forward(params, spec, torch.zeros(1, 1, dtype=torch.long), cache=dict(cache),
-                    impl=Impl(attention="flash", decode_stack=stack))
+    tok = torch.zeros(1, 1, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="K6"):
+        forward(params, spec, tok, cache=dict(cache),
+                impl=Impl(attention="flash", decode_stack="tiled"))
+    # "mega" runs (K4 is ported) but its INT8 KV and int8 weight paths do not
+    logits, _ = forward(params, spec, tok, cache=dict(cache),
+                        impl=Impl(attention="flash", decode_stack="mega"))
+    assert logits.shape == (1, 1, spec.vocab_size)
+    x = torch.zeros(1, spec.hidden_size)
+    scales = torch.ones(*cache["k"].shape[:4])
+    with pytest.raises(NotImplementedError, match="quantization"):
+        decode_layer_stack(x, params["blocks"], cache["k"], cache["v"], 2, spec=spec,
+                           k_scales=scales, v_scales=scales)
+    int8_blocks = dict(params["blocks"], wq=params["blocks"]["wq"].to(torch.int8))
+    with pytest.raises(NotImplementedError, match="quantization"):
+        decode_layer_stack(x, int8_blocks, cache["k"], cache["v"], 2, spec=spec)
     with pytest.raises(NotImplementedError, match="K11"):
         forward(params, spec, torch.zeros(1, 2, dtype=torch.long), impl=Impl(mlp="fused"))
     with pytest.raises(NotImplementedError, match="MoE"):
