@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer")
+SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "paged_attn", "paged_stack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 

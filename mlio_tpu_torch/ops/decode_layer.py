@@ -89,6 +89,80 @@ def _rope(x, cos, sin, D):
     return torch.cat([xr * cos + rot * sin, x[..., R:]], dim=-1).reshape(B, -1)
 
 
+def _attend_plain(qs, keys, vals, valid=None):
+    """Attention of the bf16-rounded scaled queries qs [B, Hkv, G, D] (fp32)
+    over keys/vals [B, T, Hkv, D] in the cache's dtype → [B, Hkv, G, D]
+    fp32, the probabilities fp32 for the PV product. ``valid`` [B, T] masks
+    slots out before either product, so what they hold (NaN included) never
+    reaches the output.
+
+    The TPU kernels round the probabilities to bf16 for their MXU. The CUDA
+    kernels take a running max where this takes the final one, so the two
+    would round p at different values: on the card, at GPT-2 small's full
+    width, that put K8's x_out past the 5e-2 + 5e-2·|plain| check after 12
+    layers (0.0664 off, chip_smoke.py), while the summation order alone
+    leaves it well inside. Keeping p in fp32 removes that noise; in fp32
+    (the CPU tests against the JAX package) nothing changes."""
+    sc = torch.einsum("bkgd,btkd->bkgt", qs, keys.float())
+    if valid is not None:
+        sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+        vals = vals.masked_fill(~valid[:, :, None, None], 0)
+    m = sc.amax(-1, keepdim=True)
+    pr = torch.exp(sc - torch.where(m.isneginf(), 0.0, m))
+    l = pr.sum(-1, keepdim=True)
+    o = torch.einsum("bkgt,btkd->bkgd", pr, vals.float())
+    return o / torch.where(l == 0, 1.0, l)
+
+
+def layer_plain(x32, blocks, layer, *, spec, dtype, scale, rope, attend):
+    """One layer of the decode megakernels' function (K4 and K8) on the fp32
+    residual x32 [B, H], with their rounding points: the norm outputs,
+    ``q * scale``, the attention output and the activation are rounded to
+    the compute dtype ``dtype``; projections accumulate in fp32.
+
+    ``rope(t)`` rotates a flat [B, heads*D] fp32 projection (None: learned
+    positions). ``attend(layer, qs, k, v)`` writes k, v [B, Hkv, D] (rounded)
+    into the cache and returns the attention [B, Hkv, G, D] fp32 of qs."""
+    bp, cd = blocks, dtype
+    B = x32.shape[0]
+    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_size
+    norm, eps = spec.norm, spec.norm_eps
+    gated = spec.activation in ("swiglu", "geglu")
+
+    def bias(name):
+        b = bp.get(name)
+        return None if b is None else b[layer]
+
+    h = _norm32(x32, bp["ln1_scale"][layer], bias("ln1_bias"), norm, eps).to(cd)
+    q = _mm(h, bp["wq"][layer], bias("bq"))
+    k = _mm(h, bp["wk"][layer], bias("bk"))
+    v = _mm(h, bp["wv"][layer], bias("bv"))
+    if rope is not None:
+        q, k = rope(q), rope(k)
+    qs = (q * scale).to(cd).float().reshape(B, Hkv, Hq // Hkv, D)
+    attn = attend(layer, qs, k.reshape(B, Hkv, D).to(cd), v.reshape(B, Hkv, D).to(cd))
+    x32 = x32 + _mm(attn.reshape(B, Hq * D).to(cd), bp["wo"][layer], bias("bo"))
+    h2 = _norm32(x32, bp["ln2_scale"][layer], bias("ln2_bias"), norm, eps).to(cd)
+    u = _mm(h2, bp["w_up"][layer], bias("b_up"))
+    g = _mm(h2, bp["w_gate"][layer], bias("b_gate")) if gated else None
+    act = activate(u, g, spec.activation).to(cd)
+    return x32 + _mm(act, bp["w_down"][layer], bias("b_down"))
+
+
+def logits_plain(x32, head_norm, lm_head, lm_head_bias=None, *, spec, lm_vmajor=True,
+                 vocab_size=None, dtype=None):
+    """The epilogue's fp32 logits [B, V]: the final norm of the residual
+    rounded to the compute dtype (``dtype``, default lm_head's), times the
+    tied [V, H] table or the untied [H, V] head, plus the head bias."""
+    V = vocab_size or (lm_head.shape[0] if lm_vmajor else lm_head.shape[1])
+    hf = _norm32(x32.float(), head_norm[0], head_norm[1], spec.norm, spec.norm_eps)
+    hf = hf.to(dtype or lm_head.dtype).float()
+    logits = hf @ (lm_head[:V].float().T if lm_vmajor else lm_head[:, :V].float())
+    if lm_head_bias is not None:
+        logits = logits + lm_head_bias[:V].float()
+    return logits
+
+
 def decode_layer_stack_plain(
     x: torch.Tensor,
     blocks,
@@ -108,73 +182,39 @@ def decode_layer_stack_plain(
     pos_embed: Optional[torch.Tensor] = None,
     steps: int = 1,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The kernel's function in plain PyTorch, with K4's rounding points:
-    the residual stays fp32 across layers; the norm outputs, ``q * scale``,
-    the attention probabilities (for the PV product only), the attention
-    output and the activation are rounded to x's dtype; projections
-    accumulate in fp32; the RoPE tables are rounded to x's dtype first. The
-    softmax takes the row's final max where the kernel takes a running one,
-    which moves the rounded probabilities by bf16 noise only.
+    """The kernel's function in plain PyTorch, with K4's rounding points
+    (:func:`layer_plain`); the residual stays fp32 across layers and the
+    RoPE tables are rounded to x's dtype first. The softmax takes the row's
+    final max where the kernel takes a running one (fp32 noise only: the
+    probabilities are not rounded, :func:`_attend_plain`).
 
     Writes slot ``pos + s`` of every layer of the caches in place."""
     cd = x.dtype
-    B, H = x.shape
-    L, _, Smax, Hkv, D = k_cache.shape
-    Hq = spec.num_heads
-    G = Hq // Hkv
+    D = k_cache.shape[4]
     if scale is None:
         scale = D ** -0.5
-    norm, eps = spec.norm, spec.norm_eps
-    gated = spec.activation in ("swiglu", "geglu")
-    V = vocab_size or (lm_head.shape[0] if lm_vmajor else lm_head.shape[1]) \
-        if lm_head is not None else None
     if cos is not None:
         cos, sin = cos.to(cd).float(), sin.to(cd).float()
-    bp = blocks
-
-    def bias(name, layer):
-        b = bp.get(name)
-        return None if b is None else b[layer]
-
     x32 = x.float()
     if pos_embed is not None:
         x32 = x32 + pos_embed[pos].float()
     tokens = []
     for s in range(steps):
         p = pos + s
-        for layer in range(L):
-            h = _norm32(x32, bp["ln1_scale"][layer], bias("ln1_bias", layer), norm, eps).to(cd)
-            q = _mm(h, bp["wq"][layer], bias("bq", layer))
-            k = _mm(h, bp["wk"][layer], bias("bk", layer))
-            v = _mm(h, bp["wv"][layer], bias("bv", layer))
-            if cos is not None:
-                q = _rope(q, cos[s], sin[s], D)
-                k = _rope(k, cos[s], sin[s], D)
-            k_cache[layer, :, p] = k.reshape(B, Hkv, D).to(cd).to(k_cache.dtype)
-            v_cache[layer, :, p] = v.reshape(B, Hkv, D).to(cd).to(v_cache.dtype)
-            qs = (q * scale).to(cd).float().reshape(B, Hkv, G, D)
-            keys = k_cache[layer, :, :p + 1].float()
-            vals = v_cache[layer, :, :p + 1]
-            sc = torch.einsum("bkgd,btkd->bkgt", qs, keys)
-            pr = torch.exp(sc - sc.amax(-1, keepdim=True))
-            l = pr.sum(-1, keepdim=True)
-            o = torch.einsum("bkgt,btkd->bkgd", pr.to(vals.dtype).float(), vals.float())
-            attn = (o / torch.where(l == 0, 1.0, l)).reshape(B, Hq * D).to(cd)
-            x32 = x32 + _mm(attn, bp["wo"][layer], bias("bo", layer))
-            h2 = _norm32(x32, bp["ln2_scale"][layer], bias("ln2_bias", layer), norm, eps).to(cd)
-            u = _mm(h2, bp["w_up"][layer], bias("b_up", layer))
-            g = _mm(h2, bp["w_gate"][layer], bias("b_gate", layer)) if gated else None
-            act = activate(u, g, spec.activation).to(cd)
-            x32 = x32 + _mm(act, bp["w_down"][layer], bias("b_down", layer))
+
+        def attend(layer, qs, k, v):
+            k_cache[layer, :, p] = k.to(k_cache.dtype)
+            v_cache[layer, :, p] = v.to(v_cache.dtype)
+            return _attend_plain(qs, k_cache[layer, :, :p + 1], v_cache[layer, :, :p + 1])
+
+        rope = None if cos is None else (lambda t: _rope(t, cos[s], sin[s], D))
+        for layer in range(k_cache.shape[0]):
+            x32 = layer_plain(x32, blocks, layer, spec=spec, dtype=cd, scale=scale,
+                              rope=rope, attend=attend)
         if lm_head is None:
             continue
-        hf = _norm32(x32, head_norm[0], head_norm[1], norm, eps).to(cd).float()
-        if lm_vmajor:
-            logits = hf @ lm_head[:V].float().T
-        else:
-            logits = hf @ lm_head[:, :V].float()
-        if lm_head_bias is not None:
-            logits = logits + lm_head_bias[:V].float()
+        logits = logits_plain(x32, head_norm, lm_head, lm_head_bias, spec=spec,
+                              lm_vmajor=lm_vmajor, vocab_size=vocab_size, dtype=cd)
         tok = logits.argmax(-1).to(torch.int32)  # the first index of the max
         tokens.append(tok)
         if s + 1 < steps:
@@ -203,22 +243,27 @@ def phase_stamps(spec, steps: int = 1, epilogue: bool = True) -> int:
 _PTRS = ("x", "x_out", "k_cache", "v_cache", "ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk",
          "wv", "bv", "wo", "bo", "ln2_scale", "ln2_bias", "w_up", "b_up", "w_gate", "b_gate",
          "w_down", "b_down", "cos", "sin", "pos_embed", "final_scale", "final_bias",
-         "lm_head", "lm_bias", "tokens", "work", "sync", "stamps")
+         "lm_head", "lm_bias", "tokens", "work", "sync", "stamps", "tables", "ctx", "logits")
 _INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "steps", "rope_dim",
-         "rmsnorm", "activation", "epilogue", "lm_vmajor", "V", "nblocks", "smem")
+         "rmsnorm", "activation", "epilogue", "lm_vmajor", "V", "nblocks", "smem", "bs",
+         "max_blocks", "num_blocks")
 _FLOATS = ("eps", "scale", "embed_scale")
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``StackParams`` in ``csrc/decode_layer.cu``."""
+    """Mirror of ``StackParams`` in ``csrc/decode_stack.cuh``, shared by K4
+    and K8 (``ops/decode_paged_stack.py``)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_int) for n in _INTS]
                 + [(n, ctypes.c_float) for n in _FLOATS])
 
 
-def _entry():
-    lib = _build.library("decode_layer")
-    plan, run = lib.mlio_decode_stack_plan, lib.mlio_decode_stack
+def _entry(name):
+    """(library, plan, run) of ``csrc/<name>.cu``, whose C entries are
+    ``mlio_<stem>_plan`` and ``mlio_<stem>``: K4 and K8 share the interface."""
+    lib = _build.library(name)
+    stem = {"decode_layer": "decode_stack", "paged_stack": "paged_stack"}[name]
+    plan, run = getattr(lib, f"mlio_{stem}_plan"), getattr(lib, f"mlio_{stem}")
     if plan.argtypes is None:
         pp = ctypes.POINTER(_Params)
         plan.argtypes = [pp, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
@@ -226,6 +271,78 @@ def _entry():
         run.argtypes = [pp, ctypes.c_void_p]
         run.restype = ctypes.c_int
     return lib, plan, run
+
+
+def launch(name: str, prm: _Params, dev: torch.device, what: str) -> None:
+    """Plan and launch the cooperative kernel of ``csrc/<name>.cu`` with the
+    filled ``prm`` on the current stream of ``dev``: allocates its fp32
+    workspace and its zeroed barrier and tile counters; raises on any CUDA
+    error the plan or the launch returns."""
+    lib, plan, run = _entry(name)
+    work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
+                               ctypes.byref(sync_ints)), f"{what} (plan)")
+        work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
+        sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
+        prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
+        err = run(ctypes.byref(prm), _build.stream_handle(dev))
+    _build.check(lib, err, what)
+
+
+def check_weights(what: str, kernel: str, blocks, spec) -> None:
+    """Raise unless ``kernel`` (K4 or K8) runs ``spec`` with these
+    unquantized weights."""
+    for name, w in blocks.items():
+        if w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
+            raise NotImplementedError(
+                f"{what}: quantized weight {name!r} belongs to the quantization slice "
+                "(the int8 weight path of K4 and K8), not ported yet")
+    if not supports_decode_stack(spec):
+        raise ValueError(f"{what}: {spec.name} is not a model {kernel} runs "
+                         "(parallel residual, experts or activation)")
+
+
+def kernel_shapes(what: str, spec, B: int, H: int) -> None:
+    """Raise on the shapes the megakernels' template instances do not take."""
+    G, D, I = spec.num_heads // spec.num_kv_heads, spec.head_size, spec.intermediate_size
+    if G not in _GROUPS or D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: group {G} not in {_GROUPS} or head dim {D} "
+                         f"not in {_HEAD_DIMS}")
+    if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
+        raise ValueError(f"{what}: batch {B} must be 1..{MAX_BATCH}, hidden {H} "
+                         f"at most {MAX_HIDDEN}, hidden and intermediate multiples of 8")
+
+
+def check_head(what: str, lm_head, lm_vmajor: bool, V: int, H: int) -> None:
+    if (lm_head.shape[1 if lm_vmajor else 0] != H or V > lm_head.shape[0 if lm_vmajor else 1]
+            or not lm_vmajor and V != lm_head.shape[1]):
+        raise ValueError(f"{what}: lm_head must be [V, H] (tied) or [H, V] with "
+                         "vocab_size at most its rows (tied) or equal to its columns (untied)")
+
+
+def stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias):
+    """The kernel's tensor operands by ``_Params`` field name (w_gate and
+    b_gate dropped for ungated activations)."""
+    bp = dict(blocks)
+    if spec.activation not in ("swiglu", "geglu"):
+        bp["w_gate"] = bp["b_gate"] = None
+    fin_scale, fin_bias = head_norm if lm_head is not None else (None, None)
+    return dict(final_scale=fin_scale, final_bias=fin_bias, lm_head=lm_head,
+                lm_bias=lm_head_bias, **{k: v for k, v in bp.items() if v is not None})
+
+
+def base_params(spec, B: int, H: int, L: int, V: int, lm_vmajor: bool, scale, rope_dim: int,
+                epilogue: bool) -> dict:
+    """The ``_Params`` integers and floats K4 and K8 share."""
+    D = spec.head_size
+    return dict(B=B, H=H, Hq=spec.num_heads, Hkv=spec.num_kv_heads, D=D,
+                I=spec.intermediate_size, L=L, rope_dim=rope_dim,
+                rmsnorm=int(spec.norm == "rmsnorm"),
+                activation=_ACTIVATIONS.index(spec.activation), epilogue=int(epilogue),
+                lm_vmajor=int(lm_vmajor), V=V, eps=spec.norm_eps,
+                scale=D ** -0.5 if scale is None else scale,
+                embed_scale=1.0 if spec.embed_scale is None else spec.embed_scale)
 
 
 def _ptr(t):
@@ -278,14 +395,7 @@ def decode_layer_stack(
         raise NotImplementedError(
             "decode_layer_stack: INT8 K/V scales belong to the quantization slice "
             "(K4's INT8 KV path), not ported yet")
-    for name, w in blocks.items():
-        if w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
-            raise NotImplementedError(
-                f"decode_layer_stack: quantized weight {name!r} belongs to the quantization "
-                "slice (K4's int8 weight path), not ported yet")
-    if not supports_decode_stack(spec):
-        raise ValueError(f"decode_layer_stack: {spec.name} is not a model K4 runs "
-                         "(parallel residual, experts or activation)")
+    check_weights("decode_layer_stack", "K4", blocks, spec)
     B, H = x.shape
     if k_cache.ndim != 5 or k_cache.shape[1] != B or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_layer_stack: caches must be [L, {B}, Smax, Hkv, D] alike, "
@@ -317,30 +427,14 @@ def decode_layer_stack(
     if x.device.type == "cpu":
         return decode_layer_stack_plain(x, blocks, k_cache, v_cache, pos, cos, sin, **kw)
 
-    gated = spec.activation in ("swiglu", "geglu")
-    bp = dict(blocks)
-    if not gated:
-        bp["w_gate"] = bp["b_gate"] = None
-    fin_scale, fin_bias = head_norm if epilogue else (None, None)
     tensors = dict(x=x, k_cache=k_cache, v_cache=v_cache, pos_embed=pos_embed,
-                   final_scale=fin_scale, final_bias=fin_bias, lm_head=lm_head,
-                   lm_bias=lm_head_bias, **{k: v for k, v in bp.items() if v is not None})
+                   **stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias))
     dev = _build.require_cuda("decode_layer_stack",
                               *[t for t in tensors.values() if t is not None])
     _build.require_bf16("decode_layer_stack", **tensors)
-    G = spec.num_heads // Hkv
-    I = spec.intermediate_size
-    if G not in _GROUPS or D not in _HEAD_DIMS:
-        raise ValueError(f"decode_layer_stack: group {G} not in {_GROUPS} or head dim {D} "
-                         f"not in {_HEAD_DIMS}")
-    if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
-        raise ValueError(f"decode_layer_stack: batch {B} must be 1..{MAX_BATCH}, hidden {H} "
-                         f"at most {MAX_HIDDEN}, hidden and intermediate multiples of 8")
-    if epilogue and (lm_head.shape[1 if lm_vmajor else 0] != H
-                     or V > lm_head.shape[0 if lm_vmajor else 1]
-                     or not lm_vmajor and V != lm_head.shape[1]):
-        raise ValueError("decode_layer_stack: lm_head must be [V, H] (tied) or [H, V] with "
-                         "vocab_size at most its rows (tied) or equal to its columns (untied)")
+    kernel_shapes("decode_layer_stack", spec, B, H)
+    if epilogue:
+        check_head("decode_layer_stack", lm_head, lm_vmajor, V, H)
     _build.require_contiguous_aligned("decode_layer_stack", **tensors)
     if cos is not None:
         # the tables are rounded to the compute dtype first, as _rope_consts does
@@ -356,22 +450,10 @@ def decode_layer_stack(
     prm = _Params(
         **{n: _ptr(t) for n, t in tensors.items()}, stamps=_ptr(phase_times),
         x_out=x_out.data_ptr(), cos=_ptr(cos), sin=_ptr(sin), tokens=_ptr(tokens),
-        B=B, H=H, Hq=spec.num_heads, Hkv=Hkv, D=D, I=I, L=L, Smax=Smax, pos=pos,
-        steps=steps, rope_dim=0 if cos is None else cos.shape[1],
-        rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
-        epilogue=int(epilogue), lm_vmajor=int(lm_vmajor), V=V, eps=spec.norm_eps,
-        scale=D ** -0.5 if scale is None else scale,
-        embed_scale=1.0 if spec.embed_scale is None else spec.embed_scale)
-    lib, plan, run = _entry()
-    work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
-    with torch.cuda.device(dev):
-        _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
-                               ctypes.byref(sync_ints)), "decode_layer_stack (plan)")
-        work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
-        sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
-        prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
-        err = run(ctypes.byref(prm), _build.stream_handle(dev))
-    _build.check(lib, err, "decode_layer_stack")
+        Smax=Smax, pos=pos, steps=steps,
+        **base_params(spec, B, H, L, V, lm_vmajor, scale,
+                      0 if cos is None else cos.shape[1], epilogue))
+    launch("decode_layer", prm, dev, "decode_layer_stack")
     decode_layer_stack.launches += 1
     if tokens is not None and steps == 1:
         tokens = tokens[0]

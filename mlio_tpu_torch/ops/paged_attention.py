@@ -1,0 +1,190 @@
+"""Paged KV pools, their writes, and decode attention over them (K7).
+
+Mirrors ``mlio_tpu/ops/paged_attention.py``. The pools are
+``[L, NB, bs, Hkv, D]``: one physical block is a contiguous
+``[bs, Hkv * D]`` slab, and a sequence's slot ``s`` is row ``s % bs`` of
+physical block ``block_tables[b, s // bs]``.
+
+:func:`reshape_and_cache` and :func:`reshape_and_cache_flat` are XLA
+scatters in the JAX package; here they are PyTorch advanced indexing, which
+writes the pools in place. :func:`paged_attention` launches K7, CUDA C++ in
+``mlio_tpu_torch/csrc/paged_attn.cu`` (replacing ``_paged_attn_kernel``),
+whose source note gives its H100 bound and design; on CPU tensors it runs
+:func:`paged_attention_plain`. INT8 pools and their scales belong to the
+quantization slice and raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple, Union
+
+import torch
+
+from mlio_tpu_torch.device import resolve_device
+from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.reference import attention_reference
+
+_GROUPS = (1, 2, 4, 8)
+_HEAD_DIMS = (64, 128)
+_QUANT = ("INT8 KV pools belong to the quantization slice (K7's kv_quant path and "
+          "reshape_and_cache_quant), not ported yet")
+
+
+def init_kv_pools(num_layers: int, num_blocks: int, num_kv_heads: int, block_size: int,
+                  head_dim: int, dtype=torch.bfloat16, quant: Optional[str] = None, *,
+                  device: Union[str, torch.device] = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed K/V pools [L, NB, bs, Hkv, D] on ``device``."""
+    if quant not in (None, "none"):
+        raise NotImplementedError(f"init_kv_pools(quant={quant!r}): {_QUANT}")
+    shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
+    dev = resolve_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def _slots(block_tables, write_pos, S_new, bs):
+    """(physical block, row) [B, S_new] of positions write_pos[b] + i."""
+    pos = write_pos.long()[:, None] + torch.arange(S_new, device=write_pos.device)[None, :]
+    physical = torch.gather(block_tables.long(), 1, pos // bs)
+    return physical, pos % bs
+
+
+def reshape_and_cache(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, block_tables: torch.Tensor, write_pos: torch.Tensor,
+                      layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write k_new/v_new [B, S_new, Hkv, D] at positions ``write_pos[b] + i``
+    of each sequence into layer ``layer`` of the pools, in place. Returns the
+    pools (the same tensors)."""
+    physical, offset = _slots(block_tables, write_pos, k_new.shape[1], k_pool.shape[2])
+    k_pool[layer, physical, offset] = k_new.to(k_pool.dtype)
+    v_pool[layer, physical, offset] = v_new.to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+def reshape_and_cache_flat(pool: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,
+                           write_pos: torch.Tensor, layer: int) -> torch.Tensor:
+    """The flat-row twin of :func:`reshape_and_cache` for one pool
+    [L, NB, bs, W] and rows new [B, S_new, W], in place. The port's engine
+    keeps ``[L, NB, bs, Hkv, D]`` pools, the same memory as the JAX
+    package's flat ``[L, NB, bs, Hkv*D]`` ones; this serves callers that
+    hold the flat view."""
+    physical, offset = _slots(block_tables, write_pos, new.shape[1], pool.shape[2])
+    pool[layer, physical, offset] = new.to(pool.dtype)
+    return pool
+
+
+def gather_blocks(pool, layer, block_tables):
+    """[B, max_blocks * bs, Hkv, D]: every table entry's block of ``layer``."""
+    B, nb = block_tables.shape
+    g = pool[layer][block_tables.long()]  # [B, max_blocks, bs, Hkv, D]
+    return g.reshape(B, nb * pool.shape[2], *pool.shape[3:])
+
+
+def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          block_tables: torch.Tensor, context_lens: torch.Tensor, *,
+                          layer: int, scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: fp32 throughout, as the TPU
+    kernel. Slots at or past ``context_lens[b]`` are masked out before
+    either product, so whatever they hold never reaches the output; a
+    sequence with no valid slot gives 0."""
+    B, Hq, D = q.shape
+    Hkv = k_pool.shape[3]
+    if scale is None:
+        scale = D ** -0.5
+    keys = gather_blocks(k_pool, layer, block_tables).float()
+    vals = gather_blocks(v_pool, layer, block_tables).float()
+    T = keys.shape[1]
+    valid = torch.arange(T, device=q.device)[None, :] < context_lens.to(q.device).long()[:, None]
+    keys = keys.masked_fill(~valid[:, :, None, None], 0)
+    vals = vals.masked_fill(~valid[:, :, None, None], 0)
+    s = torch.einsum("bkgd,btkd->bkgt", q.float().reshape(B, Hkv, Hq // Hkv, D) * scale, keys)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgt,btkd->bkgd", p, vals) / torch.where(l == 0, 1.0, l)
+    return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, context_lens, *, layer,
+                              scale=None):
+    """Gather the pools densely and run the masked dense attention (the JAX
+    package's ``paged_attention_reference``)."""
+    B, Hq, D = q.shape
+    k = gather_blocks(k_pool, layer, block_tables)
+    v = gather_blocks(v_pool, layer, block_tables)
+    out = attention_reference(q.reshape(B, 1, Hq, D), k, v, causal=False, scale=scale,
+                              kv_len=context_lens)
+    return out[:, 0]
+
+
+def _entry():
+    lib = _build.library("paged_attn")
+    fn = lib.mlio_paged_attn
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        fn.restype = i
+    return lib, fn
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    layer: int,
+    scale: Optional[float] = None,
+    k_scale_pool: Optional[torch.Tensor] = None,
+    v_scale_pool: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention over the paged pools → [B, Hq, D] in q's dtype.
+
+    q [B, Hq, D] is one token per sequence; k_pool/v_pool are
+    [L, NB, bs, Hkv, D]; block_tables [B, max_blocks] int32 names each
+    sequence's physical blocks; ``context_lens`` [B] int32 counts its valid
+    slots, the current token included; ``layer`` is the pools' layer index.
+    """
+    if k_scale_pool is not None or v_scale_pool is not None:
+        raise NotImplementedError(f"paged_attention: {_QUANT}")
+    B, Hq, D = q.shape
+    if k_pool.ndim != 5 or k_pool.shape[4] != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"paged_attention: pools must be [L, NB, bs, Hkv, {D}] alike, got "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    L, NB, bs, Hkv, _ = k_pool.shape
+    if Hq % Hkv:
+        raise ValueError("paged_attention: query heads must be a multiple of KV heads")
+    if not 0 <= layer < L:
+        raise ValueError(f"paged_attention: layer {layer} outside [0, {L})")
+    if block_tables.ndim != 2 or block_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError(f"paged_attention: block_tables must be [{B}, max_blocks] and "
+                         f"context_lens [{B}]")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
+                                     layer=layer, scale=scale)
+    dev = _build.require_cuda("paged_attention", q, k_pool, v_pool, block_tables,
+                              context_lens)
+    _build.require_bf16("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
+    G = Hq // Hkv
+    if G not in _GROUPS or D not in _HEAD_DIMS:
+        raise ValueError(f"paged_attention: group {G} not in {_GROUPS} or head dim {D} "
+                         f"not in {_HEAD_DIMS}")
+    for name, t in (("block_tables", block_tables), ("context_lens", context_lens)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be contiguous int32")
+    _build.require_contiguous_aligned("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
+    out = torch.empty_like(q)
+    lib, fn = _entry()
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+                 context_lens.data_ptr(), out.data_ptr(), B, block_tables.shape[1], NB, bs,
+                 Hkv, G, D, layer, D ** -0.5 if scale is None else scale,
+                 _build.stream_handle(dev))
+    _build.check(lib, err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -7,8 +7,11 @@ Run from the repository root with one card visible:
 
 Traces chip_smoke.py's workload (its ``workload``: GPT-2 small in bf16 with
 random weights from the seed, batch 8, 704-token prompt, 1024-slot cache,
-the per-op decode Impl): one prefill, then 8 decode steps, each region on
-its own after a warm-up. Prints one JSON line per region with its
+the per-op decode Impl): one prefill, then 8 decode steps; then one decode
+dispatch of the serving engine (chip_smoke.py's engine geometry: 8 slots,
+256 blocks of 128, the first 8 of its prompts just prefilled) through each
+decode backend, 8 per-op steps and 16 K8 steps. Each region runs on its own
+after a warm-up. Prints one JSON line per region with its
 wall ms (host clock around work ending in ``torch.cuda.synchronize()``), the
 device-busy ms (the union of the kernels' intervals in the trace), the idle
 share, and the kernels by total device time. With ``--out`` it also writes
@@ -25,26 +28,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import B, CACHE, nvidia_smi, workload
+from chip_smoke import B, CACHE, busy_ms, nvidia_smi, workload
 
 STEPS = 8  # decode steps traced
-
-
-def _busy_ms(events) -> float:
-    """Union of device kernel intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3  # us -> ms
 
 
 def _region(name, fn, out_dir, top=12):
@@ -56,7 +42,7 @@ def _region(name, fn, out_dir, top=12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    busy = _busy_ms(events)
+    busy = busy_ms(events)
     kernels = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -109,7 +95,33 @@ def main() -> int:
                 t = lg[:, -1].argmax(-1)[:, None]
 
         _region(f"decode_{STEPS}_steps", decode, args.out)
+        for stack, k in (("perop", STEPS), ("mega", 2 * STEPS)):
+            _region(f"engine_{stack}_{k}_steps", engine_dispatch(spec, params, impl, stack, k),
+                    args.out)
     return 0
+
+
+def engine_dispatch(spec, params, impl, stack, k):
+    """A function running one k-step decode dispatch of the engine from the
+    state after prefilling chip_smoke.py's first B prompts."""
+    from chip_smoke import POOL_BLOCKS, POOL_BS, engine_prompts
+    from mlio_tpu_torch.runtime import InferenceEngine
+    from mlio_tpu_torch.runtime import engine as engine_mod
+
+    eng = InferenceEngine(spec, params, max_batch=B, num_blocks=POOL_BLOCKS, block_size=POOL_BS,
+                          impl=impl, steps_per_dispatch=k, decode_stack=stack)
+    for prompt in engine_prompts(0, spec.vocab_size)[:B]:
+        eng.submit(prompt, 64)
+    eng._prefill_batch(list(eng.sched.admit()))
+    eng.sched.plan_multi_step(k)
+    cur, tables, ctx = (eng._tensor(a) for a in (eng.sched.cur, eng.sched.tables, eng.sched.ctx))
+    if stack == "mega":
+        return lambda: engine_mod._decode_mega_steps(
+            params, eng._lm_w, cur, eng.k_pool, eng.v_pool, tables, ctx, eng.generator,
+            spec=spec, k=k, method=eng.method, lm_vmajor=eng._lm_vmajor)
+    return lambda: engine_mod._decode_multi_steps(
+        params, cur, eng.k_pool, eng.v_pool, tables, ctx, eng.generator, spec=spec, impl=impl,
+        k=k, method=eng.method)
 
 
 if __name__ == "__main__":
