@@ -14,7 +14,9 @@ phase's failure is caught:
    (in parallel, into ``build/kernels``) and reports the seconds.
 3. kernels: each kernel of the main paths (K1 flash prefill, K2 fused norm,
    K3 decode attention, K4 decode megakernel, K7 paged attention, K8 paged
-   decode megakernel) at the main paths' shapes, on inputs from the seed:
+   decode megakernel, K11 fused MLP, K12 fused norm + QKV, K5 dequant-fused
+   int8 / int4 / grouped-int4 matmul) at the main paths' shapes, on inputs
+   from the seed:
    held against its plain PyTorch version on the card in bf16 within the
    stated tolerance, then timed with CUDA events beside its plain version,
    one PyTorch library call of the same function where there is one, and
@@ -23,8 +25,11 @@ phase's failure is caught:
    against its plain version over 8 in-kernel steps. K7 and K8 run over the
    engine's pools (256 blocks of 128, permuted tables) at ragged contexts
    and at a context of 896; K8 also with two inactive engine slots, whose
-   rows are not compared and must not touch a live row. Then the kernels'
-   other instances at small shapes (variants).
+   rows are not compared and must not touch a live row. K11, K12 and K5 run
+   at the runner's GPT-2 shapes (8 x 704 rows) and at one llama3-8b layer's
+   (2048 rows; K5 int8 also at 8 rows), and each must fail its check against
+   the plain version with the weight's last 32 rows of K zeroed. Then the
+   kernels' other instances at small, ragged shapes (variants).
 4. generate: GPT-2 small at full width, bf16, random weights from the seed,
    batch 8, a 704-token prompt, a 1024-slot cache,
    ``Impl(attention="flash", norm="fused")`` with the default decode (K4).
@@ -45,6 +50,15 @@ phase's failure is caught:
    (K7 12 per step); generated tok/s, one dispatch's device and wall ms, the
    idle share, the ratio to the port's K4 generate tok/s at batch 8, and one
    decode step through both backends from one state (logits within 0.1).
+7. runner: the inference runner on GPT-2 small at full width, bf16, a
+   [8, 704] prompt: ``benchmark_optimization_impact`` with its seven default
+   configurations, then runners with ``fused_ln_qkv``, int4 weights (g 128)
+   and int4 weights with per-channel scales. Each configuration's
+   ``run_inference`` runs with the launch counters zeroed just before it and
+   read just after (K11 12 a forward where the MLP is fused, K5 72 where the
+   weights are quantized, K12 12 with K2 13 for ``fused_ln_qkv``), and its
+   logits must lie within 0.1 of the same configuration with every kernel
+   replaced by its plain version; mean and p99 ms, peak bytes, speedup.
 
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
@@ -74,6 +88,7 @@ FP32_FLOPS = 67e12
 B, PROMPT, CACHE = 8, 704, 1024   # bench.py's main-path workload
 DECODE_CTX = 896                  # a decode step's context inside 705..1023
 SHORT, LONG = 64, 320             # new tokens of the two-length marginal
+RUNNER_ITERS = 3                  # timed forwards a runner config (the harness's default)
 
 # The engine's pools (bench_extra.py's engine_bench): 256 blocks of 128 slots;
 # the paged kernels' checks take B = 8 tables of 8 blocks each, permuted over
@@ -103,10 +118,21 @@ N_PROMPTS, ENGINE_NEW, WARM_NEW, DISPATCH = 24, 256, 128, 128  # engine_bench
 #
 # K7 keeps fp32 between its bf16 loads and its output, grouped heads too, and
 # takes K3's limits; K8 takes K4's (its phases are K4's).
+#
+# K5, K11 and K12 sum their products in fp32 in another order than the plain
+# versions (fp32 matmuls): their bf16 outputs differ by the output's rounding
+# (one ulp, 2^-8 relative) and, in K11 and K12, by an intermediate (the
+# activation, the normalised x) rounded to bf16 the other way, which moves
+# an output by a small fraction of an ulp. K11 also adds its partial sums
+# with atomics in no fixed order. 1e-2 + 1e-2*|plain| holds them; zeroing
+# the weight's last 32 rows of K moves the outputs far past it.
 TOL = {"flash_attention": (2e-2, 2e-2), "fused_norm": (1e-2, 1e-2),
        "decode_attention": (1e-3, 2 ** -7), "decode_attention_grouped": (1e-2, 1e-2),
        "decode_layer_stack": (5e-2, 5e-2), "paged_attention": (1e-3, 2 ** -7),
-       "paged_attention_grouped": (1e-2, 1e-2), "decode_paged_stack": (5e-2, 5e-2)}
+       "paged_attention_grouped": (1e-2, 1e-2), "decode_paged_stack": (5e-2, 5e-2),
+       "quant_matmul": (1e-2, 1e-2), "quant_matmul_int4": (1e-2, 1e-2),
+       "quant_matmul_int4_group": (1e-2, 1e-2), "fused_mlp": (1e-2, 1e-2),
+       "fused_norm_matmul": (1e-2, 1e-2)}
 # Logits of GPT-2 small (std ~0.5 with random weights) through 12 bf16
 # layers: kernels against plain versions, max-abs. Random weights make the
 # argmax flip on bf16 noise, so a token is checked as "the plain logit at
@@ -728,7 +754,181 @@ def stack_variants(dev, seed, dl):
     return errs
 
 
-def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps):
+# The GEMM kernels' shapes: GPT-2 small's prefill (B x PROMPT tokens) and one
+# layer of llama3-8b at 2048 tokens (H 4096, I 14336, 32/8 heads of 128).
+GPT2_M, GPT2_H, GPT2_I = B * PROMPT, 768, 3072
+LLAMA_M, LLAMA_H, LLAMA_I, LLAMA_KVD = 2048, 4096, 14336, 1024
+DECODE_M = 8  # a decode step's rows at batch 8
+
+
+def must_fail(name, got, plain_fn, weight, rows):
+    """The check has to catch the last K tile lost: the plain version with
+    ``weight``'s rows ``rows`` zeroed must fail it. Returns that max-abs."""
+    saved = weight[rows].clone()
+    weight[rows] = 0
+    try:
+        ok, err = within(name, got, plain_fn())
+    finally:
+        weight[rows] = saved
+    if ok:
+        raise AssertionError(f"{name}: the check passes with the weight's last K tile zeroed "
+                             f"(max_abs_err {err})")
+    return err
+
+
+def gemm_row(name, source, replaces, shape, kernel, plain, library, nbytes, flops, weight, rows,
+             reps):
+    """A kernel row: the kernel against its plain version, the must-fail
+    check, device ms of kernel, plain and library, and the bound."""
+    got = kernel()
+    err = check_close(name, got, plain())
+    short = must_fail(name, got, plain, weight, rows)
+    b_ms, b_by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+    return dict(name=name, route="cuda", source=source, replaces=replaces, shape=shape,
+                max_abs_err=err, atol=TOL[name][0], rtol=TOL[name][1],
+                last_k_tile_zeroed_max_abs_err=short,
+                **timings(lambda i: kernel(), lambda i: plain(), library, reps),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def gemm_rows(dev, seed, fm, lq, qm):
+    """K11, K12 and K5 at the runner's shapes (GPT-2 small, B x PROMPT rows)
+    and at one llama3-8b layer's, each held against its plain version and
+    timed beside one PyTorch library call of the same function."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def extra(row, key, other):  # a second shape's numbers beside the first's
+        row[key] = {k: other[k] for k in ("shape", "max_abs_err", "last_k_tile_zeroed_max_abs_err",
+                                          "ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by")}
+
+    rows = []
+    spec_h, spec_i = GPT2_H, GPT2_I
+    # K11: GPT-2 (gelu_new, biases), then llama3-8b (SwiGLU, no biases).
+    x = rn(GPT2_M, spec_h)
+    wu, wd = rn(spec_h, spec_i, scale=spec_h ** -0.5), rn(spec_i, spec_h, scale=spec_i ** -0.5)
+    bu, bd = rn(spec_i, scale=0.1), rn(spec_h, scale=0.1)
+    kw = dict(b_up=bu, b_down=bd, activation="gelu_new")
+    src = ("fused_mlp", "mlio_tpu_torch/csrc/fused_mlp.cu", "mlio_tpu/ops/fused_mlp.py:45")
+    k11 = gemm_row(*src, f"x [{GPT2_M},{spec_h}], I {spec_i}, gelu_new, b_up and b_down, bf16",
+                   lambda: fm.fused_mlp(x, wu, wd, **kw), lambda: fm.fused_mlp_plain(x, wu, wd, **kw),
+                   lambda i: F.gelu(x @ wu + bu, approximate="tanh") @ wd + bd,
+                   (2 * GPT2_M * spec_h + 2 * spec_h * spec_i + spec_i + spec_h) * 2,
+                   2 * GPT2_M * spec_h * spec_i * 2, wu, slice(spec_h - 32, spec_h), 20)
+    x = rn(LLAMA_M, LLAMA_H)
+    wu, wg = (rn(LLAMA_H, LLAMA_I, scale=LLAMA_H ** -0.5) for _ in range(2))
+    wd = rn(LLAMA_I, LLAMA_H, scale=LLAMA_I ** -0.5)
+    kw = dict(w_gate=wg, activation="swiglu")
+    extra(k11, "llama3_8b", gemm_row(
+        *src, f"x [{LLAMA_M},{LLAMA_H}], I {LLAMA_I}, swiglu, no biases, bf16",
+        lambda: fm.fused_mlp(x, wu, wd, **kw), lambda: fm.fused_mlp_plain(x, wu, wd, **kw),
+        lambda i: (F.silu(x @ wg) * (x @ wu)) @ wd,
+        (2 * LLAMA_M * LLAMA_H + 3 * LLAMA_H * LLAMA_I) * 2, 2 * LLAMA_M * LLAMA_H * LLAMA_I * 3,
+        wu, slice(LLAMA_H - 32, LLAMA_H), 4))
+    rows.append(k11)
+    del x, wu, wg, wd
+
+    # K12: GPT-2 LayerNorm with q/k/v of 768 each, then llama3-8b RMSNorm, GQA 32/8.
+    src = ("fused_norm_matmul", "mlio_tpu_torch/csrc/ln_matmul.cu", "mlio_tpu/ops/ln_qkv.py:25")
+    cases = ((GPT2_M, spec_h, (spec_h,) * 3, "layernorm", True),
+             (LLAMA_M, LLAMA_H, (LLAMA_H, LLAMA_KVD, LLAMA_KVD), "rmsnorm", False))
+    for i, (m, h, widths, kind, with_bias) in enumerate(cases):
+        x = rn(m, h) + 0.5
+        sc, b = 1 + rn(h, scale=0.1), (rn(h, scale=0.1) if with_bias else None)
+        ws = [rn(h, n, scale=h ** -0.5) for n in widths]
+        w_cat = torch.cat(ws, dim=1)
+        n = sum(widths)
+        norm_fn = ((lambda: F.layer_norm(x, (h,), sc, b, 1e-5)) if kind == "layernorm"
+                   else (lambda: F.rms_norm(x, (h,), sc, 1e-5)))
+        row = gemm_row(
+            *src, f"x [{m},{h}] @ [Wq|Wk|Wv] {list(widths)}, {kind}"
+                  f"{', norm bias' if with_bias else ''}, bf16",
+            lambda: lq.fused_norm_matmul(x, None, sc, b, kind=kind, parts=ws),
+            lambda: lq.fused_norm_matmul_plain(x, None, sc, b, kind=kind, parts=ws),
+            lambda i: norm_fn() @ w_cat, (m * h + h * n + m * n + 2 * h) * 2, 2 * m * h * n,
+            ws[0], slice(h - 32, h), 20 if i == 0 else 8)
+        if i == 0:
+            k12 = row
+        else:
+            extra(k12, "llama3_8b", row)
+        del x, ws, w_cat
+    rows.append(k12)
+
+    # K5: int8 at GPT-2's up projection (M = B x PROMPT and M = 8), int4 with
+    # per-channel and with g = 128 scales at llama3-8b's up projection.
+    def k5(name, line, fmt, m, k, n, gs, reps):
+        x = rn(m, k)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        t = qm.quantize_int8(w) if fmt == "int8" else qm.quantize_int4(w, group_size=gs)
+        del w
+        deq_rows = slice(k - 32, k) if fmt == "int8" else slice(k // 2 - 16, k // 2)
+        return gemm_row(
+            name, "mlio_tpu_torch/csrc/quant_matmul.cu", f"mlio_tpu/ops/quant.py:{line}",
+            f"x [{m},{k}] @ {fmt} q {list(t.q.shape)}, scale {list(t.scale.shape)}, bf16",
+            lambda: qm.quant_matmul(x, t.q, t.scale, fmt=fmt),
+            lambda: qm.quant_matmul_plain(x, t.q, t.scale, fmt=fmt),
+            lambda i: x @ qm.dequantize(t, torch.bfloat16),
+            m * k * 2 + t.q.numel() + t.scale.numel() * 4 + m * n * 2, 2 * m * k * n,
+            t.q, deq_rows, reps)
+
+    row = k5("quant_matmul", 221, "int8", GPT2_M, spec_h, spec_i, None, 20)
+    extra(row, "m8", k5("quant_matmul", 221, "int8", DECODE_M, spec_h, spec_i, None, 200))
+    rows.append(row)
+    rows.append(k5("quant_matmul_int4", 240, "int4", LLAMA_M, LLAMA_H, LLAMA_I, None, 8))
+    rows.append(k5("quant_matmul_int4_group", 263, "int4", LLAMA_M, LLAMA_H, LLAMA_I, 128, 8))
+    for r in rows[-3:]:
+        r["library_note"] = "x @ dequantize(q, scale) in bf16, the dequantisation included"
+    k11["library_note"] = "torch.matmul, the activation, torch.matmul"
+    k12["library_note"] = "F.layer_norm or F.rms_norm, then torch.matmul by [Wq|Wk|Wv]"
+    return rows
+
+
+def gemm_variants(dev, seed, fm, lq, qm):
+    """K5, K11 and K12 against their plain versions at small ragged shapes:
+    rows, columns and depths that are not multiples of the tiles (nor of 8,
+    the 16-byte vector width), every activation, biases, grouped heads."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    errs = {}
+    for i, (m, k, n, fmt, gs) in enumerate([
+            (37, 200, 72, "int8", None), (130, 776, 264, "int8", None), (1, 64, 17, "int8", None),
+            (37, 200, 72, "int4", None), (50, 512, 136, "int4", 128), (9, 96, 40, "int4", 16),
+            (5, 30, 24, "int4", None)]):
+        x, w = rn(m, k), torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        t = qm.quantize_int8(w) if fmt == "int8" else qm.quantize_int4(w, group_size=gs)
+        errs[f"quant_matmul[{i}]"] = check_close(
+            "quant_matmul", qm.quant_matmul(x, t.q, t.scale, fmt=fmt),
+            qm.quant_matmul_plain(x, t.q, t.scale, fmt=fmt))
+    for i, (m, h, inter, act, with_bias) in enumerate([
+            (37, 72, 200, "gelu", True), (70, 64, 300, "relu", False), (3, 40, 24, "geglu", True),
+            (130, 136, 520, "swiglu", True), (9, 36, 20, "gelu_new", False)]):
+        gated = act in ("swiglu", "geglu")
+        x, wu, wd = rn(m, h), rn(h, inter, scale=h ** -0.5), rn(inter, h, scale=inter ** -0.5)
+        kw = dict(activation=act, w_gate=rn(h, inter, scale=h ** -0.5) if gated else None)
+        if with_bias:
+            kw.update(b_up=rn(inter, scale=0.1), b_down=rn(h, scale=0.1),
+                      b_gate=rn(inter, scale=0.1) if gated else None)
+        errs[f"fused_mlp[{i}]"] = check_close("fused_mlp", fm.fused_mlp(x, wu, wd, **kw),
+                                              fm.fused_mlp_plain(x, wu, wd, **kw))
+    for i, (m, h, widths, kind, with_bias) in enumerate([
+            (37, 72, (40, 16, 16), "layernorm", False), (130, 100, (50, 30, 30), "rmsnorm", True),
+            (5, 64, (200,), "layernorm", True), (3, 256, (256, 64, 64), "rmsnorm", False)]):
+        x, sc = rn(m, h) + 0.5, 1 + rn(h, scale=0.1)
+        b = rn(h, scale=0.1) if with_bias else None
+        ws = [rn(h, w, scale=h ** -0.5) for w in widths]
+        errs[f"fused_norm_matmul[{i}]"] = check_close(
+            "fused_norm_matmul", lq.fused_norm_matmul(x, None, sc, b, kind=kind, parts=ws),
+            lq.fused_norm_matmul_plain(x, None, sc, b, kind=kind, parts=ws))
+    return errs
+
+
+def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps, fm, lq, qm):
     """The kernels' other instances (GQA, head dim 128, ragged lengths,
     empty rows, the block-per-row norm) against their plain versions at
     small shapes, in bf16: the card-side counterpart of the CPU tests."""
@@ -775,20 +975,28 @@ def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps):
             da.decode_attention_plain(q, kc, vc, c, layer=layer))
     errs.update(stack_variants(dev, seed, dl))
     errs.update(paged_variants(dev, seed, pa, dps))
+    errs.update(gemm_variants(dev, seed, fm, lq, qm))
     emit(dict(phase="variants", max_abs_err=errs))
 
 
+# the kernel wrappers a forward calls, and their plain versions
+PLAIN = {"flash_attention": "flash_attention_plain", "fused_norm": "fused_norm_plain",
+         "decode_attention": "decode_attention_plain", "fused_mlp": "fused_mlp_plain",
+         "fused_norm_matmul": "fused_norm_matmul_plain", "quant_matmul": "quant_matmul_plain"}
+
+
 @contextlib.contextmanager
-def plain_kernels(fa, norms, da):
-    """Every kernel wrapper of the prefill replaced by its plain version."""
-    saved = (fa.flash_attention, norms.fused_norm, da.decode_attention)
-    fa.flash_attention = fa.flash_attention_plain
-    norms.fused_norm = norms.fused_norm_plain
-    da.decode_attention = da.decode_attention_plain
+def plain_kernels(*modules):
+    """Every kernel wrapper of the modules given replaced by its plain
+    version."""
+    saved = [(m, name, getattr(m, name)) for m in modules for name in PLAIN if hasattr(m, name)]
+    for m, name, _ in saved:
+        setattr(m, name, getattr(m, PLAIN[name]))
     try:
         yield
     finally:
-        fa.flash_attention, norms.fused_norm, da.decode_attention = saved
+        for m, name, real in saved:
+            setattr(m, name, real)
 
 
 def workload(seed: int, dev):
@@ -893,6 +1101,103 @@ def generate_phase(dev, seed, fa, norms, da, dl, decode_stack=None):
                   decode_step_device_ms=step_dev_ms,
                   decode_idle_share=1 - step_dev_ms / (step_s * 1e3))
     emit(result)
+    return launches
+
+
+def runner_expected(name, L):
+    """Launches a forward of a runner configuration must make: the wrappers'
+    counts, GPT-2's L layers (K5: six projections a layer)."""
+    k1 = {"flash_attention": L}
+    fused_norm = {"fused_norm": 2 * L + 1}
+    return {
+        "baseline": {},
+        "flash_attention": k1,
+        "fused_mlp": {"fused_mlp": L},
+        "flash+fusion": {**k1, **fused_norm, "fused_mlp": L},
+        "int8_weights": {**k1, "quant_matmul": 6 * L},
+        "int8_kv_cache": k1,
+        "all": {**k1, **fused_norm, "quant_matmul": 6 * L},
+        "fused_ln_qkv": {**k1, "fused_norm": L + 1, "fused_mlp": L, "fused_norm_matmul": L},
+        "int4_weights": {**k1, **fused_norm, "quant_matmul": 6 * L},
+        "int4_per_channel": {**k1, **fused_norm, "quant_matmul": 6 * L},
+    }[name]
+
+
+def runner_phase(dev, seed, wrappers, modules):
+    """The inference runner on GPT-2 small at full width and depth, bf16,
+    random weights from the seed, a [B, PROMPT] prompt from the seed:
+    ``benchmark_optimization_impact`` with its seven default configurations,
+    then runners with ``fused_ln_qkv``, with int4 weights (g = 128, the
+    quantizer's default) and with int4 weights with per-channel scales. Each
+    configuration's ``run_inference`` (one warm-up and RUNNER_ITERS timed
+    forwards) runs with the launch counters zeroed just before it and read
+    just after, and its logits are held against the same configuration's
+    forward with every kernel replaced by its plain version, and a forward's
+    device time is taken by CUDA events beside the harness's host-clock
+    times. Returns the launches by configuration."""
+    from mlio_tpu_torch.models import Impl
+    from mlio_tpu_torch.ops import quant as qm
+    from mlio_tpu_torch.runtime import inference
+
+    spec, params, ids, _ = workload(seed, dev)
+    L = spec.num_layers
+    checked = []
+    real = inference.InferenceRunner.run_inference
+
+    def run_inference(self, input_ids, *, iters=1):
+        for w in wrappers:
+            w.launches = 0
+        r = real(self, input_ids, iters=iters)
+        counts = {w.__name__: w.launches for w in wrappers}
+        # a forward's device time, the launches queued behind a sleep kernel
+        device_ms = time_ms(lambda i: self._forward(input_ids), 2, warmup=1)[0]
+        with plain_kernels(*modules):
+            plain = self._forward(input_ids)
+        out = r["output"]
+        if out.shape != (B, PROMPT, spec.vocab_size) or not torch.isfinite(out).all():
+            raise AssertionError(f"runner {self.precision} {self.impl}: logits of shape "
+                                 f"{tuple(out.shape)} or not finite")
+        err = (out.float() - plain.float()).abs().max().item()
+        checked.append(dict(launches=counts, forwards=self.warmup_iters + iters,
+                            device_ms=device_ms, logits_max_abs_err=err))
+        del plain
+        return r
+
+    inference.InferenceRunner.run_inference = run_inference
+    try:
+        results = inference.benchmark_optimization_impact(spec, params, ids, iters=RUNNER_ITERS)
+        per_channel = dict(params, blocks={
+            k: (qm.quantize_int4(v, group_size=None) if k in ("wq", "wk", "wv", "wo", "w_up",
+                                                              "w_down") else v)
+            for k, v in params["blocks"].items()})
+        for name, runner in (
+                ("fused_ln_qkv", inference.InferenceRunner(spec, params, impl=Impl(
+                    attention="flash", mlp="fused", norm="fused", fused_ln_qkv=True))),
+                ("int4_weights", inference.InferenceRunner(spec, params, precision="int4")),
+                ("int4_per_channel", inference.InferenceRunner(spec, per_channel, precision="bf16"))):
+            r = runner.run_inference(ids, iters=RUNNER_ITERS)
+            results[name] = dict(mean_ms=r["mean_ms"], p99_ms=r["p99_ms"],
+                                 peak_bytes=r["peak_bytes"], **runner.quantization_stats(),
+                                 speedup=results["baseline"]["mean_ms"] / r["mean_ms"])
+            del runner
+    finally:
+        inference.InferenceRunner.run_inference = real
+    if len(checked) != len(results):
+        raise AssertionError(f"runner: {len(checked)} runs checked for {len(results)} configs")
+    launches = {}
+    for (name, entry), c in zip(results.items(), checked):
+        want = {w.__name__: runner_expected(name, L).get(w.__name__, 0) * c["forwards"]
+                for w in wrappers}
+        if c["launches"] != want:
+            raise AssertionError(f"runner {name}: launch counts {c['launches']} != expected "
+                                 f"{want}")
+        if not c["logits_max_abs_err"] <= LOGITS_ATOL:
+            raise AssertionError(f"runner {name}: logits {c['logits_max_abs_err']} off the "
+                                 f"plain path (> {LOGITS_ATOL})")
+        entry.update(c)
+        launches[name] = c["launches"]
+    emit(dict(phase="runner", model="gpt2", dtype="bf16", batch=B, prompt=PROMPT,
+              iters=RUNNER_ITERS, logits_atol=LOGITS_ATOL, configs=results))
     return launches
 
 
@@ -1096,8 +1401,11 @@ def main() -> int:
     from mlio_tpu_torch.ops import decode_layer as dl
     from mlio_tpu_torch.ops import decode_paged_stack as dps
     from mlio_tpu_torch.ops import flash_attention as fa
+    from mlio_tpu_torch.ops import fused_mlp as fm
+    from mlio_tpu_torch.ops import ln_qkv as lq
     from mlio_tpu_torch.ops import norms
     from mlio_tpu_torch.ops import paged_attention as pa
+    from mlio_tpu_torch.ops import quant as qm
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -1109,16 +1417,30 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     rows = kernel_phase(rng, dev, args.seed, fa, norms, da, dl)
     rows += paged_rows(pa, dps, dev, args.seed)
+    rows += gemm_rows(dev, args.seed, fm, lq, qm)
     emit(dict(phase="kernels", checked=[r["name"] for r in rows]))
-    variant_phase(rng, dev, args.seed, fa, norms, da, dl, pa, dps)
+    variant_phase(rng, dev, args.seed, fa, norms, da, dl, pa, dps, fm, lq, qm)
     launches = generate_phase(dev, args.seed, fa, norms, da, dl)
     scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, decode_stack="scan")
     wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack,
                 pa.paged_attention, dps.decode_paged_stack)
     served = engine_phase(dev, args.seed, wrappers, generate_tok_s(dev, args.seed))
+    ran = runner_phase(dev, args.seed, wrappers + (fm.fused_mlp, lq.fused_norm_matmul,
+                                                   qm.quant_matmul), (fa, norms, da, fm, lq, qm))
+    # K5's three instances by the configurations that run them (one wrapper
+    # launches all three)
+    k5 = {"quant_matmul": ("int8_weights", "all"), "quant_matmul_int4": ("int4_per_channel",),
+          "quant_matmul_int4_group": ("int4_weights",)}
     for r in rows:  # each kernel's launches on the path that runs it
-        r["launches"] = (launches.get(r["name"]) or scan_launches.get(r["name"])
-                         or served["mega"][r["name"]] or served["perop"][r["name"]])
+        if r["name"] in k5:
+            r["launches"] = sum(ran[c]["quant_matmul"] for c in k5[r["name"]])
+        elif r["name"] in ("fused_mlp", "fused_norm_matmul"):
+            r["launches"] = sum(c[r["name"]] for c in ran.values())
+        else:
+            r["launches"] = (launches.get(r["name"]) or scan_launches.get(r["name"])
+                             or served["mega"][r["name"]] or served["perop"][r["name"]])
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}: no launch on the path that runs it")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,12 @@ _EXPORTS = {
     "generate": "mlio_tpu_torch.runtime.generate",
     "greedy_generate": "mlio_tpu_torch.runtime.generate",
     "SamplingMethod": "mlio_tpu_torch.runtime.sampling",
+    "QTensor": "mlio_tpu_torch.ops.quant",
+    "quantize_params": "mlio_tpu_torch.runtime.quantization",
+    "InferenceRunner": "mlio_tpu_torch.runtime.inference",
+    "TransformerInferenceRunner": "mlio_tpu_torch.runtime.inference",
+    "create_inference_runner": "mlio_tpu_torch.runtime.inference",
+    "benchmark_optimization_impact": "mlio_tpu_torch.runtime.inference",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

@@ -8,11 +8,16 @@ picks the kernels: ``attention="flash"`` takes K1 for prefill and, for
 single-token decode, the megakernel K4 (``decode_stack`` "mega", or "auto"
 where :func:`~mlio_tpu_torch.ops.decode_layer.supports_decode_stack` accepts
 the model) or the per-layer scan through K3 (``"scan"``, or "auto"
-otherwise); ``norm="fused"`` takes K2.
+otherwise); ``norm="fused"`` takes K2; ``mlp="fused"`` the fused MLP K11;
+``fused_ln_qkv`` the fused norm+QKV K12. Quantized weights
+(:class:`~mlio_tpu_torch.ops.quant.QTensor` leaves from
+:func:`~mlio_tpu_torch.runtime.quantization.quantize_params`) take the
+dequant-fused matmul K5 in every projection, and the fused ``wqkv`` and
+``w_upgate`` layouts of ``fuse_projections`` run as in the JAX package.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-tiled big-model decode (``decode_stack="tiled"``, K6), the fused MLP (K11),
-the fused norm+QKV (K12), ring attention, MoE layers and INT8 KV caches.
+tiled big-model decode (``decode_stack="tiled"``, K6), ring attention, MoE
+layers and INT8 KV caches.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.ops import decode_attention as _decode
 from mlio_tpu_torch.ops import decode_layer as _stack
+from mlio_tpu_torch.ops import fused_mlp as _fused_mlp
+from mlio_tpu_torch.ops.quant import QTensor
 
 Params = Dict[str, Any]
 
@@ -57,10 +64,6 @@ class Impl:
 
 
 def _check_supported(spec: ModelSpec, impl: Impl) -> None:
-    if impl.fused_ln_qkv:
-        raise NotImplementedError(
-            "fused_ln_qkv needs the fused norm+QKV kernel (K12, "
-            "mlio_tpu/ops/ln_qkv.py::_ln_matmul_kernel), not ported yet")
     if spec.num_experts:
         raise NotImplementedError("MoE layers are not ported yet")
 
@@ -163,7 +166,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 def _layer(blocks: Params, layer: int) -> Params:
-    return {k: (v[layer] if v is not None else None) for k, v in blocks.items()}
+    """One layer's weights. A QTensor is indexed field by field (indexing
+    the NamedTuple itself would pick a field, not a layer)."""
+    def one(v):
+        if v is None:
+            return None
+        return v.select(layer) if isinstance(v, QTensor) else v[layer]
+
+    return {k: one(v) for k, v in blocks.items()}
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -171,34 +181,67 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(B, S, num_heads, -1)
 
 
-def _qkv(h_norm, bp, spec, cos, sin):
-    q = _split_heads(ops.linear(h_norm, bp["wq"], bp["bq"]), spec.num_heads)
-    k = _split_heads(ops.linear(h_norm, bp["wk"], bp["bk"]), spec.num_kv_heads)
-    v = _split_heads(ops.linear(h_norm, bp["wv"], bp["bv"]), spec.num_kv_heads)
+def _qkv_proj(h_norm, x, bp, spec, impl):
+    """(q, k, v) flat [B, S, *_dim]: the fused norm+QKV (K12) from x; a
+    fused ``wqkv`` weight (one product, split by widths); or wq/wk/wv."""
+    if impl.fused_ln_qkv:
+        return ops.fused_ln_qkv(x, bp["ln1_scale"], bp["ln1_bias"], bp["wq"], bp["bq"],
+                                bp["wk"], bp["bk"], bp["wv"], bp["bv"], kind=spec.norm,
+                                eps=spec.norm_eps, impl=impl)
+    if bp.get("wqkv") is not None:
+        y = ops.linear(h_norm, bp["wqkv"], bp.get("bqkv"))
+        qd, kvd = spec.q_dim, spec.kv_dim
+        return y[..., :qd], y[..., qd:qd + kvd], y[..., qd + kvd:]
+    return (ops.linear(h_norm, bp["wq"], bp["bq"]), ops.linear(h_norm, bp["wk"], bp["bk"]),
+            ops.linear(h_norm, bp["wv"], bp["bv"]))
+
+
+def _attn_in(x, bp, spec, impl, cos, sin):
+    """(ln1(x), q, k, v) with the heads split and RoPE applied. With
+    ``fused_ln_qkv`` the norm runs inside K12, and ln1(x) is computed apart
+    (and returned) only where a parallel residual shares it (Phi); XLA drops
+    that unused norm in the JAX package, eager PyTorch would run it."""
+    h_norm = None
+    if not impl.fused_ln_qkv or (spec.parallel_residual and spec.shared_ln):
+        h_norm = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)
+    q, k, v = _qkv_proj(h_norm, x, bp, spec, impl)
+    q = _split_heads(q, spec.num_heads)
+    k = _split_heads(k, spec.num_kv_heads)
+    v = _split_heads(v, spec.num_kv_heads)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return h_norm, q, k, v
 
 
 def _norm(x, scale, bias, spec, impl):
     return ops.norm(x, scale, bias, kind=spec.norm, eps=spec.norm_eps, impl=impl)
 
 
+def _run_mlp(h, bp, spec, impl):
+    """The MLP sublayer, in the per-projection layout or the fused
+    ``w_upgate`` one ([up | gate] in one product, activation in fp32)."""
+    if bp.get("w_upgate") is not None:
+        y = ops.linear(h, bp["w_upgate"], bp.get("b_upgate"))
+        i = spec.intermediate_size
+        gated = y.shape[-1] == 2 * i
+        act = _fused_mlp.activate(y[..., :i] if gated else y, y[..., i:] if gated else None,
+                                  spec.activation)
+        return ops.linear(act.to(h.dtype), bp["w_down"], bp["b_down"])
+    return ops.mlp(h, bp["w_up"], bp["w_down"], b_up=bp["b_up"], b_down=bp["b_down"],
+                   w_gate=bp["w_gate"], b_gate=bp["b_gate"], activation=spec.activation,
+                   impl=impl)
+
+
 def _residual_tail(x, attn_out, h_norm1, bp, spec, impl):
     """Sequential (GPT-2/Llama) or parallel (GPT-NeoX; Phi shares one LN)
     residual combination."""
-    def run_mlp(h):
-        return ops.mlp(h, bp["w_up"], bp["w_down"], b_up=bp["b_up"], b_down=bp["b_down"],
-                       w_gate=bp["w_gate"], b_gate=bp["b_gate"],
-                       activation=spec.activation, impl=impl)
-
     if spec.parallel_residual:
         h2 = h_norm1 if spec.shared_ln else _norm(x, bp["ln2_scale"], bp["ln2_bias"],
                                                   spec, impl)
-        return x + attn_out + run_mlp(h2)
+        return x + attn_out + _run_mlp(h2, bp, spec, impl)
     x = x + attn_out
-    return x + run_mlp(_norm(x, bp["ln2_scale"], bp["ln2_bias"], spec, impl))
+    return x + _run_mlp(_norm(x, bp["ln2_scale"], bp["ln2_bias"], spec, impl), bp, spec, impl)
 
 
 def _head(x, params, spec, impl):
@@ -255,8 +298,7 @@ def forward(
     blocks = params["blocks"]
     for layer in range(spec.num_layers):
         bp = _layer(blocks, layer)
-        h_norm = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)
-        q, k, v = _qkv(h_norm, bp, spec, cos, sin)
+        h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
         if cache is not None:
             # Write the S new tokens into the caller's cache in place, then
             # attend over the whole static cache with a kv_len mask.
@@ -309,8 +351,7 @@ def _decode_forward(params, spec, x, cache, impl, cos, sin):
     ctx = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     for layer in range(spec.num_layers):
         bp = _layer(blocks, layer)
-        h_norm = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)
-        q, k, v = _qkv(h_norm, bp, spec, cos, sin)
+        h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
         ck[layer, :, pos] = k[:, 0].to(ck.dtype)
         cv[layer, :, pos] = v[:, 0].to(cv.dtype)
         attn = _decode.decode_attention(q[:, 0], ck, cv, ctx, layer=layer)

@@ -36,11 +36,17 @@ def generate(
     method: Optional[sampling.SamplingMethod] = None,
     generator: Optional[torch.Generator] = None,
     cache_len: Optional[int] = None,
+    cache_quant: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens for each row of ``input_ids``
     [B, S]. Returns [B, S + T] token ids on ``device``, where ``params``
-    must already lie."""
+    must already lie. ``cache_quant="int8"`` (an INT8 KV cache) is not
+    ported yet and raises."""
+    if cache_quant not in (None, "none"):
+        raise NotImplementedError(
+            f"generate(cache_quant={cache_quant!r}): INT8 KV caches come with the int8 decode "
+            "slice (K9 and the INT8 paths of K3, K4, K7, K8), not ported yet; see ROADMAP.md")
     dev = resolve_device(device)
     if params["tok_embed"].device.type != dev.type:
         raise ValueError(f"generate: params lie on {params['tok_embed'].device}, not {dev}")

@@ -21,7 +21,7 @@ import torch
 
 from mlio_tpu_torch import ops
 from mlio_tpu_torch.models.spec import ModelSpec
-from mlio_tpu_torch.models.transformer import (Impl, _head, _layer, _norm, _qkv,
+from mlio_tpu_torch.models.transformer import (Impl, _attn_in, _head, _layer,
                                                _residual_tail, rope_cos_sin)
 from mlio_tpu_torch.ops.paged_attention import paged_attention, reshape_and_cache
 
@@ -52,8 +52,7 @@ def prefill_paged(params, spec: ModelSpec, ids: torch.Tensor, k_pool: torch.Tens
     x, cos, sin = embed(params, spec, ids, positions)
     for layer in range(spec.num_layers):
         bp = _layer(params["blocks"], layer)
-        h = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)
-        q, k, v = _qkv(h, bp, spec, cos, sin)
+        h, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
         reshape_and_cache(k_pool, v_pool, k, v, block_tables, write_pos, layer)
         attn = ops.attention(q, k, v, causal=True, q_offset=0, kv_len=seq_lens, impl=impl)
         attn_out = ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"], bp["bo"])
@@ -78,8 +77,7 @@ def decode_paged(params, spec: ModelSpec, tokens: torch.Tensor, k_pool: torch.Te
     x, cos, sin = embed(params, spec, tokens[:, None], positions[:, None])
     for layer in range(spec.num_layers):
         bp = _layer(params["blocks"], layer)
-        h = _norm(x, bp["ln1_scale"], bp["ln1_bias"], spec, impl)
-        q, k, v = _qkv(h, bp, spec, cos, sin)
+        h, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
         reshape_and_cache(k_pool, v_pool, k, v, block_tables, positions, layer)
         attn = paged_attention(q[:, 0], k_pool, v_pool, block_tables, context_lens, layer=layer)
         attn_out = ops.linear(attn.reshape(B, 1, spec.q_dim).to(x.dtype), bp["wo"], bp["bo"])

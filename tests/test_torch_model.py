@@ -170,7 +170,13 @@ def test_unported_paths_raise():
     int8_blocks = dict(params["blocks"], wq=params["blocks"]["wq"].to(torch.int8))
     with pytest.raises(NotImplementedError, match="quantization"):
         decode_layer_stack(x, int8_blocks, cache["k"], cache["v"], 2, spec=spec)
-    with pytest.raises(NotImplementedError, match="K11"):
-        forward(params, spec, torch.zeros(1, 2, dtype=torch.long), impl=Impl(mlp="fused"))
+    # the fused MLP (K11) and fused norm+QKV (K12) are ported; an INT8 KV cache is not
+    logits, _ = forward(params, spec, torch.zeros(1, 2, dtype=torch.long),
+                        impl=Impl(mlp="fused", fused_ln_qkv=True))
+    assert logits.shape == (1, 2, spec.vocab_size)
+    from mlio_tpu_torch.runtime import generate
+
+    with pytest.raises(NotImplementedError, match="int8 decode"):
+        generate(params, spec, tok, max_new_tokens=2, device="cpu", cache_quant="int8")
     with pytest.raises(NotImplementedError, match="MoE"):
         load_model("moe-tiny", dtype=torch.float32, device="cpu")
