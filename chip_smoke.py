@@ -11,12 +11,13 @@ phase's failure is caught:
 1. device: needs ``torch.cuda.is_available()``; reads nvidia-smi's name and
    power limit.
 2. build: builds every kernel of ``mlio_tpu_torch/csrc`` with nvcc
-   (in parallel, into ``build/kernels``) and reports the seconds.
-3. kernels: each kernel of the main paths (K1 flash prefill, K2 fused norm,
-   K3 decode attention, K4 decode megakernel, K7 paged attention, K8 paged
-   decode megakernel, K11 fused MLP, K12 fused norm + QKV, K5 dequant-fused
-   int8 / int4 / grouped-int4 matmul) at the main paths' shapes, on inputs
-   from the seed:
+   (in parallel, into ``build/kernels``) and reports the seconds and each
+   source's registers, stack frames and spills as ptxas reports them.
+3. kernels: each kernel of the main paths (K1 flash prefill, K9 flash
+   prefill over an INT8 cache, K2 fused norm, K3 decode attention, K4 decode
+   megakernel, K7 paged attention, K8 paged decode megakernel, K11 fused
+   MLP, K12 fused norm + QKV, K5 dequant-fused int8 / int4 / grouped-int4
+   matmul) at the main paths' shapes, on inputs from the seed:
    held against its plain PyTorch version on the card in bf16 within the
    stated tolerance, then timed with CUDA events beside its plain version,
    one PyTorch library call of the same function where there is one, and
@@ -28,8 +29,16 @@ phase's failure is caught:
    rows are not compared and must not touch a live row. K11, K12 and K5 run
    at the runner's GPT-2 shapes (8 x 704 rows) and at one llama3-8b layer's
    (2048 rows; K5 int8 also at 8 rows), and each must fail its check against
-   the plain version with the weight's last 32 rows of K zeroed. Then the
-   kernels' other instances at small, ragged shapes (variants).
+   the plain version with the weight's last 32 rows of K zeroed. The int8
+   instances (the K3, K4, K7 and K8 rows' ``int8`` entries, and K9's row):
+   K9 at GPT-2's prefill into a 1024-slot INT8 cache and at llama3-8b's
+   head geometry; K3 and K7 over INT8 caches; K4 with int8 weights, an INT8
+   cache and both, at GPT-2 small and at llama3-8b's full width with 2
+   layers; K8 with int8 weights. Each must also fail its check with
+   all-ones V scales (an INT8 cache) and a context one token short; an
+   INT8 cache written in the kernel is within one int8 step, its scales
+   within 1e-4, of the plain quantize. Then the kernels' other instances,
+   int8 ones included, at small, ragged shapes (variants).
 4. generate: GPT-2 small at full width, bf16, random weights from the seed,
    batch 8, a 704-token prompt, a 1024-slot cache,
    ``Impl(attention="flash", norm="fused")`` with the default decode (K4).
@@ -41,6 +50,12 @@ phase's failure is caught:
    (64 vs 320 new tokens) and K4's device time a step.
 5. generate_scan: the same generate with ``decode_stack="scan"`` (the
    per-layer decode through K3 and K2), its launch counts and step time.
+5b. generate_int8 and generate_int8_scan: the README quick start, the same
+   workload with ``quantize_params(..., "int8")`` weights and
+   ``cache_quant="int8"``: K9 12, K5 72 and K2 25 launches in the prefill
+   and one K4 launch for the decode (no K1, no K3); the prefill logits
+   within 0.1 of the plain path; the cache's bytes against a bf16 cache's;
+   the scan variant's K3 launches (12 a step).
 6. engine: the serving engine (``InferenceEngine``) on GPT-2 small with
    bench_extra.py's engine_bench workload: 8 slots, 256 pool blocks of 128,
    24 prompts of 8..119 tokens from the seed, 256 new tokens each, 128 decode
@@ -50,6 +65,9 @@ phase's failure is caught:
    (K7 12 per step); generated tok/s, one dispatch's device and wall ms, the
    idle share, the ratio to the port's K4 generate tok/s at batch 8, and one
    decode step through both backends from one state (logits within 0.1).
+6b. engine_int8: the same traffic through the default decode with int8
+   weights: it must resolve to K8 ("mega") with no K7 launch, K5 in every
+   prefill projection; generated tok/s.
 7. runner: the inference runner on GPT-2 small at full width, bf16, a
    [8, 704] prompt: ``benchmark_optimization_impact`` with its seven default
    configurations, then runners with ``fused_ln_qkv``, int4 weights (g 128)
@@ -126,7 +144,16 @@ N_PROMPTS, ENGINE_NEW, WARM_NEW, DISPATCH = 24, 256, 128, 128  # engine_bench
 # an output by a small fraction of an ulp. K11 also adds its partial sums
 # with atomics in no fixed order. 1e-2 + 1e-2*|plain| holds them; zeroing
 # the weight's last 32 rows of K moves the outputs far past it.
-TOL = {"flash_attention": (2e-2, 2e-2), "fused_norm": (1e-2, 1e-2),
+#
+# K9 (flash attention over an INT8 cache) rounds q and p * v_scale to bf16 as
+# K1 rounds q and p, against a running max where the plain version takes the
+# final one: K1's tolerance. The int8 instances of K3, K4, K7 and K8 take
+# their bf16 instances' tolerances; an INT8 cache written by the kernel may
+# differ from the plain quantize by one int8 step where a value sits on a
+# rounding boundary (the fp32 RoPE sums in another order), with its scales
+# within 1e-4, the JAX package's own bounds (tests/test_decode_layer.py).
+TOL = {"flash_attention": (2e-2, 2e-2), "flash_attention_kvq": (2e-2, 2e-2),
+       "fused_norm": (1e-2, 1e-2),
        "decode_attention": (1e-3, 2 ** -7), "decode_attention_grouped": (1e-2, 1e-2),
        "decode_layer_stack": (5e-2, 5e-2), "paged_attention": (1e-3, 2 ** -7),
        "paged_attention_grouped": (1e-2, 1e-2), "decode_paged_stack": (5e-2, 5e-2),
@@ -223,6 +250,28 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def must_fail_within(name, what, got, want):
+    """A deliberately wrong run (``what``) has to fail name's check against
+    the plain version. Returns its max-abs."""
+    ok, err = within(name, got, want)
+    if ok:
+        raise AssertionError(f"{name}: the check passes {what} (max_abs_err {err})")
+    return err
+
+
+def int8_kv(gen, shape, dev):
+    """An INT8 cache of seeded normal rows: (int8 values, fp32 scales), by
+    the port's quantize_kv (the JAX package's per-(token, head) INT8)."""
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    return quantize_kv(torch.randn(shape, generator=gen, device=dev))
+
+
+def dequant_bf16(q, scale):
+    """An INT8 cache dequantized to bf16: the library yardstick's input."""
+    return (q.float() * scale[..., None]).to(torch.bfloat16)
+
+
 def stack_inputs(spec, params, batch, smax, pos, steps, gen, epilogue=True):
     """Seeded bf16 caches [L, batch, smax, Hkv, D], x (the embedding rows of
     seeded ids) and K4's keyword arguments for ``steps`` steps from ``pos``."""
@@ -253,22 +302,32 @@ def plain_logits(dl, spec, kw, x_out):
                            lm_vmajor=kw["lm_vmajor"], dtype=x_out.dtype)
 
 
-def stack_check(dl, spec, params, x, kc, vc, pos, cos, sin, kw):
+def stack_check(dl, spec, params, x, kc, vc, pos, cos, sin, kw, scales=None):
     """K4 from (x, kc, vc) against its plain version, which is fed the
     kernel's own tokens step by step (teacher forcing). Checks x_out after the
     last step, every slot written, that no other slot changed, and each
-    step's token by LOGITS_ATOL. Returns (plain x_out of the last step, the
-    errors)."""
+    step's token by LOGITS_ATOL. With ``scales`` (k_scales, v_scales) the
+    caches are INT8. Layer 0's K/V come from the same inputs on both sides,
+    so there the kernel's quantize is held to the plain one: ints within one
+    step, scales within 1e-4. A later layer's K/V differ by the bf16 noise
+    that K4's tolerance allows its residual, so there the written slots,
+    dequantized, are held to that tolerance. Returns (plain x_out of the
+    last step, the errors)."""
     steps = kw["steps"]
     kk, kv = kc.clone(), vc.clone()
-    xk, tk = dl.decode_layer_stack(x, params["blocks"], kk, kv, pos, cos, sin, **kw)
+    ksk = psk = {}
+    if scales is not None:
+        ksk = dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
+        psk = dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
+    xk, tk = dl.decode_layer_stack(x, params["blocks"], kk, kv, pos, cos, sin, **kw, **ksk)
     torch.cuda.synchronize()
     pk, pv = kc.clone(), vc.clone()
     one = dict(kw, steps=1)
     xin, gap = x, 0.0
     for s in range(steps):
         cs = (cos[s:s + 1], sin[s:s + 1]) if cos is not None else (None, None)
-        xp, _ = dl.decode_layer_stack_plain(xin, params["blocks"], pk, pv, pos + s, *cs, **one)
+        xp, _ = dl.decode_layer_stack_plain(xin, params["blocks"], pk, pv, pos + s, *cs, **one,
+                                            **psk)
         if tk is not None:
             tok = tk.reshape(steps, -1)[s].long()
             logits = plain_logits(dl, spec, kw, xp)
@@ -280,31 +339,58 @@ def stack_check(dl, spec, params, x, kc, vc, pos, cos, sin, kw):
         raise AssertionError(f"decode_layer_stack: a kernel token's plain logit is {gap} below "
                              f"the plain maximum (> {LOGITS_ATOL})")
     written = slice(pos, pos + steps)
-    for got, want, name in ((kk, kc, "k"), (kv, vc, "v")):
-        rest = torch.ones(kc.shape[2], dtype=torch.bool, device=kc.device)
-        rest[written] = False
+    rest = torch.ones(kc.shape[2], dtype=torch.bool, device=kc.device)
+    rest[written] = False
+    pairs = [(kk, kc, "k"), (kv, vc, "v")]
+    if scales is not None:
+        pairs += [(ksk["k_scales"], scales[0], "k_scales"),
+                  (ksk["v_scales"], scales[1], "v_scales")]
+    for got, want, name in pairs:
         if not torch.equal(got[:, :, rest], want[:, :, rest]):
-            raise AssertionError(f"decode_layer_stack: {name} slots outside {pos}..{pos + steps - 1} "
-                                 "changed")
-    errs = dict(x_out=check_close("decode_layer_stack", xk, xp),
-                k_slots=check_close("decode_layer_stack", kk[:, :, written], pk[:, :, written]),
-                v_slots=check_close("decode_layer_stack", kv[:, :, written], pv[:, :, written]))
+            raise AssertionError(f"decode_layer_stack: {name} slots outside "
+                                 f"{pos}..{pos + steps - 1} changed")
+    errs = dict(x_out=check_close("decode_layer_stack", xk, xp))
+    if scales is None:
+        errs.update(k_slots=check_close("decode_layer_stack", kk[:, :, written], pk[:, :, written]),
+                    v_slots=check_close("decode_layer_stack", kv[:, :, written], pv[:, :, written]))
+    else:
+        for name, got, want in (("k", kk, pk), ("v", kv, pv)):
+            gs, ws = ksk[f"{name}_scales"][:, :, written], psk[f"{name}_scales"][:, :, written]
+            g8, w8 = got[:, :, written], want[:, :, written]
+            steps_l = (g8.int() - w8.int()).abs().amax(dim=(1, 2, 3, 4)).tolist()
+            sc0 = (gs[0] - ws[0]).abs().max().item()
+            if steps_l[0] > 1 or not sc0 <= 1e-4:
+                raise AssertionError(f"decode_layer_stack: layer 0's written INT8 {name} slots are "
+                                     f"{steps_l[0]} steps and their scales {sc0} off the plain "
+                                     "quantize")
+            errs[f"{name}_slots_dequantized"] = check_close(
+                "decode_layer_stack", g8.float() * gs[..., None], w8.float() * ws[..., None])
+            errs[f"{name}_layer0_int8_steps"], errs[f"{name}_layer0_scales_max_abs"] = \
+                steps_l[0], sc0
+            errs[f"{name}_int8_steps_by_layer"] = steps_l
     if tk is not None:
         errs["token_logit_gap"] = gap
     return xp, errs
 
 
-def stack_bound(spec, params, batch, slots):
-    """(bound ms, bound_by) of one decode step with the tied-head epilogue
-    (K4, K8): every weight, bias and norm, the lm_head and the K/V of
-    ``slots`` cache slots (summed over the batch) of every layer read once;
-    x, a position row, x_out and the tokens."""
-    blocks = [t for t in params["blocks"].values() if t is not None]
+def stack_bound(spec, params, batch, slots, kv8=False):
+    """(bound ms, bound_by) of one decode step with the greedy epilogue (K4,
+    K8): every weight (int8 payloads with their scales), bias and norm, the
+    lm_head (the tied table or the untied head) and the K/V of ``slots``
+    cache slots (summed over the batch) of every layer read once (an INT8
+    cache: one byte an element and an fp32 scale a row of a head); x, a
+    position row, x_out and the tokens."""
+    from mlio_tpu_torch.ops.quant import QTensor
+
+    blocks = [t for v in params["blocks"].values() if v is not None
+              for t in ((v.q, v.scale) if isinstance(v, QTensor) else (v,))]
     H, L = spec.hidden_size, spec.num_layers
     nbytes = sum(t.numel() * t.element_size() for t in blocks)
-    nbytes += sum(params[k].numel() * 2 for k in ("final_scale", "final_bias", "tok_embed")
-                  if params[k] is not None)
-    nbytes += 2 * L * slots * spec.kv_dim * 2 + (2 * batch + 1) * H * 2 + batch * 4
+    head = "tok_embed" if params["lm_head"] is None else "lm_head"
+    nbytes += sum(params[k].numel() * 2 for k in ("final_scale", "final_bias", head,
+                                                  "lm_head_bias") if params[k] is not None)
+    kv_row = spec.kv_dim + 4 * spec.num_kv_heads if kv8 else spec.kv_dim * 2
+    nbytes += 2 * L * slots * kv_row + (2 * batch + 1) * H * 2 + batch * 4
     mats = sum(t.numel() for t in blocks if t.ndim == 3)
     flops = (2 * batch * (mats + spec.vocab_size * H)
              + 4 * spec.num_heads * spec.head_size * slots * L)
@@ -325,10 +411,8 @@ def stack_row(dl, dev, seed):
     # The check must catch the current token one slot early: the kernel at
     # pos - 1 against the plain version at pos has to fail it.
     x_short, _ = dl.decode_layer_stack(x, params["blocks"], kc.clone(), vc.clone(), pos - 1, **kw)
-    short_ok, short_err = within("decode_layer_stack", x_short, x_plain)
-    if short_ok:
-        raise AssertionError(f"decode_layer_stack: the check passes a context one token short "
-                             f"(max_abs_err {short_err})")
+    short_err = must_fail_within("decode_layer_stack", "a context one token short", x_short,
+                                 x_plain)
     _, errs8 = stack_check(dl, spec, params, x, kc, vc, pos, None, None, dict(kw, steps=8))
     b_ms, b_by = stack_bound(spec, params, B, B * DECODE_CTX)
     blocks = params["blocks"]
@@ -362,7 +446,78 @@ def stack_row(dl, dev, seed):
     stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
     dl.decode_layer_stack(x, blocks, kc, vc, pos, phase_times=stamps, **kw)
     row["phase_us"] = phase_us(spec, stamps)
+    row["int8"] = stack_int8(dl, dev, seed)
     return row
+
+
+def stack_int8(dl, dev, seed):
+    """K4's int8 paths: int8 weights, an INT8 cache, and both, at GPT-2
+    small (12 layers, full width) and at llama3-8b's full width with 2 of its
+    32 layers (the only cut: RoPE, GQA 4, SwiGLU, RMSNorm and the untied
+    head at full width), B = 8, context DECODE_CTX, the greedy epilogue.
+    Each is held against its plain version (K4's tolerance, the tokens'
+    plain logits within LOGITS_ATOL, an INT8 cache's written ints within one
+    step and its scales within 1e-4 of the plain quantize) and must fail with
+    a context one token short and, over an INT8 cache, with all-ones V
+    scales; device ms, plain ms, the bound and the phase durations. Returns
+    the K4 row's ``int8`` entry."""
+    from mlio_tpu_torch.models import get_spec, init_params, load_model
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
+
+    name = "decode_layer_stack"
+    out = {}
+    for model in ("gpt2", "llama3_8b"):
+        if model == "gpt2":
+            spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=seed)
+        else:
+            spec = dataclasses.replace(get_spec("llama3-8b"), num_layers=2)
+            params = init_params(spec, torch.Generator(device=dev).manual_seed(seed),
+                                 dtype=torch.bfloat16, device=dev)
+        qparams = quantize_params(params, spec, "int8")
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        pos = DECODE_CTX - 1
+        x, kc, vc, cos, sin, kw = stack_inputs(spec, params, B, CACHE, pos, 1, gen)
+        kq, ks = quantize_kv(kc.float())
+        vq, vs = quantize_kv(vc.float())
+        for variant, p_, kv8 in (("w8", qparams, False), ("kv8", params, True),
+                                 ("w8kv8", qparams, True)):
+            blocks = p_["blocks"]
+            caches = (kq, vq) if kv8 else (kc, vc)
+            x_plain, errs = stack_check(dl, spec, p_, x, *caches, pos, cos, sin, kw,
+                                        scales=(ks, vs) if kv8 else None)
+
+            def kernel(at, v_scales=vs):
+                sk = dict(k_scales=ks.clone(), v_scales=v_scales.clone()) if kv8 else {}
+                return dl.decode_layer_stack(x, blocks, caches[0].clone(), caches[1].clone(), at,
+                                             cos, sin, **kw, **sk)[0]
+
+            row = dict(errors=errs, max_abs_err=errs["x_out"], ctx_minus_1_max_abs_err=(
+                must_fail_within(name, "a context one token short", kernel(pos - 1), x_plain)))
+            if kv8:
+                row["ones_v_scale_max_abs_err"] = must_fail_within(
+                    name, "with all-ones V scales", kernel(pos, torch.ones_like(vs)), x_plain)
+            sk = dict(k_scales=ks.clone(), v_scales=vs.clone()) if kv8 else {}
+            tk, tv = caches[0].clone(), caches[1].clone()
+            b_ms, b_by = stack_bound(spec, p_, B, B * DECODE_CTX, kv8=kv8)
+            row.update(
+                shape=f"{spec.name} ({spec.num_layers} layers) bf16 activations, "
+                      f"{'int8' if p_ is qparams else 'bf16'} weights, "
+                      f"{'INT8' if kv8 else 'bf16'} cache [{spec.num_layers},{B},{CACHE},"
+                      f"{spec.num_kv_heads},{spec.head_size}], ctx {DECODE_CTX}, greedy epilogue",
+                **timings(lambda i: dl.decode_layer_stack(x, blocks, tk, tv, pos, cos, sin, **kw,
+                                                          **sk),
+                          lambda i: dl.decode_layer_stack_plain(x, blocks, tk, tv, pos, cos, sin,
+                                                                **kw, **sk),
+                          None, 20),
+                bound_ms=b_ms, bound_by=b_by)
+            stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
+            dl.decode_layer_stack(x, blocks, tk, tv, pos, cos, sin, phase_times=stamps, **kw,
+                                  **sk)
+            row["phase_us"] = phase_us(spec, stamps)
+            out[f"{model}_{variant}"] = row
+        del params, qparams, kc, vc, kq, vq
+    return out
 
 
 def phase_us(spec, stamps):
@@ -438,11 +593,8 @@ def kernel_phase(rng, dev, seed, fa, norms, da, dl):
     err = check_close("decode_attention", da.decode_attention(qd, kc, vc, ctx, layer=5), want)
     # The check must catch the current token left out: the kernel at ctx - 1
     # against the plain version at ctx has to fail it.
-    short_ok, short_err = within("decode_attention",
+    short_err = must_fail_within("decode_attention", "a context one token short",
                                  da.decode_attention(qd, kc, vc, ctx - 1, layer=5), want)
-    if short_ok:
-        raise AssertionError(f"decode_attention: the check passes a context one token "
-                             f"short (max_abs_err {short_err})")
     nbytes = (2 * qd.numel() + 2 * B * DECODE_CTX * H * D) * 2
     b_ms, b_by = bound(nbytes, 4 * B * H * DECODE_CTX * D, FP32_FLOPS)
     q4 = qd[:, :, None, :]
@@ -459,8 +611,101 @@ def kernel_phase(rng, dev, seed, fa, norms, da, dl):
                       vc[i % L, :, :DECODE_CTX].transpose(1, 2)), 240),
         bound_ms=b_ms, bound_by=b_by))
     del kc, vc
+    rows[-1]["int8"] = decode_attention_int8(da, dev, seed, spec)
+    rows.append(flash_kvq_row(fa, dev, seed))
     rows.append(stack_row(dl, dev, seed))
     return rows
+
+
+def flash_kvq_row(fa, dev, seed):
+    """K9 at GPT-2 small's prefill (8 x 704 queries into a 1024-slot INT8
+    cache, 12 heads of 64, G 1) and at llama3-8b's head geometry (32 query
+    heads, 8 KV heads of 128: 2 x 1024 queries into a 2048-slot cache), each
+    held against its plain version, failing its check with all-ones V scales
+    and with a context one token short; timed beside SDPA over the K/V
+    already dequantized to bf16 (the dequantize not timed)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    name = "flash_attention_kvq"
+
+    def case(b, sq, skv, hq, hkv, d, reps):
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        kq, ks = int8_kv(gen, (b, skv, hkv, d), dev)
+        vq, vs = int8_kv(gen, (b, skv, hkv, d), dev)
+        args = dict(causal=True, q_offset=0, kv_len=sq)
+        want = fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, **args)
+        err = check_close(name, fa.flash_attention_kvq(q, kq, vq, ks, vs, **args), want)
+        ones = must_fail_within(name, "with all-ones V scales", fa.flash_attention_kvq(
+            q, kq, vq, ks, torch.ones_like(vs), **args), want)
+        short = must_fail_within(name, "a context one token short", fa.flash_attention_kvq(
+            q, kq, vq, ks, vs, **dict(args, kv_len=sq - 1)), want)
+        pairs = sum(min(sq, i + 1) for i in range(sq))
+        nbytes = 2 * q.numel() * 2 + 2 * b * sq * hkv * d + 2 * b * sq * hkv * 4
+        b_ms, b_by = bound(nbytes, 4 * b * hq * d * pairs, BF16_TENSOR_FLOPS)
+        g = hq // hkv
+        qs = q.transpose(1, 2)
+        kd = dequant_bf16(kq[:, :sq], ks[:, :sq]).repeat_interleave(g, dim=2).transpose(1, 2)
+        vd = dequant_bf16(vq[:, :sq], vs[:, :sq]).repeat_interleave(g, dim=2).transpose(1, 2)
+        row = dict(
+            shape=f"q [{b},{sq},{hq},{d}] bf16, k/v int8 [{b},{skv},{hkv},{d}] + fp32 scales "
+                  f"[{b},{skv},{hkv}], kv_len {sq}",
+            max_abs_err=err, ones_v_scale_max_abs_err=ones, ctx_minus_1_max_abs_err=short,
+            **timings(lambda i: fa.flash_attention_kvq(q, kq, vq, ks, vs, **args),
+                      lambda i: fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, **args),
+                      None, reps),
+            sdpa_dequantized_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+                qs, kd, vd, is_causal=True), reps)[0],
+            bound_ms=b_ms, bound_by=b_by)
+        return row
+
+    row = dict(name=name, route="cuda", source="mlio_tpu_torch/csrc/flash_fwd.cu",
+               replaces="mlio_tpu/ops/flash_attention.py:199",
+               **case(B, PROMPT, CACHE, 12, 12, 64, 50),
+               atol=TOL[name][0], rtol=TOL[name][1], tolerance_of="flash_attention (K1)",
+               library_note="no single PyTorch call attends over int8 K/V with per-(token, "
+                            "head) scales; sdpa_dequantized_ms is F.scaled_dot_product_attention "
+                            "over the K/V already dequantized to bf16, the dequantize not timed")
+    row["llama3_8b"] = case(*KVQ_LLAMA, 20)
+    return row
+
+
+def decode_attention_int8(da, dev, seed, spec):
+    """K3's int8 instance at GPT-2 small's decode step over a 1024-slot INT8
+    cache at context DECODE_CTX, held against its plain version, failing
+    with all-ones V scales and with a context one token short; the timed
+    launches walk the 12 layers. Returns the K3 row's ``int8`` entry."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    H, D, L = spec.num_heads, spec.head_size, spec.num_layers
+    qd = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    kc, ks = int8_kv(gen, (L, B, CACHE, H, D), dev)
+    vc, vs = int8_kv(gen, (L, B, CACHE, H, D), dev)
+    ctx = torch.full((B,), DECODE_CTX, dtype=torch.int32, device=dev)
+    sc = dict(k_scales=ks, v_scales=vs)
+    want = da.decode_attention_plain(qd, kc, vc, ctx, layer=5, **sc)
+    err = check_close("decode_attention", da.decode_attention(qd, kc, vc, ctx, layer=5, **sc),
+                      want)
+    ones = must_fail_within("decode_attention", "with all-ones V scales", da.decode_attention(
+        qd, kc, vc, ctx, layer=5, k_scales=ks, v_scales=torch.ones_like(vs)), want)
+    short = must_fail_within("decode_attention", "a context one token short",
+                             da.decode_attention(qd, kc, vc, ctx - 1, layer=5, **sc), want)
+    nbytes = 2 * qd.numel() * 2 + 2 * B * DECODE_CTX * H * D + 2 * B * DECODE_CTX * H * 4
+    b_ms, b_by = bound(nbytes, 4 * B * H * DECODE_CTX * D, FP32_FLOPS)
+    q4 = qd[:, :, None, :]
+    dense = [(dequant_bf16(kc[l, :, :DECODE_CTX], ks[l, :, :DECODE_CTX]).transpose(1, 2),
+              dequant_bf16(vc[l, :, :DECODE_CTX], vs[l, :, :DECODE_CTX]).transpose(1, 2))
+             for l in range(L)]
+    return dict(
+        shape=f"q [{B},{H},{D}] bf16, cache int8 [{L},{B},{CACHE},{H},{D}] + fp32 scales, "
+              f"ctx {DECODE_CTX}",
+        max_abs_err=err, atol=TOL["decode_attention"][0], rtol=TOL["decode_attention"][1],
+        ones_v_scale_max_abs_err=ones, ctx_minus_1_max_abs_err=short,
+        **timings(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L, **sc),
+                  lambda i: da.decode_attention_plain(qd, kc, vc, ctx, layer=i % L, **sc),
+                  None, 240),
+        sdpa_dequantized_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            q4, *dense[i % L]), 240)[0],
+        library_note="no single PyTorch call; sdpa_dequantized_ms over the K/V already "
+                     "dequantized to bf16",
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def paged_tables(gen, dev, batch, blocks, pool_blocks):
@@ -479,12 +724,8 @@ def paged_attention_check(pa, q, kp, vp, tables, ctx, layer, short=False):
     err = check_close(name, pa.paged_attention(q, kp, vp, tables, ctx, layer=layer), want)
     if not short:
         return err, None
-    short_ok, short_err = within(name, pa.paged_attention(q, kp, vp, tables, ctx - 1,
-                                                          layer=layer), want)
-    if short_ok:
-        raise AssertionError(f"paged_attention: the check passes a context one token short "
-                             f"(max_abs_err {short_err})")
-    return err, short_err
+    return err, must_fail_within(name, "a context one token short", pa.paged_attention(
+        q, kp, vp, tables, ctx - 1, layer=layer), want)
 
 
 def paged_stack_check(dps, spec, params, x, kp, vp, tables, past, cos, sin, kw, active=None):
@@ -607,19 +848,15 @@ def paged_rows(pa, dps, dev, seed):
     # the check must catch the current token one slot early
     x_short, _ = dps.decode_paged_stack(x, params["blocks"], kp.clone(), vp.clone(), tables,
                                         past - 1, **kw)
-    short_ok, short_err = within("decode_paged_stack", x_short, x_plain)
-    if short_ok:
-        raise AssertionError(f"decode_paged_stack: the check passes a context one token short "
-                             f"(max_abs_err {short_err})")
+    short_err = must_fail_within("decode_paged_stack", "a context one token short", x_short,
+                                 x_plain)
     x896, _, _ = paged_x(spec, params, ids, past896)
     x896_plain, errs896 = paged_stack_check(dps, spec, params, x896, kp, vp, tables, past896,
                                             None, None, kw)
     x_short, _ = dps.decode_paged_stack(x896, params["blocks"], kp.clone(), vp.clone(), tables,
                                         past896 - 1, **kw)
-    short896_ok, short896 = within("decode_paged_stack", x_short, x896_plain)
-    if short896_ok:
-        raise AssertionError(f"decode_paged_stack: the check passes a context one token short "
-                             f"at {DECODE_CTX} (max_abs_err {short896})")
+    short896 = must_fail_within("decode_paged_stack", f"a context one token short at "
+                                f"{DECODE_CTX}", x_short, x896_plain)
     # two inactive engine slots (scratch tables, no past) beside six live ones
     live = torch.tensor([0, 1, 3, 4, 6, 7], device=dev)
     t_in, p_in = tables.clone(), past.clone()
@@ -649,6 +886,74 @@ def paged_rows(pa, dps, dev, seed):
     stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
     dps.decode_paged_stack(x, blocks, kp, vp, tables, past, phase_times=stamps, **kw)
     k8["phase_us"] = phase_us(spec, stamps)
+
+    # K8's int8 weight path over the same bf16 pools (the JAX K8 has no INT8
+    # KV path): the ragged contexts, a context one token short must fail.
+    from mlio_tpu_torch.runtime import quantize_params
+
+    qparams = quantize_params(params, spec, "int8")
+    qblocks = qparams["blocks"]
+    xq_plain, errs_q = paged_stack_check(dps, spec, qparams, x, kp, vp, tables, past, None, None,
+                                         kw)
+    b_ms, b_by = stack_bound(spec, qparams, B, slots)
+    k8["int8_weights"] = dict(
+        shape=f"{k8['shape']}, int8 weights [L, in, out] + fp32 scales [L, out]",
+        errors=errs_q, max_abs_err=errs_q["x_out"],
+        ctx_minus_1_max_abs_err=must_fail_within(
+            "decode_paged_stack", "a context one token short", dps.decode_paged_stack(
+                x, qblocks, kp.clone(), vp.clone(), tables, past - 1, **kw)[0], xq_plain),
+        **timings(lambda i: dps.decode_paged_stack(x, qblocks, kp, vp, tables, past, **kw),
+                  lambda i: dps.decode_paged_stack_plain(x, qblocks, kp, vp, tables, past, **kw),
+                  None, 20),
+        bound_ms=b_ms, bound_by=b_by)
+    del qparams, qblocks
+
+    # K7's int8 instance over INT8 pools (int8 rows, fp32 scale pools
+    # [L, NB, bs, Hkv]) at the ragged contexts and at DECODE_CTX; all-ones V
+    # scales and a context one token short must fail. No main path runs INT8
+    # pools (the JAX engine has none), so it has no launches there.
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    kq, ks = quantize_kv(kp.float())
+    vq, vs = quantize_kv(vp.float())
+    sc = dict(k_scale_pool=ks, v_scale_pool=vs)
+
+    def k7q(c, layer, v_scale=vs):
+        return pa.paged_attention(q, kq, vq, tables, c, layer=layer, k_scale_pool=ks,
+                                  v_scale_pool=v_scale)
+
+    errs7 = {}
+    for key, c in (("ragged", ctx), ("ctx896", past896 + 1)):
+        want = pa.paged_attention_plain(q, kq, vq, tables, c, layer=5, **sc)
+        errs7[key] = dict(
+            max_abs_err=check_close("paged_attention", k7q(c, 5), want),
+            ones_v_scale_max_abs_err=must_fail_within(
+                "paged_attention", "with all-ones V scales", k7q(c, 5, torch.ones_like(vs)), want),
+            ctx_minus_1_max_abs_err=must_fail_within(
+                "paged_attention", "a context one token short", k7q(c - 1, 5), want))
+    slots7 = int(ctx.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * slots7 * H * D + 2 * slots7 * H * 4
+                       + tables.numel() * 4 + B * 4, 4 * H * D * slots7, FP32_FLOPS)
+    dense = [(dequant_bf16(pa.gather_blocks(kq, l, tables), pa.gather_blocks(ks, l, tables))
+              .transpose(1, 2).contiguous(),
+              dequant_bf16(pa.gather_blocks(vq, l, tables), pa.gather_blocks(vs, l, tables))
+              .transpose(1, 2).contiguous()) for l in range(L)]
+    k7["int8"] = dict(
+        shape=f"q [{B},{H},{D}] bf16, INT8 pools [{L},{POOL_BLOCKS},{POOL_BS},"
+              f"{spec.num_kv_heads},{D}] + fp32 scale pools, tables [{B},{TABLE_BLOCKS}], "
+              f"past contexts {list(RAGGED)} (+1 current token)",
+        errors=errs7, max_abs_err=errs7["ragged"]["max_abs_err"],
+        launches=0, launches_note="no main path runs INT8 pools: the JAX engine has none",
+        **timings(lambda i: k7q(ctx, i % L),
+                  lambda i: pa.paged_attention_plain(q, kq, vq, tables, ctx, layer=i % L, **sc),
+                  None, 240),
+        sdpa_dequantized_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            q4, *dense[i % L], attn_mask=mask), 240)[0],
+        library_note="no single PyTorch call; sdpa_dequantized_ms over the K/V the tables "
+                     "name, dequantized to bf16 (gather and dequantize not timed)",
+        bound_ms=b_ms, bound_by=b_by,
+        ms_ctx896=time_ms(lambda i: k7q(past896 + 1, i % L), 240)[0])
+    del dense, kq, vq
     return [k7, k8]
 
 
@@ -658,6 +963,8 @@ def paged_variants(dev, seed, pa, dps):
     and K8 with GQA 4, RMSNorm, SwiGLU, per-sequence RoPE, an untied head
     with a bias, learned positions and a past context of 0."""
     from mlio_tpu_torch.models import get_spec, init_params
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     errs = {}
@@ -674,6 +981,12 @@ def paged_variants(dev, seed, pa, dps):
         vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q = torch.randn((len(ctx), hkv * g, d), generator=gen, device=dev).to(torch.bfloat16)
         errs[f"paged_attention[{i}]"] = paged_attention_check(pa, q, kp, vp, tables, c, layer)[0]
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kp, vp))
+        sc = dict(k_scale_pool=ks, v_scale_pool=vs)
+        errs[f"paged_attention_int8[{i}]"] = check_close(
+            "paged_attention" if g == 1 else "paged_attention_grouped",
+            pa.paged_attention(q, kq, vq, tables, c, layer=layer, **sc),
+            pa.paged_attention_plain(q, kq, vq, tables, c, layer=layer, **sc))
     gpt2, llama = get_spec("gpt2"), get_spec("llama-tiny")
     cases = {  # name: (spec, block size, past contexts)
         "gqa4_rmsnorm_swiglu_rope_untied_bias_d128": (dataclasses.replace(
@@ -704,6 +1017,9 @@ def paged_variants(dev, seed, pa, dps):
                   lm_head_bias=params["lm_head_bias"], lm_vmajor=tied)
         errs[f"decode_paged_stack[{name}]"] = paged_stack_check(
             dps, spec, params, x, kp, vp, tables, past, cos, sin, kw)[1]
+        errs[f"decode_paged_stack_int8_weights[{name}]"] = paged_stack_check(
+            dps, spec, quantize_params(params, spec, "int8"), x, kp, vp, tables, past, cos, sin,
+            kw)[1]
     return errs
 
 
@@ -713,6 +1029,8 @@ def stack_variants(dev, seed, dl):
     import dataclasses
 
     from mlio_tpu_torch.models import get_spec, init_params
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
 
     gpt2, llama = get_spec("gpt2"), get_spec("llama-tiny")
     small = dict(num_layers=2, vocab_size=1000)
@@ -751,6 +1069,11 @@ def stack_variants(dev, seed, dl):
                                                epilogue=epilogue)
         errs[f"decode_layer_stack[{name}]"] = stack_check(dl, spec, params, x, kc, vc, pos,
                                                           cos, sin, kw)[1]
+        # int8 weights and an INT8 cache together
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kc, vc))
+        errs[f"decode_layer_stack_int8[{name}]"] = stack_check(
+            dl, spec, quantize_params(params, spec, "int8"), x, kq, vq, pos, cos, sin, kw,
+            scales=(ks, vs))[1]
     return errs
 
 
@@ -759,6 +1082,8 @@ def stack_variants(dev, seed, dl):
 GPT2_M, GPT2_H, GPT2_I = B * PROMPT, 768, 3072
 LLAMA_M, LLAMA_H, LLAMA_I, LLAMA_KVD = 2048, 4096, 14336, 1024
 DECODE_M = 8  # a decode step's rows at batch 8
+# K9 at llama3-8b's head geometry: (batch, queries, cache slots, Hq, Hkv, D)
+KVQ_LLAMA = (2, 1024, 2048, 32, 8, 128)
 
 
 def must_fail(name, got, plain_fn, weight, rows):
@@ -767,13 +1092,10 @@ def must_fail(name, got, plain_fn, weight, rows):
     saved = weight[rows].clone()
     weight[rows] = 0
     try:
-        ok, err = within(name, got, plain_fn())
+        want = plain_fn()
     finally:
         weight[rows] = saved
-    if ok:
-        raise AssertionError(f"{name}: the check passes with the weight's last K tile zeroed "
-                             f"(max_abs_err {err})")
-    return err
+    return must_fail_within(name, "with the weight's last K tile zeroed", got, want)
 
 
 def gemm_row(name, source, replaces, shape, kernel, plain, library, nbytes, flops, weight, rows,
@@ -930,8 +1252,11 @@ def gemm_variants(dev, seed, fm, lq, qm):
 
 def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps, fm, lq, qm):
     """The kernels' other instances (GQA, head dim 128, ragged lengths,
-    empty rows, the block-per-row norm) against their plain versions at
-    small shapes, in bf16: the card-side counterpart of the CPU tests."""
+    empty rows, the block-per-row norm; the int8 instances of K9, K3, K4,
+    K7 and K8) against their plain versions at small shapes, in bf16: the
+    card-side counterpart of the CPU tests."""
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
             dev, torch.bfloat16)
@@ -948,6 +1273,10 @@ def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps, fm, lq, qm):
         errs[f"flash_attention[{i}]"] = check_close(
             "flash_attention", fa.flash_attention(q, k, v, **args),
             fa.flash_attention_plain(q, k, v, **args))
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (k, v))
+        errs[f"flash_attention_kvq[{i}]"] = check_close(
+            "flash_attention_kvq", fa.flash_attention_kvq(q, kq, vq, ks, vs, **args),
+            fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, **args))
     # (M, H, kind, bias, residual_alpha)
     for i, (m, h, kind, with_bias, alpha) in enumerate([
             (37, 4096, "rmsnorm", False, 0.5),
@@ -969,10 +1298,15 @@ def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps, fm, lq, qm):
         q = randn(bsz, hkv * g, d)
         kc, vc = randn(nl, bsz, smax, hkv, d), randn(nl, bsz, smax, hkv, d)
         c = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        name = "decode_attention" if g == 1 else "decode_attention_grouped"
         errs[f"decode_attention[{i}]"] = check_close(
-            "decode_attention" if g == 1 else "decode_attention_grouped",
-            da.decode_attention(q, kc, vc, c, layer=layer),
+            name, da.decode_attention(q, kc, vc, c, layer=layer),
             da.decode_attention_plain(q, kc, vc, c, layer=layer))
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kc, vc))
+        sc = dict(k_scales=ks, v_scales=vs)
+        errs[f"decode_attention_int8[{i}]"] = check_close(
+            name, da.decode_attention(q, kq, vq, c, layer=layer, **sc),
+            da.decode_attention_plain(q, kq, vq, c, layer=layer, **sc))
     errs.update(stack_variants(dev, seed, dl))
     errs.update(paged_variants(dev, seed, pa, dps))
     errs.update(gemm_variants(dev, seed, fm, lq, qm))
@@ -980,7 +1314,8 @@ def variant_phase(rng, dev, seed, fa, norms, da, dl, pa, dps, fm, lq, qm):
 
 
 # the kernel wrappers a forward calls, and their plain versions
-PLAIN = {"flash_attention": "flash_attention_plain", "fused_norm": "fused_norm_plain",
+PLAIN = {"flash_attention": "flash_attention_plain",
+         "flash_attention_kvq": "flash_attention_kvq_plain", "fused_norm": "fused_norm_plain",
          "decode_attention": "decode_attention_plain", "fused_mlp": "fused_mlp_plain",
          "fused_norm_matmul": "fused_norm_matmul_plain", "quant_matmul": "quant_matmul_plain"}
 
@@ -1011,30 +1346,43 @@ def workload(seed: int, dev):
     return spec, params, torch.from_numpy(ids).to(dev), impl
 
 
-def generate_phase(dev, seed, fa, norms, da, dl, decode_stack=None):
+def generate_phase(dev, seed, fa, norms, da, dl, qm, decode_stack=None, int8=False):
     """A 64-token greedy generate of the workload with launch counters, the
     decode step by the two-length marginal and the device time of a step.
     The main path (decode_stack None) also checks the prefill logits and
-    times the prefill; "scan" runs the per-layer decode through K3."""
+    times the prefill; "scan" runs the per-layer decode through K3. With
+    ``int8`` it is the README quick start: the weights through
+    ``quantize_params(..., "int8")`` and an INT8 KV cache
+    (``cache_quant="int8"``): K9 and K5 in the prefill, K4's int8 paths (or
+    K3's int8 instances) in the decode; it also reports the cache's bytes
+    against a bf16 cache's."""
     from mlio_tpu_torch.models import forward
-    from mlio_tpu_torch.runtime import generate, init_cache
+    from mlio_tpu_torch.runtime import cache_memory_bytes, generate, init_cache, quantize_params
 
     spec, params, ids, impl = workload(seed, dev)
+    if int8:
+        params = quantize_params(params, spec, "int8")
+    quant = "int8" if int8 else None
     if decode_stack is not None:
         impl = dataclasses.replace(impl, decode_stack=decode_stack)
     L = spec.num_layers
 
     def prefill():
-        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, device=dev)
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, quant=quant, device=dev)
         with torch.inference_mode():
             return forward(params, spec, ids, impl=impl, cache=cache)
 
-    result = dict(phase="generate" if decode_stack is None else f"generate_{decode_stack}",
-                  model="gpt2", dtype="bf16", batch=B, prompt=PROMPT, cache_len=CACHE,
-                  impl=repr(impl))
+    name = "generate" + ("_int8" if int8 else "") + \
+        ("" if decode_stack is None else f"_{decode_stack}")
+    result = dict(phase=name, model="gpt2", dtype="bf16", batch=B, prompt=PROMPT,
+                  cache_len=CACHE, impl=repr(impl), weights="int8" if int8 else "bf16",
+                  cache_quant=quant)
+    if int8:
+        result.update(cache_bytes=cache_memory_bytes(spec, B, CACHE, quant="int8"),
+                      cache_bytes_bf16=cache_memory_bytes(spec, B, CACHE, torch.bfloat16))
     if decode_stack is None:
         logits = prefill()[0]
-        with plain_kernels(fa, norms, da):
+        with plain_kernels(fa, norms, da, qm):
             logits_plain = prefill()[0]
         if logits.shape != (B, PROMPT, spec.vocab_size) or not torch.isfinite(logits).all():
             raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} or not finite")
@@ -1057,28 +1405,32 @@ def generate_phase(dev, seed, fa, norms, da, dl, decode_stack=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = generate(params, spec, ids, max_new_tokens=new_tokens, impl=impl,
-                       cache_len=CACHE, device=dev)
+                       cache_len=CACHE, cache_quant=quant, device=dev)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
     run(4)  # warm-up
-    wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack)
+    wrappers = (fa.flash_attention, fa.flash_attention_kvq, norms.fused_norm, qm.quant_matmul,
+                da.decode_attention, dl.decode_layer_stack)
     for w in wrappers:
         w.launches = 0
     out, t_short = run(SHORT)
     launches = {w.__name__: w.launches for w in wrappers}
     steps = SHORT - 1
+    attn = "flash_attention_kvq" if int8 else "flash_attention"
+    want = {w.__name__: 0 for w in wrappers}
+    want[attn] = L
     if decode_stack is None:
-        want = {"flash_attention": L, "fused_norm": 2 * L + 1, "decode_attention": 0,
-                "decode_layer_stack": 1}
+        want.update(fused_norm=2 * L + 1, decode_layer_stack=1)
+        want["quant_matmul"] = 6 * L if int8 else 0
     else:
-        want = {"flash_attention": L, "fused_norm": (2 * L + 1) * (1 + steps),
-                "decode_attention": L * steps, "decode_layer_stack": 0}
+        want.update(fused_norm=(2 * L + 1) * (1 + steps), decode_attention=L * steps)
+        want["quant_matmul"] = 6 * L * (1 + steps) if int8 else 0
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != expected {want}")
+        raise AssertionError(f"{name}: launch counts {launches} != expected {want}")
     if out.shape != (B, PROMPT + SHORT) or not torch.equal(out[:, :PROMPT], ids) \
             or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
-        raise AssertionError("generate: wrong shape, prompt changed or token out of range")
+        raise AssertionError(f"{name}: wrong shape, prompt changed or token out of range")
     _, t_long = run(LONG)
     step_s = (t_long - t_short) / (LONG - SHORT)
 
@@ -1089,7 +1441,8 @@ def generate_phase(dev, seed, fa, norms, da, dl, decode_stack=None):
         if decode_stack is None:  # the 63-step K4 launch, over its steps
             x = params["tok_embed"][out[:, PROMPT]]
             kw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
-                      lm_head=params["tok_embed"], pos_embed=params["pos_embed"], steps=steps)
+                      lm_head=params["tok_embed"], pos_embed=params["pos_embed"], steps=steps,
+                      k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
             step_dev_ms = time_ms(lambda i: dl.decode_layer_stack(
                 x, params["blocks"], cache["k"], cache["v"], PROMPT, **kw), 2)[0] / steps
         else:  # one forward (rewriting the same cache slot each call)
@@ -1268,27 +1621,32 @@ def dispatch_times(run_chunk):
     return device_ms, busy, min(walls)
 
 
-def engine_phase(dev, seed, wrappers, generate_tok_s):
+def engine_phase(dev, seed, wrappers, generate_tok_s, int8=False):
     """The serving engine on GPT-2 small at full width: engine_bench's
     workload (24 prompts of 8..119 tokens, 256 new tokens each, after a
     warm-up wave of 8 prompts and 128 tokens) through the default decode
     (K8), then 8 prompts and 64 tokens through the per-op decode (K7), with
     launch counters, the generated tok/s, the device, device-busy and wall
     ms of one decode dispatch and the idle share (1 - busy / wall); and one decode step from one state
-    through both backends, whose logits must agree within LOGITS_ATOL."""
+    through both backends, whose logits must agree within LOGITS_ATOL. With
+    ``int8`` the weights go through ``quantize_params(..., "int8")`` and only
+    the default decode runs: it must resolve to K8 ("mega", its int8 weight
+    path) with no K7 launch, K5 in every prefill projection."""
     from mlio_tpu_torch.models import Impl, load_model
-    from mlio_tpu_torch.runtime import InferenceEngine
+    from mlio_tpu_torch.runtime import InferenceEngine, quantize_params
     from mlio_tpu_torch.runtime import engine as engine_mod
     from mlio_tpu_torch.runtime import paged_forward
 
     spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=seed)
+    if int8:
+        params = quantize_params(params, spec, "int8")
     prompts = engine_prompts(seed, spec.vocab_size)
     L = spec.num_layers
     geometry = dict(max_batch=B, num_blocks=POOL_BLOCKS, block_size=POOL_BS,
                     impl=Impl(attention="flash", norm="fused"), device=dev)
     results, launches = {}, {}
-    for path, stack, n, new, k in (("mega", "auto", N_PROMPTS, ENGINE_NEW, DISPATCH),
-                                    ("perop", "perop", B, 64, 8)):
+    paths = (("mega", "auto", N_PROMPTS, ENGINE_NEW, DISPATCH), ("perop", "perop", B, 64, 8))
+    for path, stack, n, new, k in paths[:1] if int8 else paths:
         eng = InferenceEngine(spec, params, steps_per_dispatch=k, decode_stack=stack, **geometry)
         if eng.decode_stack != path:
             raise AssertionError(f"engine: decode_stack={stack!r} resolved to "
@@ -1310,13 +1668,16 @@ def engine_phase(dev, seed, wrappers, generate_tok_s):
         want = {"flash_attention": L * prefills[0], "fused_norm": (2 * L + 1) * prefills[0],
                 "decode_attention": 0, "decode_layer_stack": 0,
                 "paged_attention": 0 if path == "mega" else L * steps,
-                "decode_paged_stack": steps if path == "mega" else 0}
+                "decode_paged_stack": steps if path == "mega" else 0,
+                "flash_attention_kvq": 0, "quant_matmul": 6 * L * prefills[0] if int8 else 0}
+        want = {w: want[w] for w in counts}
         if path == "perop":  # the per-op step's two norms a layer and the final one
             want["fused_norm"] += (2 * L + 1) * steps
         if counts != want:
             raise AssertionError(f"engine {path}: launch counts {counts} != expected {want}")
-        if path == "mega" and steps != 768:
-            raise AssertionError(f"engine mega: {steps} decode steps dispatched, not 768")
+        if path == "mega" and steps != N_PROMPTS * ENGINE_NEW // B:
+            raise AssertionError(f"engine mega: {steps} decode steps dispatched, not "
+                                 f"{N_PROMPTS * ENGINE_NEW // B}")
         if [len(o) for o in outs] != [new] * n or eng.manager.num_free != free0:
             raise AssertionError(f"engine {path}: outputs of the wrong length or blocks not "
                                  "returned")
@@ -1362,7 +1723,8 @@ def engine_phase(dev, seed, wrappers, generate_tok_s):
             dispatch_busy_ms_per_step=busy / k, decode_idle_share=1 - busy / wall_ms,
             vs_generate=tok_s / generate_tok_s)
         del eng
-    emit(dict(phase="engine", model="gpt2", dtype="bf16", max_batch=B, num_blocks=POOL_BLOCKS,
+    emit(dict(phase="engine_int8" if int8 else "engine", model="gpt2", dtype="bf16",
+              weights="int8" if int8 else "bf16", max_batch=B, num_blocks=POOL_BLOCKS,
               block_size=POOL_BS, generate_tok_per_s=generate_tok_s,
               logits_atol=LOGITS_ATOL, **results))
     return launches
@@ -1412,7 +1774,7 @@ def main() -> int:
     emit(dict(phase="device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda))
-    emit(dict(phase="build", seconds=_build.build_all()))
+    emit(dict(phase="build", seconds=_build.build_all(), ptxas=_build.ptxas_summary()))
 
     rng = np.random.default_rng(args.seed)
     rows = kernel_phase(rng, dev, args.seed, fa, norms, da, dl)
@@ -1420,11 +1782,19 @@ def main() -> int:
     rows += gemm_rows(dev, args.seed, fm, lq, qm)
     emit(dict(phase="kernels", checked=[r["name"] for r in rows]))
     variant_phase(rng, dev, args.seed, fa, norms, da, dl, pa, dps, fm, lq, qm)
-    launches = generate_phase(dev, args.seed, fa, norms, da, dl)
-    scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, decode_stack="scan")
+    launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm)
+    scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, decode_stack="scan")
+    int8_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, int8=True)
+    int8_scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm,
+                                        decode_stack="scan", int8=True)
     wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack,
                 pa.paged_attention, dps.decode_paged_stack)
-    served = engine_phase(dev, args.seed, wrappers, generate_tok_s(dev, args.seed))
+    gen_tok_s = generate_tok_s(dev, args.seed)
+    served = engine_phase(dev, args.seed, wrappers, gen_tok_s)
+    served8 = engine_phase(dev, args.seed, wrappers + (fa.flash_attention_kvq, qm.quant_matmul),
+                           gen_tok_s, int8=True)
+    if served8["mega"]["paged_attention"]:
+        raise AssertionError("engine_int8: K7 launched on the K8 path")
     ran = runner_phase(dev, args.seed, wrappers + (fm.fused_mlp, lq.fused_norm_matmul,
                                                    qm.quant_matmul), (fa, norms, da, fm, lq, qm))
     # K5's three instances by the configurations that run them (one wrapper
@@ -1436,11 +1806,25 @@ def main() -> int:
             r["launches"] = sum(ran[c]["quant_matmul"] for c in k5[r["name"]])
         elif r["name"] in ("fused_mlp", "fused_norm_matmul"):
             r["launches"] = sum(c[r["name"]] for c in ran.values())
+        elif r["name"] == "flash_attention_kvq":  # the README quick start's prefill
+            r["launches"] = int8_launches[r["name"]]
         else:
             r["launches"] = (launches.get(r["name"]) or scan_launches.get(r["name"])
                              or served["mega"][r["name"]] or served["perop"][r["name"]])
         if not r["launches"]:
             raise AssertionError(f"{r['name']}: no launch on the path that runs it")
+    # the int8 instances' launches on the quick start's paths: K4 in its
+    # decode, K3 in its scan decode, K8 in the engine with int8 weights
+    by_name = {r["name"]: r for r in rows}
+    for entry, count in ((by_name["decode_layer_stack"]["int8"]["gpt2_w8kv8"],
+                          int8_launches["decode_layer_stack"]),
+                         (by_name["decode_attention"]["int8"],
+                          int8_scan_launches["decode_attention"]),
+                         (by_name["decode_paged_stack"]["int8_weights"],
+                          served8["mega"]["decode_paged_stack"])):
+        entry["launches"] = count
+        if not count:
+            raise AssertionError(f"{entry['shape']}: no launch on the path that runs it")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -50,6 +52,36 @@ __device__ __forceinline__ void store_vec(T* p, const float (&in)[Vec16<T>::N]) 
 #pragma unroll
   for (int i = 0; i < Vec16<T>::N; ++i) e[i] = from_f32<T>(in[i]);
   *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Eight int8 values (one 8-byte load, element j in byte j % 4 of word j / 4)
+// sign-extended to fp32 in registers.
+__device__ __forceinline__ void unpack_i8x8(const uint2& raw, float (&out)[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[j] = static_cast<float>(static_cast<int>(raw.x << (24 - 8 * j)) >> 24);
+    out[4 + j] = static_cast<float>(static_cast<int>(raw.y << (24 - 8 * j)) >> 24);
+  }
+}
+
+// 8 elements of a K/V cache row, the unit a lane loads: 16 bytes of a 16-bit
+// type or 8 bytes of int8 (one 8-byte load of int8 covers the same 8
+// elements as a bf16 cache's 16-byte load, so lane layouts stay the same).
+template <typename E>
+using Raw8 = std::conditional_t<std::is_same<E, int8_t>::value, uint2, uint4>;
+
+template <typename E>
+__device__ __forceinline__ void unpack8(const Raw8<E>& raw, float (&out)[8]) {
+  if constexpr (std::is_same<E, int8_t>::value) unpack_i8x8(raw, out);
+  else unpack_vec<E>(raw, out);
+}
+
+template <typename E>
+__device__ __forceinline__ Raw8<E> zero8() {
+  Raw8<E> r;
+  if constexpr (std::is_same<E, int8_t>::value) r = make_uint2(0, 0);
+  else r = make_uint4(0, 0, 0, 0);
+  return r;
 }
 
 // Message for an error code the C entry points return.

@@ -12,7 +12,12 @@
 // K7; this source gives the contiguous cache's rows. Rounding follows
 // _decode_kernel: with G == 1 everything stays fp32; with G > 1 the scaled
 // query and the probabilities are rounded to the cache's dtype before their
-// products, as its MXU path does.
+// products, as its MXU path does. An INT8 cache (int8 rows, fp32 scales
+// [L, B, Smax, Hkv]) takes the int8 instances: the K scale on the fp32 score,
+// the V scale on the probability; with G > 1 the scaled query and the scaled
+// probabilities are rounded to bf16, as _decode_kernel's kv_quant path.
+// Bound at GPT-2 small, B = 8, context 896: 11.0 MB of int8 K/V and 0.69 MB
+// of scales a layer, 3.5 us at 3.35 TB/s (bf16: 6.6 us).
 #include "decode_attn.cuh"
 
 namespace {
@@ -28,13 +33,16 @@ struct ContiguousRows {
 
 }  // namespace
 
-// q, out: [B, Hkv * G, D] bf16; k_cache, v_cache: [L, B, Smax, Hkv, D] bf16;
+// q, out: [B, Hkv * G, D] bf16; k_cache, v_cache: [L, B, Smax, Hkv, D] bf16,
+// or int8 with fp32 k_scale, v_scale [L, B, Smax, Hkv] (null for bf16);
 // ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}.
 extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* v_cache,
-                                const int* ctx, void* out, int B, int Smax, int Hkv,
-                                int G, int D, int layer, float scale, void* stream) {
+                                const float* k_scale, const float* v_scale, const int* ctx,
+                                void* out, int B, int Smax, int Hkv, int G, int D, int layer,
+                                float scale, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   const ContiguousRows rows{B, Smax, Hkv, D, layer};
-  return decode_attn::launch<__nv_bfloat16, true>(q, k_cache, v_cache, ctx, out, B, Hkv, G, D,
-                                                  rows, scale, static_cast<cudaStream_t>(stream));
+  return decode_attn::launch<__nv_bfloat16, true>(q, k_cache, v_cache, k_scale, v_scale, ctx,
+                                                  out, B, Hkv, G, D, rows, scale,
+                                                  static_cast<cudaStream_t>(stream));
 }

@@ -24,6 +24,15 @@
 // Rounding: with kRoundGrouped and G > 1 the scaled query and the
 // probabilities are rounded to T before their products (K3, as the MXU path
 // of _decode_kernel); otherwise everything stays fp32 (K3 at G == 1, K7).
+//
+// INT8 caches (TC = int8_t): each slot row of a kv head carries an fp32
+// scale at element offset / D of the [.., Hkv] scale array beside the
+// cache. A lane reads its 8 int8 values with one 8-byte load (the bf16
+// cache's 16-byte load covers the same 8 elements, so the lane layout is
+// the same), the K scale multiplies the fp32 score after the dot and the V
+// scale the probability before the PV product, while l sums the unscaled
+// probabilities: the fused dequant of _decode_kernel's kv_quant path. At
+// half the bytes a slot, the bound halves.
 #pragma once
 
 #include "common.cuh"
@@ -38,16 +47,20 @@ constexpr int kUnroll = 4;
 
 // Rows policy: count(b, ctx) is the number of valid slots of sequence b;
 // offset(b, hk, t) the element offset of slot t's row of kv head hk.
-template <typename T, int D, int G, bool kRoundGrouped, class Rows>
+// ks, vs: the INT8 cache's scales (TC = int8_t), else null.
+template <typename T, typename TC, int D, int G, bool kRoundGrouped, class Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
+              const float* __restrict__ ks, const float* __restrict__ vs,
               const int* __restrict__ ctx, T* __restrict__ out, Rows rows, int Hkv,
               float scale) {
-  constexpr int V = Vec16<T>::N;
+  constexpr int V = 8;                // elements a lane holds of a row
   constexpr int LPT = D / V;          // lanes per token row
   constexpr int TPI = 32 / LPT;       // tokens per warp step
   constexpr int STEP = kWarps * TPI;  // tokens per block step
   constexpr bool kRound = kRoundGrouped && G > 1;
+  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
+  static_assert(Vec16<T>::N == V, "q is a 16-bit type");
   static_assert(LPT <= 32 && 32 % LPT == 0, "head_dim must fit one warp");
 
   __shared__ float sm_m[kWarps][G];
@@ -83,29 +96,35 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     for (int i = 0; i < V; ++i) acc[g][i] = 0.f;
   }
 
-  const T* kp = kc + sub * V;
-  const T* vp = vc + sub * V;
+  const TC* kp = kc + sub * V;
+  const TC* vp = vc + sub * V;
 
   for (int t0 = warp * TPI; t0 < n; t0 += STEP * kUnroll) {
-    uint4 kraw[kUnroll], vraw[kUnroll];
+    Raw8<TC> kraw[kUnroll], vraw[kUnroll];
+    float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u * STEP + grp;
+      ksc[u] = vsc[u] = 1.f;
       if (t < n) {
         const size_t off = rows.offset(b, hk, t);
-        kraw[u] = *reinterpret_cast<const uint4*>(kp + off);
-        vraw[u] = *reinterpret_cast<const uint4*>(vp + off);
+        kraw[u] = *reinterpret_cast<const Raw8<TC>*>(kp + off);
+        vraw[u] = *reinterpret_cast<const Raw8<TC>*>(vp + off);
+        if (kQuant) {
+          ksc[u] = ks[off / D];
+          vsc[u] = vs[off / D];
+        }
       } else {
-        kraw[u] = make_uint4(0, 0, 0, 0);
-        vraw[u] = make_uint4(0, 0, 0, 0);
+        kraw[u] = zero8<TC>();
+        vraw[u] = zero8<TC>();
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool valid = t0 + u * STEP + grp < n;
       float kv[V], vv[V];
-      unpack_vec<T>(kraw[u], kv);
-      unpack_vec<T>(vraw[u], vv);
+      unpack8<TC>(kraw[u], kv);
+      unpack8<TC>(vraw[u], vv);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -114,12 +133,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
         // every lane takes part in the shuffles; invalid slots are dropped below
 #pragma unroll
         for (int o = LPT / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (kQuant) s *= ksc[u];
         if (valid) {
           const float m_new = fmaxf(m[g], s);
           const float alpha = (m[g] == -INFINITY) ? 0.f : expf(m[g] - m_new);
           const float p = expf(s - m_new);
           l[g] = l[g] * alpha + p;
-          const float pv = kRound ? round_to<T>(p) : p;
+          const float pq = kQuant ? p * vsc[u] : p;
+          const float pv = kRound ? round_to<T>(pq) : pq;
 #pragma unroll
           for (int i = 0; i < V; ++i) acc[g][i] = acc[g][i] * alpha + pv * vv[i];
           m[g] = m_new;
@@ -176,19 +197,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 }
 
 // One launch of B * Hkv blocks, the instance picked by (D, G).
-template <typename T, bool kRoundGrouped, class Rows>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* ctx, void* out,
-                   int B, int Hkv, int G, int D, const Rows& rows, float scale,
-                   cudaStream_t s) {
+template <typename T, typename TC, bool kRoundGrouped, class Rows>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
+                      const Rows& rows, float scale, cudaStream_t s) {
   const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
+  const TC* kp = static_cast<const TC*>(k);
+  const TC* vp = static_cast<const TC*>(v);
   T* op = static_cast<T*>(out);
   const dim3 grid(B * Hkv);
 #define MLIO_DECODE_ATTN_CASE(DD, GG)                                                 \
   if (D == DD && G == GG) {                                                           \
-    decode_kernel<T, DD, GG, kRoundGrouped, Rows>                                     \
-        <<<grid, kThreads, 0, s>>>(qp, kp, vp, ctx, op, rows, Hkv, scale);            \
+    decode_kernel<T, TC, DD, GG, kRoundGrouped, Rows>                                 \
+        <<<grid, kThreads, 0, s>>>(qp, kp, vp, ks, vs, ctx, op, rows, Hkv, scale);    \
     return cudaGetLastError();                                                        \
   }
   MLIO_DECODE_ATTN_CASE(64, 1) MLIO_DECODE_ATTN_CASE(64, 2)
@@ -197,6 +218,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* ctx, 
   MLIO_DECODE_ATTN_CASE(128, 4) MLIO_DECODE_ATTN_CASE(128, 8)
 #undef MLIO_DECODE_ATTN_CASE
   return cudaErrorInvalidValue;
+}
+
+// The bf16 cache's instances, or with scales (ks != null) the int8 cache's.
+template <typename T, bool kRoundGrouped, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
+                   const Rows& rows, float scale, cudaStream_t s) {
+  if (ks != nullptr)
+    return launch_tc<T, int8_t, kRoundGrouped, Rows>(q, k, v, ks, vs, ctx, out, B, Hkv, G, D,
+                                                     rows, scale, s);
+  return launch_tc<T, T, kRoundGrouped, Rows>(q, k, v, nullptr, nullptr, ctx, out, B, Hkv, G,
+                                              D, rows, scale, s);
 }
 
 }  // namespace decode_attn

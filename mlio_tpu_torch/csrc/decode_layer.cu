@@ -52,7 +52,17 @@
 // source gives the contiguous cache: slot pos + s of [layer, b] for every
 // sequence, the RoPE row of step s.
 //
-// Limits: bf16 only; B <= 8 (the register accumulators); H <= 8192 (the
+// INT8 (the quantization slice, as the JAX kernel's int8 paths): int8
+// weights stream at one byte an element, widened in registers, each column's
+// fp32 scale applied to the finished sum before the bias; an INT8 cache
+// (ContiguousCache<true>) is read as 8-byte rows with fp32 scales fused into
+// the score and the probability, and the current token's K/V are quantized
+// in the kernel exactly as quantize_kv does (decode_stack.cuh). Bound at the
+// shapes above: int8 weights and INT8 KV 303 MB, 0.090 ms (85 MB of int8
+// weights, the 77 MB bf16 lm_head, 132 MB of int8 K/V, 8 MB of scales); int8
+// weights alone 0.127 ms; INT8 KV alone 0.116 ms.
+//
+// Limits: bf16 activations; B <= 8 (the register accumulators); H <= 8192 (the
 // epilogue keeps [8, H] bf16 in shared memory); head dim 64 or 128 and
 // groups 1, 2, 4, 8 (template instances); every width a multiple of 8. The
 // wrapper raises on anything else. GEMVs use CUDA-core FMAs.
@@ -67,7 +77,11 @@
 namespace {
 
 // Slot pos + s of sequence b in the [L, B, Smax, Hkv, D] cache; RoPE row s.
+// kQ: an INT8 cache with fp32 scales [L, B, Smax, Hkv].
+template <bool kQ>
 struct ContiguousCache {
+  using Elem = std::conditional_t<kQ, int8_t, bf16>;
+  static constexpr bool kQuant = kQ;
   static constexpr bool kPaged = false;
   static constexpr bool kLogits = false;
   __device__ static int slot(const StackParams& p, int, int s) { return p.pos + s; }
@@ -80,10 +94,13 @@ struct ContiguousCache {
 
 }  // namespace
 
+// A bf16 cache, or an INT8 one where p->k_scale is set.
 extern "C" int mlio_decode_stack_plan(StackParams* p, long long* work_floats, int* sync_ints) {
-  return stack_plan<ContiguousCache>(p, work_floats, sync_ints);
+  return p->k_scale != nullptr ? stack_plan<ContiguousCache<true>>(p, work_floats, sync_ints)
+                               : stack_plan<ContiguousCache<false>>(p, work_floats, sync_ints);
 }
 
 extern "C" int mlio_decode_stack(const StackParams* p, void* stream) {
-  return stack_launch<ContiguousCache>(p, stream);
+  return p->k_scale != nullptr ? stack_launch<ContiguousCache<true>>(p, stream)
+                               : stack_launch<ContiguousCache<false>>(p, stream);
 }

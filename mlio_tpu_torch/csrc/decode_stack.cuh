@@ -10,8 +10,17 @@
 //   row(p, layer, b, t)  element offset of slot t's [Hkv * D] K/V row;
 //   rope_row(b, s)       the row of the [*, rope_dim] cos/sin tables;
 //   kPaged               row() reads a table (else it is base + t * row);
-//   kLogits              the epilogue may write the logits (p.logits).
+//   kLogits              the epilogue may write the logits (p.logits);
+//   Elem, kQuant         the cache's element type: bf16, or int8 with fp32
+//                        scales (p.k_scale, p.v_scale) at row() / D + head.
 // The kernel, its bound and its design are described in decode_layer.cu.
+//
+// INT8 weights are a runtime branch taken once per GEMV item: a weight whose
+// scale pointer is set is int8 [L, in, out], read 8 columns a thread with
+// 8-byte loads (the bf16 weight's 16-byte loads cover the same 8 columns,
+// so the tiles, items, counters and the fixed-order finisher are the same)
+// and widened in registers; the column's fp32 scale multiplies the finished
+// sum before the bias or activation, as the JAX kernel's _mm does.
 #pragma once
 
 #include "common.cuh"
@@ -40,10 +49,27 @@ constexpr int kUnroll = 4;        // loads in flight: GEMV rows, attention token
 struct StackParams {
   const bf16* x;
   bf16* x_out;
-  bf16* k_cache;  // K8: the k pool
-  bf16* v_cache;  // K8: the v pool
-  const bf16 *ln1_scale, *ln1_bias, *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo;
-  const bf16 *ln2_scale, *ln2_bias, *w_up, *b_up, *w_gate, *b_gate, *w_down, *b_down;
+  void* k_cache;  // Cache::Elem; K8: the k pool
+  void* v_cache;  // Cache::Elem; K8: the v pool
+  // weights: bf16, or int8 where the scale (sq .. s_down below) is set
+  const bf16* ln1_scale;
+  const bf16* ln1_bias;
+  const void* wq;
+  const bf16* bq;
+  const void* wk;
+  const bf16* bk;
+  const void* wv;
+  const bf16* bv;
+  const void* wo;
+  const bf16* bo;
+  const bf16* ln2_scale;
+  const bf16* ln2_bias;
+  const void* w_up;
+  const bf16* b_up;
+  const void* w_gate;
+  const bf16* b_gate;
+  const void* w_down;
+  const bf16* b_down;
   const float *cos, *sin;
   const bf16 *pos_embed, *final_scale, *final_bias, *lm_head, *lm_bias;
   int* tokens;   // optional with the epilogue: the greedy tokens
@@ -53,6 +79,9 @@ struct StackParams {
   const int* tables;  // K8: [B, max_blocks] block tables
   const int* ctx;     // K8: [B] past tokens of each sequence
   float* logits;      // optional with the epilogue: the fp32 [B, V] logits
+  // int8 weights' per-output-channel scales [L, out] (null: a bf16 weight)
+  const float *sq, *sk, *sv, *so, *s_up, *s_gate, *s_down;
+  float *k_scale, *v_scale;  // INT8 cache: [L, B, Smax, Hkv] scales
   int B, H, Hq, Hkv, D, I, L, Smax, pos, steps, rope_dim, rmsnorm, activation, epilogue,
       lm_vmajor, V, nblocks, smem, bs, max_blocks, num_blocks;
   float eps, scale, embed_scale;
@@ -64,7 +93,8 @@ namespace {
 // Items are (tile, K-chunk); ``paired`` (up and gate) finishes a column tile
 // of both weights together.
 struct Gemv {
-  const bf16* w[3];
+  const void* w[3];      // bf16, or int8 where wscale is set
+  const float* wscale[3];
   const bf16* bias[3];
   int n[3], tiles[3];
   int nm, K, T, KS, KC;
@@ -254,9 +284,22 @@ __device__ __forceinline__ void fma_row(float (&acc)[kMaxB][8], const uint4& raw
   }
 }
 
+__device__ __forceinline__ void fma_row_i8(float (&acc)[kMaxB][8], const uint2& raw,
+                                           const float* s_act, int r) {
+  float w[8];
+  unpack_i8x8(raw, w);
+#pragma unroll
+  for (int b = 0; b < kMaxB; ++b) {
+    const float a = s_act[b * kMaxChunk + r];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[b][i] = fmaf(a, w[i], acc[b][i]);
+  }
+}
+
 // One projection phase. stage(b, k) gives input element [b, k] (already
 // rounded to bf16); fin(m, b, col, sum, sum_gate) consumes the finished
-// fp32 sum of column col of weight m (paired: of both weights).
+// fp32 sum of column col of weight m (paired: of both weights), an int8
+// weight's scale already applied.
 template <class Stage, class Fin>
 __device__ void gemv_phase(const Gemv& g, int B, float* part, unsigned* counters,
                            unsigned char* smem, Stage stage, Fin fin) {
@@ -288,8 +331,23 @@ __device__ void gemv_phase(const Gemv& g, int B, float* part, unsigned* counters
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[b][i] = 0.f;
     const int col = tt * kTile + cg * 8;
-    if (col < N) {
-      const bf16* wp = g.w[m] + static_cast<size_t>(k0) * N + col;
+    if (col < N && g.wscale[m] != nullptr) {  // int8 rows, 8 bytes a thread
+      const int8_t* wp = static_cast<const int8_t*>(g.w[m]) + static_cast<size_t>(k0) * N + col;
+      int r = rg;
+      for (; r + (kUnroll - 1) * kRowGroups < kn; r += kUnroll * kRowGroups) {
+        uint2 raw[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          raw[u] = __ldg(reinterpret_cast<const uint2*>(
+              wp + static_cast<size_t>(r + u * kRowGroups) * N));
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) fma_row_i8(acc, raw[u], s_act, r + u * kRowGroups);
+      }
+      for (; r < kn; r += kRowGroups)
+        fma_row_i8(acc, __ldg(reinterpret_cast<const uint2*>(wp + static_cast<size_t>(r) * N)),
+                   s_act, r);
+    } else if (col < N) {
+      const bf16* wp = static_cast<const bf16*>(g.w[m]) + static_cast<size_t>(k0) * N + col;
       int r = rg;
       for (; r + (kUnroll - 1) * kRowGroups < kn; r += kUnroll * kRowGroups) {
         uint4 raw[kUnroll];
@@ -337,6 +395,8 @@ __device__ void gemv_phase(const Gemv& g, int B, float* part, unsigned* counters
     const int tu = g.paired ? tt : t, tg = tt + g.tiles[0];
     const float* pu = part + static_cast<size_t>(tu) * g.KS * item_floats;
     const float* pg = part + static_cast<size_t>(tg) * g.KS * item_floats;
+    const float* su_scale = g.wscale[g.paired ? 0 : m];
+    const float* sg_scale = g.paired ? g.wscale[1] : nullptr;
 #pragma unroll
     for (int q = 0; q < kOut; ++q) {
       const int o = threadIdx.x + q * kThreads, b = o / kTile, c = tt * kTile + o % kTile;
@@ -360,34 +420,73 @@ __device__ void gemv_phase(const Gemv& g, int B, float* part, unsigned* counters
         su += __ldcg(pu + jj * item_floats + o);
         if (g.paired) sg += __ldcg(pg + jj * item_floats + o);
       }
+      if (su_scale != nullptr) su *= su_scale[c];
+      if (sg_scale != nullptr) sg *= sg_scale[c];
       fin(g.paired ? 0 : m, b, c, su, sg);
     }
   }
+}
+
+// Layer l's [in, out] weight (bf16, or int8 with its [out] scales) in slot m
+// of a phase's descriptor.
+__device__ __forceinline__ void set_weight(Gemv& g, int m, const void* w, const float* s,
+                                           int l, size_t in, size_t out) {
+  const size_t bytes = s != nullptr ? 1 : sizeof(bf16);
+  g.w[m] = static_cast<const char*>(w) + l * in * out * bytes;
+  g.wscale[m] = s != nullptr ? s + l * out : nullptr;
 }
 
 // Layer l's weights in the phases' descriptors (and the QKV biases).
 __device__ void set_layer(Phases& ph, const StackParams& p, int l) {
   const size_t H = p.H, I = p.I, Qd = static_cast<size_t>(p.Hq) * p.D,
                KVd = static_cast<size_t>(p.Hkv) * p.D;
-  ph.qkv.w[0] = p.wq + l * H * Qd;
-  ph.qkv.w[1] = p.wk + l * H * KVd;
-  ph.qkv.w[2] = p.wv + l * H * KVd;
+  set_weight(ph.qkv, 0, p.wq, p.sq, l, H, Qd);
+  set_weight(ph.qkv, 1, p.wk, p.sk, l, H, KVd);
+  set_weight(ph.qkv, 2, p.wv, p.sv, l, H, KVd);
   ph.qkv.bias[0] = p.bq != nullptr ? p.bq + l * Qd : nullptr;
   ph.qkv.bias[1] = p.bk != nullptr ? p.bk + l * KVd : nullptr;
   ph.qkv.bias[2] = p.bv != nullptr ? p.bv + l * KVd : nullptr;
-  ph.o.w[0] = p.wo + l * Qd * H;
-  ph.up.w[0] = p.w_up + l * H * I;
-  ph.up.w[1] = ph.up.paired ? p.w_gate + l * H * I : nullptr;
-  ph.down.w[0] = p.w_down + l * I * H;
+  set_weight(ph.o, 0, p.wo, p.so, l, Qd, H);
+  set_weight(ph.up, 0, p.w_up, p.s_up, l, H, I);
+  if (ph.up.paired) set_weight(ph.up, 1, p.w_gate, p.s_gate, l, H, I);
+  set_weight(ph.down, 0, p.w_down, p.s_down, l, I, H);
+}
+
+// The INT8 cache's write of the current token: warp 0 quantizes the K row of
+// D fp32 values in s_kv, warp 1 the V row, as quantize_kv does (scale =
+// amax / 127, or 1 where amax is 0; round half to even of a true division;
+// clip to +-127), and stores the int8 row at element offset `cur` and its
+// scale at cur / D.
+template <int D>
+__device__ void quantize_current(const StackParams& p, const float* s_kv, size_t cur) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 2) return;
+  const float* x = s_kv + warp * D;
+  float amax = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(x[d]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = amax == 0.f ? 1.f : amax / 127.f;
+  int8_t* row = static_cast<int8_t*>(warp == 0 ? p.k_cache : p.v_cache) + cur;
+#pragma unroll
+  for (int d = lane; d < D; d += 32)
+    row[d] = static_cast<int8_t>(fminf(fmaxf(rintf(x[d] / sc), -127.f), 127.f));
+  if (lane == 0) (warp == 0 ? p.k_scale : p.v_scale)[cur / D] = sc;
 }
 
 // Phase 2 of a layer: RoPE, the cache write of each sequence's slot and
 // attention over slots [0, slot], one item per (sequence, KV head) as K3,
-// with K4's rounding.
+// with K4's rounding. An INT8 cache (Cache::kQuant) gets the current token
+// quantized in the kernel and is read with its scales fused into the score
+// (K scale) and the probability (V scale; l sums the unscaled ones), the
+// probabilities fp32 throughout.
 template <int D, int G, class Cache>
 __device__ void attention_phase(const StackParams& p, const Layout& lo, int layer, int s,
                                 unsigned char* smem) {
-  constexpr int V = Vec16<bf16>::N;
+  using E = typename Cache::Elem;
+  constexpr bool kQuant = Cache::kQuant;
+  constexpr int V = 8;                // elements a lane holds of a row
   constexpr int LPT = D / V;          // lanes per token row
   constexpr int TPI = 32 / LPT;       // tokens per warp step
   constexpr int STEP = kWarps * TPI;  // tokens per block step
@@ -396,6 +495,9 @@ __device__ void attention_phase(const StackParams& p, const Layout& lo, int laye
   float* sm_m = s_q + G * D;                      // [kWarps][G]
   float* sm_l = sm_m + kWarps * G;                // [kWarps][G]
   float* sm_acc = sm_l + kWarps * G;              // [kWarps][G][D]
+  float* s_kv = sm_acc + kWarps * G * D;          // [2][D]: the INT8 cache's k, v
+  E* const k_cache = static_cast<E*>(p.k_cache);
+  E* const v_cache = static_cast<E*>(p.v_cache);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPT, sub = lane % LPT;
   const int Qd = p.Hq * D, KVd = p.Hkv * D, W = Qd + 2 * KVd;
@@ -425,8 +527,12 @@ __device__ void attention_phase(const StackParams& p, const Layout& lo, int laye
       }
       if (r < G) s_q[e] = round_to<bf16>(val * p.scale);
       else if (slot >= cap) continue;  // a slot past the table is never written
-      else if (r == G) p.k_cache[cur + d] = from_f32<bf16>(val);
-      else p.v_cache[cur + d] = from_f32<bf16>(val);
+      else if constexpr (kQuant) s_kv[(r - G) * D + d] = val;
+      else (r == G ? k_cache : v_cache)[cur + d] = from_f32<E>(val);
+    }
+    if (kQuant && slot < cap) {
+      __syncthreads();
+      quantize_current<D>(p, s_kv, cur);
     }
     __syncthreads();  // the slot just written is visible to the whole block
 
@@ -441,31 +547,37 @@ __device__ void attention_phase(const StackParams& p, const Layout& lo, int laye
       m[g] = -INFINITY;
       l[g] = 0.f;
     }
-    const bf16* kp = p.k_cache + hk * D + sub * V;
-    const bf16* vp = p.v_cache + hk * D + sub * V;
+    const E* kp = k_cache + hk * D + sub * V;
+    const E* vp = v_cache + hk * D + sub * V;
     // contiguous slots: one base and a stride; paged: the table per slot
     const size_t base = Cache::kPaged ? 0 : Cache::row(p, layer, b, 0);
     for (int t0 = warp * TPI; t0 < n; t0 += STEP * kUnroll) {
-      uint4 kraw[kUnroll], vraw[kUnroll];
+      Raw8<E> kraw[kUnroll], vraw[kUnroll];
+      float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * STEP + grp;
+        ksc[u] = vsc[u] = 1.f;
         if (t < n) {
           const size_t off = Cache::kPaged ? Cache::row(p, layer, b, t)
                                            : base + static_cast<size_t>(t) * KVd;
-          kraw[u] = __ldcg(reinterpret_cast<const uint4*>(kp + off));
-          vraw[u] = __ldcg(reinterpret_cast<const uint4*>(vp + off));
+          kraw[u] = __ldcg(reinterpret_cast<const Raw8<E>*>(kp + off));
+          vraw[u] = __ldcg(reinterpret_cast<const Raw8<E>*>(vp + off));
+          if (kQuant) {
+            ksc[u] = __ldcg(p.k_scale + off / D + hk);
+            vsc[u] = __ldcg(p.v_scale + off / D + hk);
+          }
         } else {
-          kraw[u] = make_uint4(0, 0, 0, 0);
-          vraw[u] = make_uint4(0, 0, 0, 0);
+          kraw[u] = zero8<E>();
+          vraw[u] = zero8<E>();
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const bool valid = t0 + u * STEP + grp < n;
         float kv[V], vv[V];
-        unpack_vec<bf16>(kraw[u], kv);
-        unpack_vec<bf16>(vraw[u], vv);
+        unpack8<E>(kraw[u], kv);
+        unpack8<E>(vraw[u], vv);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float sc = 0.f;
@@ -473,6 +585,7 @@ __device__ void attention_phase(const StackParams& p, const Layout& lo, int laye
           for (int i = 0; i < V; ++i) sc += qf[g][i] * kv[i];
 #pragma unroll
           for (int o = LPT / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
+          if (kQuant) sc *= ksc[u];
           if (valid) {
             const float m_new = fmaxf(m[g], sc);
             const float alpha = (m[g] == -INFINITY) ? 0.f : expf(m[g] - m_new);
@@ -481,8 +594,9 @@ __device__ void attention_phase(const StackParams& p, const Layout& lo, int laye
             // p stays fp32 for PV (the TPU kernel rounds it to bf16 for its
             // MXU; against a running max that rounding is noise of the
             // order of the check's limit, see decode_layer.py)
+            const float pv = kQuant ? pr * vsc[u] : pr;
 #pragma unroll
-            for (int i = 0; i < V; ++i) acc[g][i] = acc[g][i] * alpha + pr * vv[i];
+            for (int i = 0; i < V; ++i) acc[g][i] = acc[g][i] * alpha + pv * vv[i];
             m[g] = m_new;
           }
         }
@@ -843,7 +957,8 @@ const void* pick(int D, int G) {
 
 int smem_bytes(const StackParams& p, int G) {
   const size_t gemv = (kMaxB * kMaxChunk + kRowGroups * kMaxB * kTile) * sizeof(float);
-  const size_t att = ((G + 2) * p.D + G * p.D + 2 * kWarps * G + kWarps * G * p.D) * sizeof(float);
+  const size_t att =
+      ((G + 2) * p.D + G * p.D + 2 * kWarps * G + kWarps * G * p.D + 2 * p.D) * sizeof(float);
   const size_t epi = p.epilogue ? up64(kMaxB * static_cast<size_t>(p.H) * 2) + kWarps * kMaxB * 8 : 0;
   size_t m = gemv > att ? gemv : att;
   m = m > epi ? m : epi;

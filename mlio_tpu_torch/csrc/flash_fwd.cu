@@ -26,6 +26,20 @@
 //
 // A simple kernel that is right: wgmma, TMA and a pipelined K/V ring are
 // later work.
+//
+// K9, the same kernel over an INT8 cache (TK = int8_t), replaces
+// mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq: k/v are int8
+// [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv] per (token, head). An int8
+// value widens to bf16 exactly (|v| <= 127 fits bf16's 8-bit significand),
+// so the K/V tiles widen on their way into shared memory and both products
+// stay bf16 WMMA with fp32 accumulation; the tile's scales are staged beside
+// them. As in the TPU kernel the dequant is fused: the K scale multiplies
+// the fp32 score column after the QK product, the V scale multiplies p
+// before p is rounded to bf16 for the PV product, and the row sum l adds the
+// unscaled fp32 p. Nothing is padded or copied. Bound at GPT-2 small's
+// prefill (8 x 704 queries, 704 valid int8 K/V rows of 12 heads): 26.5 MB of
+// q, out, K/V and scales, 7.9 us at 3.35 TB/s, and 6.09 GFLOP, 6.2 us at 989
+// TFLOP/s: bytes, by a little (K1's bf16 bound is 10.3 us).
 #include "common.cuh"
 
 #include <math.h>
@@ -57,12 +71,27 @@ struct Layout {
   static constexpr size_t kBytes = kO + size_t(BQ) * LDO * 4;
 };
 
-template <typename T, int D>
+// Eight int8 values (an 8-byte load) widened to T, as one 16-byte vector.
+template <typename T>
+__device__ __forceinline__ uint4 widen_i8(const uint2 raw) {
+  float f[8];
+  unpack_i8x8(raw, f);
+  uint4 out;
+  T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = from_f32<T>(f[i]);
+  return out;
+}
+
+// TK: the K/V element type, T (K1) or int8_t with fp32 scales ks, vs (K9).
+template <typename T, typename TK, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_fwd_kernel(const T* __restrict__ q, const TK* __restrict__ k, const TK* __restrict__ v,
+                 const float* __restrict__ ks, const float* __restrict__ vs,
                  T* __restrict__ out, const int* __restrict__ kv_len_arr, int kv_len_scalar,
                  int Sq, int Skv, int Hq, int Hkv, int q_offset, float scale, int causal) {
   using L = Layout<D>;
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
   constexpr int V8 = 8;        // 16-bit elements per 16-byte vector
   constexpr int CPR = D / V8;  // vectors per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -72,6 +101,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* sS = reinterpret_cast<float*>(smem + L::kS);
   T* sP = reinterpret_cast<T*>(smem + L::kP);
   float* sO = reinterpret_cast<float*>(smem + L::kO);
+  __shared__ float sKs[BKV], sVs[BKV];  // the tile's K/V scales (K9)
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y;
@@ -128,11 +158,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
       if (t < kvl) {
         const size_t off = (static_cast<size_t>(b) * Skv + t) * kv_row + hk * D + cc * V8;
-        kraw = *reinterpret_cast<const uint4*>(k + off);
-        vraw = *reinterpret_cast<const uint4*>(v + off);
+        if constexpr (kQuant) {
+          kraw = widen_i8<T>(*reinterpret_cast<const uint2*>(k + off));
+          vraw = widen_i8<T>(*reinterpret_cast<const uint2*>(v + off));
+        } else {
+          kraw = *reinterpret_cast<const uint4*>(k + off);
+          vraw = *reinterpret_cast<const uint4*>(v + off);
+        }
       }
       *reinterpret_cast<uint4*>(sK + rr * L::LDH + cc * V8) = kraw;
       *reinterpret_cast<uint4*>(sV + rr * L::LDH + cc * V8) = vraw;
+    }
+    if (kQuant && tid < BKV) {
+      const int t = kv0 + tid;
+      const size_t si = (static_cast<size_t>(b) * Skv + t) * Hkv + hk;
+      sKs[tid] = t < kvl ? ks[si] : 0.f;
+      sVs[tid] = t < kvl ? vs[si] : 0.f;
     }
     __syncthreads();
 
@@ -159,7 +200,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < BKV / 2; ++c) {
       const int col_abs = kv0 + half * (BKV / 2) + c;
       const bool ok = col_abs < kvl && (!causal || row_abs >= col_abs);
-      s_loc[c] = ok ? srow[c] : -INFINITY;
+      const float sc = kQuant ? srow[c] * sKs[half * (BKV / 2) + c] : srow[c];
+      s_loc[c] = ok ? sc : -INFINITY;
       tmax = fmaxf(tmax, s_loc[c]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -172,7 +214,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < BKV / 2; ++c) {
       const float p = (s_loc[c] == -INFINITY) ? 0.f : expf(s_loc[c] - m_safe);
       psum += p;
-      prow[c] = from_f32<T>(p);
+      prow[c] = from_f32<T>(kQuant ? p * sVs[half * (BKV / 2) + c] : p);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l = l * alpha + psum;
@@ -215,33 +257,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, const int* kv_len,
-                     int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv, int q_offset,
-                     float scale, int causal, cudaStream_t s) {
+template <typename T, typename TK, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const float* ks,
+                     const float* vs, void* out, const int* kv_len, int kv_len_scalar, int B,
+                     int Sq, int Skv, int Hq, int Hkv, int q_offset, float scale, int causal,
+                     cudaStream_t s) {
   constexpr size_t smem = Layout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, TK, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_fwd_kernel<T, TK, D><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const TK*>(k), static_cast<const TK*>(v), ks, vs,
       static_cast<T*>(out), kv_len, kv_len_scalar, Sq, Skv, Hq, Hkv, q_offset, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, const int* kv_len,
-                   int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                   int q_offset, float scale, int causal, cudaStream_t s) {
+template <typename T, typename TK>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, void* out, const int* kv_len, int kv_len_scalar, int B,
+                   int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, float scale,
+                   int causal, cudaStream_t s) {
   switch (D) {
     case 64:
-      return launch_d<T, 64>(q, k, v, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
-                             q_offset, scale, causal, s);
+      return launch_d<T, TK, 64>(q, k, v, ks, vs, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
+                                 Hkv, q_offset, scale, causal, s);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
-                              q_offset, scale, causal, s);
+      return launch_d<T, TK, 128>(q, k, v, ks, vs, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
+                                  Hkv, q_offset, scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -257,6 +301,20 @@ extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, void*
                               int Hq, int Hkv, int D, int q_offset, float scale, int causal,
                               void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return launch<__nv_bfloat16>(q, k, v, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
-                               q_offset, scale, causal, static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, out, kv_len,
+                                              kv_len_scalar, B, Sq, Skv, Hq, Hkv, D, q_offset,
+                                              scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+// K9: as mlio_flash_fwd with k, v int8 [B, Skv, Hkv, D] and their fp32
+// scales k_scale, v_scale [B, Skv, Hkv], contiguous.
+extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
+                                  const float* k_scale, const float* v_scale, void* out,
+                                  const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv,
+                                  int Hq, int Hkv, int D, int q_offset, float scale, int causal,
+                                  void* stream) {
+  if (B == 0 || Sq == 0 || Hq == 0) return 0;
+  return launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar,
+                                       B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal,
+                                       static_cast<cudaStream_t>(stream));
 }

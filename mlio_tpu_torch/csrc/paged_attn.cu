@@ -18,6 +18,12 @@
 // entry (one 4-byte load, from L1 after the first lane of the block asks)
 // and divides by bs. The TPU kernel streams one whole block per grid step;
 // here the slots of a block are spread over the warps like K3's slots.
+//
+// INT8 pools (int8 rows, fp32 scale pools [L, NB, bs, Hkv]) take the int8
+// instances: the K scale on the fp32 score, the V scale on the probability,
+// everything fp32 as _paged_attn_kernel's kv_quant path (which dequantizes
+// K and V in fp32 before both products: the same values, summed in another
+// order).
 #include "decode_attn.cuh"
 
 namespace {
@@ -38,15 +44,18 @@ struct PagedRows {
 
 }  // namespace
 
-// q, out: [B, Hkv * G, D] bf16; k_pool, v_pool: [L, NB, bs, Hkv, D] bf16;
+// q, out: [B, Hkv * G, D] bf16; k_pool, v_pool: [L, NB, bs, Hkv, D] bf16, or
+// int8 with fp32 k_scale, v_scale [L, NB, bs, Hkv] (null for bf16);
 // tables: [B, max_blocks] int32 and ctx: [B] int32 on the device.
 // G in {1, 2, 4, 8}, D in {64, 128}.
 extern "C" int mlio_paged_attn(const void* q, const void* k_pool, const void* v_pool,
-                               const int* tables, const int* ctx, void* out, int B,
-                               int max_blocks, int num_blocks, int bs, int Hkv, int G, int D,
-                               int layer, float scale, void* stream) {
+                               const float* k_scale, const float* v_scale, const int* tables,
+                               const int* ctx, void* out, int B, int max_blocks, int num_blocks,
+                               int bs, int Hkv, int G, int D, int layer, float scale,
+                               void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   const PagedRows rows{tables, max_blocks, bs, num_blocks, Hkv, D, layer};
-  return decode_attn::launch<__nv_bfloat16, false>(q, k_pool, v_pool, ctx, out, B, Hkv, G, D,
-                                                   rows, scale, static_cast<cudaStream_t>(stream));
+  return decode_attn::launch<__nv_bfloat16, false>(q, k_pool, v_pool, k_scale, v_scale, ctx,
+                                                   out, B, Hkv, G, D, rows, scale,
+                                                   static_cast<cudaStream_t>(stream));
 }

@@ -22,6 +22,11 @@
 // biases, norms and the tied lm_head and 100.0 MB of K/V (2712 slots x 12
 // layers x 768 x 2 x 2 B): 0.1037 ms at 3.35 TB/s.
 //
+// int8 weights: K4's int8 weight path (decode_stack.cuh), the bf16 pools
+// unchanged (the JAX K8 has no INT8 KV path). Bound at the ragged contexts
+// with int8 weights: 162 MB of weights, norms and the tied lm_head and the
+// same K/V, 0.078 ms.
+//
 // Design: K4's phases (decode_stack.cuh), with the cache addressed through
 // the policy below. The current token's K/V are written by the attention
 // item of (sequence, kv head) and read back by that same item after a block
@@ -35,6 +40,8 @@ namespace {
 
 // Slot ctx[b] of sequence b in the [L, NB, bs, Hkv, D] pools; RoPE row b.
 struct PagedCache {
+  using Elem = bf16;
+  static constexpr bool kQuant = false;
   static constexpr bool kPaged = true;
   static constexpr bool kLogits = true;
   __device__ static int slot(const StackParams& p, int b, int) { return max(p.ctx[b], 0); }

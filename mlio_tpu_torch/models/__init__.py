@@ -12,7 +12,7 @@ from mlio_tpu_torch.models.loader import (
     spec_from_hf_config,
     state_dict_from_torch,
 )
-from mlio_tpu_torch.models.weights import from_jax_params
+from mlio_tpu_torch.models.weights import from_jax_cache, from_jax_params
 
 __all__ = [
     "ModelSpec",
@@ -28,4 +28,5 @@ __all__ = [
     "spec_from_hf_config",
     "state_dict_from_torch",
     "from_jax_params",
+    "from_jax_cache",
 ]

@@ -15,9 +15,13 @@ otherwise); ``norm="fused"`` takes K2; ``mlp="fused"`` the fused MLP K11;
 dequant-fused matmul K5 in every projection, and the fused ``wqkv`` and
 ``w_upgate`` layouts of ``fuse_projections`` run as in the JAX package.
 
+An INT8 KV cache (``init_cache(quant="int8")``) is written with
+``quantize_kv`` and read with its scales: K9 in prefill, K4's INT8 path or
+K3's int8 instances in decode, as in the JAX package.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-tiled big-model decode (``decode_stack="tiled"``, K6), ring attention, MoE
-layers and INT8 KV caches.
+tiled big-model decode (``decode_stack="tiled"``, K6), ring attention and
+MoE layers.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.ops import decode_attention as _decode
 from mlio_tpu_torch.ops import decode_layer as _stack
 from mlio_tpu_torch.ops import fused_mlp as _fused_mlp
-from mlio_tpu_torch.ops.quant import QTensor
+from mlio_tpu_torch.ops.quant import QTensor, quantize_kv
 
 Params = Dict[str, Any]
 
@@ -269,9 +273,11 @@ def forward(
     Without a cache this is a full (prefill/scoring) forward. With a cache
     (:func:`mlio_tpu_torch.runtime.kv_cache.init_cache`) the S new tokens'
     K/V are written at ``cache["pos"]`` and attention runs over the whole
-    static cache with ``q_offset``/``kv_len`` masking. Unlike the JAX
-    package, the cache tensors are updated in place: the returned cache
-    holds the same ``k``/``v`` tensors and the advanced ``pos``.
+    static cache with ``q_offset``/``kv_len`` masking. An INT8 cache (with
+    ``k_scale``/``v_scale``) gets ``quantize_kv`` of the new K/V and is
+    attended with its scales. Unlike the JAX package, the cache tensors are
+    updated in place: the returned cache holds the same tensors and the
+    advanced ``pos``.
 
     Returns (logits [B, S, V], cache or None).
     """
@@ -283,8 +289,7 @@ def forward(
     dtype = x.dtype
 
     pos = cache["pos"] if cache is not None else 0
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError("INT8 KV caches are not ported yet")
+    quant = cache is not None and "k_scale" in cache
     positions = (torch.arange(S, device=x.device) + pos)[None].expand(B, S)
     if spec.positional == "learned":
         x = x + params["pos_embed"][positions].to(dtype)
@@ -299,7 +304,16 @@ def forward(
     for layer in range(spec.num_layers):
         bp = _layer(blocks, layer)
         h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
-        if cache is not None:
+        if quant:
+            # The INT8 cache: quantize the new K/V per (token, head), write
+            # values and scales, attend over the int8 cache with its scales.
+            ck, cv = cache["k"][layer], cache["v"][layer]
+            cks, cvs = cache["k_scale"][layer], cache["v_scale"][layer]
+            ck[:, pos:pos + S], cks[:, pos:pos + S] = quantize_kv(k)
+            cv[:, pos:pos + S], cvs[:, pos:pos + S] = quantize_kv(v)
+            attn = ops.attention(q, ck, cv, causal=True, q_offset=pos, kv_len=pos + S,
+                                 k_scale=cks, v_scale=cvs, impl=impl)
+        elif cache is not None:
             # Write the S new tokens into the caller's cache in place, then
             # attend over the whole static cache with a kv_len mask.
             ck, cv = cache["k"][layer], cache["v"][layer]
@@ -312,13 +326,14 @@ def forward(
         attn_out = ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"], bp["bo"])
         x = _residual_tail(x, attn_out, h_norm, bp, spec, impl)
 
-    new_cache = None if cache is None else {"k": cache["k"], "v": cache["v"],
-                                            "pos": pos + S}
+    new_cache = None if cache is None else dict(cache, pos=pos + S)
     return _head(x, params, spec, impl), new_cache
 
 
-def use_decode_stack(spec: ModelSpec, impl: Impl, blocks) -> bool:
-    """Whether single-token decode runs K4 (the JAX package's ``use_mega``).
+def use_decode_stack(spec: ModelSpec, impl: Impl, blocks, cache_quant: bool = False,
+                     smax: Optional[int] = None) -> bool:
+    """Whether single-token decode runs K4 (the JAX package's ``use_mega``,
+    asked with the cache's quantization and length as ``generate`` asks).
     ``"mega"`` on a model K4 does not run raises; ``"tiled"`` raises until
     K6 is ported."""
     if impl.decode_stack == "tiled":
@@ -327,10 +342,12 @@ def use_decode_stack(spec: ModelSpec, impl: Impl, blocks) -> bool:
             "mlio_tpu/ops/decode_tiled.py::_tiled_kernel), not ported yet")
     if impl.decode_stack not in ("auto", "scan", "mega"):
         raise ValueError(f"unknown decode_stack {impl.decode_stack!r}")
-    supported = _stack.supports_decode_stack(spec, blocks=blocks)
+    supported = _stack.supports_decode_stack(spec, cache_quant=cache_quant, blocks=blocks,
+                                             smax=smax)
     if impl.decode_stack == "mega" and not supported:
-        raise ValueError(f"decode_stack='mega': K4 does not run {spec.name} "
-                         "(parallel residual, experts or activation)")
+        raise ValueError(f"decode_stack='mega': K4 does not run {spec.name} with these weights "
+                         "and this cache (parallel residual, experts, activation, int4 or fp8 "
+                         "weights, or an INT8 cache not a multiple of 128 long)")
     return impl.decode_stack == "mega" or (impl.decode_stack == "auto" and supported)
 
 
@@ -341,20 +358,28 @@ def _decode_forward(params, spec, x, cache, impl, cos, sin):
     B = x.shape[0]
     pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
+    cks, cvs = cache.get("k_scale"), cache.get("v_scale")
+    quant = cks is not None
     blocks = params["blocks"]
-    if use_decode_stack(spec, impl, blocks):
+    new_cache = dict(cache, pos=pos + 1)
+    if use_decode_stack(spec, impl, blocks, cache_quant=quant, smax=ck.shape[2]):
         # One position for the whole batch: the rope table collapses to [1, R].
         cs = (cos[:1, 0], sin[:1, 0]) if cos is not None else (None, None)
         h, _ = _stack.decode_layer_stack(x[:, 0], blocks, ck, cv, pos, cs[0], cs[1],
-                                         spec=spec)
-        return _head(h[:, None], params, spec, impl), {"k": ck, "v": cv, "pos": pos + 1}
+                                         spec=spec, k_scales=cks, v_scales=cvs)
+        return _head(h[:, None], params, spec, impl), new_cache
     ctx = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     for layer in range(spec.num_layers):
         bp = _layer(blocks, layer)
         h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
-        ck[layer, :, pos] = k[:, 0].to(ck.dtype)
-        cv[layer, :, pos] = v[:, 0].to(cv.dtype)
-        attn = _decode.decode_attention(q[:, 0], ck, cv, ctx, layer=layer)
+        if quant:
+            ck[layer, :, pos], cks[layer, :, pos] = quantize_kv(k[:, 0])
+            cv[layer, :, pos], cvs[layer, :, pos] = quantize_kv(v[:, 0])
+        else:
+            ck[layer, :, pos] = k[:, 0].to(ck.dtype)
+            cv[layer, :, pos] = v[:, 0].to(cv.dtype)
+        attn = _decode.decode_attention(q[:, 0], ck, cv, ctx, layer=layer, k_scales=cks,
+                                        v_scales=cvs)
         attn = attn.reshape(B, 1, spec.q_dim).to(x.dtype)
         x = _residual_tail(x, ops.linear(attn, bp["wo"], bp["bo"]), h_norm, bp, spec, impl)
-    return _head(x, params, spec, impl), {"k": ck, "v": cv, "pos": pos + 1}
+    return _head(x, params, spec, impl), new_cache

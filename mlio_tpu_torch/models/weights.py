@@ -51,3 +51,14 @@ def from_jax_params(tree: Any, device: Union[str, torch.device] = "cuda",
         return array(node)
 
     return convert(tree)
+
+
+def from_jax_cache(cache: Any, device: Union[str, torch.device] = "cuda") -> Any:
+    """The JAX package's contiguous cache (``init_cache``'s dict with numpy
+    leaves: ``k``/``v`` [L, B, S, Hkv, D] and, for an INT8 cache, fp32
+    ``k_scale``/``v_scale`` [L, B, S, Hkv]; ``pos``) as the port's: the
+    arrays on ``device`` in their dtypes (int8 stays int8), ``pos`` a
+    Python int."""
+    out = from_jax_params({k: v for k, v in cache.items() if k != "pos"}, device)
+    out["pos"] = int(cache["pos"])
+    return out

@@ -1,10 +1,10 @@
 """Op dispatch: one call site per op, the implementation chosen by ``Impl``
 (``mlio_tpu/ops/__init__.py``).
 
-``attention`` and ``norm`` route to the hand-written kernels (K1, K2) or to
-the dense references; ``mlp`` to the fused MLP kernel (K11) or the dense
-reference, and with quantized weights to the dequant-fused matmul (K5) for
-each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
+``attention`` and ``norm`` route to the hand-written kernels (K1, or K9
+over an INT8 cache; K2) or to the dense references; ``mlp`` to the fused
+MLP kernel (K11) or the dense reference, and with quantized weights to the
+dequant-fused matmul (K5) for each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
 with quantized weights to a norm and K5 three times. ``linear`` is plain
 ``torch.matmul`` for a tensor weight, as the JAX package leaves it to XLA,
 and K5 for an int8 or int4 :class:`~mlio_tpu_torch.ops.quant.QTensor`. The
@@ -29,16 +29,20 @@ from mlio_tpu_torch.ops.reference import (
 )
 
 
-def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, impl=None):
-    """Multi-head attention. q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → [B,Sq,Hq,D]."""
+def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, k_scale=None,
+              v_scale=None, impl=None):
+    """Multi-head attention. q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → [B,Sq,Hq,D].
+    With ``k_scale``/``v_scale`` [B,Skv,Hkv] k/v are an INT8 cache: K9 on
+    the flash route, a dense fp32 dequantize on the dense one."""
     kind = impl.attention if impl is not None else "dense"
     if kind == "flash":
         return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
-                                      q_offset=q_offset, kv_len=kv_len)
+                                      q_offset=q_offset, kv_len=kv_len, k_scale=k_scale,
+                                      v_scale=v_scale)
     if kind != "dense":
         raise NotImplementedError(f"attention={kind!r} is not ported yet")
     return attention_reference(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                               kv_len=kv_len)
+                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
 
 
 def linear(x, w, bias=None):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,10 +32,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "paged_attn", "paged_stack",
            "quant_matmul", "fused_mlp", "ln_matmul")
+# -Xptxas -v only reports each kernel's registers, stack and spills (kept in
+# BUILD_LOGS, summarised by ptxas_summary); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}  # nvcc's output of each source built by this process
 _lock = threading.Lock()
 
 
@@ -82,10 +86,37 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}")
         else:
+            BUILD_LOGS[name] = log
             os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
     if failures:
         raise RuntimeError("\n".join(failures))
     return time.perf_counter() - t0
+
+
+def ptxas_summary() -> Dict[str, dict]:
+    """Per source built by this process, from ptxas's report: the range of
+    registers a thread over its kernel instances, the largest stack frame
+    (bytes), and the instances that spill with their spill-store bytes (by
+    mangled name)."""
+    out = {}
+    for name, log in BUILD_LOGS.items():
+        regs, frames, spills, kernel = [], [], {}, None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+            if m:
+                frames.append(int(m.group(1)))
+                if int(m.group(2)):
+                    spills[kernel] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.append(int(m.group(1)))
+        if regs:
+            out[name] = dict(instances=len(regs), registers=[min(regs), max(regs)],
+                             max_stack_frame=max(frames, default=0), spill_store_bytes=spills)
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -141,3 +172,27 @@ def require_contiguous_aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def ptr(t):
+    """A tensor's device address for a C entry point; 0 (null) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def check_kv_scales(name: str, k: torch.Tensor, v: torch.Tensor, k_scale, v_scale) -> bool:
+    """Whether k/v are an INT8 cache: then both are int8 and both fp32 scales
+    are given with k's shape less its head dim; otherwise neither scale is
+    given and k/v are not int8. Raises on anything else."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: give both K and V scales or neither")
+    if k_scale is None:
+        if k.dtype == torch.int8 or v.dtype == torch.int8:
+            raise ValueError(f"{name}: an int8 K/V cache needs its scales")
+        return False
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"{name}: K/V scales go with an int8 cache, got {k.dtype}, {v.dtype}")
+    for arg, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.shape != k.shape[:-1] or s.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be fp32 {tuple(k.shape[:-1])}, got "
+                             f"{s.dtype} {tuple(s.shape)}")
+    return True

@@ -7,9 +7,14 @@ of only the ``context_lens[b]`` valid slots of ``[layer, b]``, fp32 online
 softmax. It is bound by bytes; its source note gives the H100 bound at the
 main path's shapes and what the design does about it.
 
+An INT8 cache (``init_cache(quant="int8")``) comes with per-(slot, head)
+fp32 scales [L, B, Smax, Hkv]: the kernel's int8 instances read 8-byte rows
+and fuse the K scale into the score and the V scale into the probability,
+as ``_decode_kernel``'s ``kv_quant`` path does.
+
 On CPU tensors :func:`decode_attention` runs :func:`decode_attention_plain`;
-on CUDA tensors it launches the kernel or raises. INT8 K/V scales are not
-ported yet and raise, and so does any dtype but bf16 on CUDA.
+on CUDA tensors it launches the kernel or raises: q must be bf16, the cache
+bf16 or int8.
 """
 from __future__ import annotations
 
@@ -32,28 +37,38 @@ def decode_attention_plain(
     *,
     layer: int,
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch. With one query head per KV
     head everything stays fp32, as ``_decode_kernel``'s G == 1 path; with
     G > 1 the scaled query and the probabilities are rounded to the cache's
-    dtype before their products, as its MXU path. A sequence with no valid
-    slot gives 0."""
+    dtype before their products, as its MXU path. With an INT8 cache the K
+    scale multiplies the fp32 score and the V scale the probability (l sums
+    the unscaled ones); at G > 1 the rounding dtype is bf16, as in the TPU
+    kernel, whatever q's dtype. A sequence with no valid slot gives 0."""
     B, Hq, D = q.shape
     Smax, Hkv = k_cache.shape[2], k_cache.shape[3]
     G = Hq // Hkv
     if scale is None:
         scale = D ** -0.5
+    quant = k_scales is not None
+    rdt = torch.bfloat16 if quant else k_cache.dtype
     qs = q.float() * scale
     if G > 1:
-        qs = qs.to(k_cache.dtype).float()
+        qs = qs.to(rdt).float()
     s = torch.einsum("bkgd,bskd->bkgs", qs.reshape(B, Hkv, G, D), k_cache[layer].float())
+    if quant:
+        s = s * k_scales[layer].float().permute(0, 2, 1)[:, :, None, :]
     valid = torch.arange(Smax, device=q.device)[None, :] < context_lens.to(q.device)[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
     l = p.sum(-1, keepdim=True)
+    if quant:
+        p = p * v_scales[layer].float().permute(0, 2, 1)[:, :, None, :]
     if G > 1:
-        p = p.to(v_cache.dtype).float()
+        p = p.to(rdt if quant else v_cache.dtype).float()
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache[layer].float())
     o = o / torch.where(l == 0, 1.0, l)
     return o.reshape(B, Hq, D).to(q.dtype)
@@ -64,7 +79,7 @@ def _entry():
     fn = lib.mlio_decode_attn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
         fn.restype = i
     return lib, fn
 
@@ -85,10 +100,9 @@ def decode_attention(
     q [B, Hq, D] is one token per sequence; k_cache/v_cache are
     [L, B, Smax, Hkv, D]; ``context_lens`` [B] counts the valid slots of each
     sequence, the current token included; ``layer`` is the cache's layer
-    index.
+    index. An int8 cache takes its fp32 ``k_scales``/``v_scales``
+    [L, B, Smax, Hkv].
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("decode_attention: INT8 K/V scales are not ported yet")
     B, Hq, D = q.shape
     if k_cache.ndim != 5 or k_cache.shape[1] != B or k_cache.shape[4] != D \
             or v_cache.shape != k_cache.shape:
@@ -101,11 +115,14 @@ def decode_attention(
         raise ValueError(f"decode_attention: layer {layer} outside [0, {L})")
     if context_lens.shape != (B,):
         raise ValueError(f"decode_attention: context_lens must be [{B}]")
+    quant = _build.check_kv_scales("decode_attention", k_cache, v_cache, k_scales, v_scales)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, context_lens, layer=layer,
-                                      scale=scale)
-    dev = _build.require_cuda("decode_attention", q, k_cache, v_cache, context_lens)
-    _build.require_bf16("decode_attention", q=q, k_cache=k_cache, v_cache=v_cache)
+                                      scale=scale, k_scales=k_scales, v_scales=v_scales)
+    dev = _build.require_cuda("decode_attention", q, k_cache, v_cache, context_lens,
+                              *([k_scales, v_scales] if quant else []))
+    _build.require_bf16("decode_attention", q=q,
+                        **({} if quant else dict(k_cache=k_cache, v_cache=v_cache)))
     G = Hq // Hkv
     if G not in _GROUPS or D not in _HEAD_DIMS:
         raise ValueError(f"decode_attention: group {G} not in {_GROUPS} or head dim "
@@ -113,13 +130,13 @@ def decode_attention(
     if context_lens.dtype != torch.int32 or not context_lens.is_contiguous():
         raise ValueError("decode_attention: context_lens must be contiguous int32")
     _build.require_contiguous_aligned("decode_attention", q=q, k_cache=k_cache,
-                                      v_cache=v_cache)
+                                      v_cache=v_cache, k_scales=k_scales, v_scales=v_scales)
     out = torch.empty_like(q)
     lib, fn = _entry()
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 context_lens.data_ptr(), out.data_ptr(), B, Smax, Hkv, G, D, layer,
-                 D ** -0.5 if scale is None else scale, _build.stream_handle(dev))
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _build.ptr(k_scales),
+                 _build.ptr(v_scales), context_lens.data_ptr(), out.data_ptr(), B, Smax, Hkv, G,
+                 D, layer, D ** -0.5 if scale is None else scale, _build.stream_handle(dev))
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -15,8 +15,18 @@ On CPU tensors :func:`decode_layer_stack` runs
 raises. The cache is the port's ``[L, B, Smax, Hkv, D]`` (the JAX package's
 flat ``[L, B, Smax, Hkv*D]`` is the same memory) and is updated in place.
 The TPU's layout and tuning knobs (``interpret``, ``vocab_chunk``,
-``cache_block``, ``kv_combined``, ``kv_depth``) have no counterpart here.
-INT8 weights and INT8 K/V scales belong to the quantization slice and raise.
+``cache_block``, ``kv_combined``, ``kv_depth``) and its scale layout
+(``pad_scales_for_mega``: the port keeps the scan layout [L, B, Smax, Hkv])
+have no counterpart here.
+
+INT8 weights (:class:`~mlio_tpu_torch.ops.quant.QTensor` with ``fmt ==
+"int8"``: a payload [L, in, out] and per-output-channel fp32 scales
+[L, out]) stream as int8 and are widened in registers; the scale multiplies
+the finished fp32 sum before the bias, as ``_mm`` does. An INT8 KV cache
+(int8 caches with fp32 ``k_scales``/``v_scales`` [L, B, Smax, Hkv]) is read
+with its scales fused into the score and PV products, and the current
+token's K/V are quantized in the kernel exactly as ``_quantize_heads``
+(``quantize_kv``) does.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
 from mlio_tpu_torch.ops.reference import activate
 
 _ACTIVATIONS = ("gelu_new", "gelu_tanh", "gelu", "relu", "swiglu", "geglu")
@@ -38,9 +49,9 @@ MAX_HIDDEN = 8192  # the epilogue keeps [MAX_BATCH, H] bf16 in shared memory
 def supports_decode_stack(spec, cache_quant: bool = False, blocks=None,
                           smax: Optional[int] = None) -> bool:
     """Whether K4 applies to ``spec``: the JAX package's feature conditions
-    (sequential residual, no experts, a supported activation, unquantized
-    weights in the per-projection layout; an INT8 cache needs a 128-aligned
-    length there).
+    (sequential residual, no experts, a supported activation, floating or
+    int8 weights in the per-projection layout, not int4 or fp8; an INT8
+    cache needs a 128-aligned length there).
 
     The JAX package also asks that one layer's weights fit the TPU's VMEM
     budget and sends larger dense models to the tiled kernel (K6). That rule
@@ -54,6 +65,8 @@ def supports_decode_stack(spec, cache_quant: bool = False, blocks=None,
         return False
     if blocks is not None:
         w = blocks.get("wq")
+        if isinstance(w, QTensor):
+            return w.fmt == "int8"
         if not isinstance(w, torch.Tensor) or not w.is_floating_point():
             return False
     return True
@@ -73,8 +86,12 @@ def _norm32(x32, scale, bias, kind, eps):
     return y if bias is None else y + bias.float()
 
 
-def _mm(h, w, b):
+def _mm(h, w, b, s=None):
+    """``_mm`` of the JAX kernel: the fp32 product, times the int8 weight's
+    per-output-channel scale ``s``, plus the bias."""
     y = h.float() @ w.float()
+    if s is not None:
+        y = y * s.float()
     return y if b is None else y + b.float()
 
 
@@ -121,8 +138,10 @@ def layer_plain(x32, blocks, layer, *, spec, dtype, scale, rope, attend):
     the compute dtype ``dtype``; projections accumulate in fp32.
 
     ``rope(t)`` rotates a flat [B, heads*D] fp32 projection (None: learned
-    positions). ``attend(layer, qs, k, v)`` writes k, v [B, Hkv, D] (rounded)
-    into the cache and returns the attention [B, Hkv, G, D] fp32 of qs."""
+    positions). ``attend(layer, qs, k, v)`` writes k, v [B, Hkv, D] (fp32,
+    after RoPE) into the cache, rounded or quantized as the cache stores
+    them, and returns the attention [B, Hkv, G, D] fp32 of qs. An int8
+    QTensor weight's scale multiplies the fp32 product before the bias."""
     bp, cd = blocks, dtype
     B = x32.shape[0]
     Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_size
@@ -133,20 +152,24 @@ def layer_plain(x32, blocks, layer, *, spec, dtype, scale, rope, attend):
         b = bp.get(name)
         return None if b is None else b[layer]
 
+    def mm(x, name, bname):
+        w = bp[name]
+        if isinstance(w, QTensor):
+            return _mm(x, w.q[layer], bias(bname), w.scale[layer])
+        return _mm(x, w[layer], bias(bname))
+
     h = _norm32(x32, bp["ln1_scale"][layer], bias("ln1_bias"), norm, eps).to(cd)
-    q = _mm(h, bp["wq"][layer], bias("bq"))
-    k = _mm(h, bp["wk"][layer], bias("bk"))
-    v = _mm(h, bp["wv"][layer], bias("bv"))
+    q, k, v = mm(h, "wq", "bq"), mm(h, "wk", "bk"), mm(h, "wv", "bv")
     if rope is not None:
         q, k = rope(q), rope(k)
     qs = (q * scale).to(cd).float().reshape(B, Hkv, Hq // Hkv, D)
-    attn = attend(layer, qs, k.reshape(B, Hkv, D).to(cd), v.reshape(B, Hkv, D).to(cd))
-    x32 = x32 + _mm(attn.reshape(B, Hq * D).to(cd), bp["wo"][layer], bias("bo"))
+    attn = attend(layer, qs, k.reshape(B, Hkv, D), v.reshape(B, Hkv, D))
+    x32 = x32 + mm(attn.reshape(B, Hq * D).to(cd), "wo", "bo")
     h2 = _norm32(x32, bp["ln2_scale"][layer], bias("ln2_bias"), norm, eps).to(cd)
-    u = _mm(h2, bp["w_up"][layer], bias("b_up"))
-    g = _mm(h2, bp["w_gate"][layer], bias("b_gate")) if gated else None
+    u = mm(h2, "w_up", "b_up")
+    g = mm(h2, "w_gate", "b_gate") if gated else None
     act = activate(u, g, spec.activation).to(cd)
-    return x32 + _mm(act, bp["w_down"][layer], bias("b_down"))
+    return x32 + mm(act, "w_down", "b_down")
 
 
 def logits_plain(x32, head_norm, lm_head, lm_head_bias=None, *, spec, lm_vmajor=True,
@@ -181,6 +204,8 @@ def decode_layer_stack_plain(
     vocab_size: Optional[int] = None,
     pos_embed: Optional[torch.Tensor] = None,
     steps: int = 1,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The kernel's function in plain PyTorch, with K4's rounding points
     (:func:`layer_plain`); the residual stays fp32 across layers and the
@@ -188,7 +213,11 @@ def decode_layer_stack_plain(
     final max where the kernel takes a running one (fp32 noise only: the
     probabilities are not rounded, :func:`_attend_plain`).
 
-    Writes slot ``pos + s`` of every layer of the caches in place."""
+    Writes slot ``pos + s`` of every layer of the caches in place. With
+    ``k_scales``/``v_scales`` the caches are INT8: the current token's fp32
+    K/V are quantized per head (``quantize_kv``, as ``_quantize_heads``),
+    written with their scales, and attention runs over the dequantized
+    slots, the current token's included."""
     cd = x.dtype
     D = k_cache.shape[4]
     if scale is None:
@@ -203,9 +232,15 @@ def decode_layer_stack_plain(
         p = pos + s
 
         def attend(layer, qs, k, v):
-            k_cache[layer, :, p] = k.to(k_cache.dtype)
-            v_cache[layer, :, p] = v.to(v_cache.dtype)
-            return _attend_plain(qs, k_cache[layer, :, :p + 1], v_cache[layer, :, :p + 1])
+            if k_scales is None:
+                k_cache[layer, :, p] = k.to(k_cache.dtype)
+                v_cache[layer, :, p] = v.to(v_cache.dtype)
+                return _attend_plain(qs, k_cache[layer, :, :p + 1], v_cache[layer, :, :p + 1])
+            for cache, scales, new in ((k_cache, k_scales, k), (v_cache, v_scales, v)):
+                cache[layer, :, p], scales[layer, :, p] = quantize_kv(new)
+            return _attend_plain(
+                qs, dequantize_kv(k_cache[layer, :, :p + 1], k_scales[layer, :, :p + 1]),
+                dequantize_kv(v_cache[layer, :, :p + 1], v_scales[layer, :, :p + 1]))
 
         rope = None if cos is None else (lambda t: _rope(t, cos[s], sin[s], D))
         for layer in range(k_cache.shape[0]):
@@ -240,10 +275,15 @@ def phase_stamps(spec, steps: int = 1, epilogue: bool = True) -> int:
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
+# int8 QTensor weights: the payload goes in the weight's field, the scales in
+# the JAX kernel's scale ref names
+_QSCALES = {"wq": "sq", "wk": "sk", "wv": "sv", "wo": "so", "w_up": "s_up",
+            "w_gate": "s_gate", "w_down": "s_down"}
 _PTRS = ("x", "x_out", "k_cache", "v_cache", "ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk",
          "wv", "bv", "wo", "bo", "ln2_scale", "ln2_bias", "w_up", "b_up", "w_gate", "b_gate",
          "w_down", "b_down", "cos", "sin", "pos_embed", "final_scale", "final_bias",
-         "lm_head", "lm_bias", "tokens", "work", "sync", "stamps", "tables", "ctx", "logits")
+         "lm_head", "lm_bias", "tokens", "work", "sync", "stamps", "tables", "ctx", "logits",
+         *_QSCALES.values(), "k_scale", "v_scale")
 _INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "steps", "rope_dim",
          "rmsnorm", "activation", "epilogue", "lm_vmajor", "V", "nblocks", "smem", "bs",
          "max_blocks", "num_blocks")
@@ -291,13 +331,18 @@ def launch(name: str, prm: _Params, dev: torch.device, what: str) -> None:
 
 
 def check_weights(what: str, kernel: str, blocks, spec) -> None:
-    """Raise unless ``kernel`` (K4 or K8) runs ``spec`` with these
-    unquantized weights."""
+    """Raise unless ``kernel`` (K4 or K8) runs ``spec`` with these weights:
+    floating tensors, or int8 QTensors for the projections."""
     for name, w in blocks.items():
-        if w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
-            raise NotImplementedError(
-                f"{what}: quantized weight {name!r} belongs to the quantization slice "
-                "(the int8 weight path of K4 and K8), not ported yet")
+        if isinstance(w, QTensor):
+            if w.fmt != "int8" or name not in _QSCALES:
+                raise ValueError(f"{what}: {kernel} takes int8 projection weights only, got "
+                                 f"{w.fmt} {name!r} (int4 and fp8 take the scan decode)")
+            if w.act_scale is not None:
+                raise NotImplementedError(f"{what}: W8A8 weights (act_scale) are not ported yet")
+        elif w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
+            raise ValueError(f"{what}: weight {name!r} must be a floating tensor or an int8 "
+                             "QTensor")
     if not supports_decode_stack(spec):
         raise ValueError(f"{what}: {spec.name} is not a model {kernel} runs "
                          "(parallel residual, experts or activation)")
@@ -323,13 +368,31 @@ def check_head(what: str, lm_head, lm_vmajor: bool, V: int, H: int) -> None:
 
 def stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias):
     """The kernel's tensor operands by ``_Params`` field name (w_gate and
-    b_gate dropped for ungated activations)."""
+    b_gate dropped for ungated activations): (the bf16 ones, the int8
+    weights' payloads and fp32 scales)."""
     bp = dict(blocks)
     if spec.activation not in ("swiglu", "geglu"):
         bp["w_gate"] = bp["b_gate"] = None
+    quant = {}
+    for name, sname in _QSCALES.items():
+        w = bp.get(name)
+        if isinstance(w, QTensor):
+            quant[name], quant[sname] = w.q, w.scale
+            bp[name] = None
     fin_scale, fin_bias = head_norm if lm_head is not None else (None, None)
     return dict(final_scale=fin_scale, final_bias=fin_bias, lm_head=lm_head,
-                lm_bias=lm_head_bias, **{k: v for k, v in bp.items() if v is not None})
+                lm_bias=lm_head_bias, **{k: v for k, v in bp.items() if v is not None}), quant
+
+
+def check_operands(what: str, bf16, quant) -> None:
+    """The bf16 operands bf16; the int8 weights and caches int8, their
+    scales fp32; all contiguous and 16-byte aligned."""
+    _build.require_bf16(what, **bf16)
+    for name, t in quant.items():
+        want = torch.int8 if name in _QSCALES or name.endswith("cache") else torch.float32
+        if t.dtype != want:
+            raise ValueError(f"{what}: {name} must be {want}, got {t.dtype}")
+    _build.require_contiguous_aligned(what, **bf16, **quant)
 
 
 def base_params(spec, B: int, H: int, L: int, V: int, lm_vmajor: bool, scale, rope_dim: int,
@@ -343,10 +406,6 @@ def base_params(spec, B: int, H: int, L: int, V: int, lm_vmajor: bool, scale, ro
                 lm_vmajor=int(lm_vmajor), V=V, eps=spec.norm_eps,
                 scale=D ** -0.5 if scale is None else scale,
                 embed_scale=1.0 if spec.embed_scale is None else spec.embed_scale)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def decode_layer_stack(
@@ -390,11 +449,12 @@ def decode_layer_stack(
     :func:`phase_stamps` elements, receives the kernel's global timer (ns)
     at its start and after each grid barrier: successive differences are
     the phases' durations (a port-only probe; the CPU ignores it).
+
+    ``k_scales``/``v_scales`` (fp32 [L, B, Smax, Hkv]) make the caches an
+    INT8 cache (int8 k_cache/v_cache): slot ``pos + s`` gets the current
+    token quantized per head, its scales beside it. int8 QTensor weights
+    take K4's int8 weight path.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "decode_layer_stack: INT8 K/V scales belong to the quantization slice "
-            "(K4's INT8 KV path), not ported yet")
     check_weights("decode_layer_stack", "K4", blocks, spec)
     B, H = x.shape
     if k_cache.ndim != 5 or k_cache.shape[1] != B or v_cache.shape != k_cache.shape:
@@ -404,6 +464,7 @@ def decode_layer_stack(
     if (L, Hkv, D) != (spec.num_layers, spec.num_kv_heads, spec.head_size) \
             or H != spec.hidden_size:
         raise ValueError("decode_layer_stack: x and the caches do not match the spec")
+    quant = _build.check_kv_scales("decode_layer_stack", k_cache, v_cache, k_scales, v_scales)
     if steps < 1 or pos < 0 or pos + steps > Smax:
         raise ValueError(f"decode_layer_stack: slots {pos}..{pos + steps - 1} outside the "
                          f"{Smax}-slot cache")
@@ -425,17 +486,22 @@ def decode_layer_stack(
               lm_head_bias=lm_head_bias, lm_vmajor=lm_vmajor, vocab_size=vocab_size,
               pos_embed=pos_embed, steps=steps)
     if x.device.type == "cpu":
-        return decode_layer_stack_plain(x, blocks, k_cache, v_cache, pos, cos, sin, **kw)
+        return decode_layer_stack_plain(x, blocks, k_cache, v_cache, pos, cos, sin,
+                                        k_scales=k_scales, v_scales=v_scales, **kw)
 
-    tensors = dict(x=x, k_cache=k_cache, v_cache=v_cache, pos_embed=pos_embed,
-                   **stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias))
+    tensors, qt = stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias)
+    tensors.update(x=x, pos_embed=pos_embed)
+    caches = dict(k_cache=k_cache, v_cache=v_cache)
+    if quant:
+        qt.update(caches, k_scale=k_scales, v_scale=v_scales)
+    else:
+        tensors.update(caches)
     dev = _build.require_cuda("decode_layer_stack",
-                              *[t for t in tensors.values() if t is not None])
-    _build.require_bf16("decode_layer_stack", **tensors)
+                              *[t for t in (*tensors.values(), *qt.values()) if t is not None])
     kernel_shapes("decode_layer_stack", spec, B, H)
     if epilogue:
         check_head("decode_layer_stack", lm_head, lm_vmajor, V, H)
-    _build.require_contiguous_aligned("decode_layer_stack", **tensors)
+    check_operands("decode_layer_stack", tensors, qt)
     if cos is not None:
         # the tables are rounded to the compute dtype first, as _rope_consts does
         cos = cos.to(dev, x.dtype).float().contiguous()
@@ -448,8 +514,9 @@ def decode_layer_stack(
         raise ValueError("decode_layer_stack: phase_times must be int64 on the card, "
                          f"with {phase_stamps(spec, steps, epilogue)} elements")
     prm = _Params(
-        **{n: _ptr(t) for n, t in tensors.items()}, stamps=_ptr(phase_times),
-        x_out=x_out.data_ptr(), cos=_ptr(cos), sin=_ptr(sin), tokens=_ptr(tokens),
+        **{n: _build.ptr(t) for n, t in (*tensors.items(), *qt.items())},
+        stamps=_build.ptr(phase_times), x_out=x_out.data_ptr(), cos=_build.ptr(cos),
+        sin=_build.ptr(sin), tokens=_build.ptr(tokens),
         Smax=Smax, pos=pos, steps=steps,
         **base_params(spec, B, H, L, V, lm_vmajor, scale,
                       0 if cos is None else cos.shape[1], epilogue))

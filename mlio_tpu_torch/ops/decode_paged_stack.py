@@ -15,8 +15,10 @@ raises. The pools are the port's ``[L, NB, bs, Hkv, D]`` (the JAX package's
 flat ``[L, NB, bs, Hkv*D]`` is the same memory) and are written in place.
 The TPU's layout and tuning (``kv_combined`` lanes, ``kv_depth``, the 8-row
 slab read-modify-write, lane-tiled RoPE tables with rotate-half matrices,
-``vocab_chunk``, a padded lm_head) have no counterpart here. INT8 weights
-belong to the quantization slice and raise.
+``vocab_chunk``, a padded lm_head) have no counterpart here. int8 QTensor
+weights take the int8 weight path K4 has (``_paged_stack_kernel``'s, as
+``decode_paged_stack.py:468-474`` has it in the JAX package); the JAX K8 has
+no INT8 KV path and neither has the port.
 """
 from __future__ import annotations
 
@@ -163,19 +165,19 @@ def decode_paged_stack(
         return decode_paged_stack_plain(x, blocks, k_pool, v_pool, block_tables, context_lens,
                                         cos, sin, **kw)
 
-    tensors = dict(x=x, k_cache=k_pool, v_cache=v_pool, tables=block_tables, ctx=context_lens,
-                   **_k4.stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias))
-    dev = _build.require_cuda("decode_paged_stack",
-                              *[t for t in tensors.values() if t is not None])
-    _build.require_bf16("decode_paged_stack",
-                        **{n: t for n, t in tensors.items() if n not in ("tables", "ctx")})
-    for name in ("tables", "ctx"):
-        if tensors[name].dtype != torch.int32:
+    tensors, qt = _k4.stack_tensors(blocks, spec, head_norm, lm_head, lm_head_bias)
+    tensors.update(x=x, k_cache=k_pool, v_cache=v_pool)
+    index = dict(tables=block_tables, ctx=context_lens)
+    dev = _build.require_cuda("decode_paged_stack", *[t for t in (
+        *tensors.values(), *qt.values(), *index.values()) if t is not None])
+    for name, t in index.items():
+        if t.dtype != torch.int32:
             raise ValueError(f"decode_paged_stack: {name} must be int32")
+    _build.require_contiguous_aligned("decode_paged_stack", **index)
     _k4.kernel_shapes("decode_paged_stack", spec, B, H)
     if epilogue:
         _k4.check_head("decode_paged_stack", lm_head, lm_vmajor, V, H)
-    _build.require_contiguous_aligned("decode_paged_stack", **tensors)
+    _k4.check_operands("decode_paged_stack", tensors, qt)
     if cos is not None:
         # the tables are rounded to the compute dtype first, as K4's are
         cos = cos.to(dev, x.dtype).float().contiguous()
@@ -192,10 +194,11 @@ def decode_paged_stack(
         raise ValueError("decode_paged_stack: phase_times must be int64 on the card, "
                          f"with {n_stamps} elements")
     prm = _k4._Params(
-        **{n: _k4._ptr(t) for n, t in tensors.items()}, stamps=_k4._ptr(phase_times),
-        x_out=x_out.data_ptr(), cos=_k4._ptr(cos), sin=_k4._ptr(sin),
-        tokens=_k4._ptr(out) if emit == "greedy" else None,
-        logits=_k4._ptr(out) if emit == "logits" else None,
+        **{n: _build.ptr(t) for n, t in (*tensors.items(), *qt.items(), *index.items())},
+        stamps=_build.ptr(phase_times),
+        x_out=x_out.data_ptr(), cos=_build.ptr(cos), sin=_build.ptr(sin),
+        tokens=_build.ptr(out) if emit == "greedy" else None,
+        logits=_build.ptr(out) if emit == "logits" else None,
         steps=1, bs=bs, max_blocks=block_tables.shape[1], num_blocks=NB,
         **_k4.base_params(spec, B, H, L, V, lm_vmajor, scale,
                           0 if cos is None else cos.shape[1], epilogue))

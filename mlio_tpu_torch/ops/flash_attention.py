@@ -7,10 +7,17 @@ tensor cores (WMMA, fp32 accumulate), online softmax in fp32, a kv loop that
 stops at the causal frontier and at ``kv_len``. Its source note gives the
 H100 bound at the main path's shapes and what the design does about it.
 
-On CPU tensors :func:`flash_attention` runs :func:`flash_attention_plain`;
-on CUDA tensors it launches the kernel or raises. The kernel takes bf16 and
-head dims 64 and 128; user masks, dropout and the LSE output
-(``return_stats``) are not ported yet and raise.
+K9 replaces ``_flash_fwd_kernel_kvq``: the same CUDA kernel instanced for
+an INT8 cache (int8 K/V, fp32 per-(token, head) scales), the dequant fused
+into both products. :func:`flash_attention` with ``k_scale``/``v_scale``
+takes it through :func:`flash_attention_kvq`; its plain version is
+:func:`flash_attention_kvq_plain`. As in the JAX package, a full
+``[.., Sq, Skv]`` mask and dropout are refused with an INT8 cache.
+
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernel or raise. The kernels take bf16 queries and head dims 64
+and 128; user masks, dropout and the LSE output (``return_stats``) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -34,11 +41,17 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     q_offset: int = 0,
     kv_len: Union[None, int, torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, with its rounding: the scale is
     folded into q in fp32 and rounded back to q's dtype, p is rounded to v's
     dtype before the PV product while the row sum uses fp32 p, and a row
-    with no valid key gives 0."""
+    with no valid key gives 0. With ``k_scale``/``v_scale``, K9's
+    (:func:`flash_attention_kvq_plain`)."""
+    if k_scale is not None:
+        return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
+                                         q_offset=q_offset, kv_len=kv_len)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -62,14 +75,120 @@ def flash_attention_plain(
     return o.transpose(1, 2).to(q.dtype)
 
 
-def _entry():
+def flash_attention_kvq_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Union[None, int, torch.Tensor] = None,
+) -> torch.Tensor:
+    """K9's function in plain PyTorch, with ``_flash_fwd_kernel_kvq``'s
+    rounding: ``q * scale`` rounded to bf16 (whatever q's dtype); the K
+    scale on the fp32 score after the product; ``p * v_scale`` rounded to
+    bf16 for the PV product while l sums the fp32 p. k/v int8
+    [B, Skv, Hkv, D], scales fp32 [B, Skv, Hkv]."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    group = Hq // Hkv
+    qs = (q.float() * scale).to(torch.bfloat16).float()
+    kf, vf = k.float(), v.float()
+    ks, vs = k_scale.float(), v_scale.float()
+    if group > 1:
+        kf, vf = kf.repeat_interleave(group, dim=2), vf.repeat_interleave(group, dim=2)
+        ks, vs = ks.repeat_interleave(group, dim=2), vs.repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf) * ks.permute(0, 2, 1)[:, :, None, :]
+    valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                           device=q.device)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
+    l = p.sum(-1, keepdim=True)
+    pv = (p * vs.permute(0, 2, 1)[:, :, None, :]).to(torch.bfloat16).float()
+    o = torch.einsum("bhqk,bkhd->bhqd", pv, vf)
+    o = o / torch.where(l == 0, 1.0, l)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def _entry(name="mlio_flash_fwd", quant=False):
     lib = _build.library("flash_fwd")
-    fn = lib.mlio_flash_fwd
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+        fn.argtypes = [p, p, p] + [p, p] * quant + [p, p, i, i, i, i, i, i, i, i, f, i, p]
         fn.restype = i
     return lib, fn
+
+
+def _check_shapes(what, q, k, v):
+    B, Sq, Hq, D = q.shape
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"{what}: k/v must be [B, Skv, Hkv, {D}] alike, "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"{what}: query heads must be a multiple of KV heads")
+
+
+def _kv_len_arg(what, kv_len, B, Skv, dev):
+    """The kernels' kv_len arguments: (an int32 [B] tensor on ``dev`` or
+    None, the scalar used where it is None)."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1:
+        if kv_len.shape != (B,):
+            raise ValueError(f"{what}: kv_len must be an int or [{B}]")
+        return kv_len.to(device=dev, dtype=torch.int32).contiguous(), Skv
+    return None, Skv if kv_len is None else int(kv_len)
+
+
+def flash_attention_kvq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Union[None, int, torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention over an INT8 cache (K9): q [B, Sq, Hq, D], k/v int8
+    [B, Skv, Hkv, D] with fp32 ``k_scale``/``v_scale`` [B, Skv, Hkv] →
+    [B, Sq, Hq, D] in q's dtype; ``q_offset`` and ``kv_len`` as
+    :func:`flash_attention`."""
+    _check_shapes("flash_attention_kvq", q, k, v)
+    _build.check_kv_scales("flash_attention_kvq", k, v, k_scale, v_scale)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if q.device.type == "cpu":
+        return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
+                                         q_offset=q_offset, kv_len=kv_len)
+    dev = _build.require_cuda("flash_attention_kvq", q, k, v, k_scale, v_scale)
+    _build.require_bf16("flash_attention_kvq", q=q)
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_kvq: head dim {D} not in {_HEAD_DIMS}")
+    kv_arr, kv_scalar = _kv_len_arg("flash_attention_kvq", kv_len, B, Skv, dev)
+    _build.require_contiguous_aligned("flash_attention_kvq", q=q, k=k, v=v, k_scale=k_scale,
+                                      v_scale=v_scale)
+    out = torch.empty_like(q)
+    lib, fn = _entry("mlio_flash_fwd_kvq", quant=True)
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), out.data_ptr(), _build.ptr(kv_arr), kv_scalar, B, Sq, Skv,
+                 Hq, Hkv, D, int(q_offset), D ** -0.5 if scale is None else scale, int(causal),
+                 _build.stream_handle(dev))
+    _build.check(lib, err, "flash_attention_kvq")
+    flash_attention_kvq.launches += 1
+    return out
+
+
+flash_attention_kvq.launches = 0
 
 
 def flash_attention(
@@ -84,24 +203,36 @@ def flash_attention(
     mask=None,
     dropout_rate: float = 0.0,
     return_stats: bool = False,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention forward in the bshd layout: q [B, Sq, Hq, D], k/v
     [B, Skv, Hkv, D] → [B, Sq, Hq, D] in q's dtype.
 
     ``q_offset``: absolute position of q[:, 0]. ``kv_len``: int or [B];
-    cache slots at or past it are masked out.
+    cache slots at or past it are masked out. With ``k_scale``/``v_scale``
+    [B, Skv, Hkv] (fp32) k/v are an INT8 cache and K9 runs
+    (:func:`flash_attention_kvq`).
     """
+    if k_scale is not None or v_scale is not None:
+        if mask is not None and mask.ndim >= 3 and mask.shape[-2] > 1:
+            raise NotImplementedError(
+                "full [.., Sq, Skv] masks are not supported with an INT8 KV cache; use a "
+                "key/padding mask or a bf16 cache")
+        if dropout_rate:
+            raise NotImplementedError(
+                "attention dropout with an INT8 KV cache is not supported (dropout is a "
+                "training feature; quantized caches are serving)")
     if mask is not None or dropout_rate or return_stats:
         raise NotImplementedError(
             "flash_attention: user masks, dropout and return_stats are not "
             "ported yet")
+    if k_scale is not None or v_scale is not None:
+        return flash_attention_kvq(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
+                                   q_offset=q_offset, kv_len=kv_len)
+    _check_shapes("flash_attention", q, k, v)
     B, Sq, Hq, D = q.shape
-    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k/v must be [B, Skv, Hkv, {D}] alike, "
-                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv:
-        raise ValueError("flash_attention: query heads must be a multiple of KV heads")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
@@ -109,19 +240,12 @@ def flash_attention(
     _build.require_bf16("flash_attention", q=q, k=k, v=v)
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
-    kv_ptr, kv_scalar = None, Skv
-    if isinstance(kv_len, torch.Tensor) and kv_len.ndim == 1:
-        if kv_len.shape != (B,):
-            raise ValueError(f"flash_attention: kv_len must be an int or [{B}]")
-        kv_len = kv_len.to(device=dev, dtype=torch.int32).contiguous()
-        kv_ptr = kv_len.data_ptr()
-    elif kv_len is not None:
-        kv_scalar = int(kv_len)
+    kv_arr, kv_scalar = _kv_len_arg("flash_attention", kv_len, B, Skv, dev)
     _build.require_contiguous_aligned("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
     lib, fn = _entry()
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_ptr,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(kv_arr),
                  kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
                  D ** -0.5 if scale is None else scale, int(causal),
                  _build.stream_handle(dev))

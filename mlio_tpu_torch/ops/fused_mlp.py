@@ -117,19 +117,16 @@ def fused_mlp(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=No
     acc = torch.zeros((M, H), dtype=torch.float32, device=dev)
     out = torch.empty((M, H), dtype=x.dtype, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib, fn = _entry("mlio_fused_mlp")
     lib, fin = _entry("mlio_fused_mlp_finish")
     with torch.cuda.device(dev):
         stream = _build.stream_handle(dev)
         # as in the JAX kernel, b_gate is added only together with b_up
-        err = fn(x2.data_ptr(), w_up.data_ptr(), ptr(w_gate), w_down.data_ptr(), ptr(b_up),
-                 ptr(b_gate) if b_up is not None else None, acc.data_ptr(), M, H, I,
+        err = fn(x2.data_ptr(), w_up.data_ptr(), _build.ptr(w_gate), w_down.data_ptr(),
+                 _build.ptr(b_up), _build.ptr(b_gate) if b_up is not None else None, acc.data_ptr(), M, H, I,
                  _ACT_CODE[activation], stream)
         _build.check(lib, err, "fused_mlp")
-        err = fin(acc.data_ptr(), ptr(b_down), out.data_ptr(), M, H, stream)
+        err = fin(acc.data_ptr(), _build.ptr(b_down), out.data_ptr(), M, H, stream)
     _build.check(lib, err, "fused_mlp (finish)")
     fused_mlp.launches += 1
     return out.reshape(x.shape)

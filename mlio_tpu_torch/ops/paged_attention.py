@@ -10,8 +10,9 @@ scatters in the JAX package; here they are PyTorch advanced indexing, which
 writes the pools in place. :func:`paged_attention` launches K7, CUDA C++ in
 ``mlio_tpu_torch/csrc/paged_attn.cu`` (replacing ``_paged_attn_kernel``),
 whose source note gives its H100 bound and design; on CPU tensors it runs
-:func:`paged_attention_plain`. INT8 pools and their scales belong to the
-quantization slice and raise.
+:func:`paged_attention_plain`. INT8 pools (``init_kv_pools(quant="int8")``)
+carry per-(slot, head) fp32 scale pools ``[L, NB, bs, Hkv]``, written by
+:func:`reshape_and_cache_quant` and read by K7's int8 instances.
 """
 from __future__ import annotations
 
@@ -22,22 +23,28 @@ import torch
 
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.quant import quantize_kv
 from mlio_tpu_torch.ops.reference import attention_reference
 
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (64, 128)
-_QUANT = ("INT8 KV pools belong to the quantization slice (K7's kv_quant path and "
-          "reshape_and_cache_quant), not ported yet")
 
 
 def init_kv_pools(num_layers: int, num_blocks: int, num_kv_heads: int, block_size: int,
                   head_dim: int, dtype=torch.bfloat16, quant: Optional[str] = None, *,
-                  device: Union[str, torch.device] = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed K/V pools [L, NB, bs, Hkv, D] on ``device``."""
-    if quant not in (None, "none"):
-        raise NotImplementedError(f"init_kv_pools(quant={quant!r}): {_QUANT}")
+                  device: Union[str, torch.device] = "cuda") -> Tuple[torch.Tensor, ...]:
+    """Zeroed K/V pools [L, NB, bs, Hkv, D] on ``device``. ``quant="int8"``
+    returns (k, v, k_scale, v_scale): int8 pools and per-(slot, head) fp32
+    scale pools [L, NB, bs, Hkv] of ones."""
+    if quant not in (None, "none", "int8"):
+        raise ValueError(f"init_kv_pools: unsupported quant {quant!r}")
     shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
     dev = resolve_device(device)
+    if quant == "int8":
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+                torch.ones(shape[:-1], dtype=torch.float32, device=dev))
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
 
@@ -61,6 +68,19 @@ def reshape_and_cache(k_pool: torch.Tensor, v_pool: torch.Tensor, k_new: torch.T
     return k_pool, v_pool
 
 
+def reshape_and_cache_quant(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, block_tables,
+                            write_pos, layer):
+    """The INT8 twin of :func:`reshape_and_cache`: k_new/v_new quantized per
+    (token, head) with :func:`~mlio_tpu_torch.ops.quant.quantize_kv`, the
+    int8 rows and their scales written in place. Returns the four pools."""
+    physical, offset = _slots(block_tables, write_pos, k_new.shape[1], k_pool.shape[2])
+    for pool, spool, new in ((k_pool, ks_pool, k_new), (v_pool, vs_pool, v_new)):
+        q, sc = quantize_kv(new)
+        pool[layer, physical, offset] = q
+        spool[layer, physical, offset] = sc
+    return k_pool, v_pool, ks_pool, vs_pool
+
+
 def reshape_and_cache_flat(pool: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,
                            write_pos: torch.Tensor, layer: int) -> torch.Tensor:
     """The flat-row twin of :func:`reshape_and_cache` for one pool
@@ -74,7 +94,8 @@ def reshape_and_cache_flat(pool: torch.Tensor, new: torch.Tensor, block_tables: 
 
 
 def gather_blocks(pool, layer, block_tables):
-    """[B, max_blocks * bs, Hkv, D]: every table entry's block of ``layer``."""
+    """[B, max_blocks * bs, ...]: every table entry's block of ``layer``
+    (K/V pools [.., Hkv, D], scale pools [.., Hkv])."""
     B, nb = block_tables.shape
     g = pool[layer][block_tables.long()]  # [B, max_blocks, bs, Hkv, D]
     return g.reshape(B, nb * pool.shape[2], *pool.shape[3:])
@@ -82,17 +103,23 @@ def gather_blocks(pool, layer, block_tables):
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                           block_tables: torch.Tensor, context_lens: torch.Tensor, *,
-                          layer: int, scale: Optional[float] = None) -> torch.Tensor:
+                          layer: int, scale: Optional[float] = None,
+                          k_scale_pool: Optional[torch.Tensor] = None,
+                          v_scale_pool: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp32 throughout, as the TPU
-    kernel. Slots at or past ``context_lens[b]`` are masked out before
-    either product, so whatever they hold never reaches the output; a
-    sequence with no valid slot gives 0."""
+    kernel; INT8 pools are dequantized in fp32 before both products, as
+    ``_paged_attn_kernel`` does. Slots at or past ``context_lens[b]`` are
+    masked out before either product, so whatever they hold never reaches
+    the output; a sequence with no valid slot gives 0."""
     B, Hq, D = q.shape
     Hkv = k_pool.shape[3]
     if scale is None:
         scale = D ** -0.5
     keys = gather_blocks(k_pool, layer, block_tables).float()
     vals = gather_blocks(v_pool, layer, block_tables).float()
+    if k_scale_pool is not None:
+        keys = keys * gather_blocks(k_scale_pool, layer, block_tables)[..., None]
+        vals = vals * gather_blocks(v_scale_pool, layer, block_tables)[..., None]
     T = keys.shape[1]
     valid = torch.arange(T, device=q.device)[None, :] < context_lens.to(q.device).long()[:, None]
     keys = keys.masked_fill(~valid[:, :, None, None], 0)
@@ -123,7 +150,7 @@ def _entry():
     fn = lib.mlio_paged_attn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
         fn.restype = i
     return lib, fn
 
@@ -146,9 +173,9 @@ def paged_attention(
     [L, NB, bs, Hkv, D]; block_tables [B, max_blocks] int32 names each
     sequence's physical blocks; ``context_lens`` [B] int32 counts its valid
     slots, the current token included; ``layer`` is the pools' layer index.
+    INT8 pools take their fp32 scale pools ``k_scale_pool``/``v_scale_pool``
+    [L, NB, bs, Hkv].
     """
-    if k_scale_pool is not None or v_scale_pool is not None:
-        raise NotImplementedError(f"paged_attention: {_QUANT}")
     B, Hq, D = q.shape
     if k_pool.ndim != 5 or k_pool.shape[4] != D or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged_attention: pools must be [L, NB, bs, Hkv, {D}] alike, got "
@@ -161,12 +188,16 @@ def paged_attention(
     if block_tables.ndim != 2 or block_tables.shape[0] != B or context_lens.shape != (B,):
         raise ValueError(f"paged_attention: block_tables must be [{B}, max_blocks] and "
                          f"context_lens [{B}]")
+    quant = _build.check_kv_scales("paged_attention", k_pool, v_pool, k_scale_pool,
+                                   v_scale_pool)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
-                                     layer=layer, scale=scale)
+                                     layer=layer, scale=scale, k_scale_pool=k_scale_pool,
+                                     v_scale_pool=v_scale_pool)
     dev = _build.require_cuda("paged_attention", q, k_pool, v_pool, block_tables,
-                              context_lens)
-    _build.require_bf16("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
+                              context_lens, *([k_scale_pool, v_scale_pool] if quant else []))
+    _build.require_bf16("paged_attention", q=q, **({} if quant else dict(k_pool=k_pool,
+                                                                         v_pool=v_pool)))
     G = Hq // Hkv
     if G not in _GROUPS or D not in _HEAD_DIMS:
         raise ValueError(f"paged_attention: group {G} not in {_GROUPS} or head dim {D} "
@@ -174,11 +205,13 @@ def paged_attention(
     for name, t in (("block_tables", block_tables), ("context_lens", context_lens)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous int32")
-    _build.require_contiguous_aligned("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool)
+    _build.require_contiguous_aligned("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool,
+                                      k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
     out = torch.empty_like(q)
     lib, fn = _entry()
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 _build.ptr(k_scale_pool), _build.ptr(v_scale_pool), block_tables.data_ptr(),
                  context_lens.data_ptr(), out.data_ptr(), B, block_tables.shape[1], NB, bs,
                  Hkv, G, D, layer, D ** -0.5 if scale is None else scale,
                  _build.stream_handle(dev))

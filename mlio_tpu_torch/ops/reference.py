@@ -50,20 +50,22 @@ def attention_reference(
     """Dense softmax attention with GQA, causal and KV-length masking.
 
     Computation in fp32, output in q's dtype; rows with no valid key give 0.
-    User masks, INT8 K/V scales, dropout and ``return_probs`` are not ported
-    yet and raise.
+    With ``k_scale``/``v_scale`` [B, Skv, Hkv] the K/V are an INT8 cache,
+    dequantized densely in fp32 first. User masks, dropout and
+    ``return_probs`` are not ported yet and raise.
     """
-    if mask is not None or k_scale is not None or v_scale is not None \
-            or dropout_rate or return_probs:
+    if mask is not None or dropout_rate or return_probs:
         raise NotImplementedError(
-            "attention_reference: user masks, INT8 K/V scales, dropout and "
-            "return_probs are not ported yet")
+            "attention_reference: user masks, dropout and return_probs are not ported yet")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = D ** -0.5
     group = Hq // Hkv
     kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+        vf = vf * v_scale.float()[..., None]
     if group > 1:
         kf = kf.repeat_interleave(group, dim=2)
         vf = vf.repeat_interleave(group, dim=2)

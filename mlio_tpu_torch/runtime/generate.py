@@ -10,6 +10,14 @@ lm_head the whole decode is ONE launch of ``max_new_tokens - 1`` steps,
 with an untied one a launch per token. Otherwise each token is a
 :func:`forward` on the cache, updated in place: K4 with the head after it,
 or the per-layer scan through K3.
+
+``cache_quant="int8"`` allocates an INT8 KV cache: the prefill writes it
+through ``quantize_kv`` and attends through K9, and the decode takes K4's
+INT8 path where ``supports_decode_stack`` accepts the cache (a length that
+is a multiple of 128), else the scan decode through K3's int8 instances.
+The JAX package launches its megakernel once a token over an INT8 cache
+(its multi-step launch needs the TPU's combined bf16 k|v buffer); the port
+keeps its one multi-step launch for a tied head there too.
 """
 from __future__ import annotations
 
@@ -41,12 +49,11 @@ def generate(
 ) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens for each row of ``input_ids``
     [B, S]. Returns [B, S + T] token ids on ``device``, where ``params``
-    must already lie. ``cache_quant="int8"`` (an INT8 KV cache) is not
-    ported yet and raises."""
-    if cache_quant not in (None, "none"):
-        raise NotImplementedError(
-            f"generate(cache_quant={cache_quant!r}): INT8 KV caches come with the int8 decode "
-            "slice (K9 and the INT8 paths of K3, K4, K7, K8), not ported yet; see ROADMAP.md")
+    must already lie. ``cache_quant="int8"`` decodes over an INT8 KV
+    cache."""
+    if cache_quant not in (None, "none", "int8"):
+        raise ValueError(f"generate: unsupported cache_quant {cache_quant!r}")
+    quantized = cache_quant == "int8"
     dev = resolve_device(device)
     if params["tok_embed"].device.type != dev.type:
         raise ValueError(f"generate: params lie on {params['tok_embed'].device}, not {dev}")
@@ -58,13 +65,15 @@ def generate(
         cache_len = min(spec.max_seq_len, S + max_new_tokens)
     if S + max_new_tokens > cache_len:
         raise ValueError("generate: cache too small for the requested generation")
-    cache = init_cache(spec, B, cache_len, dtype=params["tok_embed"].dtype, device=dev)
+    cache = init_cache(spec, B, cache_len, dtype=params["tok_embed"].dtype,
+                       quant="int8" if quantized else None, device=dev)
 
     logits, cache = forward(params, spec, input_ids, impl=impl, cache=cache)
     token = sampling.sample(logits[:, -1, :], generator, method)
     new = [token]
     if method.temperature == 0.0 and impl.attention != "dense" \
-            and use_decode_stack(spec, impl, params["blocks"]):
+            and use_decode_stack(spec, impl, params["blocks"], cache_quant=quantized,
+                                 smax=cache_len):
         new += _greedy_decode_stack(params, spec, token, cache, max_new_tokens - 1)
     else:
         for _ in range(max_new_tokens - 1):
@@ -85,7 +94,8 @@ def _greedy_decode_stack(params, spec, token, cache, steps):
     kw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
               lm_head=params["tok_embed"] if tied else params["lm_head"],
               lm_head_bias=params.get("lm_head_bias"), lm_vmajor=tied,
-              pos_embed=params["pos_embed"] if learned else None)
+              pos_embed=params["pos_embed"] if learned else None,
+              k_scales=cache.get("k_scale"), v_scales=cache.get("v_scale"))
 
     def embed(tok):
         x = params["tok_embed"][tok]

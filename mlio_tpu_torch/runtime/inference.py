@@ -14,10 +14,9 @@ the dequant-fused matmul (K5) in every projection.
 configurations.
 
 Not ported yet, and raising ``NotImplementedError``: ``profile_model``
-(ROADMAP.md, queue 1, item 11: ``profiling/``), the diffusion runner
+(ROADMAP.md, queue 1, item 11: ``profiling/``) and the diffusion runner
 (``create_inference_runner(model_type="diffusion")``, item 11:
-``runtime/diffusion.py``), and INT8 KV caches in ``generate`` (the int8
-decode slice).
+``runtime/diffusion.py``).
 """
 from __future__ import annotations
 

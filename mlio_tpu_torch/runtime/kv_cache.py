@@ -10,7 +10,6 @@ The paged half (``BlockManager``, ``SequenceMetadata``, ``PagedKVCache``,
 plain Python; ``PagedKVCache``'s device arrays are tensors on an explicit
 device. The engine's pools and scheduler are
 ``ops/paged_attention.py::init_kv_pools`` and ``runtime/scheduler.py``.
-The INT8 cache is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,12 +36,25 @@ def init_cache(
     *,
     device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, Any]:
-    """Allocate a zeroed contiguous cache on ``device``."""
-    if quant not in (None, "none"):
-        raise NotImplementedError(f"cache quant {quant!r} is not ported yet")
+    """Allocate a zeroed contiguous cache on ``device``.
+
+    ``quant="int8"`` allocates int8 K/V plus per-(token, head) fp32 scales
+    ``k_scale``/``v_scale`` [L, B, S_max, H_kv] (ones), as the JAX package
+    does; K9 (prefill), K3 and K4 (decode) read the scales beside the
+    int8 rows."""
+    if quant not in (None, "none", "int8"):
+        raise ValueError(f"unsupported cache quant {quant!r}")
     dev = resolve_device(device)
     S = max_seq_len or spec.max_seq_len
     shape = (spec.num_layers, batch_size, S, spec.num_kv_heads, spec.head_size)
+    if quant == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+            "v_scale": torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+            "pos": 0,
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -51,10 +63,13 @@ def init_cache(
 
 
 def cache_memory_bytes(spec: ModelSpec, batch_size: int, max_seq_len: int,
-                       dtype=torch.bfloat16) -> int:
-    """Bytes of the K and V tensors of :func:`init_cache`."""
-    return (2 * spec.num_layers * batch_size * max_seq_len
-            * spec.num_kv_heads * spec.head_size * _itemsize(dtype))
+                       dtype=torch.bfloat16, quant: Optional[str] = None) -> int:
+    """Bytes of the K and V tensors of :func:`init_cache`; with
+    ``quant="int8"`` the int8 K/V and their fp32 scales."""
+    rows = 2 * spec.num_layers * batch_size * max_seq_len * spec.num_kv_heads
+    if quant == "int8":
+        return rows * (spec.head_size + 4)
+    return rows * spec.head_size * _itemsize(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -134,8 +134,13 @@ def test_runner_defaults_and_generate(llama):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(NotImplementedError, match="profiling"):
         r.profile_model(ids)
-    with pytest.raises(NotImplementedError, match="int8 decode"):
-        InferenceRunner(spec, params, precision="fp32", kv_quant="int8").generate(ids, 2)
+    # an INT8 KV cache (K9 in prefill, K3's int8 instances in the scan decode)
+    got = InferenceRunner(spec, params, precision="fp32", kv_quant="int8",
+                          impl=Impl(**impl)).generate(ids, max_new_tokens=3)
+    want = jinf.InferenceRunner(jspec, jparams, precision="fp32", kv_quant="int8",
+                                impl=JaxImpl(**impl)).generate(jnp.asarray(ids),
+                                                               max_new_tokens=3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="precision"):
         InferenceRunner(spec, params, precision="fp64")
 
@@ -155,13 +160,14 @@ def test_transformer_runner_engine(llama):
 
 
 def test_quantized_runner_takes_the_per_op_decodes(llama):
-    """K4 and K8 have no int8-weight path yet: a quantized runner's engine
-    resolves to the per-op decode and its generate to the scan decode."""
+    """K4 and K8 have their int8-weight paths now: an int8 runner's engine
+    resolves to K8 ("mega"), as the JAX engine does, and its generate takes
+    K4."""
     _, _, spec, params = llama
     r = TransformerInferenceRunner(spec, params, precision="int8",
                                    impl=Impl(attention="flash", norm="fused"))
     eng = r.engine(max_batch=2, max_seq_len=32, dtype=torch.bfloat16)
-    assert eng.decode_stack == "perop"
+    assert eng.decode_stack == "mega"
     assert [len(o) for o in eng.run([[1, 2, 3], [4, 5]], max_new_tokens=3)] == [3, 3]
     assert r.generate(torch.tensor([[1, 2, 3]]), max_new_tokens=3).shape == (1, 6)
 

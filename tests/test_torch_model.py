@@ -158,25 +158,49 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="K6"):
         forward(params, spec, tok, cache=dict(cache),
                 impl=Impl(attention="flash", decode_stack="tiled"))
-    # "mega" runs (K4 is ported) but its INT8 KV and int8 weight paths do not
+    # "mega" runs (K4 is ported), and so do its INT8 KV and int8 weight
+    # paths: each gives the scan decode's result
     logits, _ = forward(params, spec, tok, cache=dict(cache),
                         impl=Impl(attention="flash", decode_stack="mega"))
     assert logits.shape == (1, 1, spec.vocab_size)
-    x = torch.zeros(1, spec.hidden_size)
-    scales = torch.ones(*cache["k"].shape[:4])
-    with pytest.raises(NotImplementedError, match="quantization"):
-        decode_layer_stack(x, params["blocks"], cache["k"], cache["v"], 2, spec=spec,
-                           k_scales=scales, v_scales=scales)
-    int8_blocks = dict(params["blocks"], wq=params["blocks"]["wq"].to(torch.int8))
-    with pytest.raises(NotImplementedError, match="quantization"):
-        decode_layer_stack(x, int8_blocks, cache["k"], cache["v"], 2, spec=spec)
-    # the fused MLP (K11) and fused norm+QKV (K12) are ported; an INT8 KV cache is not
+    from mlio_tpu_torch.runtime import generate, quantize_params
+
+    qcache = init_cache(spec, 1, 128, quant="int8", device="cpu")  # K4 takes 128-aligned
+    _, qcache = forward(params, spec, torch.zeros(1, 2, dtype=torch.long), cache=qcache)
+    x = params["tok_embed"][tok[:, 0]] + params["pos_embed"][2]
+    cache_k4 = {k: v.clone() if torch.is_tensor(v) else v for k, v in qcache.items()}
+    x_out, _ = decode_layer_stack(x, params["blocks"], cache_k4["k"], cache_k4["v"], 2,
+                                  spec=spec, k_scales=cache_k4["k_scale"],
+                                  v_scales=cache_k4["v_scale"])
+    want, cache_scan = forward(params, spec, tok, cache=qcache,
+                               impl=Impl(attention="flash", decode_stack="scan"))
+    got = forward(params, spec, tok, cache=dict(cache_k4, pos=2),
+                  impl=Impl(attention="flash", decode_stack="mega"))[0]
+    assert x_out.shape == x.shape and torch.isfinite(x_out).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    for key in ("k", "v"):  # both wrote the slot, to within one int8 step
+        assert (cache_k4[key].int() - cache_scan[key].int()).abs().max() <= 1
+        np.testing.assert_allclose(cache_k4[f"{key}_scale"].numpy(),
+                                   cache_scan[f"{key}_scale"].numpy(), rtol=1e-4)
+    qparams = quantize_params(params, spec, "int8")
+    cache_q = {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+    got = forward(qparams, spec, tok, cache=dict(cache_q),
+                  impl=Impl(attention="flash", decode_stack="mega"))[0]
+    want = forward(qparams, spec, tok, cache=dict(cache),
+                   impl=Impl(attention="flash", decode_stack="scan"))[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    # the fused MLP (K11) and fused norm+QKV (K12) are ported, and so is the
+    # INT8 KV cache in generate: a 128-slot cache takes K4, a 4-slot one the
+    # scan decode, with the same greedy tokens
     logits, _ = forward(params, spec, torch.zeros(1, 2, dtype=torch.long),
                         impl=Impl(mlp="fused", fused_ln_qkv=True))
     assert logits.shape == (1, 2, spec.vocab_size)
-    from mlio_tpu_torch.runtime import generate
-
-    with pytest.raises(NotImplementedError, match="int8 decode"):
-        generate(params, spec, tok, max_new_tokens=2, device="cpu", cache_quant="int8")
+    impl = Impl(attention="flash")
+    ids = torch.tensor([[5, 17]])
+    out = generate(params, spec, ids, max_new_tokens=2, device="cpu", cache_quant="int8",
+                   impl=impl)
+    assert out.shape == (1, 4) and torch.equal(out[:, :2], ids)
+    assert torch.equal(out, generate(params, spec, ids, max_new_tokens=2, device="cpu",
+                                     cache_quant="int8", impl=impl, cache_len=128))
     with pytest.raises(NotImplementedError, match="MoE"):
         load_model("moe-tiny", dtype=torch.float32, device="cpu")

@@ -125,7 +125,16 @@ def test_unported_options_raise():
         flash_attention(q, q, q, mask=torch.ones(1, 4))
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, return_stats=True)
-    kc = torch.zeros(1, 1, 4, 2, 64)
-    with pytest.raises(NotImplementedError):
-        decode_attention(q[:, 0], kc, kc, torch.ones(1, dtype=torch.int32), layer=0,
-                         k_scales=torch.ones(1, 1, 4, 2), v_scales=torch.ones(1, 1, 4, 2))
+    # INT8 K/V scales are ported (K3's int8 instances): the result is the
+    # attention over the dequantized cache
+    rng = np.random.default_rng(5)
+    qd = torch.from_numpy(_randn(rng, 1, 2, 64))
+    kc = torch.from_numpy(rng.integers(-127, 128, (1, 1, 4, 2, 64)).astype(np.int8))
+    vc = torch.from_numpy(rng.integers(-127, 128, (1, 1, 4, 2, 64)).astype(np.int8))
+    ks = torch.from_numpy(rng.uniform(0.005, 0.02, (1, 1, 4, 2)).astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.005, 0.02, (1, 1, 4, 2)).astype(np.float32))
+    got = decode_attention(qd, kc, vc, torch.full((1,), 3, dtype=torch.int32), layer=0,
+                           k_scales=ks, v_scales=vs)
+    want = attention_reference(qd[:, None], kc[0] * ks[0][..., None], vc[0] * vs[0][..., None],
+                               causal=False, kv_len=3)[:, 0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)

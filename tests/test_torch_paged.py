@@ -84,8 +84,13 @@ def test_init_kv_pools_matches_jax():
     jk, _ = jax_pa.init_kv_pools(2, 5, 3, 8, 64, dtype=jnp.float32)
     tk, tv = pa.init_kv_pools(2, 5, 3, 8, 64, dtype=torch.float32, device="cpu")
     assert tuple(tk.shape) == jk.shape and tv.shape == tk.shape and not tk.any()
-    with pytest.raises(NotImplementedError, match="quantization"):
-        pa.init_kv_pools(2, 5, 3, 8, 64, quant="int8", device="cpu")
+    # INT8 pools: int8 K/V and fp32 scale pools of ones, as the JAX package's
+    jq = jax_pa.init_kv_pools(2, 5, 3, 8, 64, quant="int8")
+    tq = pa.init_kv_pools(2, 5, 3, 8, 64, quant="int8", device="cpu")
+    assert len(tq) == len(jq) == 4
+    for t, j in zip(tq, jq):
+        assert tuple(t.shape) == j.shape and str(t.dtype).split(".")[-1] == str(j.dtype)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 # (group, block size): contexts [1, bs, 2 bs, 2 bs + 5] include a context of
@@ -125,8 +130,8 @@ def test_paged_attention_wrapper_rejects_bad_calls():
     q = torch.zeros(2, 4, 64)
     pool = torch.zeros(1, 4, 8, 2, 64)
     tables, ctx = torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="quantization"):
-        pa.paged_attention(q, pool, pool, tables, ctx, layer=0, k_scale_pool=pool)
+    with pytest.raises(ValueError, match="scales"):  # one scale pool, and a bf16 pool
+        pa.paged_attention(q, pool, pool, tables, ctx, layer=0, k_scale_pool=pool[..., 0])
     with pytest.raises(ValueError, match="layer"):
         pa.paged_attention(q, pool, pool, tables, ctx, layer=1)
     with pytest.raises(ValueError, match="block_tables"):

@@ -34,8 +34,18 @@ def test_init_cache_matches_jax(name, dtypes):
 
 
 def test_init_cache_int8_not_ported():
-    with pytest.raises(NotImplementedError):
-        init_cache(get_spec("gpt2-tiny"), 1, 8, quant="int8", device="cpu")
+    """The INT8 cache is ported now: int8 K/V and ones for the fp32 scales,
+    as the JAX package allocates them, and the scales in the byte count."""
+    spec = get_spec("gpt2-tiny")
+    jcache = jax_init_cache(JAX_PRESETS["gpt2-tiny"], 2, 8, quant="int8")
+    cache = init_cache(spec, 2, 8, quant="int8", device="cpu")
+    assert set(cache) == set(jcache)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        assert tuple(cache[key].shape) == jcache[key].shape
+        assert str(cache[key].dtype).split(".")[-1] == str(jcache[key].dtype)
+        np.testing.assert_array_equal(cache[key].numpy(), np.asarray(jcache[key]))
+    assert cache_memory_bytes(spec, 2, 8, quant="int8") == sum(
+        cache[k].numel() * cache[k].element_size() for k in ("k", "v", "k_scale", "v_scale"))
 
 
 def _logits(seed=0, shape=(4, 50)):
