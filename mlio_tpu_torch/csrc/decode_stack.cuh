@@ -24,6 +24,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "grid.cuh"
 
 #include <limits.h>
 #include <math.h>
@@ -169,43 +170,10 @@ __host__ __device__ inline Layout plan_layout(const StackParams& p, int nblocks)
   return lo;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // (m2, i2) beats (m1, i1): a larger logit, or the same logit at a smaller
 // index, so any merge order yields the first index of the maximum.
 __device__ __forceinline__ bool better(float m2, int i2, float m1, int i1) {
   return m2 > m1 || (m2 == m1 && i2 < i1);
-}
-
-// Grid-wide barrier: every block is resident (cooperative launch). bar[0]
-// counts arrivals, bar[1] is the generation; the last block to arrive resets
-// the count and advances the generation. The fences make every write before
-// the barrier visible to every block after it.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      // A block that waits ~10 s means a barrier was missed: fail the launch
-      // rather than hang the card.
-      for (long long spins = 0; *gen == g; ++spins) {
-        if (spins > (1ll << 28)) __trap();
-        __nanosleep(32);
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Phase timing (optional): block 0 stamps the global timer (ns) at the
@@ -254,22 +222,6 @@ __device__ __forceinline__ float normed(const StackParams& p, float x, float mu,
   float y = (x - mu) * rstd * to_f32(scale[k]);
   if (!p.rmsnorm && bias != nullptr) y += to_f32(bias[k]);
   return y;
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x))));
-}
-
-// _ACTIVATIONS order of the wrapper: gelu_new, gelu_tanh, gelu, relu, swiglu, geglu.
-__device__ __forceinline__ float activate(int act, float u, float g) {
-  switch (act) {
-    case 0:
-    case 1: return gelu_tanh(u);
-    case 2: return 0.5f * u * (1.f + erff(u * 0.7071067811865476f));
-    case 3: return fmaxf(u, 0.f);
-    case 4: return g / (1.f + expf(-g)) * u;
-    default: return gelu_tanh(g) * u;
-  }
 }
 
 __device__ __forceinline__ void fma_row(float (&acc)[kMaxB][8], const uint4& raw,

@@ -5,10 +5,10 @@ package's layout: per-layer weights stacked on a leading ``num_layers``
 axis, matmul weights stored [in, out]. The JAX ``lax.scan`` over layers
 becomes a Python loop. :class:`Impl` keeps the JAX package's fields and
 picks the kernels: ``attention="flash"`` takes K1 for prefill and, for
-single-token decode, the megakernel K4 (``decode_stack`` "mega", or "auto"
-where :func:`~mlio_tpu_torch.ops.decode_layer.supports_decode_stack` accepts
-the model) or the per-layer scan through K3 (``"scan"``, or "auto"
-otherwise); ``norm="fused"`` takes K2; ``mlp="fused"`` the fused MLP K11;
+single-token decode, the megakernel K4 (``decode_stack="mega"``), the tiled
+megakernel K6 with the head after it (``"tiled"``) or the per-layer scan
+through K3 (``"scan"``); ``"auto"`` chooses by :func:`decode_route`;
+``norm="fused"`` takes K2; ``mlp="fused"`` the fused MLP K11;
 ``fused_ln_qkv`` the fused norm+QKV K12. Quantized weights
 (:class:`~mlio_tpu_torch.ops.quant.QTensor` leaves from
 :func:`~mlio_tpu_torch.runtime.quantization.quantize_params`) take the
@@ -17,11 +17,11 @@ dequant-fused matmul K5 in every projection, and the fused ``wqkv`` and
 
 An INT8 KV cache (``init_cache(quant="int8")``) is written with
 ``quantize_kv`` and read with its scales: K9 in prefill, K4's INT8 path or
-K3's int8 instances in decode, as in the JAX package.
+K3's int8 instances in decode, as in the JAX package; K6 takes int8 or fp8
+weights over a bf16 or an INT8 cache.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-tiled big-model decode (``decode_stack="tiled"``, K6), ring attention and
-MoE layers.
+Not ported yet, and raising ``NotImplementedError`` when asked for: ring
+attention and MoE layers.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.ops import decode_attention as _decode
 from mlio_tpu_torch.ops import decode_layer as _stack
+from mlio_tpu_torch.ops import decode_tiled as _tiled
 from mlio_tpu_torch.ops import fused_mlp as _fused_mlp
 from mlio_tpu_torch.ops.quant import QTensor, quantize_kv
 
@@ -56,8 +57,8 @@ class Impl:
     norm: str = "dense"  # "dense" | "fused"
     fused_ln_qkv: bool = False
     # Decode-step layer iteration: "mega" runs every layer in one K4 launch;
-    # "scan" runs layer by layer with K3; "auto" takes mega where
-    # supports_decode_stack accepts the model, else scan; "tiled" (K6) raises.
+    # "tiled" in one K6 launch, the head after it; "scan" layer by layer
+    # with K3; "auto" as decode_route decides.
     decode_stack: str = "auto"
     block_q: Optional[int] = None
     block_kv: Optional[int] = None
@@ -330,31 +331,60 @@ def forward(
     return _head(x, params, spec, impl), new_cache
 
 
-def use_decode_stack(spec: ModelSpec, impl: Impl, blocks, cache_quant: bool = False,
-                     smax: Optional[int] = None) -> bool:
-    """Whether single-token decode runs K4 (the JAX package's ``use_mega``,
-    asked with the cache's quantization and length as ``generate`` asks).
-    ``"mega"`` on a model K4 does not run raises; ``"tiled"`` raises until
-    K6 is ported."""
-    if impl.decode_stack == "tiled":
-        raise NotImplementedError(
-            "decode_stack='tiled' needs the tiled decode kernel (K6, "
-            "mlio_tpu/ops/decode_tiled.py::_tiled_kernel), not ported yet")
-    if impl.decode_stack not in ("auto", "scan", "mega"):
-        raise ValueError(f"unknown decode_stack {impl.decode_stack!r}")
-    supported = _stack.supports_decode_stack(spec, cache_quant=cache_quant, blocks=blocks,
-                                             smax=smax)
-    if impl.decode_stack == "mega" and not supported:
-        raise ValueError(f"decode_stack='mega': K4 does not run {spec.name} with these weights "
-                         "and this cache (parallel residual, experts, activation, int4 or fp8 "
-                         "weights, or an INT8 cache not a multiple of 128 long)")
-    return impl.decode_stack == "mega" or (impl.decode_stack == "auto" and supported)
+_ROUTES = ("auto", "scan", "mega", "tiled")
+
+
+def decode_route(spec: ModelSpec, impl: Impl, blocks, B: int, cache_quant: bool = False,
+                 smax: Optional[int] = None, on_card: bool = True) -> str:
+    """The single-token decode route for a batch of B: ``"mega"`` (K4),
+    ``"tiled"`` (K6, the head after it) or ``"scan"`` (layer by layer through
+    K3); asked with the cache's quantization and length, as ``generate``
+    asks, before any launch.
+
+    ``"auto"`` takes K4 where K4 runs the model at this batch
+    (``supports_decode_stack``) and the port's K4-or-K6 rule
+    (``decode_tiled.prefer_mega``, which replaces the JAX package's VMEM
+    rule) picks it, else K6 where ``supports_decode_tiled`` accepts, else
+    the scan. ``"mega"`` and ``"tiled"`` raise a ValueError on what their
+    kernel does not run. ``on_card``: the kernels' head and width limits
+    apply (the CPU's plain versions take any head geometry; the batch
+    limits apply everywhere)."""
+    mode = impl.decode_stack
+    if mode not in _ROUTES:
+        raise ValueError(f"unknown decode_stack {mode!r}")
+    if mode == "scan":
+        return "scan"
+    mega = _stack.supports_decode_stack(spec, cache_quant=cache_quant, blocks=blocks, smax=smax,
+                                        B=B, on_card=on_card)
+    if mode == "mega":
+        if not mega:
+            limit = _stack.route_limit(spec, B, on_card)
+            raise ValueError(
+                f"decode_stack='mega': K4 does not run {spec.name} at batch {B} with these "
+                "weights and this cache (" + (limit or "parallel residual, experts, activation, "
+                "int4 or fp8 weights, or an INT8 cache not a multiple of 128 long") + ")")
+        return "mega"
+    tiled = _tiled.supports_decode_tiled(spec, B, cache_quant=cache_quant, blocks=blocks,
+                                         smax=smax, on_card=on_card)
+    if mode == "tiled":
+        if not tiled:
+            limit = _stack.route_limit(spec, B, on_card, _tiled.kernel_limit, _tiled.MAX_BATCH)
+            raise ValueError(
+                f"decode_stack='tiled': K6 does not run {spec.name} at batch {B} with these "
+                "weights and this cache (" + (limit or "parallel residual, experts, activation, "
+                "int4 weights, the fused layout, or an INT8 cache not a multiple of 128 long")
+                + ")")
+        return "tiled"
+    if mega and (not tiled or _tiled.prefer_mega(spec, _tiled._weight_itemsize(blocks) or 2)):
+        return "mega"
+    return "tiled" if tiled else "scan"
 
 
 def _decode_forward(params, spec, x, cache, impl, cos, sin):
     """Single-token decode (the JAX package's ``_decode_forward``): one K4
-    launch for every layer, then the head; or layer by layer through K3.
-    Either writes the token's K/V into the cache in place."""
+    launch for every layer, then the head; one K6 launch, then the head; or
+    layer by layer through K3. Each writes the token's K/V into the cache in
+    place."""
     B = x.shape[0]
     pos = cache["pos"]
     ck, cv = cache["k"], cache["v"]
@@ -362,11 +392,17 @@ def _decode_forward(params, spec, x, cache, impl, cos, sin):
     quant = cks is not None
     blocks = params["blocks"]
     new_cache = dict(cache, pos=pos + 1)
-    if use_decode_stack(spec, impl, blocks, cache_quant=quant, smax=ck.shape[2]):
+    route = decode_route(spec, impl, blocks, B, cache_quant=quant, smax=ck.shape[2],
+                         on_card=x.device.type == "cuda")
+    if route != "scan":
         # One position for the whole batch: the rope table collapses to [1, R].
         cs = (cos[:1, 0], sin[:1, 0]) if cos is not None else (None, None)
-        h, _ = _stack.decode_layer_stack(x[:, 0], blocks, ck, cv, pos, cs[0], cs[1],
-                                         spec=spec, k_scales=cks, v_scales=cvs)
+        if route == "mega":
+            h, _ = _stack.decode_layer_stack(x[:, 0], blocks, ck, cv, pos, cs[0], cs[1],
+                                             spec=spec, k_scales=cks, v_scales=cvs)
+        else:
+            h = _tiled.decode_layer_tiled(x[:, 0], blocks, ck, cv, pos, cs[0], cs[1], spec=spec,
+                                          k_scales=cks, v_scales=cvs)
         return _head(h[:, None], params, spec, impl), new_cache
     ctx = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
     for layer in range(spec.num_layers):

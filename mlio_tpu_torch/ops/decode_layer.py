@@ -47,16 +47,20 @@ MAX_HIDDEN = 8192  # the epilogue keeps [MAX_BATCH, H] bf16 in shared memory
 
 
 def supports_decode_stack(spec, cache_quant: bool = False, blocks=None,
-                          smax: Optional[int] = None) -> bool:
+                          smax: Optional[int] = None, B: Optional[int] = None,
+                          on_card: bool = True) -> bool:
     """Whether K4 applies to ``spec``: the JAX package's feature conditions
     (sequential residual, no experts, a supported activation, floating or
     int8 weights in the per-projection layout, not int4 or fp8; an INT8
-    cache needs a 128-aligned length there).
+    cache needs a 128-aligned length there) and, given the batch ``B``, the
+    CUDA instances' shape limits (:func:`kernel_limit`): B <= 8 always, the
+    head and width limits ``on_card`` (the plain version on the CPU takes any
+    head geometry).
 
     The JAX package also asks that one layer's weights fit the TPU's VMEM
     budget and sends larger dense models to the tiled kernel (K6). That rule
-    is a TPU budget and is not kept: until K6 is ported, large dense models
-    take K4 here."""
+    is a TPU budget and is not kept: ``decode_route`` in
+    ``models.transformer`` picks K4 or K6 by the port's own rule."""
     if spec.parallel_residual or spec.num_experts:
         return False
     if cache_quant and smax is not None and smax % 128:
@@ -66,10 +70,11 @@ def supports_decode_stack(spec, cache_quant: bool = False, blocks=None,
     if blocks is not None:
         w = blocks.get("wq")
         if isinstance(w, QTensor):
-            return w.fmt == "int8"
-        if not isinstance(w, torch.Tensor) or not w.is_floating_point():
+            if w.fmt != "int8":
+                return False
+        elif not isinstance(w, torch.Tensor) or not w.is_floating_point():
             return False
-    return True
+    return B is None or route_limit(spec, B, on_card) is None
 
 
 # ---------------------------------------------------------------------------
@@ -348,15 +353,36 @@ def check_weights(what: str, kernel: str, blocks, spec) -> None:
                          "(parallel residual, experts or activation)")
 
 
+def kernel_limit(spec, B: int) -> Optional[str]:
+    """The first shape limit of the megakernels' template instances (K4 and
+    K8) that (spec, B) breaks, or None."""
+    G, D, I = spec.num_heads // spec.num_kv_heads, spec.head_size, spec.intermediate_size
+    H = spec.hidden_size
+    if G not in _GROUPS or D not in _HEAD_DIMS:
+        return f"group {G} not in {_GROUPS} or head dim {D} not in {_HEAD_DIMS}"
+    if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
+        return (f"batch {B} must be 1..{MAX_BATCH}, hidden {H} at most {MAX_HIDDEN}, "
+                "hidden and intermediate multiples of 8")
+    return None
+
+
+def route_limit(spec, B: int, on_card: bool, limit=kernel_limit,
+                max_batch: int = MAX_BATCH) -> Optional[str]:
+    """The shape limit that a decode megakernel's route refuses on at batch
+    B, or None: ``limit(spec, B)`` (a kernel's ``kernel_limit``; K4/K8's by
+    default) where its CUDA instances run (``on_card``), else only its batch
+    limit ``max_batch`` (the plain version on the CPU takes any head
+    geometry)."""
+    if on_card:
+        return limit(spec, B)
+    return None if 1 <= B <= max_batch else f"batch {B} must be 1..{max_batch}"
+
+
 def kernel_shapes(what: str, spec, B: int, H: int) -> None:
     """Raise on the shapes the megakernels' template instances do not take."""
-    G, D, I = spec.num_heads // spec.num_kv_heads, spec.head_size, spec.intermediate_size
-    if G not in _GROUPS or D not in _HEAD_DIMS:
-        raise ValueError(f"{what}: group {G} not in {_GROUPS} or head dim {D} "
-                         f"not in {_HEAD_DIMS}")
-    if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
-        raise ValueError(f"{what}: batch {B} must be 1..{MAX_BATCH}, hidden {H} "
-                         f"at most {MAX_HIDDEN}, hidden and intermediate multiples of 8")
+    limit = kernel_limit(spec, B) if H == spec.hidden_size else f"hidden {H} is not the spec's"
+    if limit is not None:
+        raise ValueError(f"{what}: {limit}")
 
 
 def check_head(what: str, lm_head, lm_vmajor: bool, V: int, H: int) -> None:

@@ -33,11 +33,12 @@ from mlio_tpu_torch.ops.paged_attention import gather_blocks
 _EMITS = ("greedy", "logits")
 
 
-def supports_paged_stack(spec, blocks=None) -> bool:
-    """Whether K8 runs this model: K4's conditions
-    (:func:`~mlio_tpu_torch.ops.decode_layer.supports_decode_stack`), as in
-    the JAX package."""
-    return _k4.supports_decode_stack(spec, blocks=blocks)
+def supports_paged_stack(spec, blocks=None, B: Optional[int] = None,
+                         on_card: bool = True) -> bool:
+    """Whether K8 runs this model for ``B`` engine slots: K4's conditions
+    (:func:`~mlio_tpu_torch.ops.decode_layer.supports_decode_stack`, its
+    shape limits included), as in the JAX package."""
+    return _k4.supports_decode_stack(spec, blocks=blocks, B=B, on_card=on_card)
 
 
 def decode_paged_stack_plain(

@@ -1,0 +1,514 @@
+"""The tiled decode megakernel (K6): one decode step of every layer of a
+large dense model in one launch, with the weights streamed by head group
+and intermediate chunk and no head epilogue.
+
+Replaces ``mlio_tpu/ops/decode_tiled.py::_tiled_kernel`` (entry
+``decode_layer_tiled``). The kernel is CUDA C++ in
+``mlio_tpu_torch/csrc/decode_tiled.cuh``, built once per weight format
+(``decode_tiled_{bf16,int8,fp8}.cu``): one persistent cooperative launch a
+step whose phases, a layer at a time, are the QKV projections, attention by
+(sequence, head group, context split) with the cache write, the
+out-projection into the fp32 residual, the MLP by intermediate chunk (each
+block streams its chunk's up, gate and down weights straight into
+registers) and the fixed-order sum of the chunks' partial
+down-projections. Its source note gives the H100 bound and the design.
+
+The final norm and the lm_head run after it, in ``models.transformer``, as
+the JAX package runs them after its kernel.
+
+On CPU tensors :func:`decode_layer_tiled` runs
+:func:`decode_layer_tiled_plain`; on CUDA tensors it launches the kernel or
+raises. The cache is the port's ``[L, B, Smax, Hkv, D]`` and is written in
+place; an INT8 cache keeps its scales in the scan layout ``[L, B, Smax,
+Hkv]``, so the JAX package's ``pad_scales_for_tiled`` has no counterpart.
+The tiling (:class:`Tiling`) is Hopper's own (:func:`choose_tiling`), not the
+TPU's VMEM budget; the port has no autotune table. MoE models are not
+ported (``_check_supported`` raises on ``num_experts``).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.decode_layer import (_ACTIVATIONS, _attend_plain, _norm32, _rope,
+                                             route_limit)
+from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
+from mlio_tpu_torch.ops.reference import activate
+
+# The CUDA instances' limits.
+MAX_BATCH = 32     # rows of the widest GEMV tier (32 batch rows x 2 columns a thread)
+MAX_HIDDEN = 8192
+MAX_GROUP = 8      # query heads a KV head: the attention item's register arrays
+_HEAD_DIMS = (64, 128)
+_WIDTH_ALIGN = 16  # hidden and intermediate widths: 16-byte int8 weight rows
+# Hopper's budgets that the tiling is chosen from (hopper-kernels guide §1).
+SMS = 132
+L2_BYTES = 50 << 20
+MAX_CHUNK = 256    # intermediate columns an MLP item, at most (the kernel's kMaxChunk)
+_THREADS = 256
+_ACT_BYTES = 32 << 10  # shared memory for a chunk's [ic, batch rows] fp32 activations
+
+
+class Tiling(NamedTuple):
+    """``ka`` head groups of ``hg`` query heads (attention items) and ``km``
+    intermediate chunks of ``ic`` columns (MLP items). The JAX package's
+    ``ws`` (VMEM weight-pool slots) has no counterpart: K6 streams its
+    weights into registers."""
+
+    hg: int
+    ic: int
+    ka: int
+    km: int
+
+
+def _tier(B: int):
+    """(batch rows, columns a thread) of the kernel's GEMV tier for B."""
+    return (8, 8) if B <= 8 else (16, 4) if B <= 16 else (32, 2)
+
+
+def choose_tiling(spec, B: int) -> Optional[Tiling]:
+    """Hopper's tiling for a batch of B (None for a model K6 does not run).
+
+    - ``ka``: the fewest head groups (a divisor of the KV heads) whose
+      ``B * ka`` attention items fill the SMs, else one KV head a group;
+      context splits fill the rest.
+    - ``ic``: as many chunks as SMs, one a block, unless their fp32 partial
+      down-projections (``km * B * H * 4`` bytes) would pass half of L2; a
+      multiple of 16 (16-byte int8 rows), at most 256 (:data:`MAX_CHUNK`),
+      what a block's GEMV covers (``256 * columns a
+      thread``, up and gate side by side) and what the shared memory holds of
+      its activations.
+
+    Unlike the TPU's, the tiling does not depend on the weights' or the
+    cache's itemsize: the kernel streams a chunk's rows, not a whole chunk
+    into a pool."""
+    if spec.num_experts or spec.num_heads % spec.num_kv_heads:
+        return None
+    Hkv, H, I = spec.num_kv_heads, spec.hidden_size, spec.intermediate_size
+    ka = next((k for k in range(1, Hkv + 1) if Hkv % k == 0 and B * k >= SMS), Hkv)
+    mb, cpt = _tier(B)
+    gated = spec.activation in ("swiglu", "geglu")
+    km = max(1, min(SMS, (L2_BYTES // 2) // (B * H * 4)))
+    ic = -(-I // km)
+    ic = -(-ic // _WIDTH_ALIGN) * _WIDTH_ALIGN
+    ic = min(ic, MAX_CHUNK, _THREADS * cpt // (2 if gated else 1), _ACT_BYTES // (4 * mb))
+    return Tiling(hg=spec.num_heads // ka, ic=ic, ka=ka, km=-(-I // ic))
+
+
+def _valid(spec, t: Tiling) -> bool:
+    """The JAX package's checks of a given tiling, with Hopper's alignment
+    (16 columns) for the TPU's 128 lanes."""
+    Hq, Hkv, I = spec.num_heads, spec.num_kv_heads, spec.intermediate_size
+    return (t.ka >= 1 and Hq % t.ka == 0 and Hkv % t.ka == 0 and t.hg == Hq // t.ka
+            and t.ic >= 1 and t.km == -(-I // t.ic))
+
+
+def resolve_tiling(spec, B: int, tiling: Optional[Tiling] = None) -> Optional[Tiling]:
+    """:func:`choose_tiling`, or the given ``tiling`` validated as the JAX
+    package validates an autotuned one (heads divisible by ``ka``, ``km``
+    chunks of ``ic`` covering the intermediate width). The port has no
+    autotune table."""
+    if tiling is None:
+        return choose_tiling(spec, B)
+    if not _valid(spec, tiling):
+        raise ValueError(f"resolve_tiling: {tiling} does not tile {spec.name}")
+    return tiling
+
+
+def _weight_itemsize(blocks) -> Optional[int]:
+    """Bytes a weight element streams (None: a layout K6 does not take)."""
+    if blocks is None:
+        return 2
+    if "wq" not in blocks:  # the fused-projection layout
+        return None
+    w = blocks["wq"]
+    if isinstance(w, QTensor):
+        return 1 if w.fmt in ("int8", "fp8") else None
+    return w.element_size()
+
+
+def kernel_limit(spec, B: int) -> Optional[str]:
+    """The first limit of the CUDA instances that (spec, B) breaks, or None."""
+    G, D = spec.num_heads // spec.num_kv_heads, spec.head_size
+    H, I = spec.hidden_size, spec.intermediate_size
+    if not 1 <= B <= MAX_BATCH:
+        return f"batch {B} must be 1..{MAX_BATCH}"
+    if not 1 <= G <= MAX_GROUP or spec.num_heads % spec.num_kv_heads:
+        return f"query heads per KV head {G} must be 1..{MAX_GROUP}"
+    if D not in _HEAD_DIMS:
+        return f"head dim {D} not in {_HEAD_DIMS}"
+    if H > MAX_HIDDEN or H % _WIDTH_ALIGN or I % _WIDTH_ALIGN:
+        return (f"hidden {H} at most {MAX_HIDDEN}, hidden and intermediate "
+                f"multiples of {_WIDTH_ALIGN}")
+    return None
+
+
+def supports_decode_tiled(spec, B: int = 8, cache_quant: bool = False, blocks=None,
+                          smax: Optional[int] = None, on_card: bool = True) -> bool:
+    """Whether K6 runs this model, layout and batch: the JAX package's
+    feature conditions (sequential residual, a supported activation, floating,
+    int8 or fp8 weights in the per-projection layout, an INT8 cache 128-aligned
+    long) and B <= 32. MoE models are refused until they are ported. The TPU's
+    VMEM and lane clauses are not kept; with ``on_card`` the CUDA instances'
+    head and width limits (:func:`kernel_limit`) are, while the plain version
+    on the CPU takes any head geometry."""
+    if spec.parallel_residual or spec.num_experts:
+        return False
+    if cache_quant and smax is not None and smax % 128:
+        return False
+    if spec.activation not in _ACTIVATIONS or _weight_itemsize(blocks) is None:
+        return False
+    if route_limit(spec, B, on_card, kernel_limit, MAX_BATCH) is not None:
+        return False
+    return choose_tiling(spec, B) is not None
+
+
+# The K4-or-K6 rule of "auto" (models.transformer.decode_route): K4, with its
+# fused greedy epilogue and multi-step launch, where one layer's weights take
+# at most this many bytes; K6 and the head after it above. A whole greedy
+# decode step at B 8, context 705-1023, K4 with its epilogue against K6 plus
+# the head (chip_smoke.py's generate, generate_tiled, rule and generate_8b
+# phases; NVIDIA H100 80GB HBM3, 700.00 W), in ms:
+#   GPT-2 small, 13.5 MiB a layer (bf16)         0.986 against  1.590
+#   gpt2-xl, 58.6 MiB (bf16) / 29.3 MiB (int8)   8.70 / 8.55 against 10.04 / 10.39
+#   opt-1.3b, 96 MiB (bf16) / 48 MiB (int8)      4.87 / 4.73 against  5.59 /  5.64
+#   llama3-8b, 208 MiB (int8, INT8 cache)       24.34 against 13.17
+#   llama3-8b, 416 MiB (bf16)                   24.57 against 13.97
+# The crossover lies between 96 and 208 MiB a layer; no preset that both
+# kernels run falls between them, so the threshold sits at 128 MiB.
+MEGA_MAX_LAYER_BYTES = 128 << 20
+
+
+def layer_weight_bytes(spec, weight_itemsize: int) -> int:
+    """Bytes of one layer's projection weights at ``weight_itemsize``."""
+    H, I = spec.hidden_size, spec.intermediate_size
+    n_up = 2 if spec.activation in ("swiglu", "geglu") else 1
+    return weight_itemsize * (H * (spec.q_dim + 2 * spec.kv_dim) + spec.q_dim * H
+                              + (n_up + 1) * H * I)
+
+
+def prefer_mega(spec, weight_itemsize: int) -> bool:
+    """The K4-or-K6 rule: K4 for models whose layer weights stay within
+    :data:`MEGA_MAX_LAYER_BYTES` (the batch enters through K4's own limit)."""
+    return layer_weight_bytes(spec, weight_itemsize) <= MEGA_MAX_LAYER_BYTES
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _mm(h, w, rows, cols, layer):
+    """h @ w[layer][rows, cols] in fp32, an int8/fp8 weight's per-output
+    scale applied to the product (the JAX kernel's ``_mmvv``)."""
+    if isinstance(w, QTensor):
+        return (h.float() @ w.q[layer][rows, cols].float()) * w.scale[layer][cols].float()
+    return h.float() @ w[layer][rows, cols].float()
+
+
+def _bias(blocks, name, layer, cols):
+    b = blocks.get(name)
+    return 0.0 if b is None else b[layer][cols].float()
+
+
+def decode_layer_tiled_plain(
+    x: torch.Tensor,
+    blocks,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    *,
+    spec,
+    tiling: Optional[Tiling] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """``_tiled_kernel``'s function in plain PyTorch, phase by phase as the
+    JAX kernel runs it, with the decode megakernels' rounding points (the
+    norm outputs, ``q * scale``, the attention and the activation rounded to
+    x's dtype; the residual fp32 across layers; the probabilities fp32, as
+    :func:`~mlio_tpu_torch.ops.decode_layer._attend_plain` says why).
+
+    For each layer: norm1; per head group of ``tiling``, the group's q/k/v
+    (+ bias, RoPE), its slot ``pos`` written (rounded to the cache's dtype,
+    or quantized per head with its scales beside it), attention over slots
+    ``0..pos`` of the group's KV heads (an INT8 cache dequantized), and the
+    group's out-projection partial added to an fp32 accumulator; the fold
+    (residual + accumulator + out bias) and norm2; per intermediate chunk of
+    ``ic`` columns (the last masked at the intermediate width), up (and gate)
+    + activation and the chunk's partial down-projection; the final fold.
+    int8 and fp8 weights are dequantized per output channel on the product.
+    The result does not depend on the tiling beyond fp32 rounding.
+
+    Writes slot ``pos`` of every layer in place; returns x_out [B, H].
+    ``tiling`` defaults to :func:`choose_tiling`'s."""
+    cd = x.dtype
+    B = x.shape[0]
+    if tiling is None:
+        tiling = choose_tiling(spec, B)
+    L, _, _, Hkv, D = k_cache.shape
+    Hq, I = spec.num_heads, spec.intermediate_size
+    G, ka, ic = Hq // Hkv, tiling.ka, tiling.ic
+    hkvg = Hkv // ka
+    if scale is None:
+        scale = D ** -0.5
+    gated = spec.activation in ("swiglu", "geglu")
+    bp = blocks
+    if cos is not None:  # the tables are rounded to the compute dtype first
+        cos, sin = cos.to(cd).float()[0], sin.to(cd).float()[0]
+    x32 = x.float()
+    everything = slice(None)
+    for layer in range(L):
+        h = _norm32(x32, bp["ln1_scale"][layer], None if bp.get("ln1_bias") is None
+                    else bp["ln1_bias"][layer], spec.norm, spec.norm_eps).to(cd)
+        acc = torch.zeros_like(x32)
+        for g in range(ka):
+            qc = slice(g * hkvg * G * D, (g + 1) * hkvg * G * D)
+            kc = slice(g * hkvg * D, (g + 1) * hkvg * D)
+            heads = slice(g * hkvg, (g + 1) * hkvg)
+            q = _mm(h, bp["wq"], everything, qc, layer) + _bias(bp, "bq", layer, qc)
+            k = _mm(h, bp["wk"], everything, kc, layer) + _bias(bp, "bk", layer, kc)
+            v = _mm(h, bp["wv"], everything, kc, layer) + _bias(bp, "bv", layer, kc)
+            if cos is not None:
+                q, k = _rope(q, cos, sin, D), _rope(k, cos, sin, D)
+            k, v = k.reshape(B, hkvg, D), v.reshape(B, hkvg, D)
+            if k_scales is None:
+                k_cache[layer, :, pos, heads] = k.to(k_cache.dtype)
+                v_cache[layer, :, pos, heads] = v.to(v_cache.dtype)
+                keys = k_cache[layer, :, :pos + 1, heads]
+                vals = v_cache[layer, :, :pos + 1, heads]
+            else:
+                k_cache[layer, :, pos, heads], k_scales[layer, :, pos, heads] = quantize_kv(k)
+                v_cache[layer, :, pos, heads], v_scales[layer, :, pos, heads] = quantize_kv(v)
+                keys = dequantize_kv(k_cache[layer, :, :pos + 1, heads],
+                                     k_scales[layer, :, :pos + 1, heads])
+                vals = dequantize_kv(v_cache[layer, :, :pos + 1, heads],
+                                     v_scales[layer, :, :pos + 1, heads])
+            qs = (q * scale).to(cd).float().reshape(B, hkvg, G, D)
+            attn = _attend_plain(qs, keys, vals).reshape(B, hkvg * G * D).to(cd)
+            acc = acc + _mm(attn, bp["wo"], qc, everything, layer)
+        x32 = x32 + acc + _bias(bp, "bo", layer, everything)
+        h2 = _norm32(x32, bp["ln2_scale"][layer], None if bp.get("ln2_bias") is None
+                     else bp["ln2_bias"][layer], spec.norm, spec.norm_eps).to(cd)
+        acc = torch.zeros_like(x32)
+        for kk in range(-(-I // ic)):
+            cols = slice(kk * ic, min((kk + 1) * ic, I))
+            u = _mm(h2, bp["w_up"], everything, cols, layer) + _bias(bp, "b_up", layer, cols)
+            gt = None
+            if gated:
+                gt = (_mm(h2, bp["w_gate"], everything, cols, layer)
+                      + _bias(bp, "b_gate", layer, cols))
+            act = activate(u, gt, spec.activation).to(cd)
+            acc = acc + _mm(act, bp["w_down"], cols, everything, layer)
+        x32 = x32 + acc + _bias(bp, "b_down", layer, everything)
+    return x32.to(cd)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+PHASES = ("qkv", "attention", "out_proj", "mlp", "mlp_sum")
+
+
+def phase_stamps(spec) -> int:
+    """Timer stamps one launch writes: the start, the input, and one after
+    each of the :data:`PHASES` of every layer."""
+    return 2 + len(PHASES) * spec.num_layers
+
+
+_WEIGHTS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+_SCALES = ("sq", "sk", "sv", "so", "s_up", "s_gate", "s_down")
+_VECTORS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bq", "bk", "bv", "bo", "b_up",
+            "b_gate", "b_down")
+_PTRS = ("x", "x_out", "k_cache", "v_cache", "k_scale", "v_scale", *_VECTORS, *_WEIGHTS,
+         *_SCALES, "cos", "sin", "work", "sync", "stamps")
+_INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "rope_dim", "rmsnorm",
+         "activation", "wfmt", "ka", "ic", "splits", "ks_qkv", "ks_o", "nblocks", "smem")
+_FLOATS = ("eps", "scale")
+_FMTS = {None: 0, "int8": 1, "fp8": 2}
+_PAYLOAD = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``TiledParams`` in ``csrc/decode_tiled.cuh``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
+                + [(n, ctypes.c_int) for n in _INTS]
+                + [(n, ctypes.c_float) for n in _FLOATS])
+
+
+def _entry(fmt: Optional[str]):
+    """(library, plan, run) of K6's instance for the weights' format
+    (``csrc/decode_tiled_{bf16,int8,fp8}.cu``)."""
+    lib = _build.library(f"decode_tiled_{fmt or 'bf16'}")
+    plan, run = lib.mlio_decode_tiled_plan, lib.mlio_decode_tiled
+    if plan.argtypes is None:
+        pp = ctypes.POINTER(_Params)
+        plan.argtypes = [pp, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        run.argtypes = [pp, ctypes.c_void_p]
+        run.restype = ctypes.c_int
+    return lib, plan, run
+
+
+def _weight_format(blocks, spec) -> Optional[str]:
+    """The one storage format of the projection weights: None (floating
+    tensors), "int8" or "fp8" QTensors. Raises on anything else."""
+    gated = spec.activation in ("swiglu", "geglu")
+    fmts = set()
+    for name in _WEIGHTS:
+        w = blocks.get(name)
+        if w is None:
+            if name != "w_gate" or gated:
+                raise ValueError(f"decode_layer_tiled: weight {name!r} is missing (the "
+                                 "per-projection layout is needed)")
+            continue
+        if isinstance(w, QTensor):
+            if w.fmt not in _PAYLOAD:
+                raise ValueError(f"decode_layer_tiled: K6 takes int8 or fp8 weights, got {w.fmt}")
+            if w.act_scale is not None:
+                raise NotImplementedError("decode_layer_tiled: W8A8 weights (act_scale) are "
+                                          "not ported yet")
+            fmts.add(w.fmt)
+        elif isinstance(w, torch.Tensor) and w.is_floating_point():
+            fmts.add(None)
+        else:
+            raise ValueError(f"decode_layer_tiled: weight {name!r} must be a floating tensor "
+                             "or an int8/fp8 QTensor")
+    if len(fmts) != 1:
+        raise ValueError("decode_layer_tiled: the projection weights must share one format")
+    return fmts.pop()
+
+
+def decode_layer_tiled(
+    x: torch.Tensor,
+    blocks,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: int,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    *,
+    spec,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    tiling: Optional[Tiling] = None,
+    phase_times: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One decode step of every layer → x_out [B, H] (no head).
+
+    x [B, H] is the current token's hidden state (a learned position already
+    added); blocks hold the stacked ``[L, in, out]`` weights, bf16 or int8 /
+    fp8 QTensors with per-output-channel scales; k_cache/v_cache are
+    ``[L, B, Smax, Hkv, D]`` and get slot ``pos`` of every layer in place,
+    and with fp32 ``k_scales``/``v_scales`` [L, B, Smax, Hkv] they are an
+    INT8 cache (its length a multiple of 128); cos/sin are the ``[1,
+    rope_dim]`` tables of position ``pos`` for RoPE models. ``tiling``
+    defaults to :func:`choose_tiling`'s.
+
+    ``phase_times``, a CUDA int64 tensor of at least :func:`phase_stamps`
+    elements, receives the kernel's global timer (ns) at its start and after
+    each grid barrier (a port-only probe; the CPU ignores it)."""
+    if spec.num_experts or spec.parallel_residual or spec.activation not in _ACTIVATIONS:
+        raise ValueError(f"decode_layer_tiled: {spec.name} is not a model K6 runs "
+                         "(parallel residual, experts or activation)")
+    fmt = _weight_format(blocks, spec)
+    B, H = x.shape
+    if k_cache.ndim != 5 or k_cache.shape[1] != B or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_layer_tiled: caches must be [L, {B}, Smax, Hkv, D] alike, "
+                         f"got {tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    L, _, Smax, Hkv, D = k_cache.shape
+    if (L, Hkv, D) != (spec.num_layers, spec.num_kv_heads, spec.head_size) \
+            or H != spec.hidden_size:
+        raise ValueError("decode_layer_tiled: x and the caches do not match the spec")
+    quant = _build.check_kv_scales("decode_layer_tiled", k_cache, v_cache, k_scales, v_scales)
+    if quant and Smax % 128:
+        raise ValueError(f"decode_layer_tiled: an INT8 KV cache needs a 128-aligned cache "
+                         f"length (cache_len={Smax})")
+    if not 0 <= pos < Smax:
+        raise ValueError(f"decode_layer_tiled: slot {pos} outside the {Smax}-slot cache")
+    if (cos is None) != (spec.positional == "learned"):
+        raise ValueError("decode_layer_tiled: cos/sin are given for RoPE models, and only them")
+    if cos is not None and (cos.ndim != 2 or cos.shape[0] != 1 or sin.shape != cos.shape):
+        raise ValueError("decode_layer_tiled: cos/sin must be [1, rope_dim]")
+    tiling = resolve_tiling(spec, B, tiling)
+    if x.device.type == "cpu":
+        return decode_layer_tiled_plain(x, blocks, k_cache, v_cache, pos, cos, sin, spec=spec,
+                                        tiling=tiling, k_scales=k_scales, v_scales=v_scales,
+                                        scale=scale)
+
+    gated = spec.activation in ("swiglu", "geglu")
+    tensors = {n: blocks.get(n) for n in _VECTORS}
+    if not gated:
+        tensors["b_gate"] = None
+    quant_t = {}
+    for name, sname in zip(_WEIGHTS, _SCALES):
+        w = blocks.get(name) if gated or name != "w_gate" else None
+        if isinstance(w, QTensor):
+            if w.q.dtype != _PAYLOAD[fmt]:
+                raise ValueError(f"decode_layer_tiled: {name} payload must be {_PAYLOAD[fmt]}")
+            quant_t[name], quant_t[sname] = w.q, w.scale
+        else:
+            tensors[name] = w
+    tensors["x"] = x
+    caches = dict(k_cache=k_cache, v_cache=v_cache)
+    if quant:
+        caches.update(k_scale=k_scales, v_scale=v_scales)
+    else:
+        tensors.update(caches)
+    dev = _build.require_cuda("decode_layer_tiled", *[t for t in (
+        *tensors.values(), *quant_t.values(), *caches.values()) if t is not None])
+    limit = kernel_limit(spec, B)
+    if limit is not None:
+        raise ValueError(f"decode_layer_tiled: {limit}")
+    mb, cpt = _tier(B)
+    ic_max = min(MAX_CHUNK, _THREADS * cpt // (2 if gated else 1), _ACT_BYTES // (4 * mb))
+    if tiling.ic % _WIDTH_ALIGN or tiling.ic > ic_max:
+        raise ValueError(f"decode_layer_tiled: the kernel does not take {tiling} at batch {B} "
+                         f"(ic a multiple of {_WIDTH_ALIGN} up to {ic_max})")
+    _build.require_bf16("decode_layer_tiled", **tensors)
+    for name, t in {**quant_t, **(caches if quant else {})}.items():
+        want = (torch.float32 if name.startswith("s") or name.endswith("scale")
+                else torch.int8 if name.endswith("cache") else _PAYLOAD[fmt])
+        if t.dtype != want:
+            raise ValueError(f"decode_layer_tiled: {name} must be {want}, got {t.dtype}")
+    _build.require_contiguous_aligned("decode_layer_tiled", **tensors, **quant_t,
+                                      **(caches if quant else {}))
+    if cos is not None:
+        cos = cos.to(dev, x.dtype).float().contiguous()
+        sin = sin.to(dev, x.dtype).float().contiguous()
+    if phase_times is not None and (phase_times.dtype != torch.int64 or phase_times.device != dev
+                                    or phase_times.numel() < phase_stamps(spec)):
+        raise ValueError("decode_layer_tiled: phase_times must be int64 on the card, with "
+                         f"{phase_stamps(spec)} elements")
+    x_out = torch.empty_like(x)
+    prm = _Params(
+        **{n: _build.ptr(t) for n, t in (*tensors.items(), *quant_t.items(), *caches.items())},
+        x_out=x_out.data_ptr(), cos=_build.ptr(cos), sin=_build.ptr(sin),
+        stamps=_build.ptr(phase_times), B=B, H=H, Hq=spec.num_heads, Hkv=Hkv, D=D,
+        I=spec.intermediate_size, L=L, Smax=Smax, pos=pos,
+        rope_dim=0 if cos is None else cos.shape[1],
+        rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
+        wfmt=_FMTS[fmt], ka=tiling.ka, ic=tiling.ic, eps=spec.norm_eps,
+        scale=D ** -0.5 if scale is None else scale)
+    lib, plan, run = _entry(fmt)
+    work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
+                               ctypes.byref(sync_ints)), "decode_layer_tiled (plan)")
+        work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
+        sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
+        prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
+        err = run(ctypes.byref(prm), _build.stream_handle(dev))
+    _build.check(lib, err, "decode_layer_tiled")
+    decode_layer_tiled.launches += 1
+    return x_out
+
+
+decode_layer_tiled.launches = 0

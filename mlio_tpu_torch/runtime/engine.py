@@ -9,7 +9,8 @@ Split of responsibilities, as in the JAX package:
   plus ONE launch of the paged decode megakernel K8
   (``ops/decode_paged_stack.py``); ``"perop"`` runs the per-op step of
   ``paged_forward.decode_paged`` (K2, the projections, the K/V write and K7
-  a layer) and serves every model K8 does not run. Within a chunk the
+  a layer) and serves every model K8 does not run, and every ``max_batch``
+  past K8's 8 slots (the JAX K8 takes any batch). Within a chunk the
   tokens, contexts and tables stay on the device; the chunk's tokens are
   fetched once, after it.
 * host: admission, incremental block allocation, preemption by recompute,
@@ -34,6 +35,7 @@ import torch
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.models.transformer import Impl
+from mlio_tpu_torch.ops.decode_layer import route_limit as _route_limit
 from mlio_tpu_torch.ops.decode_paged_stack import decode_paged_stack, supports_paged_stack
 from mlio_tpu_torch.ops.paged_attention import init_kv_pools
 from mlio_tpu_torch.runtime import paged_forward
@@ -165,10 +167,15 @@ class InferenceEngine:
             num_blocks = max_batch * self.max_blocks_per_seq + 1
         if decode_stack not in _DECODE_STACKS:
             raise ValueError(f"decode_stack must be one of {_DECODE_STACKS}, got {decode_stack!r}")
-        supported = supports_paged_stack(spec, params.get("blocks"))
+        # K8's limits, the batch of max_batch slots included, decided before
+        # any launch: past them "auto" takes the per-op decode (K7)
+        on_card = self.device.type == "cuda"
+        supported = supports_paged_stack(spec, params.get("blocks"), B=max_batch, on_card=on_card)
         if decode_stack == "mega" and not supported:
-            raise ValueError(f"decode_stack='mega': K8 does not run {spec.name} "
-                             "(parallel residual, experts or activation)")
+            why = (_route_limit(spec, max_batch, on_card)
+                   or "parallel residual, experts or activation")
+            raise ValueError(f"decode_stack='mega': K8 does not run {spec.name} with "
+                             f"max_batch {max_batch} ({why})")
         self.decode_stack = "mega" if decode_stack == "mega" or (
             decode_stack == "auto" and supported) else "perop"
         self.kv_combined = False

@@ -3,21 +3,24 @@
 
 The prefill is one :func:`forward` (K1 and K2 with
 ``Impl(attention="flash", norm="fused")``). The decode is routed as the JAX
-package's ``_generate_impl`` routes it. Where the decode megakernel K4 runs
-the model (``decode_stack`` "auto" or "mega") and decoding is greedy with
-``attention != "dense"``, K4 runs the greedy epilogue itself: with a tied
-lm_head the whole decode is ONE launch of ``max_new_tokens - 1`` steps,
-with an untied one a launch per token. Otherwise each token is a
-:func:`forward` on the cache, updated in place: K4 with the head after it,
-or the per-layer scan through K3.
+package's ``_generate_impl`` routes it, by
+:func:`~mlio_tpu_torch.models.transformer.decode_route` asked with the
+batch, before any launch. On the K4 route (``decode_stack`` "mega", or
+"auto" where K4 runs the batch and the K4-or-K6 rule picks it), greedy
+decoding with ``attention != "dense"`` runs K4's greedy epilogue itself:
+with a tied lm_head the whole decode is ONE launch of ``max_new_tokens -
+1`` steps, with an untied one a launch per token. Otherwise each token is a
+:func:`forward` on the cache, updated in place: K4 or the tiled megakernel
+K6 with the head after it, or the per-layer scan through K3 (as the JAX
+step scan runs the tiled route).
 
 ``cache_quant="int8"`` allocates an INT8 KV cache: the prefill writes it
 through ``quantize_kv`` and attends through K9, and the decode takes K4's
-INT8 path where ``supports_decode_stack`` accepts the cache (a length that
-is a multiple of 128), else the scan decode through K3's int8 instances.
-The JAX package launches its megakernel once a token over an INT8 cache
-(its multi-step launch needs the TPU's combined bf16 k|v buffer); the port
-keeps its one multi-step launch for a tied head there too.
+or K6's INT8 path where the cache's length is a multiple of 128, else the
+scan decode through K3's int8 instances. The JAX package launches its
+megakernel once a token over an INT8 cache (its multi-step launch needs the
+TPU's combined bf16 k|v buffer); the port keeps its one multi-step launch
+for a tied head there too.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
-from mlio_tpu_torch.models.transformer import Impl, forward, rope_cos_sin, use_decode_stack
+from mlio_tpu_torch.models.transformer import Impl, decode_route, forward, rope_cos_sin
 from mlio_tpu_torch.ops import decode_layer as _stack
 from mlio_tpu_torch.runtime import sampling
 from mlio_tpu_torch.runtime.kv_cache import init_cache
@@ -71,9 +74,10 @@ def generate(
     logits, cache = forward(params, spec, input_ids, impl=impl, cache=cache)
     token = sampling.sample(logits[:, -1, :], generator, method)
     new = [token]
-    if method.temperature == 0.0 and impl.attention != "dense" \
-            and use_decode_stack(spec, impl, params["blocks"], cache_quant=quantized,
-                                 smax=cache_len):
+    route = "scan" if impl.attention == "dense" else decode_route(
+        spec, impl, params["blocks"], B, cache_quant=quantized, smax=cache_len,
+        on_card=dev.type == "cuda")
+    if method.temperature == 0.0 and route == "mega":
         new += _greedy_decode_stack(params, spec, token, cache, max_new_tokens - 1)
     else:
         for _ in range(max_new_tokens - 1):

@@ -155,9 +155,13 @@ def test_unported_paths_raise():
     cache = init_cache(spec, 1, 8, dtype=torch.float32, device="cpu")
     _, cache = forward(params, spec, torch.zeros(1, 2, dtype=torch.long), cache=cache)
     tok = torch.zeros(1, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="K6"):
-        forward(params, spec, tok, cache=dict(cache),
-                impl=Impl(attention="flash", decode_stack="tiled"))
+    # "tiled" runs (K6 is ported) and gives the scan decode's result
+    cache_t = {k: v.clone() if torch.is_tensor(v) else v for k, v in cache.items()}
+    got, _ = forward(params, spec, tok, cache=cache_t,
+                     impl=Impl(attention="flash", decode_stack="tiled"))
+    want, _ = forward(params, spec, tok, cache=dict(cache),
+                      impl=Impl(attention="flash", decode_stack="scan"))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     # "mega" runs (K4 is ported), and so do its INT8 KV and int8 weight
     # paths: each gives the scan decode's result
     logits, _ = forward(params, spec, tok, cache=dict(cache),
