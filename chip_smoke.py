@@ -107,7 +107,33 @@ phase's failure is caught:
    K3) and "mega" (K4, a launch a token) with launch counters, the decode
    step by the two-length marginal, tok/s, a step's device ms, the idle
    share, and the K4-or-K6 rule's pick beside both times.
-9b. rule: the K4-or-K6 rule's crossover, gpt2-xl and opt-1.3b at full
+9b. widen: K15 (``utils/fp8_convert.py``), the weight-widening probe: its
+   four widenings (int8; fp8 by the e4m3x2 convert K6 uses; fp8 through
+   fp32; fp8 by bit assembly) over a seeded 1 GB slab (256 chunks of 2048 x
+   2048), each held against its plain version, failing over 255 of the 256
+   chunks and with one chunk's bytes changed, then timed by the two-length
+   marginal (2 and 6 passes) beside K14's rate and its bound.
+9c. tiled_moe: K6's MoE phases (the router in the kernel, every expert's
+   intermediate chunks weighted by the rows' routing weights) at Mixtral's
+   widths, 4 layers, bf16, fp8 and int8 (INT8 cache) weights, B 1, 8 and
+   32; then at full depth (32 layers), int8 weights drawn on the card
+   (``init_quantized_params``: the build's peak must show no wider copy)
+   and an INT8 cache, B 8, ctx 896. Each against the plain version that
+   follows the kernel's expert picks, the routing itself held by ROUTE_TOL;
+   the full-depth x_out must fail with each row's second expert dropped,
+   and a context one token short must fail; device ms, the bound (the
+   experts this run's rows pick, and all of them), the phase durations.
+9d. generate_moe: the MoE slice's path, Mixtral-8x7B (32 layers, int8
+   weights and head), B 8, a 704-token prompt, a 1024-slot INT8 cache,
+   greedy, ``Impl(attention="flash", norm="fused", moe="ragged")``: prefill
+   logits held against an fp32 path as generate_8b holds them, the plain and
+   fp32 paths following the kernel path's expert picks at every layer, and a
+   control with K9's output rounded to e4m3 failing that gate; "auto" must
+   route to K6 (K4 refuses experts); launch counters (K9 32, K2 65 and one
+   a step, K5 129 and one a step, K6 one a step); the decode step by the
+   two-length marginal, tok/s, device ms, idle share and bound; three decode
+   steps' logits within LOGITS_ATOL of the plain route.
+9e. rule: the K4-or-K6 rule's crossover, gpt2-xl and opt-1.3b at full
    depth, bf16 and int8 weights, B 8: the decode step on "mega" and on
    "tiled" beside the route "auto" picks.
 10. f1: GPT-2 small greedy generate at B 16 ("auto" must route off K4) and
@@ -213,6 +239,20 @@ TOL = {"flash_attention": (2e-2, 2e-2), "flash_attention_kvq": (2e-2, 2e-2),
 # out of every layer.
 TOL["decode_layer_tiled_deep"] = TOL["decode_layer_tiled"]
 ROW_TOL = {"decode_layer_tiled_deep": 2.5e-2}
+# K6's MoE phases take the same limits; at Mixtral's 32 layers the deep one
+# holds x_out and the slots written at every layer alike: a late layer's K/V
+# carry the residual's 31-layer noise, and the 12-layer limit on them failed
+# at 0.080 on the card (NVIDIA H100 80GB HBM3, 700 W) where x_out passed;
+# layer 0's slot keeps its exact int8 check. Their plain version follows
+# the kernel's expert picks, read from the kernel's router softmax: a row
+# whose k-th and next expert nearly tie may
+# pick either on bf16 noise, and the other pick moves x_out by far more than
+# the limits. ROUTE_TOL bounds that noise instead: the kernel's softmax
+# within 2e-2 of the plain one's and no picked expert more than 2e-2 below
+# the plain softmax's k-th largest (at Mixtral's widths and 2 layers the
+# softmaxes lay within 1e-3 on the card, NVIDIA H100 80GB HBM3, 700 W); a
+# wrong pick lies about 0.1 or more below.
+ROUTE_TOL = 2e-2
 # Logits of GPT-2 small (std ~0.5 with random weights) through 12 bf16
 # layers: kernels against plain versions, max-abs. Random weights make the
 # argmax flip on bf16 noise, so a token is checked as "the plain logit at
@@ -230,6 +270,10 @@ LOGITS_ATOL = 0.1
 # weights and 0.162 against 0.166 for the quick start, their RMS 0.0174743
 # against 0.0174745 and 0.025374 against 0.025363; against the bf16 plain
 # path itself they lay 0.109 and 0.144 off (GPT-2's 12 layers: within 0.04).
+# Mixtral's prefill (generate_moe), the plain and fp32 paths following the
+# kernel path's expert picks: 0.2981 against 0.2993 max-abs, 0.041557
+# against 0.041487 RMS; the kernel path with K9's output rounded to e4m3 lay
+# 0.684 and 0.0960 off, 2.3x, and fails.
 LOGITS_8B_OVER_PLAIN = 1.05
 
 
@@ -284,8 +328,9 @@ def time_ms(fn, reps: int, warmup: int = 3):
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    from mlio_tpu_torch.utils.dma_bench import bound_ms
+
+    return bound_ms(nbytes, ops, HBM_BYTES_PER_S, peak_ops)
 
 
 def timings(kernel, plain, library, reps: int) -> dict:
@@ -1876,8 +1921,7 @@ def bandwidth_phase(dev, seed):
     launches = dict(auto=db.auto_stream.launches, manual=db.manual_stream.launches)
     streams = {k: v for k, v in res.items() if k != "copy"}
     best = max(streams, key=lambda k: streams[k]["gb_per_s"])
-    rate_from = best if streams[best]["gb_per_s"] >= res["copy"]["gb_per_s"] else "copy"
-    HBM_BYTES_PER_S = max(streams[best]["gb_per_s"], res["copy"]["gb_per_s"]) * 1e9
+    HBM_BYTES_PER_S, rate_from = db.best_rate(res)
     emit(dict(phase="bandwidth", streams=res, best_stream=best, rate_from=rate_from,
               measured_bytes_per_s=HBM_BYTES_PER_S, spec_sheet_bytes_per_s=SPEC_BYTES_PER_S,
               measured_over_spec_sheet=HBM_BYTES_PER_S / SPEC_BYTES_PER_S, launches=launches))
@@ -2139,14 +2183,19 @@ def llama_weights(dev, seed):
                       fp8=quantize_params(params, spec, "fp8"))
 
 
-def route_launches(route, L, steps, int8):
+def route_launches(route, L, steps, int8, projections=7, quant_head=False):
     """The launch counts of a 64-token generate of llama3-8b (untied head)
     on ``route``: prefill K1 (K9 over an INT8 cache) and K2 a layer pair and
     the final norm, K5 in every projection with int8 weights; the decode one
-    K6 a token with K2 for the head's norm, or one K4 (epilogue) a token."""
+    K6 a token with K2 for the head's norm, or one K4 (epilogue) a token.
+    ``projections``: the K5 projections a layer (Mixtral's 4: its experts
+    run in plain products in prefill); ``quant_head``: an int8 head, K5
+    once in prefill and once a K6 step."""
     want = dict(flash_attention=0 if int8 else L, flash_attention_kvq=L if int8 else 0,
-                fused_norm=2 * L + 1, quant_matmul=7 * L if int8 else 0, decode_attention=0,
-                decode_layer_stack=0, decode_layer_tiled=0)
+                fused_norm=2 * L + 1, quant_matmul=projections * L if int8 else 0,
+                decode_attention=0, decode_layer_stack=0, decode_layer_tiled=0)
+    if quant_head:
+        want["quant_matmul"] += 1 + (steps if route == "tiled" else 0)
     if route == "tiled":
         want["decode_layer_tiled"] = steps
         want["fused_norm"] += steps
@@ -2309,6 +2358,516 @@ def generate_8b_phase(dev, seed, spec, weights, wrappers, fa, norms, da, qm, dt,
             mega_max_layer_bytes=dt.MEGA_MAX_LAYER_BYTES)
         emit(result)
     return out_counts
+
+
+MIXTRAL = "mixtral-8x7b"  # the MoE slice's model: full width and depth
+MOE_SMALL_LAYERS = 4      # the variants' depth: a 32-layer bf16 Mixtral (93 GB) does not fit
+DECODE_CHECK_STEPS = 3    # generate_moe's decode steps held against the plain route
+
+
+def widen_phase(dev, seed):
+    """K15 (``utils/fp8_convert.py``): each of the four widenings over a
+    seeded 1 GB slab (256 chunks of 2048 x 2048 int8 or e4m3 bytes, x bf16
+    [8, 2048]) held against its plain version (fp8_convert's ATOL, RTOL,
+    entered in TOL here), failing
+    over 255 of the 256 chunks and over the slab with one chunk's bytes
+    changed; then timed by the two-length marginal (2 and 6 passes) with the
+    launch counter zeroed just before, beside the plain version, the bound
+    (the bytes over K14's rate, the FMAs over CUDA-core fp32's peak) and the
+    ratio to K14's rate. Returns K15's row (int8, the Mixtral path's
+    weights; the fp8 widenings as its variants)."""
+    from mlio_tpu_torch.utils import fp8_convert as fc
+
+    name = "widen_matmul"
+    TOL[name] = atol, rtol = fc.ATOL, fc.RTOL
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    x = torch.randn((fc.ROWS, fc.R), generator=gen, device=dev).to(torch.bfloat16)
+    slabs, rows = {}, {}
+    for v in fc.VARIANTS:
+        kind = fc.storage_dtype(v)
+        if kind not in slabs:
+            slabs[kind] = fc.draw_weights(v, fc.N_CHUNKS, fc.R, fc.C, gen)
+        w = slabs[kind]
+        _, want, err = fc.check(x, w, v, atol, rtol)
+        missing = must_fail_within(name, f"{v} over 255 of the 256 chunks",
+                                   fc.widen_matmul(x, w[:-1], v), want)
+        j = fc.N_CHUNKS // 2
+        saved = w[j].clone()
+        w[j] = fc.draw_weights(v, 1, fc.R, fc.C, gen)[0]
+        changed = must_fail_within(name, f"{v} with chunk {j}'s bytes changed",
+                                   fc.widen_matmul(x, w, v), want)
+        w[j] = saved
+        fc.widen_matmul.launches = 0
+        ms = fc.marginal_ms(lambda: fc.widen_matmul(x, w, v))
+        launches = fc.widen_matmul.launches
+        nbytes = w.numel() * w.element_size() + x.numel() * 2 + fc.ROWS * fc.C * 4
+        fmas = fc.ROWS * w.numel()
+        b_ms, b_by = bound(nbytes, 2 * fmas, FP32_FLOPS)
+        gbs = w.numel() / (ms * 1e-3) / 1e9
+        rows[v] = dict(
+            shape=f"x [{fc.ROWS},{fc.R}] bf16 @ {fc.N_CHUNKS} chunks [{fc.R},{fc.C}] "
+                  f"{'int8' if v == 'int8' else 'e4m3'} ({w.numel()} bytes), fp32 out",
+            max_abs_err=err, missing_chunk_max_abs_err=missing,
+            changed_chunk_max_abs_err=changed, ms=ms, kernel_ms=ms, gb_per_s=gbs,
+            over_k14_rate=gbs * 1e9 / HBM_BYTES_PER_S, launches=launches,
+            plain_ms=time_ms(lambda i: fc.widen_matmul_plain(x, w, v), 3)[0],
+            bound_ms=b_ms, bound_by=b_by, bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_fmas_ms=2 * fmas / FP32_FLOPS * 1e3, library_ms=None)
+        if not launches:
+            raise AssertionError(f"widen {v}: no launch in the timed run")
+    del slabs, w
+    torch.cuda.empty_cache()
+    emit(dict(phase="widen", rate_bytes_per_s=HBM_BYTES_PER_S, atol=atol, rtol=rtol,
+              variants=rows))
+    main_row = rows.pop("int8")
+    return dict(name=name, route="cuda", source="mlio_tpu_torch/csrc/fp8_convert.cu",
+                replaces="exp_fp8_convert.py:46", atol=atol, rtol=rtol,
+                library_note="no single PyTorch call widens int8 or e4m3 weights and "
+                "multiplies", **main_row, variants=rows)
+
+
+def route_errors(probs, pprobs, picks, k) -> dict:
+    """A run's routing (softmax ``probs`` [L, T, E], picks ``picks``, a
+    [L, T, E] mask) against another run's softmax ``pprobs`` that followed
+    those picks: the softmaxes' max-abs difference, how far the picks lie
+    below the other softmax's k-th largest (a pick differs only where two
+    experts nearly tie), and how many (layer, row) picks differ from the
+    other run's own top-k."""
+    from mlio_tpu_torch.ops.moe import topk_mask
+
+    kth = pprobs.topk(k, dim=-1).values[..., -1:]
+    short = (kth - pprobs).masked_fill(~picks, float("-inf")).amax().item()
+    return dict(router_probs_max_abs_err=(probs - pprobs).abs().max().item(),
+                pick_shortfall=max(short, 0.0),
+                picks_differing=int((topk_mask(pprobs, k) != picks).any(-1).sum()),
+                row_layers=picks.shape[0] * picks.shape[1])
+
+
+def route_check(probs, pprobs, picks, k):
+    """K6's routing against the plain run that followed its picks
+    (route_errors), each within ROUTE_TOL; raises otherwise."""
+    errs = route_errors(probs, pprobs, picks, k)
+    if not max(errs["router_probs_max_abs_err"], errs["pick_shortfall"]) <= ROUTE_TOL:
+        raise AssertionError(f"decode_layer_tiled (MoE): routing off the plain run's by more "
+                             f"than {ROUTE_TOL}: {errs}")
+    return errs
+
+
+@contextlib.contextmanager
+def following_routes(moe_ops, picks=None):
+    """``ops.moe.router_topk`` recording each call's (softmax, expert
+    indices), one call a layer in order, into the list it yields. Given
+    ``picks`` (an earlier run's indices, [L, T, k]), each call takes its
+    layer's experts from there instead of its own top-k, weighted by its
+    own softmax renormalized over them, as K6's plain version follows
+    ``experts=``."""
+    real = moe_ops.router_topk
+    calls = []
+
+    def route(x, w_router, top_k):
+        weights, idx, probs = real(x, w_router, top_k)
+        if picks is not None:
+            idx = picks[len(calls)]
+            weights = probs.gather(-1, idx.long())
+            weights = weights / weights.sum(-1, keepdim=True)
+        calls.append((probs, idx))
+        return weights, idx, probs
+
+    with patched(moe_ops, "router_topk", route):
+        yield calls
+
+
+def moe_check(dt, spec, blocks, x, kc, vc, pos, cos, sin, scales=None,
+              x_name="decode_layer_tiled"):
+    """K6's MoE phases from (x, kc, vc) against the plain version that
+    follows the kernel's expert picks (read from its router softmax by the
+    same top-k rule): the routing (route_check), x_out and the slot written
+    at every layer (slot_checks) under ``x_name``'s tolerance. Returns
+    (plain x_out, its caches (and scales), the errors, the picks)."""
+    from mlio_tpu_torch.ops.moe import topk_mask
+
+    L, E, k = spec.num_layers, spec.num_experts, spec.num_experts_per_tok
+    ksk = psk = {}
+    if scales is not None:
+        ksk = dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
+        psk = dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
+    probs = torch.zeros((L, x.shape[0], E), dtype=torch.float32, device=x.device)
+    kk, kv = kc.clone(), vc.clone()
+    xk = dt.decode_layer_tiled(x, blocks, kk, kv, pos, cos, sin, spec=spec, router_probs=probs,
+                               **ksk)
+    torch.cuda.synchronize()
+    picks = topk_mask(probs, k)
+    pprobs = torch.zeros_like(probs)
+    pk, pv = kc.clone(), vc.clone()
+    xp = dt.decode_layer_tiled_plain(x, blocks, pk, pv, pos, cos, sin, spec=spec,
+                                     router_probs=pprobs, experts=picks, **psk)
+    errs = route_check(probs, pprobs, picks, k)
+    errs["x_out"] = check_close(x_name, xk, xp)
+    errs.update(slot_checks(x_name, slice(pos, pos + 1), (kk, kv), (pk, pv), (kc, vc), scales,
+                            ksk, psk))
+    del kk, kv
+    return xp, (pk, pv, psk), errs, picks
+
+
+def moe_bound(spec, params, batch, slots, picks=None, kv8=False, head=False):
+    """(bound ms, bound_by) of a Mixtral decode step (``head``: with the
+    final norm and the lm_head): every non-expert weight (payloads and
+    scales), norm and router read once; of the experts, those some row picks
+    at each layer (``picks`` [L, B, E]; None: all of them, as the kernel
+    streams them); the K/V of ``slots`` cache slots of every layer; x and
+    x_out. Operations: each row's products with the attention weights, the
+    router and its top-k experts."""
+    from mlio_tpu_torch.ops.quant import QTensor
+
+    def nbytes_of(v):
+        ts = (v.q, v.scale) if isinstance(v, QTensor) else (v,)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    b = params["blocks"]
+    H, I, L, E, k = (spec.hidden_size, spec.intermediate_size, spec.num_layers,
+                     spec.num_experts, spec.num_experts_per_tok)
+    experts = ("moe_up", "moe_gate", "moe_down")
+    nbytes = sum(nbytes_of(v) for n, v in b.items() if v is not None and n not in experts)
+    per_expert = sum(nbytes_of(b[n]) for n in experts if b[n] is not None) / (L * E)
+    used = L * E if picks is None else int(picks.any(1).sum())
+    nbytes += used * per_expert
+    if head:
+        nbytes += nbytes_of(params["lm_head"]) + params["final_scale"].numel() * 2
+    kv_row = spec.kv_dim + 4 * spec.num_kv_heads if kv8 else spec.kv_dim * 2
+    nbytes += 2 * L * slots * kv_row + 2 * batch * H * 2
+    attn_mats = H * (spec.q_dim + 2 * spec.kv_dim) + spec.q_dim * H + H * E
+    flops = (2 * batch * L * (attn_mats + k * 3 * H * I)
+             + 4 * spec.num_heads * spec.head_size * slots * L
+             + (2 * batch * spec.vocab_size * H if head else 0))
+    return bound(nbytes, flops, BF16_TENSOR_FLOPS) + (used,)
+
+
+def moe_small_variants(dt, dev, seed, spec):
+    """K6's MoE instances at Mixtral's widths and MOE_SMALL_LAYERS layers,
+    random weights from the seed: bf16 and fp8 weights over a bf16 cache,
+    int8 weights over an INT8 cache, at B 1 (most experts unpicked by every
+    row), 8 and 32 (the 32 x 2 tier), ctx DECODE_CTX in a CACHE-slot cache;
+    each against the plain version (moe_check, K6's tolerance), with its
+    device ms."""
+    from mlio_tpu_torch.models import init_params, rope_cos_sin
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
+
+    spec4 = dataclasses.replace(spec, num_layers=MOE_SMALL_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    bf = init_params(spec4, gen, dtype=torch.bfloat16, device=dev)
+    pos = DECODE_CTX - 1
+    cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=dev), spec.rope_dim,
+                            spec.rope_theta)
+    out = {}
+    for wname in ("bf16", "fp8", "int8"):
+        params = bf if wname == "bf16" else quantize_params(bf, spec4, wname)
+        for batch in (1, 8, 32):
+            shape = (spec4.num_layers, batch, CACHE, spec.num_kv_heads, spec.head_size)
+            kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            x = torch.randn((batch, spec.hidden_size), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            scales = None
+            if wname == "int8":  # the quick start's pairing: an INT8 cache
+                (kc, ks), (vc, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
+                scales = (ks, vs)
+            _, _, errs, picks = moe_check(dt, spec4, params["blocks"], x, kc, vc, pos, cos, sin,
+                                          scales)
+            sk = {} if scales is None else dict(k_scales=scales[0].clone(),
+                                                v_scales=scales[1].clone())
+            tk, tv = kc.clone(), vc.clone()
+            ms = time_ms(lambda i: dt.decode_layer_tiled(x, params["blocks"], tk, tv, pos, cos,
+                                                         sin, spec=spec4, **sk), 5)[0]
+            out[f"{wname}{'_kv8' if scales else ''}_b{batch}"] = dict(
+                errors=errs, max_abs_err=errs["x_out"], ms=ms,
+                experts_used=int(picks.any(1).sum()), tiling=list(dt.choose_tiling(spec4, batch)))
+            del kc, vc, tk, tv
+        if wname != "bf16":
+            del params
+    del bf
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_weights(dev, seed, spec):
+    """Mixtral-8x7B with int8 weights drawn directly (init_quantized_params,
+    quantized head) on the card: (params, the build's bytes). The build must
+    not hold a bf16 copy: its peak allocation may pass the tree's bytes by
+    at most one layer's int8 experts."""
+    from mlio_tpu_torch.runtime import quantized_size_bytes
+    from mlio_tpu_torch.runtime.quantization import init_quantized_params
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_quantized_params(spec, torch.Generator(device=dev).manual_seed(seed), "int8",
+                                   quantize_lm_head=True, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tree = quantized_size_bytes(params)
+    peak = torch.cuda.max_memory_allocated() - before
+    layer_experts = 3 * spec.num_experts * spec.hidden_size * spec.intermediate_size
+    build = dict(tree_bytes=tree, peak_allocated_bytes=peak, layer_int8_expert_bytes=layer_experts,
+                 peak_over_tree_bytes=peak - tree, seconds=seconds)
+    if peak > tree + layer_experts:
+        raise AssertionError(f"mixtral build: peak {peak} bytes passes the int8 tree ({tree}) by "
+                             f"more than one layer's int8 experts ({layer_experts}): a wider copy")
+    return params, build
+
+
+def tiled_moe_row(dt, dev, seed, spec, params, small):
+    """K6's MoE phases at Mixtral's full width and depth (32 layers), int8
+    weights (``params``) and an INT8 cache, B 8, ctx DECODE_CTX: against the
+    plain version following its picks (moe_check; x_out under the 32-layer
+    row tolerance), failing with each row's second expert dropped at every
+    layer (top-1 routing: x_out alone must catch it) and with a context one
+    token short; device ms beside the plain version's, the bound (the
+    experts this run's rows pick; all experts beside it), the phase
+    durations; two runs must give the same bits, and the plan's workspace
+    bytes are printed. ``small``: the 4-layer variants. Returns K6's MoE
+    row."""
+    from mlio_tpu_torch.models import rope_cos_sin
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.utils.dma_bench import event_ms
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    pos = DECODE_CTX - 1
+    shape = (spec.num_layers, B, CACHE, spec.num_kv_heads, spec.head_size)
+    (kq, ks), (vq, vs) = (quantize_kv(torch.randn(shape, generator=gen, device=dev))
+                          for _ in range(2))
+    x = torch.randn((B, spec.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=dev), spec.rope_dim,
+                            spec.rope_theta)
+    blocks = params["blocks"]
+    x_plain, pcaches, errs, picks = moe_check(dt, spec, blocks, x, kq, vq, pos, cos, sin,
+                                              (ks, vs), x_name="decode_layer_tiled_deep")
+    plain = (x_plain, pcaches)
+    again = [dt.decode_layer_tiled(x, blocks, kq.clone(), vq.clone(), pos, cos, sin, spec=spec,
+                                   k_scales=ks.clone(), v_scales=vs.clone()) for _ in range(2)]
+    if not torch.equal(*again):
+        raise AssertionError("decode_layer_tiled (MoE): two runs give different bits")
+    tiling = dt.choose_tiling(spec, B)
+    workspace = dict(bytes=dt.decode_layer_tiled.workspace_bytes,
+                     partials_bytes=tiling.km * B * spec.hidden_size * 4)
+    del again
+    top1 = dataclasses.replace(spec, num_experts_per_tok=1)
+    sk = dict(k_scales=ks.clone(), v_scales=vs.clone())
+    xt = dt.decode_layer_tiled(x, blocks, kq.clone(), vq.clone(), pos, cos, sin, spec=top1, **sk)
+    top1_err = must_fail_within("decode_layer_tiled_deep",
+                                "each row's second expert dropped at every layer", xt, x_plain)
+    short = tiled_must_fail(dt, spec, blocks, x, kq, vq, pos - 1, pos, cos, sin, plain,
+                            "a context one token short", (ks, vs))
+    del plain, pcaches, xt
+    tk, tv = kq.clone(), vq.clone()
+    sk = dict(k_scales=ks.clone(), v_scales=vs.clone())
+    ms, call_ms = time_ms(lambda i: dt.decode_layer_tiled(x, blocks, tk, tv, pos, cos, sin,
+                                                          spec=spec, **sk), 10)
+    # the plain version, launch-bound over its 32 x 8 x 128 (layer, expert,
+    # chunk) phases, takes seconds a call: one call after one warm-up
+    plain_ms = event_ms(lambda: dt.decode_layer_tiled_plain(x, blocks, tk, tv, pos, cos, sin,
+                                                            spec=spec, experts=picks, **sk), 1)
+    t = dict(ms=ms, kernel_ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=None)
+    b_ms, b_by, used = moe_bound(spec, params, B, B * DECODE_CTX, picks, kv8=True)
+    all_ms, _, _ = moe_bound(spec, params, B, B * DECODE_CTX, None, kv8=True)
+    stamps = torch.zeros(dt.phase_stamps(spec), dtype=torch.int64, device=dev)
+    dt.decode_layer_tiled(x, blocks, tk, tv, pos, cos, sin, spec=spec, phase_times=stamps, **sk)
+    del tk, tv
+    name = "decode_layer_tiled_moe"
+    return dict(
+        name=name, route="cuda", source="mlio_tpu_torch/csrc/decode_tiled.cuh",
+        replaces="mlio_tpu/ops/decode_tiled.py:362",
+        replaces_note="the MoE phases of _tiled_kernel (mlio_tpu/ops/decode_tiled.py:704-795)",
+        shape=f"{spec.name} ({spec.num_layers} layers, {spec.num_experts} experts, top "
+              f"{spec.num_experts_per_tok}) bf16 activations, int8 weights, INT8 cache "
+              f"[{spec.num_layers},{B},{CACHE},{spec.num_kv_heads},{spec.head_size}], ctx "
+              f"{DECODE_CTX}, no head",
+        tiling=list(tiling), workspace=workspace, repeat_bitwise_equal=True,
+        atol=TOL["decode_layer_tiled"][0],
+        rtol=TOL["decode_layer_tiled"][1], x_out_row_tol=ROW_TOL["decode_layer_tiled_deep"],
+        route_tol=ROUTE_TOL, errors=errs, max_abs_err=errs["x_out"],
+        top1_max_abs_err=top1_err, ctx_minus_1_max_abs_err=short, **t, bound_ms=b_ms,
+        bound_by=b_by, bound_experts_used=used, bound_ms_all_experts=all_ms,
+        phase_us=tiled_phase_us(dt, spec, stamps),
+        library_note="no single PyTorch call computes a decode step", variants=small)
+
+
+def moe_prefill_logits(prefill, fp32, spec, fa, norms, da, qm):
+    """generate_moe's prefill logits: ``prefill()`` through the kernels,
+    recording its expert picks at every layer; then, each following those
+    picks (following_routes), the bf16 plain path, ``fp32()`` under the
+    plain versions, and a lower-precision control, the kernel path with
+    K9's output rounded to e4m3. Returns (each path's logit errors, the
+    plain and fp32 paths' routing against the kernel path's:
+    route_errors)."""
+    from mlio_tpu_torch.ops import moe as moe_ops
+
+    with following_routes(moe_ops) as kernel_routes:
+        logits = prefill()[0]
+    if logits.shape != (B, PROMPT, spec.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"generate_moe: prefill logits shape {tuple(logits.shape)} or not "
+                             "finite")
+    kprobs = torch.stack([p for p, _ in kernel_routes])
+    kpicks = torch.stack([i for _, i in kernel_routes])
+    kmask = torch.zeros_like(kprobs, dtype=torch.bool).scatter_(-1, kpicks.long(), True)
+    with plain_kernels(fa, norms, da, qm):
+        with following_routes(moe_ops, kpicks) as plain_routes:
+            logits_plain = prefill()[0]
+        with following_routes(moe_ops, kpicks) as ref_routes:
+            logits_ref = fp32()
+    k9 = fa.flash_attention_kvq
+
+    def k9_e4m3(*args, **kwargs):  # 3 mantissa bits where bf16 keeps 7
+        return k9(*args, **kwargs).to(qm.FP8).to(torch.bfloat16)
+
+    k9_e4m3.launches = 0  # the wrapper counts on the module name it is patched under
+    with patched(fa, "flash_attention_kvq", k9_e4m3), following_routes(moe_ops, kpicks):
+        logits_ctl = prefill()[0]
+    errs = dict(kernels_vs_fp32=logit_errors(logits, logits_ref),
+                plain_vs_fp32=logit_errors(logits_plain, logits_ref),
+                kernels_vs_plain=logit_errors(logits, logits_plain),
+                k9_e4m3_control_vs_fp32=logit_errors(logits_ctl, logits_ref))
+    routes = {name: route_errors(kprobs, torch.stack([p for p, _ in calls]), kmask,
+                                 spec.num_experts_per_tok)
+              for name, calls in (("plain", plain_routes), ("fp32", ref_routes))}
+    return errs, routes
+
+
+def generate_moe_phase(dev, seed, spec, params, build, wrappers, fa, norms, da, qm, dt):
+    """The slice's path: Mixtral-8x7B (32 layers, int8 weights and head from
+    init_quantized_params), B 8, a 704-token prompt, a 1024-slot INT8 cache,
+    greedy, Impl(attention="flash", norm="fused", moe="ragged"). The prefill
+    logits held against an fp32 path (the same int8 payloads dequantized one
+    expert at a time, every activation in fp32), no farther from it than the
+    bf16 plain path (LOGITS_8B_OVER_PLAIN, max-abs and RMS), where both
+    paths follow the kernel path's expert picks at every layer
+    (following_routes; a near tie flipped by bf16 noise would otherwise
+    swamp the kernels' own error; every path routes by the same plain
+    router_topk, so their softmaxes' distance from the kernel path's is
+    reported, not bounded); the gate must reject a lower-precision control,
+    the kernel path with K9's output rounded to e4m3; "auto" must
+    route to K6; the launch counters around a 64-token generate (K9 32, K2
+    65 and one a step, K5 129 and one a step (the int8 head), K6 one a
+    step); the decode step by the two-length marginal, tok/s, a step's
+    device ms, the idle share and the bound; DECODE_CHECK_STEPS decode steps
+    whose logits (K6 and the head) lie within LOGITS_ATOL of the plain route
+    that follows K6's expert picks. The prefill checks fail the phase after
+    its line is printed. Returns the launch counts."""
+    from mlio_tpu_torch.models import Impl, forward, rope_cos_sin
+    from mlio_tpu_torch.models.transformer import _head, decode_route
+    from mlio_tpu_torch.ops.moe import topk_mask
+    from mlio_tpu_torch.runtime import generate, init_cache
+
+    L = spec.num_layers
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, spec.vocab_size, (B, PROMPT))).to(dev)
+    base = Impl(attention="flash", norm="fused", moe="ragged")
+
+    def prefill():
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, quant="int8", device=dev)
+        with torch.inference_mode():
+            return forward(params, spec, ids, impl=base, cache=cache)
+
+    errs, routes = moe_prefill_logits(
+        prefill, lambda: fp32_prefill(spec, params, ids, base, "int8", dev), spec, fa, norms, da,
+        qm)
+    torch.cuda.empty_cache()
+    picked = decode_route(spec, base, params["blocks"], B, cache_quant=True, smax=CACHE,
+                          on_card=dev.type == "cuda")
+    if picked != "tiled":
+        raise AssertionError(f"generate_moe: decode_stack='auto' picks {picked!r}, not 'tiled'")
+
+    def run(new_tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, spec, ids, max_new_tokens=new_tokens, impl=base,
+                       cache_len=CACHE, cache_quant="int8", device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(4)  # warm-up
+    for w in wrappers:
+        w.launches = 0
+    out, t_short = run(SHORT)
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = route_launches("tiled", L, SHORT - 1, True, projections=4, quant_head=True)
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"generate_moe: launch counts {launches} != expected {want}")
+    if out.shape != (B, PROMPT + SHORT) or not torch.equal(out[:, :PROMPT], ids) \
+            or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
+        raise AssertionError("generate_moe: wrong shape, prompt changed or token out of range")
+    _, t_long = run(LONG)
+    step_s = (t_long - t_short) / (LONG - SHORT)
+    cache = prefill()[1]
+    tok = out[:, PROMPT:PROMPT + 1]
+    with torch.inference_mode():
+        step_dev_ms = time_ms(lambda i: forward(params, spec, tok, impl=base,
+                                                cache=dict(cache)), 3)[0]
+    # decode steps: K6 and the head against the plain route over the same cache
+    blocks, k = params["blocks"], spec.num_experts_per_tok
+    steps = []
+    with torch.inference_mode():
+        for s in range(DECODE_CHECK_STEPS):
+            pos = PROMPT + s
+            x = params["tok_embed"][tok[:, 0]]
+            cs, sn = rope_cos_sin(torch.arange(pos, pos + 1, device=dev), spec.rope_dim,
+                                  spec.rope_theta)
+            ck, cv = cache["k"].clone(), cache["v"].clone()
+            psk = dict(k_scales=cache["k_scale"].clone(), v_scales=cache["v_scale"].clone())
+            probs = torch.zeros((L, B, spec.num_experts), dtype=torch.float32, device=dev)
+            xk = dt.decode_layer_tiled(x, blocks, cache["k"], cache["v"], pos, cs, sn, spec=spec,
+                                       k_scales=cache["k_scale"], v_scales=cache["v_scale"],
+                                       router_probs=probs)
+            picks = topk_mask(probs, k)
+            pprobs = torch.zeros_like(probs)
+            xp = dt.decode_layer_tiled_plain(x, blocks, ck, cv, pos, cs, sn, spec=spec,
+                                             router_probs=pprobs, experts=picks, **psk)
+            lk = _head(xk[:, None], params, spec, base)[:, 0]
+            with plain_kernels(norms, qm):
+                lp = _head(xp[:, None], params, spec, base)[:, 0]
+            step = route_check(probs, pprobs, picks, k)
+            step.update(x_out_max_abs_err=(xk.float() - xp.float()).abs().max().item(),
+                        logits_max_abs_err=(lk.float() - lp.float()).abs().max().item())
+            steps.append(step)
+            tok = lk.argmax(-1)[:, None]
+            del ck, cv, psk
+    del cache
+    torch.cuda.empty_cache()
+    b_ms, b_by, used = moe_bound(spec, params, B, B * (PROMPT + (SHORT + LONG) // 2), picks,
+                                 kv8=True, head=True)
+    all_ms, _, _ = moe_bound(spec, params, B, B * (PROMPT + (SHORT + LONG) // 2), None,
+                             kv8=True, head=True)
+    result = dict(phase="generate_moe", model=spec.name, layers=L, experts=spec.num_experts,
+                  top_k=k, weights="int8", head="int8", cache_quant="int8", batch=B,
+                  prompt=PROMPT, cache_len=CACHE, build=build, impl=dict(
+                      attention=base.attention, norm=base.norm, moe=base.moe),
+                  auto_route=picked, launches=launches, prefill_logits=errs,
+                  prefill_routes_followed=routes, logits_over_plain=LOGITS_8B_OVER_PLAIN,
+                  generate_s={str(SHORT): t_short, str(LONG): t_long},
+                  decode_step_ms=step_s * 1e3, decode_tok_per_s=B / step_s,
+                  decode_step_device_ms=step_dev_ms,
+                  decode_idle_share=1 - step_dev_ms / (step_s * 1e3),
+                  decode_step_bound_ms=b_ms, decode_step_bound_by=b_by,
+                  bound_experts_used=used, decode_step_bound_ms_all_experts=all_ms,
+                  step_over_bound=step_s * 1e3 / b_ms, decode_steps=steps)
+    emit(result)
+    def passes(got):
+        return all(errs[got][stat] <= LOGITS_8B_OVER_PLAIN * errs["plain_vs_fp32"][stat]
+                   for stat in ("max_abs", "rms"))
+
+    if not passes("kernels_vs_fp32"):
+        raise AssertionError(f"generate_moe: the kernels' prefill logits lie farther from the "
+                             f"fp32 path than the bf16 plain path's: {errs}")
+    if passes("k9_e4m3_control_vs_fp32"):
+        raise AssertionError(f"generate_moe: the prefill gate passes K9 rounded to e4m3: {errs}")
+    worst = max(st["logits_max_abs_err"] for st in steps)
+    if not worst <= LOGITS_ATOL:
+        raise AssertionError(f"generate_moe: a decode step's logits lie {worst} from the plain "
+                             f"route (> {LOGITS_ATOL})")
+    return launches
 
 
 RULE_MODELS = ("gpt2-xl", "opt-1.3b")  # layer weights on K4's side of the crossover
@@ -2498,6 +3057,7 @@ def main() -> int:
     from mlio_tpu_torch.ops import norms
     from mlio_tpu_torch.ops import paged_attention as pa
     from mlio_tpu_torch.ops import quant as qm
+    from mlio_tpu_torch.models import get_spec
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -2542,6 +3102,19 @@ def main() -> int:
                               dt.decode_layer_tiled), fa, norms, da, qm, dt, dl)
     del weights8
     torch.cuda.empty_cache()
+    # The MoE slice: K15, then Mixtral-8x7B through K6's MoE phases.
+    widen = widen_phase(dev, args.seed)
+    specm = get_spec(MIXTRAL)
+    small = moe_small_variants(dt, dev, args.seed, specm)
+    paramsm, build = mixtral_weights(dev, args.seed, specm)
+    tiled_moe = tiled_moe_row(dt, dev, args.seed, specm, paramsm, small)
+    emit(dict(phase="tiled_moe", **tiled_moe))
+    ranm = generate_moe_phase(dev, args.seed, specm, paramsm, build,
+                              (fa.flash_attention, fa.flash_attention_kvq, norms.fused_norm,
+                               qm.quant_matmul, da.decode_attention, dl.decode_layer_stack,
+                               dt.decode_layer_tiled), fa, norms, da, qm, dt)
+    del paramsm
+    torch.cuda.empty_cache()
     rule_phase(dev, args.seed, dt)
     f1 = f1_phase(dev, args.seed, (fa.flash_attention, norms.fused_norm, da.decode_attention,
                                    dl.decode_layer_stack, dt.decode_layer_tiled,
@@ -2585,7 +3158,15 @@ def main() -> int:
         tiled["variants"][v]["launches_note"] = "no path of this run decodes with these weights"
     if not tiled["launches"] or not tiled["variants"]["w8kv8"]["launches"]:
         raise AssertionError("decode_layer_tiled: no launch on generate_8b's tiled route")
-    rows += [tiled] + probe_rows
+    # K6's MoE instances: generate_moe's tiled route (Mixtral, int8 weights,
+    # INT8 cache); the 4-layer variants run on no path of this run
+    tiled_moe["launches"] = ranm["decode_layer_tiled"]
+    for v in tiled_moe["variants"].values():
+        v["launches"] = 0
+        v["launches_note"] = "checked at 4 layers; no path of this run decodes with these"
+    if not tiled_moe["launches"] or not widen["launches"]:
+        raise AssertionError("decode_layer_tiled (MoE) or widen_matmul: no launch on its path")
+    rows += [tiled, tiled_moe, widen] + probe_rows
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

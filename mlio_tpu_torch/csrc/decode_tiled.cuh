@@ -13,6 +13,14 @@
 //   x32 += sum over intermediate chunks of
 //          bf16(act(h2 @ w_up[:, chunk] + b_up [, h2 @ w_gate[:, chunk] + b_gate])) @ w_down[chunk]
 //   + b_down. The last layer writes x_out = bf16(x32).
+// A sparse-MoE model (E > 0: Mixtral; the JAX kernel's lines 704-795) routes
+// at the fold: logits = h2 @ router[l] in fp32, p = exp(logits - max) / sum
+// over the E experts, the top_k of p by repeated max (the lowest index on
+// ties), comb = p at the picks / their sum (0 elsewhere); then
+//   x32 += sum over experts e, chunks of
+//          (bf16(act(h2 @ up_e[:, chunk], h2 @ gate_e[:, chunk])) @ down_e[chunk])
+//          x s_down_e x comb[:, e]
+// with each expert's per-channel scales; expert MLPs have no biases.
 //
 // Bound: bytes. At llama3-8b's full width and depth, B = 8, context 896 a
 // step reads every layer's weights once (14.9 GB of bf16 weights: 4.45 ms at
@@ -43,6 +51,17 @@
 //      SM): up and gate over all H rows, the activation, then the chunk's
 //      rows of w_down, leaving a partial [B, H] for the chunk.
 //   5. the chunks' partials summed in chunk order into x32 (+ b_down).
+// MoE: in phase 4 every MLP block first routes all B rows itself (a warp a
+// row, from the normed rows it stages anyway; B x H x E is 8 x 4096 x 8 at
+// Mixtral, 64 KB of router weights): the same code and summation order in
+// every block give every block the same comb, bit for bit, with no extra
+// grid barrier. An item is still one intermediate chunk: it walks the chunk
+// over all E experts in expert order, adding comb[b, e] x each expert's down
+// product into the chunk's one partial, so the partials stay km x B x H (at
+// Mixtral 128 x 8 x 4096 fp32, 16.8 MB, within L2; one partial an (expert,
+// chunk) pair would be 58.7 MB) and phase 5 is unchanged. Every expert is
+// streamed, picked by a row or not (an unpicked one adds 0 x its product),
+// as the TPU kernel streams them.
 // Every GEMV streams its weight slab (rows of whole tiles, up and gate side
 // by side, the chunk's w_down rows) straight into registers: each thread
 // loads its columns of a row with one streaming load and keeps 8 rows in
@@ -59,7 +78,7 @@
 // one bulk copy a row segment) drew about 8 GB/s an SM.
 //
 // Limits: bf16 activations; B <= 32; H <= 8192; head dim 64 or 128 (template
-// instances); 1..8 query heads a KV head; H and I multiples of 16; ic a
+// instances); 1..8 query heads a KV head; E <= 16 experts; H and I multiples of 16; ic a
 // multiple of 16, at most 256 and with the chunk's up and gate columns at
 // most 256 x CPT. The
 // wrapper raises on anything else. GEMVs use CUDA-core FMAs (wgmma is later
@@ -78,8 +97,8 @@
 
 #include "common.cuh"
 #include "grid.cuh"
+#include "widen.cuh"
 
-#include <cuda_fp8.h>
 #include <math.h>
 
 #include <type_traits>
@@ -105,6 +124,12 @@ constexpr int kMlpActOffset = (kRedFloats + kActFloats) * 4;
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kItemRows = 256;         // choose_ks's cost of an item's start, in weight rows
 constexpr int kMaxChunk = 256;         // intermediate columns an MLP item, at most
+constexpr int kMaxE = 16;              // experts: the router's register array
+// The MoE routing weights comb [kMaxB][kMaxE] after the MLP item's activations.
+constexpr int kCombOffset = kMlpActOffset + kMaxActBytes;
+static_assert(kCombOffset + kMaxB * kMaxE * 4 <=
+                  kRingBytes + kActStageFloats * 4 + kMaxActBytes,
+              "comb fits the dynamic shared memory");
 
 }  // namespace
 
@@ -117,14 +142,17 @@ struct TiledParams {
   float *k_scale, *v_scale;  // INT8 cache: [L, B, Smax, Hkv]
   const bf16 *ln1_scale, *ln1_bias, *ln2_scale, *ln2_bias;
   const bf16 *bq, *bk, *bv, *bo, *b_up, *b_gate, *b_down;
-  const void *wq, *wk, *wv, *wo, *w_up, *w_gate, *w_down;  // [L, in, out], wfmt
-  const float *sq, *sk, *sv, *so, *s_up, *s_gate, *s_down;  // [L, out] (int8, fp8)
+  // [L, in, out], wfmt; with E > 0 the MLP's are the expert stacks [L, E, in, out]
+  const void *wq, *wk, *wv, *wo, *w_up, *w_gate, *w_down;
+  const float *sq, *sk, *sv, *so, *s_up, *s_gate, *s_down;  // [L, (E,) out] (int8, fp8)
   const float *cos, *sin;  // [1, rope_dim], bf16-rounded
   float* work;
   unsigned* sync;
   unsigned long long* stamps;  // optional: block 0's %globaltimer at the start and after each barrier
+  const bf16* router;          // MoE: [L, H, E]
+  float* router_probs;         // optional: block 0 writes each layer's softmax [L, B, E]
   int B, H, Hq, Hkv, D, I, L, Smax, pos, rope_dim, rmsnorm, activation, wfmt, ka, ic, splits,
-      ks_qkv, ks_o, nblocks, smem;
+      ks_qkv, ks_o, nblocks, smem, E, top_k;
   float eps, scale;
 };
 
@@ -170,42 +198,7 @@ __host__ __device__ inline Plan make_plan(const TiledParams& p) {
   return pl;
 }
 
-// ---- weight loads into registers ------------------------------------------
-
-__device__ __forceinline__ float2 fp8x2(unsigned short v) {
-  const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3);
-  return __half22float2(*reinterpret_cast<const __half2*>(&hr));
-}
-
-// The 32-bit word j of a weight load.
-__device__ __forceinline__ unsigned word(const uint4& r, int j) {
-  return j == 0 ? r.x : (j == 1 ? r.y : (j == 2 ? r.z : r.w));
-}
-__device__ __forceinline__ unsigned word(const uint2& r, int j) { return j == 0 ? r.x : r.y; }
-__device__ __forceinline__ unsigned word(unsigned r, int) { return r; }
-__device__ __forceinline__ unsigned word(unsigned short r, int) { return r; }
-
-// CPT consecutive weights of format FMT (0 bf16, 1 int8, 2 fp8 e4m3) from
-// one register load, widened to fp32 (exactly: every bf16, int8 and e4m3
-// value is a float).
-template <int FMT, int CPT, class R>
-__device__ __forceinline__ void unpack_w(const R& r, float (&w)[CPT]) {
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    if constexpr (FMT == 0) {
-      const unsigned wd = word(r, i / 2);
-      w[i] = __uint_as_float(i % 2 ? (wd & 0xffff0000u) : (wd << 16));
-    } else if constexpr (FMT == 1) {
-      const unsigned wd = word(r, i / 4);
-      w[i] = static_cast<float>(static_cast<int>(wd << (24 - 8 * (i % 4))) >> 24);
-    } else if (i % 2 == 0) {
-      const unsigned wd = word(r, i / 4);
-      const float2 f = fp8x2(static_cast<unsigned short>((i / 2) % 2 ? wd >> 16 : wd & 0xffffu));
-      w[i] = f.x;
-      w[i + 1] = f.y;
-    }
-  }
-}
+// ---- weight loads into registers: widen.cuh (fp8x2, word, unpack_w, WRaw) ----
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -272,15 +265,6 @@ struct BufAct {
 
 struct SmemAct {
   const float* act;  // [rows][MB]
-};
-
-// CPT weights of format FMT as one register load: 2, 4, 8 or 16 bytes.
-template <int FMT, int CPT>
-struct WRaw {
-  static constexpr int kBytes = CPT * (FMT == 0 ? 2 : 1);
-  using T = std::conditional_t<kBytes == 16, uint4,
-            std::conditional_t<kBytes == 8, uint2,
-            std::conditional_t<kBytes == 4, unsigned, unsigned short>>>;
 };
 
 constexpr int kInFlight = 8;  // weight rows a thread has in flight
@@ -552,67 +536,150 @@ __device__ __noinline__ void o_phase(const TiledParams& p, const Plan& pl, int l
 
 // ---- 4. MLP by intermediate chunk ------------------------------------------
 
+// The MoE router of layer l for every row: fp32 logits hn @ router[l], hn =
+// bf16(norm2(x32)) formed as NormAct forms it; p = exp(logits - max) / sum;
+// the top_k of p by repeated max, the lowest index on ties; comb [B][kMaxE]
+// in shared memory = p at the picks / their sum, 0 elsewhere. A warp a row,
+// one lane the softmax and top-k; every block that calls it computes the same
+// bits (one code path, a fixed summation order: each lane's strided sum, then
+// the warp's xor butterfly). Block 0 writes p to router_probs when it is set.
+__device__ __noinline__ void moe_route(const TiledParams& p, int l, const float* xres,
+                                       const float* s_mu, const float* s_rstd, const bf16* sc,
+                                       const bf16* bi, float* comb) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, E = p.E, H = p.H;
+  const bf16* wr = p.router + static_cast<size_t>(l) * H * E;
+  for (int b = warp; b < p.B; b += kWarps) {
+    float pe[kMaxE];
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) pe[e] = 0.f;
+    for (int k = lane; k < H; k += 32) {
+      float v = (__ldcg(xres + static_cast<size_t>(b) * H + k) - s_mu[b]) * s_rstd[b] *
+                to_f32(sc[k]);
+      if (bi != nullptr) v += to_f32(bi[k]);
+      v = round_to<bf16>(v);
+      const bf16* row = wr + static_cast<size_t>(k) * E;
+#pragma unroll
+      for (int e = 0; e < kMaxE; ++e)
+        if (e < E) pe[e] = fmaf(v, to_f32(row[e]), pe[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) pe[e] = warp_sum(pe[e]);
+    if (lane != 0) continue;
+    float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e)
+      if (e < E) mx = fmaxf(mx, pe[e]);
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e)
+      if (e < E) {
+        pe[e] = expf(pe[e] - mx);
+        sum += pe[e];
+      }
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e)
+      if (e < E) {
+        pe[e] = pe[e] / sum;
+        if (p.router_probs != nullptr && blockIdx.x == 0)
+          p.router_probs[(static_cast<size_t>(l) * p.B + b) * E + e] = pe[e];
+      }
+    unsigned picked = 0;
+    for (int j = 0; j < p.top_k; ++j) {
+      int best = -1;
+      float bv = 0.f;
+#pragma unroll
+      for (int e = 0; e < kMaxE; ++e)
+        if (e < E && !((picked >> e) & 1u) && (best < 0 || pe[e] > bv)) {
+          best = e;
+          bv = pe[e];
+        }
+      picked |= 1u << best;
+    }
+    float csum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e)
+      if (e < E && ((picked >> e) & 1u)) csum += pe[e];
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e)
+      comb[b * kMaxE + e] = (e < E && ((picked >> e) & 1u)) ? pe[e] / csum : 0.f;
+  }
+  __syncthreads();
+}
+
 template <int MB, int CPT, int FMT>
 __device__ __noinline__ void mlp_phase(const TiledParams& p, const Plan& pl, int l,
                                        unsigned char* ring, float* s_mu, float* s_rstd) {
   constexpr int isz = FMT == 0 ? 2 : 1;
   const int H = p.H, I = p.I, ic = p.ic;
   if (static_cast<int>(blockIdx.x) >= pl.km) return;
-  const bool gated = p.activation >= 4;
+  const bool gated = p.activation >= 4, moe = p.E > 0;
+  const int E = moe ? p.E : 1;  // a dense MLP is one "expert"
   float* xres = p.work + pl.xres;
   float* part = p.work + pl.part;
   float* red = reinterpret_cast<float*>(ring);
   float* actbuf = red + kRedFloats;
   float* act = reinterpret_cast<float*>(ring + kMlpActOffset);  // [ic][MB]
+  float* comb = reinterpret_cast<float*>(ring + kCombOffset);   // [kMaxB][kMaxE]
   const bf16* sc = p.ln2_scale + static_cast<size_t>(l) * H;
   const bf16* bi = p.ln2_bias != nullptr && !p.rmsnorm ? p.ln2_bias + static_cast<size_t>(l) * H
                                                        : nullptr;
-  const size_t lw = static_cast<size_t>(l) * H * I;  // a layer's up / down elements
   row_stats(p, xres, s_mu, s_rstd);
+  if (moe) moe_route(p, l, xres, s_mu, s_rstd, sc, bi, comb);
   for (int kk = blockIdx.x; kk < pl.km; kk += gridDim.x) {
     const int c0 = kk * ic, icw = min(ic, I - c0);
     const int ncols = gated ? 2 * icw : icw;
-    const Seg up[2] = {
-        {static_cast<const unsigned char*>(p.w_up) + (lw + c0) * isz,
-         static_cast<size_t>(I) * isz, icw * isz},
-        {gated ? static_cast<const unsigned char*>(p.w_gate) + (lw + c0) * isz : nullptr,
-         static_cast<size_t>(I) * isz, icw * isz}};
-    const NormAct nact{xres, s_mu, s_rstd, sc, bi, H, p.B, 0};
-    const float* res = stream_gemv<MB, CPT, FMT>(up, gated ? 2 : 1, H, ncols, actbuf, red, nact);
-    for (int o = threadIdx.x; o < MB * icw; o += kThreads) {
-      const int b = o / icw, c = o - b * icw;
-      const size_t col = static_cast<size_t>(l) * I + c0 + c;
-      float v = 0.f;
-      if (b < p.B) {
-        float u = res[b * ncols + c];
-        if (FMT != 0) u *= p.s_up[col];
-        if (p.b_up != nullptr) u += to_f32(p.b_up[col]);
-        float g = 0.f;
-        if (gated) {
-          g = res[b * ncols + icw + c];
-          if (FMT != 0) g *= p.s_gate[col];
-          if (p.b_gate != nullptr) g += to_f32(p.b_gate[col]);
-        }
-        v = round_to<bf16>(activate(p.activation, u, g));
-      }
-      act[c * MB + b] = v;
-    }
-    // the chunk's rows of w_down, in passes of kThreads * CPT columns
     float* P = part + static_cast<size_t>(kk) * p.B * H;
-    for (int h0 = 0; h0 < H; h0 += kThreads * CPT) {
-      const int w = min(kThreads * CPT, H - h0);
-      const Seg down[2] = {
-          {static_cast<const unsigned char*>(p.w_down) +
-               (lw + static_cast<size_t>(c0) * H + h0) * isz,
-           static_cast<size_t>(H) * isz, w * isz},
-          {nullptr, 0, 0}};
-      const float* dres = stream_gemv<MB, CPT, FMT>(down, 1, icw, w, actbuf, red,
-                                                    SmemAct{act});
-      for (int o = threadIdx.x; o < p.B * w; o += kThreads) {
-        const int b = o / w, c = o - b * w;
-        float d = dres[b * w + c];
-        if (FMT != 0) d *= p.s_down[static_cast<size_t>(l) * H + h0 + c];
-        __stcg(P + static_cast<size_t>(b) * H + h0 + c, d);
+    for (int e = 0; e < E; ++e) {
+      const size_t le = static_cast<size_t>(l) * E + e;  // the (layer, expert) matrix
+      const size_t lw = le * H * I;                       // its first up / down element
+      const Seg up[2] = {
+          {static_cast<const unsigned char*>(p.w_up) + (lw + c0) * isz,
+           static_cast<size_t>(I) * isz, icw * isz},
+          {gated ? static_cast<const unsigned char*>(p.w_gate) + (lw + c0) * isz : nullptr,
+           static_cast<size_t>(I) * isz, icw * isz}};
+      const NormAct nact{xres, s_mu, s_rstd, sc, bi, H, p.B, 0};
+      const float* res = stream_gemv<MB, CPT, FMT>(up, gated ? 2 : 1, H, ncols, actbuf, red,
+                                                   nact);
+      for (int o = threadIdx.x; o < MB * icw; o += kThreads) {
+        const int b = o / icw, c = o - b * icw;
+        const size_t col = le * I + c0 + c;                        // scales
+        const size_t bcol = static_cast<size_t>(l) * I + c0 + c;  // biases (dense only)
+        float v = 0.f;
+        if (b < p.B) {
+          float u = res[b * ncols + c];
+          if (FMT != 0) u *= p.s_up[col];
+          if (p.b_up != nullptr) u += to_f32(p.b_up[bcol]);
+          float g = 0.f;
+          if (gated) {
+            g = res[b * ncols + icw + c];
+            if (FMT != 0) g *= p.s_gate[col];
+            if (p.b_gate != nullptr) g += to_f32(p.b_gate[bcol]);
+          }
+          v = round_to<bf16>(activate(p.activation, u, g));
+        }
+        act[c * MB + b] = v;
+      }
+      // the chunk's rows of w_down, in passes of kThreads * CPT columns; an
+      // expert after the first adds comb x its product to the partial
+      for (int h0 = 0; h0 < H; h0 += kThreads * CPT) {
+        const int w = min(kThreads * CPT, H - h0);
+        const Seg down[2] = {
+            {static_cast<const unsigned char*>(p.w_down) +
+                 (lw + static_cast<size_t>(c0) * H + h0) * isz,
+             static_cast<size_t>(H) * isz, w * isz},
+            {nullptr, 0, 0}};
+        const float* dres = stream_gemv<MB, CPT, FMT>(down, 1, icw, w, actbuf, red,
+                                                      SmemAct{act});
+        for (int o = threadIdx.x; o < p.B * w; o += kThreads) {
+          const int b = o / w, c = o - b * w;
+          float* dst = P + static_cast<size_t>(b) * H + h0 + c;
+          float d = dres[b * w + c];
+          if (FMT != 0) d *= p.s_down[le * H + h0 + c];
+          if (moe) {
+            d *= comb[b * kMaxE + e];
+            if (e > 0) d += __ldcg(dst);
+          }
+          __stcg(dst, d);
+        }
       }
     }
   }
@@ -968,7 +1035,8 @@ extern "C" int mlio_decode_tiled_plan(TiledParams* p, long long* work_floats, in
   const int G = p->Hkv > 0 ? p->Hq / p->Hkv : 0;
   if (k == nullptr || p->B < 1 || p->B > kMaxB || G < 1 || G > kMaxG || p->Hq % p->Hkv ||
       p->ka < 1 || p->Hkv % p->ka || p->ic < 16 || p->ic % 16 || p->H % 16 || p->I % 16 ||
-      p->pos < 0 || p->pos >= p->Smax || p->wfmt != MLIO_TILED_FMT)
+      p->pos < 0 || p->pos >= p->Smax || p->wfmt != MLIO_TILED_FMT || p->E < 0 || p->E > kMaxE ||
+      (p->E > 0 && (p->top_k < 1 || p->top_k > p->E || p->router == nullptr)))
     return cudaErrorInvalidValue;
   const int mb = p->B <= 8 ? 8 : (p->B <= 16 ? 16 : 32), cpt = 64 / mb;
   const bool gated = p->activation >= 4;

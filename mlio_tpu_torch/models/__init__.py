@@ -8,6 +8,8 @@ from mlio_tpu_torch.models.transformer import (
 )
 from mlio_tpu_torch.models.loader import (
     convert_gpt2,
+    convert_llama_attention_only,
+    convert_mixtral,
     load_model,
     spec_from_hf_config,
     state_dict_from_torch,
@@ -24,6 +26,8 @@ __all__ = [
     "apply_rope",
     "rope_cos_sin",
     "convert_gpt2",
+    "convert_llama_attention_only",
+    "convert_mixtral",
     "load_model",
     "spec_from_hf_config",
     "state_dict_from_torch",

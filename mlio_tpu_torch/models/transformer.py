@@ -20,13 +20,19 @@ An INT8 KV cache (``init_cache(quant="int8")``) is written with
 K3's int8 instances in decode, as in the JAX package; K6 takes int8 or fp8
 weights over a bf16 or an INT8 cache.
 
+Sparse-MoE models (Mixtral: a router ``[L, H, E]`` and expert stacks
+``moe_up``/``moe_gate`` ``[L, E, H, I]``, ``moe_down`` ``[L, E, I, H]``) run
+their MLP through ``ops.moe_mlp`` by ``Impl.moe`` in prefill and on the scan
+decode; K4 refuses experts, so ``"auto"`` decodes them on K6, whose MoE
+phases route in the kernel.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: ring
-attention and MoE layers.
+attention.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -48,8 +54,10 @@ class Impl:
 
     ``block_q``, ``block_kv`` and ``interpret`` are the TPU kernels' tile
     and interpreter knobs; the CUDA kernels choose their own tiles and the
-    port ignores them. ``ring_chunk``, ``moe`` and ``moe_capacity_factor``
-    belong to paths not ported yet.
+    port ignores them. ``ring_chunk`` belongs to ring attention, not ported
+    yet. ``moe`` picks the MoE method ("ragged", "dense" or "dispatch",
+    ``ops/moe.py``) of the prefill and the scan decode, and
+    ``moe_capacity_factor`` the dispatch's capacity.
     """
 
     attention: str = "dense"  # "dense" | "flash" | "ring"
@@ -68,11 +76,6 @@ class Impl:
     moe_capacity_factor: float = 2.0
 
 
-def _check_supported(spec: ModelSpec, impl: Impl) -> None:
-    if spec.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Parameter initialization
 # ---------------------------------------------------------------------------
@@ -83,9 +86,14 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
     ``generator`` (which must live on that device): the JAX package's
     shapes, fan-in scaled normal weights, unit norm scales, zero biases."""
     spec.validate()
-    if spec.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-    dev = resolve_device(device)
+    return _init_params(spec, generator, dtype, resolve_device(device), lambda name, w: w)
+
+
+def _init_params(spec: ModelSpec, generator: torch.Generator, dtype, dev,
+                 finish: Callable[[str, torch.Tensor], Any]) -> Params:
+    """:func:`init_params` with each projection weight handed to
+    ``finish(name, stack)`` as soon as it is drawn, before the next draw
+    (``streamed_quantized_init`` quantizes it there)."""
     h, i, l = spec.hidden_size, spec.intermediate_size, spec.num_layers
     qd, kvd = spec.q_dim, spec.kv_dim
     gated = spec.activation in ("swiglu", "geglu")
@@ -95,6 +103,9 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
 
     def w(shape, fan_in):
         return normal(shape, fan_in ** -0.5)
+
+    def proj(name, shape, fan_in):
+        return finish(name, w(shape, fan_in))
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=dev)
@@ -106,23 +117,36 @@ def init_params(spec: ModelSpec, generator: torch.Generator, dtype=torch.float32
     blocks = {
         "ln1_scale": ones((l, h)),
         "ln1_bias": zeros((l, h), layernorm),
-        "wq": w((l, h, qd), h),
+        "wq": proj("wq", (l, h, qd), h),
         "bq": zeros((l, qd), spec.use_qkv_bias),
-        "wk": w((l, h, kvd), h),
+        "wk": proj("wk", (l, h, kvd), h),
         "bk": zeros((l, kvd), spec.use_qkv_bias),
-        "wv": w((l, h, kvd), h),
+        "wv": proj("wv", (l, h, kvd), h),
         "bv": zeros((l, kvd), spec.use_qkv_bias),
-        "wo": w((l, qd, h), qd),
+        "wo": proj("wo", (l, qd, h), qd),
         "bo": zeros((l, h), spec.use_out_bias),
         "ln2_scale": ones((l, h)),
         "ln2_bias": zeros((l, h), layernorm),
-        "w_up": w((l, h, i), h),
-        "b_up": zeros((l, i), spec.use_mlp_bias),
-        "w_gate": w((l, h, i), h) if gated else None,
-        "b_gate": zeros((l, i), spec.use_mlp_bias and gated),
-        "w_down": w((l, i, h), i),
-        "b_down": zeros((l, h), spec.use_mlp_bias),
     }
+    if spec.num_experts:  # sparse MoE: a router and expert-stacked MLPs, no dense MLP
+        E = spec.num_experts
+        blocks.update({
+            "w_up": None, "b_up": None, "w_gate": None, "b_gate": None,
+            "w_down": None, "b_down": None,
+            "router": w((l, h, E), h),
+            "moe_up": proj("moe_up", (l, E, h, i), h),
+            "moe_gate": proj("moe_gate", (l, E, h, i), h) if gated else None,
+            "moe_down": proj("moe_down", (l, E, i, h), i),
+        })
+    else:
+        blocks.update({
+            "w_up": proj("w_up", (l, h, i), h),
+            "b_up": zeros((l, i), spec.use_mlp_bias),
+            "w_gate": proj("w_gate", (l, h, i), h) if gated else None,
+            "b_gate": zeros((l, i), spec.use_mlp_bias and gated),
+            "w_down": proj("w_down", (l, i, h), i),
+            "b_down": zeros((l, h), spec.use_mlp_bias),
+        })
     return {
         "tok_embed": normal((spec.vocab_size, h), 0.02),
         "pos_embed": (normal((spec.max_seq_len, h), 0.01)
@@ -224,8 +248,14 @@ def _norm(x, scale, bias, spec, impl):
 
 
 def _run_mlp(h, bp, spec, impl):
-    """The MLP sublayer, in the per-projection layout or the fused
-    ``w_upgate`` one ([up | gate] in one product, activation in fp32)."""
+    """The MLP sublayer: sparse MoE (``ops.moe_mlp`` by ``impl.moe``), the
+    per-projection layout, or the fused ``w_upgate`` one ([up | gate] in one
+    product, activation in fp32)."""
+    if bp.get("router") is not None:
+        return ops.moe_mlp(h, bp["router"], bp.get("moe_gate"), bp["moe_up"], bp["moe_down"],
+                           top_k=spec.num_experts_per_tok, activation=spec.activation,
+                           method=impl.moe,
+                           capacity_factor=impl.moe_capacity_factor).to(h.dtype)
     if bp.get("w_upgate") is not None:
         y = ops.linear(h, bp["w_upgate"], bp.get("b_upgate"))
         i = spec.intermediate_size
@@ -282,7 +312,6 @@ def forward(
 
     Returns (logits [B, S, V], cache or None).
     """
-    _check_supported(spec, impl)
     B, S = input_ids.shape
     x = params["tok_embed"][input_ids]
     if spec.embed_scale is not None:  # the scale is rounded to x's dtype first, as in JAX
@@ -357,6 +386,10 @@ def decode_route(spec: ModelSpec, impl: Impl, blocks, B: int, cache_quant: bool 
     mega = _stack.supports_decode_stack(spec, cache_quant=cache_quant, blocks=blocks, smax=smax,
                                         B=B, on_card=on_card)
     if mode == "mega":
+        if spec.num_experts:
+            raise ValueError(f"decode_stack='mega': K4 does not run {spec.name}'s "
+                             f"{spec.num_experts} experts (its MLP phase is dense); "
+                             "decode_stack='tiled' runs them on K6")
         if not mega:
             limit = _stack.route_limit(spec, B, on_card)
             raise ValueError(
@@ -371,8 +404,9 @@ def decode_route(spec: ModelSpec, impl: Impl, blocks, B: int, cache_quant: bool 
             limit = _stack.route_limit(spec, B, on_card, _tiled.kernel_limit, _tiled.MAX_BATCH)
             raise ValueError(
                 f"decode_stack='tiled': K6 does not run {spec.name} at batch {B} with these "
-                "weights and this cache (" + (limit or "parallel residual, experts, activation, "
-                "int4 weights, the fused layout, or an INT8 cache not a multiple of 128 long")
+                "weights and this cache (" + (limit or "parallel residual, activation, int4 "
+                "weights, the fused layout, experts without a router or stored otherwise than "
+                "the attention weights, or an INT8 cache not a multiple of 128 long")
                 + ")")
         return "tiled"
     if mega and (not tiled or _tiled.prefer_mega(spec, _tiled._weight_itemsize(blocks) or 2)):

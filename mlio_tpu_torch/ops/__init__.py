@@ -5,7 +5,9 @@
 over an INT8 cache; K2) or to the dense references; ``mlp`` to the fused
 MLP kernel (K11) or the dense reference, and with quantized weights to the
 dequant-fused matmul (K5) for each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
-with quantized weights to a norm and K5 three times. ``linear`` is plain
+with quantized weights to a norm and K5 three times; ``moe_mlp`` to the
+Mixture-of-Experts methods of ``ops/moe.py`` (plain PyTorch products, as the
+JAX package leaves them to XLA). ``linear`` is plain
 ``torch.matmul`` for a tensor weight, as the JAX package leaves it to XLA,
 and K5 for an int8 or int4 :class:`~mlio_tpu_torch.ops.quant.QTensor`. The
 decode kernels are called through their modules (``ops.decode_attention``
@@ -17,6 +19,7 @@ from __future__ import annotations
 from mlio_tpu_torch.ops import flash_attention as _flash
 from mlio_tpu_torch.ops import fused_mlp as _fused_mlp
 from mlio_tpu_torch.ops import ln_qkv as _ln_qkv
+from mlio_tpu_torch.ops import moe as _moe
 from mlio_tpu_torch.ops import norms as _norms
 from mlio_tpu_torch.ops import quant as _quant
 from mlio_tpu_torch.ops.quant import QTensor, dequantize
@@ -90,10 +93,19 @@ def fused_ln_qkv(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, *, kind="layernor
                                 eps=eps)
 
 
+def moe_mlp(x, w_router, w_gate, w_up, w_down, *, top_k, activation="swiglu", method="ragged",
+            capacity_factor=2.0):
+    """Mixture-of-Experts MLP by ``method`` ("dense", "ragged" or
+    "dispatch"; see ``ops/moe.py``)."""
+    return _moe.moe_mlp(x, w_router, w_gate, w_up, w_down, top_k=top_k, activation=activation,
+                        method=method, capacity_factor=capacity_factor)
+
+
 __all__ = [
     "attention",
     "linear",
     "mlp",
+    "moe_mlp",
     "norm",
     "fused_ln_qkv",
     "QTensor",

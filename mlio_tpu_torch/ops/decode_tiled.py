@@ -13,6 +13,15 @@ block streams its chunk's up, gate and down weights straight into
 registers) and the fixed-order sum of the chunks' partial
 down-projections. Its source note gives the H100 bound and the design.
 
+Sparse-MoE models (Mixtral) run the JAX kernel's MoE phases: at the fold
+each MLP block routes every row itself from the normed rows (an fp32
+softmax over the E experts of ``hn @ router[l]``, the top-k by repeated max
+with the lowest index first, renormalized), then walks its intermediate
+chunk over all E experts in expert order, each expert's down product scaled
+by its per-channel scales and the rows' routing weights into the chunk's
+partial. Every expert is streamed, picked or not (an unpicked one adds
+exactly 0), as the TPU kernel streams them.
+
 The final norm and the lm_head run after it, in ``models.transformer``, as
 the JAX package runs them after its kernel.
 
@@ -22,8 +31,7 @@ raises. The cache is the port's ``[L, B, Smax, Hkv, D]`` and is written in
 place; an INT8 cache keeps its scales in the scan layout ``[L, B, Smax,
 Hkv]``, so the JAX package's ``pad_scales_for_tiled`` has no counterpart.
 The tiling (:class:`Tiling`) is Hopper's own (:func:`choose_tiling`), not the
-TPU's VMEM budget; the port has no autotune table. MoE models are not
-ported (``_check_supported`` raises on ``num_experts``).
+TPU's VMEM budget; the port has no autotune table.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from mlio_tpu_torch.ops import _build
 from mlio_tpu_torch.ops.decode_layer import (_ACTIVATIONS, _attend_plain, _norm32, _rope,
                                              route_limit)
+from mlio_tpu_torch.ops.moe import topk_mask
 from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
 from mlio_tpu_torch.ops.reference import activate
 
@@ -42,6 +51,7 @@ from mlio_tpu_torch.ops.reference import activate
 MAX_BATCH = 32     # rows of the widest GEMV tier (32 batch rows x 2 columns a thread)
 MAX_HIDDEN = 8192
 MAX_GROUP = 8      # query heads a KV head: the attention item's register arrays
+MAX_EXPERTS = 16   # the router's register array (the kernel's kMaxE)
 _HEAD_DIMS = (64, 128)
 _WIDTH_ALIGN = 16  # hidden and intermediate widths: 16-byte int8 weight rows
 # Hopper's budgets that the tiling is chosen from (hopper-kernels guide §1).
@@ -84,8 +94,9 @@ def choose_tiling(spec, B: int) -> Optional[Tiling]:
 
     Unlike the TPU's, the tiling does not depend on the weights' or the
     cache's itemsize: the kernel streams a chunk's rows, not a whole chunk
-    into a pool."""
-    if spec.num_experts or spec.num_heads % spec.num_kv_heads:
+    into a pool. An MoE model's chunks are the same: each MLP item walks its
+    chunk over every expert, so the partials stay ``km * B * H``."""
+    if spec.num_heads % spec.num_kv_heads:
         return None
     Hkv, H, I = spec.num_kv_heads, spec.hidden_size, spec.intermediate_size
     ka = next((k for k in range(1, Hkv + 1) if Hkv % k == 0 and B * k >= SMS), Hkv)
@@ -118,6 +129,12 @@ def resolve_tiling(spec, B: int, tiling: Optional[Tiling] = None) -> Optional[Ti
     return tiling
 
 
+def _mlp_names(spec):
+    """The MLP's weight names: the expert stacks of an MoE model, else the
+    dense ones."""
+    return ("moe_up", "moe_gate", "moe_down") if spec.num_experts else ("w_up", "w_gate", "w_down")
+
+
 def _weight_itemsize(blocks) -> Optional[int]:
     """Bytes a weight element streams (None: a layout K6 does not take)."""
     if blocks is None:
@@ -143,6 +160,8 @@ def kernel_limit(spec, B: int) -> Optional[str]:
     if H > MAX_HIDDEN or H % _WIDTH_ALIGN or I % _WIDTH_ALIGN:
         return (f"hidden {H} at most {MAX_HIDDEN}, hidden and intermediate "
                 f"multiples of {_WIDTH_ALIGN}")
+    if spec.num_experts > MAX_EXPERTS:
+        return f"{spec.num_experts} experts, at most {MAX_EXPERTS}"
     return None
 
 
@@ -151,16 +170,25 @@ def supports_decode_tiled(spec, B: int = 8, cache_quant: bool = False, blocks=No
     """Whether K6 runs this model, layout and batch: the JAX package's
     feature conditions (sequential residual, a supported activation, floating,
     int8 or fp8 weights in the per-projection layout, an INT8 cache 128-aligned
-    long) and B <= 32. MoE models are refused until they are ported. The TPU's
-    VMEM and lane clauses are not kept; with ``on_card`` the CUDA instances'
-    head and width limits (:func:`kernel_limit`) are, while the plain version
-    on the CPU takes any head geometry."""
-    if spec.parallel_residual or spec.num_experts:
+    long; for an MoE model a router and the up and down expert stacks, stored
+    as the attention weights are) and B <= 32. The TPU's VMEM and lane
+    clauses are not kept; with ``on_card`` the CUDA instances' head, width and
+    expert limits (:func:`kernel_limit`) are, while the plain version on the
+    CPU takes any head geometry."""
+    if spec.parallel_residual:
         return False
     if cache_quant and smax is not None and smax % 128:
         return False
     if spec.activation not in _ACTIVATIONS or _weight_itemsize(blocks) is None:
         return False
+    if spec.num_experts:
+        if blocks is None or any(blocks.get(n) is None for n in ("router", "moe_up", "moe_down")):
+            return False
+        mu, wq = blocks["moe_up"], blocks["wq"]
+        if isinstance(mu, QTensor) != isinstance(wq, QTensor):
+            return False
+        if isinstance(mu, QTensor) and mu.fmt != wq.fmt:
+            return False
     if route_limit(spec, B, on_card, kernel_limit, MAX_BATCH) is not None:
         return False
     return choose_tiling(spec, B) is not None
@@ -183,11 +211,12 @@ MEGA_MAX_LAYER_BYTES = 128 << 20
 
 
 def layer_weight_bytes(spec, weight_itemsize: int) -> int:
-    """Bytes of one layer's projection weights at ``weight_itemsize``."""
-    H, I = spec.hidden_size, spec.intermediate_size
+    """Bytes of one layer's projection weights at ``weight_itemsize``: all
+    E experts' MLPs and the bf16 router of an MoE model."""
+    H, I, E = spec.hidden_size, spec.intermediate_size, spec.num_experts
     n_up = 2 if spec.activation in ("swiglu", "geglu") else 1
-    return weight_itemsize * (H * (spec.q_dim + 2 * spec.kv_dim) + spec.q_dim * H
-                              + (n_up + 1) * H * I)
+    return (weight_itemsize * (H * (spec.q_dim + 2 * spec.kv_dim) + spec.q_dim * H
+                               + max(E, 1) * (n_up + 1) * H * I) + 2 * H * E)
 
 
 def prefer_mega(spec, weight_itemsize: int) -> bool:
@@ -202,7 +231,8 @@ def prefer_mega(spec, weight_itemsize: int) -> bool:
 
 def _mm(h, w, rows, cols, layer):
     """h @ w[layer][rows, cols] in fp32, an int8/fp8 weight's per-output
-    scale applied to the product (the JAX kernel's ``_mmvv``)."""
+    scale applied to the product (the JAX kernel's ``_mmvv``); ``layer`` is
+    an index or a (layer, expert) pair."""
     if isinstance(w, QTensor):
         return (h.float() @ w.q[layer][rows, cols].float()) * w.scale[layer][cols].float()
     return h.float() @ w[layer][rows, cols].float()
@@ -227,6 +257,8 @@ def decode_layer_tiled_plain(
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    router_probs: Optional[torch.Tensor] = None,
+    experts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``_tiled_kernel``'s function in plain PyTorch, phase by phase as the
     JAX kernel runs it, with the decode megakernels' rounding points (the
@@ -245,6 +277,17 @@ def decode_layer_tiled_plain(
     int8 and fp8 weights are dequantized per output channel on the product.
     The result does not depend on the tiling beyond fp32 rounding.
 
+    An MoE model's MLP is the JAX kernel's: the router's fp32 logits
+    ``h2 @ router[l]``, their softmax (``exp(l - max) / sum``), the top-k by
+    repeated max with the lowest index first and the kept weights
+    renormalized into ``comb [B, E]`` (0 for the rest); then for each expert
+    in order and each chunk, the chunk's down product times the expert's
+    scales and ``comb[:, e]``. ``router_probs`` (fp32 [L, B, E]) receives
+    each layer's softmax; ``experts`` ([L, B, E] bool, top_k per row) makes
+    the rows take those experts instead of their own top-k, the weights
+    still renormalized from this run's softmax: a run can follow the
+    kernel's routing where two experts' probabilities are nearly tied.
+
     Writes slot ``pos`` of every layer in place; returns x_out [B, H].
     ``tiling`` defaults to :func:`choose_tiling`'s."""
     cd = x.dtype
@@ -258,6 +301,7 @@ def decode_layer_tiled_plain(
     if scale is None:
         scale = D ** -0.5
     gated = spec.activation in ("swiglu", "geglu")
+    E = spec.num_experts
     bp = blocks
     if cos is not None:  # the tables are rounded to the compute dtype first
         cos, sin = cos.to(cd).float()[0], sin.to(cd).float()[0]
@@ -296,15 +340,28 @@ def decode_layer_tiled_plain(
         h2 = _norm32(x32, bp["ln2_scale"][layer], None if bp.get("ln2_bias") is None
                      else bp["ln2_bias"][layer], spec.norm, spec.norm_eps).to(cd)
         acc = torch.zeros_like(x32)
-        for kk in range(-(-I // ic)):
-            cols = slice(kk * ic, min((kk + 1) * ic, I))
-            u = _mm(h2, bp["w_up"], everything, cols, layer) + _bias(bp, "b_up", layer, cols)
-            gt = None
-            if gated:
-                gt = (_mm(h2, bp["w_gate"], everything, cols, layer)
-                      + _bias(bp, "b_gate", layer, cols))
-            act = activate(u, gt, spec.activation).to(cd)
-            acc = acc + _mm(act, bp["w_down"], cols, everything, layer)
+        if E:
+            logits = h2.float() @ bp["router"][layer].float()
+            pp = torch.exp(logits - logits.amax(-1, keepdim=True))
+            pp = pp / pp.sum(-1, keepdim=True)
+            if router_probs is not None:
+                router_probs[layer] = pp
+            picks = (experts[layer] if experts is not None
+                     else topk_mask(pp, spec.num_experts_per_tok))
+            comb = torch.where(picks, pp, torch.zeros_like(pp))
+            comb = comb / comb.sum(-1, keepdim=True)
+        up, gate, down = (bp[n] if n in bp else None for n in _mlp_names(spec))
+        for e in range(max(E, 1)):  # a dense MLP is one "expert"
+            at = (layer, e) if E else layer
+            for kk in range(-(-I // ic)):
+                cols = slice(kk * ic, min((kk + 1) * ic, I))
+                u = _mm(h2, up, everything, cols, at) + _bias(bp, "b_up", layer, cols)
+                gt = None
+                if gated:
+                    gt = _mm(h2, gate, everything, cols, at) + _bias(bp, "b_gate", layer, cols)
+                act = activate(u, gt, spec.activation).to(cd)
+                d = _mm(act, down, cols, everything, at)
+                acc = acc + (d * comb[:, e:e + 1] if E else d)
         x32 = x32 + acc + _bias(bp, "b_down", layer, everything)
     return x32.to(cd)
 
@@ -327,9 +384,10 @@ _SCALES = ("sq", "sk", "sv", "so", "s_up", "s_gate", "s_down")
 _VECTORS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bq", "bk", "bv", "bo", "b_up",
             "b_gate", "b_down")
 _PTRS = ("x", "x_out", "k_cache", "v_cache", "k_scale", "v_scale", *_VECTORS, *_WEIGHTS,
-         *_SCALES, "cos", "sin", "work", "sync", "stamps")
+         *_SCALES, "cos", "sin", "work", "sync", "stamps", "router", "router_probs")
 _INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "rope_dim", "rmsnorm",
-         "activation", "wfmt", "ka", "ic", "splits", "ks_qkv", "ks_o", "nblocks", "smem")
+         "activation", "wfmt", "ka", "ic", "splits", "ks_qkv", "ks_o", "nblocks", "smem", "E",
+         "top_k")
 _FLOATS = ("eps", "scale")
 _FMTS = {None: 0, "int8": 1, "fp8": 2}
 _PAYLOAD = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -356,15 +414,21 @@ def _entry(fmt: Optional[str]):
     return lib, plan, run
 
 
+def _weight_names(spec):
+    """The projection weights K6 streams, in the order of ``_WEIGHTS``
+    (an MoE model's expert stacks in the MLP's places)."""
+    return _WEIGHTS[:4] + _mlp_names(spec)
+
+
 def _weight_format(blocks, spec) -> Optional[str]:
     """The one storage format of the projection weights: None (floating
     tensors), "int8" or "fp8" QTensors. Raises on anything else."""
     gated = spec.activation in ("swiglu", "geglu")
     fmts = set()
-    for name in _WEIGHTS:
+    for name in _weight_names(spec):
         w = blocks.get(name)
         if w is None:
-            if name != "w_gate" or gated:
+            if name not in ("w_gate", "moe_gate") or gated:
                 raise ValueError(f"decode_layer_tiled: weight {name!r} is missing (the "
                                  "per-projection layout is needed)")
             continue
@@ -400,6 +464,7 @@ def decode_layer_tiled(
     scale: Optional[float] = None,
     tiling: Optional[Tiling] = None,
     phase_times: Optional[torch.Tensor] = None,
+    router_probs: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step of every layer → x_out [B, H] (no head).
 
@@ -412,12 +477,26 @@ def decode_layer_tiled(
     rope_dim]`` tables of position ``pos`` for RoPE models. ``tiling``
     defaults to :func:`choose_tiling`'s.
 
+    An MoE model's blocks hold a bf16 ``router`` [L, H, E] and the expert
+    stacks ``moe_up``/``moe_gate`` [L, E, H, I] and ``moe_down`` [L, E, I, H]
+    (per-expert per-channel scales [L, E, out] for int8/fp8), without MLP
+    biases, as the JAX kernel takes them.
+
     ``phase_times``, a CUDA int64 tensor of at least :func:`phase_stamps`
     elements, receives the kernel's global timer (ns) at its start and after
-    each grid barrier (a port-only probe; the CPU ignores it)."""
-    if spec.num_experts or spec.parallel_residual or spec.activation not in _ACTIVATIONS:
+    each grid barrier (a port-only probe; the CPU ignores it).
+    ``router_probs``, an fp32 [L, B, E] tensor beside x, receives each
+    layer's router softmax (the plain version's on the CPU)."""
+    if spec.parallel_residual or spec.activation not in _ACTIVATIONS:
         raise ValueError(f"decode_layer_tiled: {spec.name} is not a model K6 runs "
-                         "(parallel residual, experts or activation)")
+                         "(parallel residual or activation)")
+    E = spec.num_experts
+    if E:
+        if blocks.get("router") is None:
+            raise ValueError("decode_layer_tiled: an MoE model's blocks need a router")
+        if any(blocks.get(n) is not None for n in ("b_up", "b_gate", "b_down")):
+            raise ValueError("decode_layer_tiled: expert MLP biases are not supported (as in "
+                             "the JAX kernel)")
     fmt = _weight_format(blocks, spec)
     B, H = x.shape
     if k_cache.ndim != 5 or k_cache.shape[1] != B or v_cache.shape != k_cache.shape:
@@ -438,18 +517,21 @@ def decode_layer_tiled(
     if cos is not None and (cos.ndim != 2 or cos.shape[0] != 1 or sin.shape != cos.shape):
         raise ValueError("decode_layer_tiled: cos/sin must be [1, rope_dim]")
     tiling = resolve_tiling(spec, B, tiling)
+    if router_probs is not None and (router_probs.shape != (L, B, E) or router_probs.dtype
+                                     != torch.float32 or router_probs.device != x.device):
+        raise ValueError(f"decode_layer_tiled: router_probs must be fp32 [{L}, {B}, {E}] beside x")
     if x.device.type == "cpu":
         return decode_layer_tiled_plain(x, blocks, k_cache, v_cache, pos, cos, sin, spec=spec,
                                         tiling=tiling, k_scales=k_scales, v_scales=v_scales,
-                                        scale=scale)
+                                        scale=scale, router_probs=router_probs)
 
     gated = spec.activation in ("swiglu", "geglu")
     tensors = {n: blocks.get(n) for n in _VECTORS}
     if not gated:
         tensors["b_gate"] = None
     quant_t = {}
-    for name, sname in zip(_WEIGHTS, _SCALES):
-        w = blocks.get(name) if gated or name != "w_gate" else None
+    for name, src, sname in zip(_WEIGHTS, _weight_names(spec), _SCALES):
+        w = blocks.get(src) if gated or name != "w_gate" else None
         if isinstance(w, QTensor):
             if w.q.dtype != _PAYLOAD[fmt]:
                 raise ValueError(f"decode_layer_tiled: {name} payload must be {_PAYLOAD[fmt]}")
@@ -457,6 +539,8 @@ def decode_layer_tiled(
         else:
             tensors[name] = w
     tensors["x"] = x
+    if E:
+        tensors["router"] = blocks["router"]
     caches = dict(k_cache=k_cache, v_cache=v_cache)
     if quant:
         caches.update(k_scale=k_scales, v_scale=v_scales)
@@ -480,6 +564,21 @@ def decode_layer_tiled(
             raise ValueError(f"decode_layer_tiled: {name} must be {want}, got {t.dtype}")
     _build.require_contiguous_aligned("decode_layer_tiled", **tensors, **quant_t,
                                       **(caches if quant else {}))
+    if E:
+        H_, I_ = spec.hidden_size, spec.intermediate_size
+        want = {"router": (L, H_, E), "moe_up": (L, E, H_, I_), "moe_gate": (L, E, H_, I_),
+                "moe_down": (L, E, I_, H_)}
+        for name, shape in want.items():
+            w = blocks.get(name)
+            if w is None or (name == "moe_gate" and not gated):
+                continue
+            got = tuple((w.q if isinstance(w, QTensor) else w).shape)
+            if got != shape or (isinstance(w, QTensor) and tuple(w.scale.shape)
+                                != shape[:2] + shape[-1:]):
+                raise ValueError(f"decode_layer_tiled: {name} must be {shape} (scales "
+                                 f"{shape[:2] + shape[-1:]}), got {got}")
+        if router_probs is not None:
+            _build.require_contiguous_aligned("decode_layer_tiled", router_probs=router_probs)
     if cos is not None:
         cos = cos.to(dev, x.dtype).float().contiguous()
         sin = sin.to(dev, x.dtype).float().contiguous()
@@ -491,7 +590,8 @@ def decode_layer_tiled(
     prm = _Params(
         **{n: _build.ptr(t) for n, t in (*tensors.items(), *quant_t.items(), *caches.items())},
         x_out=x_out.data_ptr(), cos=_build.ptr(cos), sin=_build.ptr(sin),
-        stamps=_build.ptr(phase_times), B=B, H=H, Hq=spec.num_heads, Hkv=Hkv, D=D,
+        stamps=_build.ptr(phase_times), router_probs=_build.ptr(router_probs), E=E,
+        top_k=spec.num_experts_per_tok if E else 0, B=B, H=H, Hq=spec.num_heads, Hkv=Hkv, D=D,
         I=spec.intermediate_size, L=L, Smax=Smax, pos=pos,
         rope_dim=0 if cos is None else cos.shape[1],
         rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
@@ -502,6 +602,7 @@ def decode_layer_tiled(
     with torch.cuda.device(dev):
         _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
                                ctypes.byref(sync_ints)), "decode_layer_tiled (plan)")
+        decode_layer_tiled.workspace_bytes = 4 * (work_floats.value + sync_ints.value)
         work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
         sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
         prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
@@ -512,3 +613,4 @@ def decode_layer_tiled(
 
 
 decode_layer_tiled.launches = 0
+decode_layer_tiled.workspace_bytes = 0  # the last launch's plan: work and sync buffers

@@ -4,29 +4,43 @@
 :class:`~mlio_tpu_torch.ops.quant.QTensor` leaves, quantizing each layer's
 matrix on its own as the JAX package's ``vmap`` does, and bit for bit as it
 does; the forward then takes the dequant-fused matmul (K5) through
-``ops.linear``. :func:`fuse_projections` concatenates wq|wk|wv and
-w_up|w_gate, and :func:`quantized_size_bytes` counts the bytes.
+``ops.linear``. An MoE model's expert stacks (``QUANTIZABLE_MOE``) get
+per-expert per-output-channel scales ``[L, E, out]``.
+:func:`fuse_projections` concatenates wq|wk|wv and w_up|w_gate, and
+:func:`quantized_size_bytes` counts the bytes.
 
-Not ported yet (ROADMAP.md, queue 1, item 6): ``transcode_fp8_to_int8``,
-``init_quantized_params``, ``streamed_quantized_init`` and the W8A8
+:func:`init_quantized_params` draws random weights directly as int8 or fp8
+payloads, a layer at a time on the card (or the CPU when the caller asks
+for it), so that a model whose
+bf16 weights would not fit (Mixtral-8x7B: 93 GB in bf16, 47 GB in int8) is
+never widened; :func:`streamed_quantized_init` draws each bf16 stack of
+:func:`~mlio_tpu_torch.models.transformer.init_params` in turn and quantizes
+it before the next, equal to ``quantize_params(init_params(...))`` with the
+same generator state.
+
+Not ported yet (ROADMAP.md, queue 1): ``transcode_fp8_to_int8`` and the W8A8
 calibration (``calibrate_activation_scales``, ``apply_activation_scales``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Sequence, Union
 
 import torch
 
+from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.models.utils import get_model_size
-from mlio_tpu_torch.ops.quant import QTensor, quantize
+from mlio_tpu_torch.ops.quant import FP8, QTensor, quantize
 
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+# MoE expert stacks carry an expert axis: [L, E, K, N]
+QUANTIZABLE_MOE = ("moe_up", "moe_gate", "moe_down")
 
 
 def _quantize_stack(w: torch.Tensor, fmt: str) -> QTensor:
-    """Quantize each [K, N] layer of a [L, K, N] stack into preallocated
-    outputs, so that one layer's fp32 temporaries are alive at a time."""
+    """Quantize each layer of a [L, ..., K, N] stack (each [K, N] matrix
+    on its own) into preallocated outputs, so that one layer's fp32
+    temporaries are alive at a time."""
     first = quantize(w[0], fmt)
     q = torch.empty((w.shape[0], *first.q.shape), dtype=first.q.dtype, device=w.device)
     scale = torch.empty((w.shape[0], *first.scale.shape), dtype=first.scale.dtype,
@@ -47,8 +61,9 @@ def quantize_params(
     skip: Sequence[str] = (),
     donate: bool = False,
 ) -> Dict[str, Any]:
-    """Quantize every projection weight to ``weights`` ∈ {int8, int4, fp8};
-    embeddings and norms stay as they are.
+    """Quantize every projection weight, expert stacks included, to
+    ``weights`` ∈ {int8, int4, fp8}; embeddings, norms and the router stay
+    as they are.
 
     ``donate=True`` consumes ``params``: its ``blocks`` dict loses each
     full-precision stack as that stack's QTensor is built, so the caller
@@ -58,11 +73,9 @@ def quantize_params(
     """
     if weights in (None, "none"):
         return params
-    if spec.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     out = dict(params)
     blocks = params["blocks"] if donate else dict(params["blocks"])
-    for name in QUANTIZABLE:
+    for name in QUANTIZABLE + QUANTIZABLE_MOE:
         w = blocks.get(name)
         if w is None or name in skip:
             continue
@@ -111,3 +124,129 @@ def fuse_projections(params: Dict[str, Any], spec: ModelSpec) -> Dict[str, Any]:
 def quantized_size_bytes(params) -> int:
     """Total parameter bytes, quantized payloads and scales included."""
     return get_model_size(params)["total_bytes"]
+
+
+def _draw_payload(shape, weights: str, generator: torch.Generator, dev) -> torch.Tensor:
+    """A random payload [L, ...] of int8 uniform in [-127, 127] (cast to
+    e4m3 for fp8, as the JAX package casts its int8 draw), drawn a layer at
+    a time into the stack: no wider temporary than one layer's."""
+    q = torch.empty(shape, dtype=torch.int8 if weights == "int8" else FP8, device=dev)
+    for layer in range(shape[0]):
+        if weights == "int8":
+            q[layer].random_(-127, 128, generator=generator)
+        else:
+            t = torch.empty(shape[1:], dtype=torch.int8, device=dev)
+            q[layer] = t.random_(-127, 128, generator=generator).to(FP8)
+            del t
+    return q
+
+
+def _generator_device(generator: torch.Generator, device) -> torch.device:
+    """``resolve_device(device)``, which ``generator`` must live on."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"the generator lives on {generator.device}, the parameters on {dev}: "
+                         f"pass torch.Generator(device={dev.type!r})")
+    return dev
+
+
+def init_quantized_params(spec: ModelSpec, generator: torch.Generator, weights: str = "int8",
+                          dtype=torch.bfloat16, quantize_lm_head: bool = False, *,
+                          device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """Random parameters whose projection weights (expert stacks included)
+    are quantized from the start: int8 or fp8 payloads uniform over the int8
+    range, per-output-channel scales ``fan_in ** -0.5 / 64`` (the JAX
+    package's constants, so that the dequantized weights have about the
+    fan-in init's size), the router, embedding and norms in ``dtype``. With
+    ``quantize_lm_head`` an untied head is an int8/fp8 payload too.
+
+    Nothing is ever materialized in full precision: the payloads are drawn
+    on ``device`` from ``generator`` (which must live there) a layer at a
+    time. The values are
+    random, and the JAX package's draw is not reproduced (its keys are not
+    torch's); decode speed does not depend on them."""
+    if weights not in ("int8", "fp8"):
+        raise ValueError(f"init_quantized_params: weights must be int8 or fp8, got {weights!r}")
+    spec.validate()
+    dev = _generator_device(generator, device)
+    h, i, l = spec.hidden_size, spec.intermediate_size, spec.num_layers
+    qd, kvd = spec.q_dim, spec.kv_dim
+    gated = spec.activation in ("swiglu", "geglu")
+    E = spec.num_experts
+
+    def qweight(kin, kout, experts=0):
+        lead = (l, experts) if experts else (l,)
+        scale = torch.full(lead + (kout,), (kin ** -0.5) / 64.0, dtype=torch.float32,
+                           device=dev)
+        return QTensor(_draw_payload(lead + (kin, kout), weights, generator, dev), scale,
+                       weights)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=dev) * std).to(dtype)
+
+    def zeros(shape, cond):
+        return torch.zeros(shape, dtype=dtype, device=dev) if cond else None
+
+    layernorm = spec.norm == "layernorm"
+    blocks = {
+        "ln1_scale": torch.ones((l, h), dtype=dtype, device=dev),
+        "ln1_bias": zeros((l, h), layernorm),
+        "wq": qweight(h, qd), "bq": zeros((l, qd), spec.use_qkv_bias),
+        "wk": qweight(h, kvd), "bk": zeros((l, kvd), spec.use_qkv_bias),
+        "wv": qweight(h, kvd), "bv": zeros((l, kvd), spec.use_qkv_bias),
+        "wo": qweight(qd, h), "bo": zeros((l, h), spec.use_out_bias),
+        "ln2_scale": torch.ones((l, h), dtype=dtype, device=dev),
+        "ln2_bias": zeros((l, h), layernorm),
+    }
+    if E:  # sparse MoE: quantized expert stacks and a router in dtype
+        blocks.update({
+            "w_up": None, "b_up": None, "w_gate": None, "b_gate": None,
+            "w_down": None, "b_down": None,
+            "router": normal((l, h, E), h ** -0.5),
+            "moe_up": qweight(h, i, E),
+            "moe_gate": qweight(h, i, E) if gated else None,
+            "moe_down": qweight(i, h, E),
+        })
+    else:
+        blocks.update({
+            "w_up": qweight(h, i), "b_up": zeros((l, i), spec.use_mlp_bias),
+            "w_gate": qweight(h, i) if gated else None,
+            "b_gate": zeros((l, i), spec.use_mlp_bias and gated),
+            "w_down": qweight(i, h), "b_down": zeros((l, h), spec.use_mlp_bias),
+        })
+    lm_head = None
+    if not spec.tie_embeddings:
+        if quantize_lm_head:
+            lm_head = QTensor(_draw_payload((h, spec.vocab_size), weights, generator, dev),
+                              torch.full((spec.vocab_size,), (h ** -0.5) / 64.0,
+                                         dtype=torch.float32, device=dev), weights)
+        else:
+            lm_head = normal((h, spec.vocab_size), h ** -0.5)
+    return {
+        "tok_embed": normal((spec.vocab_size, h), 0.02),
+        "pos_embed": zeros((spec.max_seq_len, h), spec.positional == "learned"),
+        "blocks": blocks,
+        "final_scale": torch.ones((h,), dtype=dtype, device=dev),
+        "final_bias": zeros((h,), layernorm),
+        "lm_head": lm_head,
+        "lm_head_bias": zeros((spec.vocab_size,), spec.use_head_bias),
+    }
+
+
+def streamed_quantized_init(spec: ModelSpec, generator: torch.Generator, weights: str = "int8",
+                            dtype=torch.bfloat16, *,
+                            device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """``quantize_params(init_params(spec, generator, dtype), spec,
+    weights)``, equal to it bit for bit from the same generator state, but
+    with one full-precision stack alive at a time: each is drawn in
+    ``init_params``' order on ``device``, quantized a layer at a
+    time and dropped before the next is drawn. Peak memory is the quantized
+    tree plus one stack in ``dtype`` and its fp32 draw (90 GB for a
+    Mixtral-8x7B expert stack), so the card's Mixtral runs use
+    :func:`init_quantized_params`."""
+    from mlio_tpu_torch.models.transformer import _init_params
+
+    spec.validate()
+    names = QUANTIZABLE + QUANTIZABLE_MOE
+    return _init_params(spec, generator, dtype, _generator_device(generator, device),
+                        lambda name, w: _quantize_stack(w, weights) if name in names else w)

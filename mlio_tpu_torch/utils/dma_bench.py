@@ -20,6 +20,7 @@ launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import statistics
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -149,7 +150,9 @@ def run_config(config, w: torch.Tensor, x: torch.Tensor):
     return manual_stream(w, x, depth=depth, slice_bytes=slice_bytes, streams=streams)
 
 
-def _event_ms(fn, reps: int) -> float:
+def event_ms(fn, reps: int) -> float:
+    """Device ms a call of fn, by CUDA events over ``reps`` calls after one
+    warm-up call."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     fn()
@@ -162,6 +165,11 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Alternating (short, long) rounds of the two-length marginal; the median is
+# kept, since one slow short run alone can read faster than the HBM streams.
+ROUNDS = 3
+
+
 def probe(device, total_bytes: int = 4 << 30, buf: Optional[torch.Tensor] = None,
           reps: int = 5, atol: float = 1e-4, rtol: float = 1e-4) -> Dict[str, dict]:
     """Each stream of :data:`CONFIGS`, checked and timed on the card over
@@ -172,8 +180,10 @@ def probe(device, total_bytes: int = 4 << 30, buf: Optional[torch.Tensor] = None
     one (twice that): o within atol + rtol * |plain| of the plain version
     and the checksum equal to :func:`checksum_plain`'s. Then GB/s by the
     two-length marginal: the device ms of a launch over each length, CUDA
-    events over ``reps`` launches each; GB/s = total_bytes / (ms_long -
-    ms_short). A configuration that fails its check raises. Also a
+    events over ``reps`` launches each, in :data:`ROUNDS` alternating
+    rounds; GB/s = total_bytes / the median of (ms_long - ms_short), with
+    the medians of ms_short and ms_long beside it. A configuration that
+    fails its check raises. Also a
     ``torch.Tensor.copy_`` of the short stream's bytes into a second buffer
     (``copy``: GB/s counting its reads and writes; the copy is held equal
     to its source)."""
@@ -204,19 +214,36 @@ def probe(device, total_bytes: int = 4 << 30, buf: Optional[torch.Tensor] = None
                 raise AssertionError(f"probe {name} ({label}): checksum {got_sum:#x} != plain "
                                      f"{sums[w.numel()]:#x}")
             errs[label] = err.max().item()
-        ms_short = _event_ms(lambda: run_config(config, short, x), reps)
-        ms_long = _event_ms(lambda: run_config(config, long_, x), reps)
+        pairs = [(event_ms(lambda: run_config(config, short, x), reps),
+                  event_ms(lambda: run_config(config, long_, x), reps)) for _ in range(ROUNDS)]
+        ms_short, ms_long = (statistics.median(p[i] for p in pairs) for i in (0, 1))
+        marginal = statistics.median(lg - sh for sh, lg in pairs)
         nbytes = short.numel() * 2
         out[name] = dict(kind=kind, chunk_mb=chunk_mb, depth=depth, slice_bytes=slice_bytes,
                          streams=streams, bytes_short=nbytes, ms_short=ms_short,
                          ms_long=ms_long, max_abs_err=errs, checksum_equal=True,
-                         gb_per_s=nbytes / ((ms_long - ms_short) * 1e-3) / 1e9)
+                         gb_per_s=nbytes / (marginal * 1e-3) / 1e9)
     src = buf[: total_bytes // 2]
     dst = torch.empty_like(src)
-    ms = _event_ms(lambda: dst.copy_(src), reps)
+    ms = event_ms(lambda: dst.copy_(src), reps)
     if not torch.equal(dst, src):
         raise AssertionError("probe copy: the copy differs from its source")
     out["copy"] = dict(bytes=2 * src.numel() * 2, ms=ms,
                        gb_per_s=2 * src.numel() * 2 / (ms * 1e-3) / 1e9)
     del dst
     return out
+
+
+def best_rate(res: Dict[str, dict]) -> Tuple[float, str]:
+    """(bytes/s, its name): the highest rate in :func:`probe`'s result,
+    the best stream's or the copy's (counting its reads and writes)."""
+    name = max(res, key=lambda k: res[k]["gb_per_s"])
+    return res[name]["gb_per_s"] * 1e9, name
+
+
+def bound_ms(nbytes: float, ops: float, bytes_per_s: float, ops_per_s: float) -> Tuple[float, str]:
+    """(ms, what bounds it): the least time for work that moves ``nbytes``
+    and does ``ops`` operations, the larger of the bytes over ``bytes_per_s``
+    and the operations over ``ops_per_s``."""
+    t_bytes, t_ops = nbytes / bytes_per_s, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")

@@ -43,6 +43,8 @@ from mlio_tpu_torch.models import rope_cos_sin
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.models.transformer import decode_route
 from mlio_tpu_torch.ops import decode_tiled as dt
+from mlio_tpu_torch.ops.moe import topk_mask as moe_topk_mask
+from mlio_tpu_torch.ops.quant import QTensor
 from mlio_tpu_torch.runtime import InferenceEngine, SamplingMethod, generate
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -319,3 +321,125 @@ def test_generate_batch_16_takes_tiled_route():
     want = generate(params, spec, ids, max_new_tokens=4, device="cpu",
                     impl=Impl(attention="flash", decode_stack="scan"))
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K6's MoE phases (Mixtral's decode route)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("weights,kv8", [(None, False), ("int8", True)], ids=["fp32", "w8kv8"])
+def test_plain_moe_matches_jax_tiled_kernel(weights, kv8, B):
+    """decode_layer_tiled_plain's MoE phases (the router's softmax, the
+    top-k by repeated max, every expert's chunks weighted by the rows'
+    routing weights) against the JAX _tiled_kernel in interpret mode on
+    moe-tiny, fp32 weights over an fp32 cache and int8 weights over
+    an INT8 cache, at the JAX tiling; the softmax it reports sums to 1."""
+    jspec = JAX_PRESETS["moe-tiny"]
+    jparams, spec, params = _model(jspec, weights)
+    Smax, pos = 128, 41
+    x, kc, vc, ks, vs, (jc, js, tc, ts) = _inputs(spec, B, Smax, pos, 21 + B, kv8)
+    jtiling = jax_choose_tiling(jspec, B, 1 if weights else 4, 1 if kv8 else 4,
+                                weight_fmt=weights)
+    L, Hkv = spec.num_layers, spec.num_kv_heads
+    flat = (lambda a: jnp.asarray(a.reshape(L, B, Smax, -1)))
+    jkw = {}
+    if kv8:
+        jkw = dict(k_scales=pad_scales_for_tiled(jnp.asarray(ks), Hkv, jtiling.ka),
+                   v_scales=pad_scales_for_tiled(jnp.asarray(vs), Hkv, jtiling.ka))
+    out = jax_decode_layer_tiled(jnp.asarray(x), jparams["blocks"], flat(kc), flat(vc), pos, jc,
+                                 js, spec=jspec, tiling=jtiling, interpret=True, **jkw)
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    kw = dict(k_scales=torch.from_numpy(ks.copy()), v_scales=torch.from_numpy(vs.copy())) \
+        if kv8 else {}
+    probs = torch.zeros((L, B, spec.num_experts))
+    got = dt.decode_layer_tiled_plain(torch.from_numpy(x), params["blocks"], tk, tv, pos, tc, ts,
+                                      spec=spec, tiling=dt.Tiling(*jtiling[:4]),
+                                      router_probs=probs, **kw)
+    np.testing.assert_allclose(got.numpy(), _np(out[0]), **TOL)
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, rtol=1e-6)
+    for i, t in enumerate((tk, tv)):
+        jt = _np(out[1 + i]).reshape(t.shape)
+        if kv8:
+            assert np.abs(t.numpy().astype(np.int32) - jt.astype(np.int32)).max() <= 1
+        else:
+            np.testing.assert_allclose(t.numpy(), jt, **TOL)
+
+
+def test_plain_moe_follows_given_experts_and_top1_differs():
+    """``experts=`` makes the plain version take the given picks: its own
+    picks reproduce its output bit for bit, a top-1 routing (each row's
+    second expert dropped) moves x_out, and the wrapper on CPU tensors
+    reports the same softmax as the plain version."""
+    _, spec, params = _model(JAX_PRESETS["moe-tiny"])
+    B, Smax, pos = 3, 64, 20
+    x, kc, vc, _, _, (_, _, tc, ts) = _inputs(spec, B, Smax, pos, 5, False)
+    L, E = spec.num_layers, spec.num_experts
+
+    def run(**kw):
+        return dt.decode_layer_tiled_plain(torch.from_numpy(x), params["blocks"],
+                                           torch.from_numpy(kc.copy()),
+                                           torch.from_numpy(vc.copy()), pos, tc, ts, spec=spec,
+                                           **kw)
+
+    probs = torch.zeros((L, B, E))
+    own = run(router_probs=probs)
+    picks = moe_topk_mask(probs, spec.num_experts_per_tok)
+    assert torch.equal(run(experts=picks), own)
+    top1 = dt.decode_layer_tiled_plain(
+        torch.from_numpy(x), params["blocks"], torch.from_numpy(kc.copy()),
+        torch.from_numpy(vc.copy()), pos, tc, ts,
+        spec=dataclasses.replace(spec, num_experts_per_tok=1))
+    assert (top1 - own).abs().max() > 1e-2
+    wrapped = torch.zeros((L, B, E))
+    dt.decode_layer_tiled(torch.from_numpy(x), params["blocks"], torch.from_numpy(kc.copy()),
+                          torch.from_numpy(vc.copy()), pos, tc, ts, spec=spec,
+                          router_probs=wrapped)
+    assert torch.equal(wrapped, probs)
+
+
+def test_supports_decode_tiled_moe_clauses_match_jax():
+    """The MoE clauses of supports_decode_tiled (a router, up and down expert
+    stacks, stored as the attention weights are) as the JAX package decides
+    them, on moe-tiny's fp32 and int8 blocks; the spec widens its heads to
+    128 so that the JAX package's lane clause (not kept) does not decide."""
+    tiny = JAX_PRESETS["moe-tiny"]
+    jspec = dataclasses.replace(tiny, hidden_size=256, num_heads=2, num_kv_heads=2)
+    spec = ModelSpec(**dataclasses.asdict(jspec))
+    for weights in (None, "int8"):
+        jparams, _, params = _model(tiny, weights)
+        jb, b = dict(jparams["blocks"]), dict(params["blocks"])
+        assert dt.supports_decode_tiled(spec, 2, blocks=b, on_card=False)
+        assert jax_supports_decode_tiled(jspec, 2, blocks=jb)
+        for drop in ("router", "moe_up", "moe_down"):
+            assert not dt.supports_decode_tiled(spec, 2, blocks={**b, drop: None}, on_card=False)
+            assert not jax_supports_decode_tiled(jspec, 2, blocks={**jb, drop: None})
+    # experts stored otherwise than the attention weights
+    jf, _, pf = _model(tiny)
+    j8, _, p8 = _model(tiny, "int8")
+    mixed = {**pf["blocks"], "moe_up": p8["blocks"]["moe_up"]}
+    jmixed = {**jf["blocks"], "moe_up": j8["blocks"]["moe_up"]}
+    assert not dt.supports_decode_tiled(spec, 2, blocks=mixed, on_card=False)
+    assert not jax_supports_decode_tiled(jspec, 2, blocks=jmixed)
+
+
+def test_mixtral_routes_to_tiled_and_counts_every_expert():
+    """Mixtral-8x7B at B 8 with int8 weights and an INT8 cache takes K6 under
+    "auto" (K4 refuses experts); "mega" raises naming them; a layer's
+    weights count all 8 experts and the router."""
+    spec = get_spec("mixtral-8x7b")
+    blocks = {"wq": QTensor(torch.zeros(1, dtype=torch.int8), torch.zeros(1), "int8"),
+              "router": torch.zeros(1), "moe_up": QTensor(torch.zeros(1, dtype=torch.int8),
+                                                          torch.zeros(1), "int8"),
+              "moe_down": QTensor(torch.zeros(1, dtype=torch.int8), torch.zeros(1), "int8")}
+    impl = Impl(attention="flash")
+    assert decode_route(spec, impl, blocks, 8, cache_quant=True, smax=1024) == "tiled"
+    assert decode_route(spec, impl, blocks, 32, cache_quant=True, smax=1024) == "tiled"
+    assert decode_route(spec, impl, blocks, 33, cache_quant=True, smax=1024) == "scan"
+    with pytest.raises(ValueError, match="8 experts"):
+        decode_route(spec, Impl(attention="flash", decode_stack="mega"), blocks, 8)
+    attn = 4096 * (4096 + 2 * 1024) + 4096 * 4096
+    assert dt.layer_weight_bytes(spec, 1) == attn + 8 * 3 * 4096 * 14336 + 2 * 4096 * 8
+    t = dt.choose_tiling(spec, 8)
+    assert t.ic % 16 == 0 and t.km * t.ic >= 14336 > (t.km - 1) * t.ic
+    assert dt.kernel_limit(dataclasses.replace(spec, num_experts=17), 8) is not None

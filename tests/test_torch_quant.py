@@ -225,3 +225,127 @@ def test_kv_quantizers_match_jax():
     np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
     np.testing.assert_array_equal(tq.dequantize_kv(q, sc).numpy(),
                                   np.asarray(jq.dequantize_kv(jqv, jsc)))
+
+
+# ---------------------------------------------------------------------------
+# MoE expert stacks and the quantized random init
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantize_params_moe_matches_jax(fmt):
+    """quantize_params on an MoE tree: the expert stacks get per-expert
+    per-output-channel scales [L, E, out], payloads and scales bit for bit
+    the JAX package's; the router stays as it is."""
+    jspec = jax_get_spec("moe-tiny")
+    jparams = jax_init_params(jspec, jax.random.PRNGKey(0), dtype=jnp.float32)
+    want = jquant.quantize_params(jparams, jspec, fmt)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    got = quantize_params(params, get_spec("moe-tiny"), fmt)
+    L, E = jspec.num_layers, jspec.num_experts
+    for k in jquant.QUANTIZABLE + jquant.QUANTIZABLE_MOE:
+        if want["blocks"][k] is None:
+            assert got["blocks"][k] is None
+            continue
+        np.testing.assert_array_equal(_payload(got["blocks"][k].q),
+                                      _payload(want["blocks"][k].q))
+        np.testing.assert_array_equal(got["blocks"][k].scale.numpy(),
+                                      np.asarray(want["blocks"][k].scale))
+    assert got["blocks"]["moe_down"].scale.shape == (L, E, jspec.hidden_size)
+    assert isinstance(got["blocks"]["router"], torch.Tensor)
+    assert quantized_size_bytes(got) == jquant.quantized_size_bytes(want)
+
+
+def _structure(tree):
+    """{path: (shape, dtype name, fmt)} of a parameter tree of either package."""
+    out = {}
+
+    def walk(node, path):
+        if node is None:
+            out[path] = None
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif hasattr(node, "fmt"):
+            out[path] = (tuple(node.q.shape), tuple(node.scale.shape), str(node.fmt))
+        else:
+            out[path] = (tuple(node.shape), str(node.dtype).replace("torch.", ""))
+
+    walk(tree, "")
+    return out
+
+
+@pytest.mark.parametrize("name", ["moe-tiny", "llama-tiny"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_init_quantized_params_matches_jax_layout(name, fmt):
+    """init_quantized_params: the JAX package's tree (shapes, dtypes, formats,
+    with the quantized head), its scale constants fan_in ** -0.5 / 64 bit for
+    bit, payloads over the int8 range (cast to e4m3 for fp8), and a forward
+    that runs."""
+    from mlio_tpu_torch.models import Impl, forward
+    from mlio_tpu_torch.runtime.quantization import init_quantized_params
+
+    jspec = jax_get_spec(name)
+    want = jquant.init_quantized_params(jspec, jax.random.PRNGKey(0), fmt, dtype=jnp.bfloat16,
+                                        quantize_lm_head=True)
+    spec = get_spec(name)
+    got = init_quantized_params(spec, torch.Generator().manual_seed(0), fmt,
+                                quantize_lm_head=True, device="cpu")
+    assert _structure(got) == _structure(want)
+    leaves = {k: v for k, v in got["blocks"].items() if isinstance(v, tq.QTensor)}
+    leaves["lm_head"] = got["lm_head"]
+    assert set(leaves) >= {"wq", "wo"} | ({"moe_up", "moe_down"} if spec.num_experts else set())
+    for k, t in leaves.items():
+        w = want[k] if k == "lm_head" else want["blocks"][k]
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(w.scale))
+        vals = t.q.float()
+        top = 127 if fmt == "int8" else 128  # e4m3 rounds 127 (and 125, 126) to 128
+        assert 100 <= vals.abs().max() <= top
+        if fmt == "fp8":
+            ints = torch.arange(-127, 128, dtype=torch.float32)
+            assert torch.isin(vals, ints.to(tq.FP8).float()).all()
+        else:
+            assert torch.equal(vals, vals.round())
+    ids = torch.arange(8).reshape(1, 8)
+    logits, _ = forward(got, spec, ids, impl=Impl())
+    assert logits.shape == (1, 8, spec.vocab_size) and torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("fn", ["init_quantized_params", "streamed_quantized_init"])
+@pytest.mark.parametrize("card", [False, True])
+def test_quantized_init_runs_on_the_card_unless_asked(fn, card, monkeypatch):
+    """Both builds default to the card, as init_params does: with no card
+    they raise rather than build on the CPU, and with one they refuse a
+    generator that lives elsewhere."""
+    from mlio_tpu_torch.runtime import quantization as rq
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+    err, match = (ValueError, "generator lives on cpu") if card else (RuntimeError, "no CUDA")
+    with pytest.raises(err, match=match):
+        getattr(rq, fn)(get_spec("moe-tiny"), torch.Generator().manual_seed(0), "int8")
+
+
+@pytest.mark.parametrize("name", ["moe-tiny", "llama-tiny"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_streamed_quantized_init_equals_init_then_quantize(name, fmt):
+    """streamed_quantized_init gives quantize_params(init_params(...)) from
+    the same generator state bit for bit (the JAX package's contract,
+    tests/test_quantization.py), experts included."""
+    from mlio_tpu_torch.models import init_params
+    from mlio_tpu_torch.runtime.quantization import streamed_quantized_init
+
+    spec = get_spec(name)
+    got = streamed_quantized_init(spec, torch.Generator().manual_seed(3), fmt,
+                                  dtype=torch.bfloat16, device="cpu")
+    want = quantize_params(init_params(spec, torch.Generator().manual_seed(3),
+                                       dtype=torch.bfloat16, device="cpu"), spec, fmt)
+    assert _structure(got) == _structure(want)
+    for k, w in want["blocks"].items():
+        g = got["blocks"][k]
+        if isinstance(w, tq.QTensor):
+            np.testing.assert_array_equal(_payload(g.q), _payload(w.q))
+            assert torch.equal(g.scale, w.scale)
+        elif w is not None:
+            assert torch.equal(g, w), k
+    for k in ("tok_embed", "lm_head"):
+        if want[k] is not None:
+            assert torch.equal(got[k], want[k])
