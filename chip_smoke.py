@@ -139,6 +139,29 @@ phase's failure is caught:
 10. f1: GPT-2 small greedy generate at B 16 ("auto" must route off K4) and
    ``InferenceEngine(max_batch=16)`` on engine_bench's prompts (per-op K7,
    no K8), each with launch counters and logits within 0.1 of the plain path.
+11. flash_grad: K1's dropout instance and K13 (``ops/flash_attention_grad.py``:
+   K13a the forward with the log-sum-exp, K13b dQ, K13c dK/dV per query
+   head) against their plain versions at llama3-8b's attention (B 1, S 2048,
+   32/8 heads of 128, causal), GPT-2's (B 8, S 1024, 12 heads of 64), a
+   ragged S 1000 with group 4, a non-causal case, and dropout 0.1 (seed 7)
+   at llama3-8b's shape; each must fail with a dropout seed one off (K1's
+   output, dq) and against plain versions whose causal frontier is one key
+   short (o, lse, dq, dK, dV), and give the same bits twice; timed at
+   llama3-8b's attention beside the plain versions, the bound, and
+   ``aten._scaled_dot_product_flash_attention`` (K13a) and SDPA's backward
+   (the whole K13 backward, K13a's recompute included).
+12. train_8b: the training slice's path, llama3-8b at full width and depth,
+   bf16 weights from the seed requiring grad, ids [1, 2049]: three SGD steps
+   (lr 1e-3) of the next-token loss through ``forward(...,
+   impl=Impl(attention="flash"))`` (K1 forward, K13 backward, norms and MLP
+   dense): forward, backward and step ms, tokens/s, each loss (finite), peak
+   memory, launches (K1, K13a, K13b, K13c 32 a step; no other kernel), the
+   idle share. Then the gradient gate at full width and 2 layers: the loss
+   and every gradient leaf of the kernel path within 5 % of the bf16 plain
+   path's relative RMS error from an fp32 dense path, the plain path taking
+   the same route with K1's and K13's plain versions; the dense bf16 path
+   (``Impl()``) is reported beside it; a control whose dK/dV come from one
+   query head a group must fail.
 
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
@@ -1452,7 +1475,8 @@ PLAIN = {"flash_attention": "flash_attention_plain",
          "flash_attention_kvq": "flash_attention_kvq_plain", "fused_norm": "fused_norm_plain",
          "decode_attention": "decode_attention_plain", "fused_mlp": "fused_mlp_plain",
          "fused_norm_matmul": "fused_norm_matmul_plain", "quant_matmul": "quant_matmul_plain",
-         "decode_layer_tiled": "decode_layer_tiled_plain"}
+         "decode_layer_tiled": "decode_layer_tiled_plain", "flash_fwd_lse": "flash_fwd_lse_plain",
+         "flash_bwd_dq": "flash_bwd_dq_plain", "flash_bwd_dkv": "flash_bwd_dkv_plain"}
 
 
 @contextlib.contextmanager
@@ -3036,6 +3060,410 @@ def f1_phase(dev, seed, wrappers, fa, norms, da, qm, dt, pa):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training slice: K1's dropout instance and K13, then llama3-8b's step
+# ---------------------------------------------------------------------------
+
+# K13's cases on the card: (name, B, S, Hq, Hkv, D, causal, dropout_rate).
+# llama3-8b's attention is the training path's shape (train_8b).
+FLASH_GRAD_CASES = (("llama3-8b", 1, 2048, 32, 8, 128, True, 0.0),
+                    ("gpt2", 8, 1024, 12, 12, 64, True, 0.0),
+                    ("ragged_g4", 2, 1000, 8, 2, 64, True, 0.0),
+                    ("noncausal_g2", 2, 640, 16, 8, 128, False, 0.0),
+                    ("llama3-8b_dropout", 1, 2048, 32, 8, 128, True, 0.1))
+DROP_SEED = 7
+# K1's dropout instance, K13a's o and K13b's dq are bf16 outputs, K13c's
+# dK/dV fp32 sums of bf16 products: each rounds p, dS or P~ to bf16 as its
+# plain version does, but from scores and sums taken in another order (and
+# K1/K13a against a running max), so a value on a rounding boundary can fall
+# the other way; K1's limit holds them (first chip run of this slice: o
+# 0.0078, dq 0.0039, dK 0.0011, dV 0.0055 at most, NVIDIA H100 80GB HBM3,
+# 700 W). The log-sum-exp is fp32 throughout: its sums in another order
+# moved it by 1e-6 on the card; 1e-4 would still miss a causal frontier one
+# key short on the last row (a change of log(1 - p) ~ 5e-4 there).
+TOL.update({"flash_attention_dropout": TOL["flash_attention"],
+            "flash_fwd_lse": TOL["flash_attention"], "flash_fwd_lse_lse": (1e-4, 0.0),
+            "flash_bwd_dq": TOL["flash_attention"], "flash_bwd_dkv": TOL["flash_attention"]})
+
+
+def causal_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """(query, key) pairs a causal (or full) attention scores."""
+    return sum(min(Skv, i + 1) for i in range(Sq)) if causal else Sq * Skv
+
+
+@contextlib.contextmanager
+def frontier_one_short(*modules):
+    """The causal mask of every module given one key short: query i sees
+    keys j < i, where it should see j <= i."""
+    from mlio_tpu_torch.ops.reference import attention_mask
+
+    def short(*args, **kw):
+        return attention_mask(*args, **dict(kw, q_offset=kw["q_offset"] - 1))
+
+    with contextlib.ExitStack() as stack:
+        for m in modules:
+            stack.enter_context(patched(m, "attention_mask", short))
+        yield
+
+
+def flash_grad_phase(dev, seed, fa, fg):
+    """K1's dropout instance and K13a/b/c, each held against its plain
+    version on the card at FLASH_GRAD_CASES; failing a dropout seed one off
+    (K1's output, dq) and a causal frontier one key short in the plain
+    versions (o, lse, dq, dK, dV); the same bits twice; timed at llama3-8b's
+    attention beside the plain version, a PyTorch call where one computes the
+    same function, and the bound. Returns the kernels line's rows (K1's
+    dropout, K13a, K13b, K13c, and the whole backward)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    checks, rows = {}, {}
+    for name, B, S, Hq, Hkv, D, causal, rate in FLASH_GRAD_CASES:
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        q, k, v, do = r(B, S, Hq, D), r(B, S, Hkv, D), r(B, S, Hkv, D), r(B, S, Hq, D)
+        kw = dict(causal=causal, dropout_rate=rate, dropout_seed=DROP_SEED)
+        res = {}
+        o1 = fa.flash_attention(q, k, v, **kw)
+        o1_plain = fa.flash_attention_plain(q, k, v, **kw)
+        res["k1_max_abs_err"] = check_close(
+            "flash_attention_dropout" if rate else "flash_attention", o1, o1_plain)
+        o, lse = fg.flash_fwd_lse(q, k, v, **kw)
+        o_plain, lse_plain = fg.flash_fwd_lse_plain(q, k, v, **kw)
+        res["o_max_abs_err"] = check_close("flash_fwd_lse", o, o_plain)
+        res["lse_max_abs_err"] = check_close("flash_fwd_lse_lse", lse, lse_plain)
+        # the backward kernels and their plain versions take the same (o, lse)
+        delta = (do.float() * o_plain.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse_plain, delta)
+        dq, dq_plain = fg.flash_bwd_dq(*args, **kw), fg.flash_bwd_dq_plain(*args, **kw)
+        res["dq_max_abs_err"] = check_close("flash_bwd_dq", dq, dq_plain)
+        (dk, dv), (dk_plain, dv_plain) = fg.flash_bwd_dkv(*args, **kw), \
+            fg.flash_bwd_dkv_plain(*args, **kw)
+        res["dk_max_abs_err"] = check_close("flash_bwd_dkv", dk, dk_plain)
+        res["dv_max_abs_err"] = check_close("flash_bwd_dkv", dv, dv_plain)
+        again = (fa.flash_attention(q, k, v, **kw), *fg.flash_fwd_lse(q, k, v, **kw),
+                 fg.flash_bwd_dq(*args, **kw), *fg.flash_bwd_dkv(*args, **kw))
+        if not all(torch.equal(a, b) for a, b in zip(again, (o1, o, lse, dq, dk, dv))):
+            raise AssertionError(f"flash_grad {name}: two runs gave different bits")
+        res["same_bits_twice"] = True
+        if rate:  # a dropout seed one off must fail K1's and dq's checks
+            off = dict(kw, dropout_seed=DROP_SEED + 1)
+            res["seed_off_max_abs_err"] = dict(
+                k1=must_fail_within("flash_attention_dropout", "with the dropout seed one off",
+                                    fa.flash_attention(q, k, v, **off), o1_plain),
+                dq=must_fail_within("flash_bwd_dq", "with the dropout seed one off",
+                                    fg.flash_bwd_dq(*args, **off), dq_plain))
+        if name == "llama3-8b":  # the plain versions one key short must fail every check
+            with frontier_one_short(fa, fg):
+                o_s, lse_s = fg.flash_fwd_lse_plain(q, k, v, **kw)
+                dq_s = fg.flash_bwd_dq_plain(*args, **kw)
+                dk_s, dv_s = fg.flash_bwd_dkv_plain(*args, **kw)
+            what = "against a causal frontier one key short"
+            res["frontier_short_max_abs_err"] = dict(
+                o=must_fail_within("flash_fwd_lse", what, o, o_s),
+                lse=must_fail_within("flash_fwd_lse_lse", what, lse, lse_s),
+                dq=must_fail_within("flash_bwd_dq", what, dq, dq_s),
+                dk=must_fail_within("flash_bwd_dkv", what, dk, dk_s),
+                dv=must_fail_within("flash_bwd_dkv", what, dv, dv_s))
+            del o_s, lse_s, dq_s, dk_s, dv_s
+        checks[name] = res
+        if name.startswith("llama3-8b"):
+            rows[name] = _flash_grad_rows(name, fa, fg, q, k, v, do, o_plain, lse_plain, delta,
+                                          res, kw, causal, rate)
+        del q, k, v, do, o1, o1_plain, o, lse, o_plain, lse_plain, dq, dq_plain, dk, dv
+        del dk_plain, dv_plain, again
+        torch.cuda.empty_cache()
+    emit(dict(phase="flash_grad", checks=checks))
+    return rows["llama3-8b_dropout"][:1] + rows["llama3-8b"]
+
+
+BACKWARD_PRODUCTS = 7  # matrix products of the backward with its recompute, pairs x 2 each
+
+
+def _flash_grad_rows(name, fa, fg, q, k, v, do, o, lse, delta, res, kw, causal, rate):
+    """The kernels line's rows at llama3-8b's attention: K1's dropout instance
+    (the dropout case), or K13a, K13b, K13c and the whole backward."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    pairs = B * Hq * D * causal_pairs(S, S, causal)
+    qkv = 2 * (q.numel() + 2 * k.numel())  # bytes of q, k, v
+    rowstats = 4 * B * Hq * S  # one fp32 a row: lse or delta
+    shape = f"q [{B},{S},{Hq},{D}] k/v [{B},{S},{Hkv},{D}] bf16, causal"
+    common = dict(route="cuda", source="mlio_tpu_torch/csrc/flash_bwd.cu", shape=shape,
+                  atol=TOL["flash_bwd_dq"][0], rtol=TOL["flash_bwd_dq"][1])
+    if rate:
+        b_ms, b_by = bound(qkv + 2 * q.numel(), 4 * pairs, BF16_TENSOR_FLOPS)
+        return [dict(
+            name="flash_attention_dropout", route="cuda",
+            source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kDrop)",
+            replaces="mlio_tpu/ops/flash_attention.py:37 (dropout branch :140-150)",
+            shape=f"{shape}, dropout {rate}, seed {DROP_SEED}", max_abs_err=res["k1_max_abs_err"],
+            atol=TOL["flash_attention_dropout"][0], rtol=TOL["flash_attention_dropout"][1],
+            seed_off_max_abs_err=res["seed_off_max_abs_err"],
+            **timings(lambda i: fa.flash_attention(q, k, v, **kw),
+                      lambda i: fa.flash_attention_plain(q, k, v, **kw), None, 20),
+            library_note="no PyTorch call drops by this position hash (SDPA's dropout draws "
+                         "Philox bits)",
+            bound_ms=b_ms, bound_by=b_by)]
+    # the library calls take [B, H, S, D]; the flash op wants K/V at Hq heads
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kx, vx = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kt, vt))
+    sdpa_q, sdpa_k, sdpa_v = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    sdpa_o = F.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, is_causal=True,
+                                            enable_gqa=True)
+    sdpa_do = do.transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    rows = []
+    b_ms, b_by = bound(qkv + 2 * q.numel() + rowstats, 4 * pairs, BF16_TENSOR_FLOPS)
+    rows.append(dict(
+        name="flash_fwd_lse", replaces="mlio_tpu/ops/flash_attention_grad.py:49",
+        max_abs_err=res["o_max_abs_err"], lse_max_abs_err=res["lse_max_abs_err"],
+        lse_atol=TOL["flash_fwd_lse_lse"][0],
+        **timings(lambda i: fg.flash_fwd_lse(q, k, v, **kw),
+                  lambda i: fg.flash_fwd_lse_plain(q, k, v, **kw),
+                  lambda i: torch.ops.aten._scaled_dot_product_flash_attention(
+                      qt, kx, vx, 0.0, True), 20),
+        library_note="aten._scaled_dot_product_flash_attention (o and logsumexp), K/V "
+                     "repeated to the query heads outside the timing",
+        bound_ms=b_ms, bound_by=b_by, **common))
+    b_ms, b_by = bound(qkv + 4 * q.numel() + 2 * rowstats, 6 * pairs, BF16_TENSOR_FLOPS)
+    rows.append(dict(
+        name="flash_bwd_dq", replaces="mlio_tpu/ops/flash_attention_grad.py:122",
+        max_abs_err=res["dq_max_abs_err"],
+        **timings(lambda i: fg.flash_bwd_dq(*args, **kw),
+                  lambda i: fg.flash_bwd_dq_plain(*args, **kw), None, 20),
+        library_note="no single PyTorch call gives dq alone (see flash_attention_backward)",
+        bound_ms=b_ms, bound_by=b_by, **common))
+    b_ms, b_by = bound(qkv + 2 * q.numel() + 2 * rowstats + 8 * q.numel(), 8 * pairs,
+                       BF16_TENSOR_FLOPS)
+    rows.append(dict(
+        name="flash_bwd_dkv", replaces="mlio_tpu/ops/flash_attention_grad.py:180",
+        max_abs_err=max(res["dk_max_abs_err"], res["dv_max_abs_err"]),
+        dk_max_abs_err=res["dk_max_abs_err"], dv_max_abs_err=res["dv_max_abs_err"],
+        **timings(lambda i: fg.flash_bwd_dkv(*args, **kw),
+                  lambda i: fg.flash_bwd_dkv_plain(*args, **kw), None, 20),
+        library_note="no single PyTorch call gives per-query-head dK/dV "
+                     "(see flash_attention_backward)",
+        bound_ms=b_ms, bound_by=b_by, **common))
+
+    def whole(i):  # what the backward of flash_attention_diff runs
+        o_, lse_ = fg.flash_fwd_lse(q, k, v, **kw)
+        return fg.attention_backward(q, k, v, o_, lse_, do, **kw)
+
+    def whole_plain(i):
+        with plain_kernels(fg):
+            return whole(i)
+
+    # q, k, v and dO read, dq, dk and dv written; the operations the function
+    # needs with the recompute (lse and o, then delta): S and PV, then S, dP,
+    # dQ, dK and dV, 2 * pairs each (the kernels' own sum is 18: K13b and
+    # K13c each recompute S and dP)
+    b_ms, b_by = bound(2 * (3 * q.numel() + 4 * k.numel()), BACKWARD_PRODUCTS * 2 * pairs,
+                       BF16_TENSOR_FLOPS)
+    rows.append(dict(
+        name="flash_attention_backward", bound_operations=f"{2 * BACKWARD_PRODUCTS} * pairs",
+        replaces="mlio_tpu/ops/flash_attention_grad.py:463 (_diff_bwd: :49, :122, :180 and "
+                 "the glue :363-367, :414-416)",
+        max_abs_err=max(res["dq_max_abs_err"], res["dk_max_abs_err"], res["dv_max_abs_err"]),
+        **timings(whole, whole_plain,
+                  lambda i: torch.autograd.grad(sdpa_o, (sdpa_q, sdpa_k, sdpa_v), sdpa_do,
+                                                retain_graph=True), 20),
+        library_note="the backward of F.scaled_dot_product_attention(is_causal, enable_gqa), "
+                     "which keeps its forward's logsumexp where K13 recomputes it (K13a)",
+        bound_ms=b_ms, bound_by=b_by, **common))
+    del sdpa_o, sdpa_q, sdpa_k, sdpa_v
+    return rows
+
+
+TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2048, 3, 1e-3
+GATE_LAYERS = 2  # a 32-layer fp32 copy of llama3-8b (32 GB, and its grads) does not fit beside it
+# llama3-8b's gradients through 2 bf16 layers: each path's relative RMS
+# error from an fp32 dense path, a leaf at a time. The kernel path's may lie
+# no farther than GRAD_OVER_PLAIN times the bf16 plain path's (generate_8b's
+# rule for logits), the plain path taking the same route with K1's and K13's
+# plain versions, so that both round p, dS and P~ to bf16 where the TPU
+# kernels do (tests/test_torch_flash_grad.py holds those plain versions to
+# the JAX kernels on bf16 inputs, within 1e-3 relative RMS, which a rounding
+# point left out or added exceeds). The dense bf16 path (Impl()) keeps
+# attention in fp32 and lies closer: on the card (NVIDIA H100 80GB HBM3,
+# 700 W) the plain path's errors were 1.02-1.05 times the dense path's (wv
+# 1.0525), so a gate against it would reject a rounding the JAX kernels
+# share; it is reported beside. The kernels lay at 0.98-1.008 times the
+# plain path's; dK/dV from one query head a group (the control) at 9-68
+# times.
+GRAD_OVER_PLAIN = LOGITS_8B_OVER_PLAIN
+
+
+def _rel_rms(got, want) -> float:
+    d = (got.float() - want.float()).square().sum().sqrt()
+    return (d / want.float().square().sum().sqrt().clamp_min(1e-30)).item()
+
+
+def _named_leaves(params, prefix=""):
+    for key, val in params.items():
+        if isinstance(val, dict):
+            yield from _named_leaves(val, f"{prefix}{key}.")
+        elif isinstance(val, torch.Tensor) and val.is_floating_point():
+            yield prefix + key, val
+
+
+def _loss_and_grads(params, spec, ids, impl):
+    """(loss, {leaf name: its gradient}) of one backward through params."""
+    from mlio_tpu_torch.runtime import next_token_loss, trainable
+
+    leaves = trainable(params)
+    loss = next_token_loss(params, spec, ids, impl=impl)
+    loss.backward()
+    grads = {name: leaf.grad for name, leaf in _named_leaves(params)}
+    for leaf in leaves:
+        leaf.grad = None
+    return loss.detach().float(), grads
+
+
+def one_query_head_a_group(t, num_kv_heads):
+    """The control's group sum: each KV head's dK/dV from its first query
+    head alone."""
+    B, S, Hq, D = t.shape
+    return t.view(B, S, num_kv_heads, Hq // num_kv_heads, D)[:, :, :, 0]
+
+
+def gradient_gate(dev, seed, spec, fa, fg):
+    """llama3-8b at full width and GATE_LAYERS layers, bf16 weights from the
+    seed: the loss and every gradient leaf of the kernel path (K1, K13), of
+    the bf16 plain path (the same route with K1's and K13's plain versions)
+    and of the dense bf16 path (Impl()), each against the fp32 dense path;
+    the kernel path must lie within GRAD_OVER_PLAIN of the plain path's
+    error on every leaf and the loss; the control (K13's dK/dV from one query
+    head a group) must fail."""
+    from mlio_tpu_torch.models import Impl, init_params
+
+    spec2 = dataclasses.replace(spec, num_layers=GATE_LAYERS)
+    params = init_params(spec2, torch.Generator(device=dev).manual_seed(seed + 1),
+                         dtype=torch.bfloat16, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, spec.vocab_size, (1, TRAIN_S + 1))).to(dev)
+    p32 = {k: ({n: (t.float() if t is not None else None) for n, t in v.items()}
+               if isinstance(v, dict) else (v.float() if v is not None else None))
+           for k, v in params.items()}
+    loss32, ref = _loss_and_grads(p32, spec2, ids, Impl())
+    del p32
+    torch.cuda.empty_cache()
+
+    def errors(ctx, impl):
+        with ctx:
+            loss, grads = _loss_and_grads(params, spec2, ids, impl)
+        out = {"loss": abs(loss.item() - loss32.item()) / abs(loss32.item())}
+        out.update({n: _rel_rms(g, ref[n]) for n, g in grads.items()})
+        return out
+
+    flash = Impl(attention="flash")
+    for w in (fa.flash_attention, fg.flash_fwd_lse, fg.flash_bwd_dq, fg.flash_bwd_dkv):
+        w.launches = 0
+    err = dict(kernels=errors(contextlib.nullcontext(), flash))
+    launches = {w.__name__: w.launches for w in (fa.flash_attention, fg.flash_fwd_lse,
+                                                 fg.flash_bwd_dq, fg.flash_bwd_dkv)}
+    if set(launches.values()) != {GATE_LAYERS}:
+        raise AssertionError(f"train_8b gate: the kernel path's launches {launches}")
+    err["plain"] = errors(plain_kernels(fa, fg), flash)
+    err["dense"] = errors(contextlib.nullcontext(), Impl())
+    err["control"] = errors(patched(fg, "group_sum", one_query_head_a_group), flash)
+    def over(path, base):
+        return {n: e / max(err[base][n], 1e-30) for n, e in err[path].items()}
+
+    ratio, control = over("kernels", "plain"), over("control", "plain")
+    return dict(layers=GATE_LAYERS, loss_fp32=loss32.item(), rel_rms=err,
+                kernels_over_plain=ratio, control_over_plain=control,
+                kernels_over_dense=over("kernels", "dense"),
+                plain_over_dense=over("plain", "dense"), over_plain=GRAD_OVER_PLAIN,
+                passed=max(ratio.values()) <= GRAD_OVER_PLAIN,
+                control_rejected=max(control.values()) > GRAD_OVER_PLAIN)
+
+
+def train_8b_phase(dev, seed, fa, fg, wrappers):
+    """The slice's path: llama3-8b at full width and depth, bf16 weights from
+    the seed requiring grad, ids [1, TRAIN_S + 1] from the seed; TRAIN_STEPS
+    SGD steps (lr TRAIN_LR) of the next-token loss with
+    Impl(attention="flash"): forward, backward and step ms, tokens/s, each
+    step's loss (finite), peak memory, launches a step (K1, K13a, K13b, K13c
+    one a layer each; no other kernel) and attention backward calls (one a
+    layer), the idle share (a torch.profiler trace of the last step against
+    the previous step's wall). Then the gradient gate at GATE_LAYERS layers.
+    Returns the launch counts, the backward calls under
+    "flash_attention_backward"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlio_tpu_torch.models import Impl, get_spec, init_params
+    from mlio_tpu_torch.runtime import next_token_loss, sgd_step, trainable
+
+    spec = get_spec(LLAMA)
+    L = spec.num_layers
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(seed),
+                         dtype=torch.bfloat16, device=dev)
+    leaves = trainable(params)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, spec.vocab_size, (1, TRAIN_S + 1))).to(dev)
+    impl = Impl(attention="flash")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    backwards, real_backward = [0], fg.attention_backward
+
+    def counted_backward(*args, **kw):  # flash_attention_diff's backward, a call a layer
+        backwards[0] += 1
+        return real_backward(*args, **kw)
+
+    steps, busy = [], None
+    with patched(fg, "attention_backward", counted_backward):
+        for s in range(TRAIN_STEPS):
+            before = {w.__name__: w.launches for w in wrappers}
+            prof = profile(activities=[ProfilerActivity.CUDA]) if s == TRAIN_STEPS - 1 \
+                else contextlib.nullcontext()
+            with prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = next_token_loss(params, spec, ids, impl=impl)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                loss.backward()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                sgd_step(leaves, TRAIN_LR)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+            if s == TRAIN_STEPS - 1:
+                busy = busy_ms(prof.events())
+            value = loss.item()
+            if not np.isfinite(value):
+                raise AssertionError(f"train_8b: step {s} loss {value}")
+            steps.append(dict(loss=value, forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                              sgd_ms=(t3 - t2) * 1e3, step_ms=(t3 - t0) * 1e3,
+                              profiled=s == TRAIN_STEPS - 1,
+                              launches={w.__name__: w.launches - before[w.__name__]
+                                        for w in wrappers}))
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = {n: 0 for n in launches}
+    want.update({n: L * TRAIN_STEPS for n in ("flash_attention", "flash_fwd_lse",
+                                               "flash_bwd_dq", "flash_bwd_dkv")})
+    if launches != want or backwards[0] != L * TRAIN_STEPS:
+        raise AssertionError(f"train_8b: launch counts {launches} != expected {want}, or "
+                             f"{backwards[0]} attention backward calls")
+    launches["flash_attention_backward"] = backwards[0]
+    peak = torch.cuda.max_memory_allocated()
+    if not busy:
+        raise AssertionError("train_8b: the profiler saw no device time in a step")
+    wall = steps[-2]["step_ms"]
+    result = dict(phase="train_8b", model=spec.name, layers=L, batch=1, seq=TRAIN_S,
+                  lr=TRAIN_LR, params=sum(t.numel() for t in leaves), steps=steps,
+                  tokens_per_s=TRAIN_S / (wall / 1e3), peak_bytes=peak, launches=launches,
+                  device_busy_ms=busy, idle_share=1 - busy / wall)
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+    result["gate"] = gradient_gate(dev, seed, spec, fa, fg)
+    emit(result)
+    if not result["gate"]["passed"] or not result["gate"]["control_rejected"]:
+        raise AssertionError(f"train_8b: the gradient gate {result['gate']}")
+    return launches
+
 
 
 def main() -> int:
@@ -3052,6 +3480,7 @@ def main() -> int:
     from mlio_tpu_torch.ops import decode_paged_stack as dps
     from mlio_tpu_torch.ops import decode_tiled as dt
     from mlio_tpu_torch.ops import flash_attention as fa
+    from mlio_tpu_torch.ops import flash_attention_grad as fg
     from mlio_tpu_torch.ops import fused_mlp as fm
     from mlio_tpu_torch.ops import ln_qkv as lq
     from mlio_tpu_torch.ops import norms
@@ -3120,6 +3549,12 @@ def main() -> int:
                                    dl.decode_layer_stack, dt.decode_layer_tiled,
                                    pa.paged_attention, dps.decode_paged_stack),
                   fa, norms, da, qm, dt, pa)
+    # The training slice: K1's dropout instance and K13, then llama3-8b's step.
+    grad_rows = flash_grad_phase(dev, args.seed, fa, fg)
+    trained = train_8b_phase(dev, args.seed, fa, fg,
+                             (fa.flash_attention, fg.flash_fwd_lse, fg.flash_bwd_dq,
+                              fg.flash_bwd_dkv, norms.fused_norm, fm.fused_mlp,
+                              lq.fused_norm_matmul, qm.quant_matmul, fa.flash_attention_kvq))
     # K5's three instances by the configurations that run them (one wrapper
     # launches all three)
     k5 = {"quant_matmul": ("int8_weights", "all"), "quant_matmul_int4": ("int4_per_channel",),
@@ -3166,7 +3601,21 @@ def main() -> int:
         v["launches_note"] = "checked at 4 layers; no path of this run decodes with these"
     if not tiled_moe["launches"] or not widen["launches"]:
         raise AssertionError("decode_layer_tiled (MoE) or widen_matmul: no launch on its path")
-    rows += [tiled, tiled_moe, widen] + probe_rows
+    # K13's rows: their launches in train_8b's steps (one backward a layer a
+    # step runs each once); K1's dropout instance runs on no path of this run
+    for r in grad_rows:
+        if r["name"] == "flash_attention_dropout":
+            r["launches"] = 0
+            r["launches_note"] = ("train_8b's forward takes no attention dropout, as the JAX "
+                                  "package's training step; launched in flash_grad only")
+        else:
+            r["launches"] = trained[r["name"]]
+            if r["name"] == "flash_attention_backward":
+                r["launches_note"] = ("attention backward calls in train_8b, each launching "
+                                      "K13a, K13b and K13c once")
+            if not r["launches"]:
+                raise AssertionError(f"{r['name']}: no launch on train_8b's path")
+    rows += [tiled, tiled_moe, widen] + grad_rows + probe_rows
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

@@ -1,7 +1,7 @@
 // K1: flash attention forward (prefill) for Hopper.
 //
 // Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (the path
-// without user mask, dropout or LSE output). q [B, Sq, Hq, D], k/v
+// without user mask or LSE output), dropout included. q [B, Sq, Hq, D], k/v
 // [B, Skv, Hkv, D] in the bshd layout, out [B, Sq, Hq, D]:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
 // over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
@@ -25,7 +25,9 @@
 // product while the row sum l adds the fp32 p; out = acc / l.
 //
 // A simple kernel that is right: wgmma, TMA and a pipelined K/V ring are
-// later work.
+// later work. The kernel itself lives in flash_fwd.cuh, which K13a's
+// forward with the log-sum-exp (flash_bwd.cu) shares. Dropout is a second
+// instance (kDrop), so the prefill's instance keeps its code.
 //
 // K9, the same kernel over an INT8 cache (TK = int8_t), replaces
 // mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq: k/v are int8
@@ -40,281 +42,34 @@
 // prefill (8 x 704 queries, 704 valid int8 K/V rows of 12 heads): 26.5 MB of
 // q, out, K/V and scales, 7.9 us at 3.35 TB/s, and 6.09 GFLOP, 6.2 us at 989
 // TFLOP/s: bytes, by a little (K1's bf16 bound is 10.3 us).
-#include "common.cuh"
-
-#include <math.h>
-#include <mma.h>
-
-namespace {
-
-using namespace nvcuda;
-
-constexpr int BQ = 64;   // query rows per block
-constexpr int BKV = 64;  // keys per kv tile
-constexpr int kWarps = BQ / 16;
-constexpr int kThreads = kWarps * 32;
-
-template <int D>
-struct Layout {
-  // Row pitches, padded against shared-memory bank conflicts; every WMMA
-  // tile pointer stays 32-byte aligned.
-  static constexpr int LDH = D + 8;    // Q, K, V tiles (16-bit elements)
-  static constexpr int LDS = BKV + 4;  // scores (fp32)
-  static constexpr int LDP = BKV + 8;  // probabilities (16-bit elements)
-  static constexpr int LDO = D + 4;    // output accumulator (fp32)
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + size_t(BQ) * LDH * 2;
-  static constexpr size_t kV = kK + size_t(BKV) * LDH * 2;
-  static constexpr size_t kS = kV + size_t(BKV) * LDH * 2;
-  static constexpr size_t kP = kS + size_t(BQ) * LDS * 4;
-  static constexpr size_t kO = kP + size_t(BQ) * LDP * 2;
-  static constexpr size_t kBytes = kO + size_t(BQ) * LDO * 4;
-};
-
-// Eight int8 values (an 8-byte load) widened to T, as one 16-byte vector.
-template <typename T>
-__device__ __forceinline__ uint4 widen_i8(const uint2 raw) {
-  float f[8];
-  unpack_i8x8(raw, f);
-  uint4 out;
-  T* e = reinterpret_cast<T*>(&out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = from_f32<T>(f[i]);
-  return out;
-}
-
-// TK: the K/V element type, T (K1) or int8_t with fp32 scales ks, vs (K9).
-template <typename T, typename TK, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const TK* __restrict__ k, const TK* __restrict__ v,
-                 const float* __restrict__ ks, const float* __restrict__ vs,
-                 T* __restrict__ out, const int* __restrict__ kv_len_arr, int kv_len_scalar,
-                 int Sq, int Skv, int Hq, int Hkv, int q_offset, float scale, int causal) {
-  using L = Layout<D>;
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int V8 = 8;        // 16-bit elements per 16-byte vector
-  constexpr int CPR = D / V8;  // vectors per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  T* sP = reinterpret_cast<T*>(smem + L::kP);
-  float* sO = reinterpret_cast<float*>(smem + L::kO);
-  __shared__ float sKs[BKV], sVs[BKV];  // the tile's K/V scales (K9)
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q_start = qt * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  const int kvl = min(kv_len_arr != nullptr ? kv_len_arr[b] : kv_len_scalar, Skv);
-  int tokens = kvl;
-  if (causal) tokens = min(tokens, q_start + q_offset + BQ);
-  const int n_tiles = tokens > 0 ? (tokens + BKV - 1) / BKV : 0;
-
-  const size_t q_row = static_cast<size_t>(Hq) * D;
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
-
-  // Q tile, scale folded in fp32 and rounded back to T; rows past Sq are 0.
-  for (int c = tid; c < BQ * CPR; c += kThreads) {
-    const int r = c / CPR, cc = c % CPR;
-    const int qr = q_start + r;
-    float f[V8];
-    if (qr < Sq) {
-      load_vec(q + (static_cast<size_t>(b) * Sq + qr) * q_row + h * D + cc * V8, f);
-#pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] *= scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] = 0.f;
-    }
-    store_vec(sQ + r * L::LDH + cc * V8, f);
-  }
-  for (int i = tid; i < BQ * L::LDO; i += kThreads) sO[i] = 0.f;
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * L::LDH + kk * 16, L::LDH);
-
-  // Lanes 2r and 2r+1 own row r of this warp's 16, half of the columns each.
-  const int r = lane / 2;
-  const int half = lane % 2;
-  const int row = warp * 16 + r;
-  const int row_abs = q_start + row + q_offset;
-  float m = -INFINITY, l = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
-    for (int c = tid; c < BKV * CPR; c += kThreads) {
-      const int rr = c / CPR, cc = c % CPR;
-      const int t = kv0 + rr;
-      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
-      if (t < kvl) {
-        const size_t off = (static_cast<size_t>(b) * Skv + t) * kv_row + hk * D + cc * V8;
-        if constexpr (kQuant) {
-          kraw = widen_i8<T>(*reinterpret_cast<const uint2*>(k + off));
-          vraw = widen_i8<T>(*reinterpret_cast<const uint2*>(v + off));
-        } else {
-          kraw = *reinterpret_cast<const uint4*>(k + off);
-          vraw = *reinterpret_cast<const uint4*>(v + off);
-        }
-      }
-      *reinterpret_cast<uint4*>(sK + rr * L::LDH + cc * V8) = kraw;
-      *reinterpret_cast<uint4*>(sV + rr * L::LDH + cc * V8) = vraw;
-    }
-    if (kQuant && tid < BKV) {
-      const int t = kv0 + tid;
-      const size_t si = (static_cast<size_t>(b) * Skv + t) * Hkv + hk;
-      sKs[tid] = t < kvl ? ks[si] : 0.f;
-      sVs[tid] = t < kvl ? vs[si] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, sK + n * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::mma_sync(sc, qa[kk], kb, sc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, sc, L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax on row r.
-    const float* srow = sS + row * L::LDS + half * (BKV / 2);
-    float s_loc[BKV / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const int col_abs = kv0 + half * (BKV / 2) + c;
-      const bool ok = col_abs < kvl && (!causal || row_abs >= col_abs);
-      const float sc = kQuant ? srow[c] * sKs[half * (BKV / 2) + c] : srow[c];
-      s_loc[c] = ok ? sc : -INFINITY;
-      tmax = fmaxf(tmax, s_loc[c]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
-    const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_safe);
-    float psum = 0.f;
-    T* prow = sP + row * L::LDP + half * (BKV / 2);
-#pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const float p = (s_loc[c] == -INFINITY) ? 0.f : expf(s_loc[c] - m_safe);
-      psum += p;
-      prow[c] = from_f32<T>(kQuant ? p * sVs[half * (BKV / 2) + c] : p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = sO + row * L::LDO + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
-      wmma::load_matrix_sync(oc, sO + warp * 16 * L::LDO + n * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, sP + warp * 16 * L::LDP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(vb, sV + kk * 16 * L::LDH + n * 16, L::LDH);
-        wmma::mma_sync(oc, pa, vb, oc);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * L::LDO + n * 16, oc, L::LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // K/V tiles are overwritten next
-  }
-  __syncwarp();
-
-  const int qr = q_start + row;
-  if (qr < Sq) {
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    T* orow_g = out + (static_cast<size_t>(b) * Sq + qr) * q_row + h * D;
-#pragma unroll
-    for (int cc = half * (CPR / 2); cc < (half + 1) * (CPR / 2); ++cc) {
-      float f[V8];
-#pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] = sO[row * L::LDO + cc * V8 + i] / l_safe;
-      store_vec(orow_g + cc * V8, f);
-    }
-  }
-}
-
-template <typename T, typename TK, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const float* ks,
-                     const float* vs, void* out, const int* kv_len, int kv_len_scalar, int B,
-                     int Sq, int Skv, int Hq, int Hkv, int q_offset, float scale, int causal,
-                     cudaStream_t s) {
-  constexpr size_t smem = Layout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, TK, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, TK, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(k), static_cast<const TK*>(v), ks, vs,
-      static_cast<T*>(out), kv_len, kv_len_scalar, Sq, Skv, Hq, Hkv, q_offset, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TK>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
-                   const float* vs, void* out, const int* kv_len, int kv_len_scalar, int B,
-                   int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, float scale,
-                   int causal, cudaStream_t s) {
-  switch (D) {
-    case 64:
-      return launch_d<T, TK, 64>(q, k, v, ks, vs, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
-                                 Hkv, q_offset, scale, causal, s);
-    case 128:
-      return launch_d<T, TK, 128>(q, k, v, ks, vs, out, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
-                                  Hkv, q_offset, scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "flash_fwd.cuh"
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. kv_len
 // is a [B] int32 device array, or null to use kv_len_scalar for every
-// sequence. D in {64, 128}; Hq a multiple of Hkv.
+// sequence. D in {64, 128}; Hq a multiple of Hkv. drop_rate > 0 takes the
+// dropout instance, with the seed drop_seed (an int32) and drop_inv_keep =
+// 1 / (1 - drop_rate).
 extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, void* out,
                               const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv,
                               int Hq, int Hkv, int D, int q_offset, float scale, int causal,
+                              int drop_seed, float drop_rate, float drop_inv_keep,
                               void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, out, kv_len,
-                                              kv_len_scalar, B, Sq, Skv, Hq, Hkv, D, q_offset,
-                                              scale, causal, static_cast<cudaStream_t>(stream));
+  const flash::Dropout drop{static_cast<uint32_t>(drop_seed), drop_rate, drop_inv_keep};
+  return flash::launch<__nv_bfloat16, __nv_bfloat16, false>(
+      q, k, v, nullptr, nullptr, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
+      q_offset, scale, causal, drop, static_cast<cudaStream_t>(stream));
 }
 
 // K9: as mlio_flash_fwd with k, v int8 [B, Skv, Hkv, D] and their fp32
-// scales k_scale, v_scale [B, Skv, Hkv], contiguous.
+// scales k_scale, v_scale [B, Skv, Hkv], contiguous; no dropout.
 extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
                                   const float* k_scale, const float* v_scale, void* out,
                                   const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv,
                                   int Hq, int Hkv, int D, int q_offset, float scale, int causal,
                                   void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar,
-                                       B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal,
-                                       static_cast<cudaStream_t>(stream));
+  return flash::launch<__nv_bfloat16, int8_t, false>(
+      q, k, v, k_scale, v_scale, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
+      q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f}, static_cast<cudaStream_t>(stream));
 }

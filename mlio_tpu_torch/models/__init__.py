@@ -5,6 +5,7 @@ from mlio_tpu_torch.models.transformer import (
     forward,
     init_params,
     rope_cos_sin,
+    run_layer_stack,
 )
 from mlio_tpu_torch.models.loader import (
     convert_gpt2,
@@ -25,6 +26,7 @@ __all__ = [
     "init_params",
     "apply_rope",
     "rope_cos_sin",
+    "run_layer_stack",
     "convert_gpt2",
     "convert_llama_attention_only",
     "convert_mixtral",

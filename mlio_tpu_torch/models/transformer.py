@@ -26,6 +26,13 @@ their MLP through ``ops.moe_mlp`` by ``Impl.moe`` in prefill and on the scan
 decode; K4 refuses experts, so ``"auto"`` decodes them on K6, whose MoE
 phases route in the kernel.
 
+Training: the cache-free path (:func:`run_layer_stack`) writes nothing in
+place, so autograd follows it; ``Impl(attention="flash")`` attends through
+``ops.attention``'s training route (K1 forward, K13 backward), and the
+kernels without a backward (K2, K5, K11, K12, the decode kernels) raise
+under autograd, as the JAX package cannot differentiate them either
+(``runtime/train.py``).
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: ring
 attention.
 """
@@ -205,6 +212,23 @@ def _layer(blocks: Params, layer: int) -> Params:
     return {k: one(v) for k, v in blocks.items()}
 
 
+def _layers(blocks: Params):
+    """Every layer's weights, the stacked tensors unbound along the layer
+    axis: unbind's backward stacks the layers' gradients once, where taking
+    one layer at a time would scatter each layer's into a zero tensor of the
+    whole stack."""
+    L = blocks["ln1_scale"].shape[0]
+    cols = {}
+    for k, v in blocks.items():
+        if v is None:
+            cols[k] = [None] * L
+        elif isinstance(v, QTensor):
+            cols[k] = [v.select(i) for i in range(L)]
+        else:
+            cols[k] = v.unbind(0)
+    return [{k: c[i] for k, c in cols.items()} for i in range(L)]
+
+
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, S, _ = x.shape
     return x.reshape(B, S, num_heads, -1)
@@ -279,9 +303,12 @@ def _residual_tail(x, attn_out, h_norm1, bp, spec, impl):
     return x + _run_mlp(_norm(x, bp["ln2_scale"], bp["ln2_bias"], spec, impl), bp, spec, impl)
 
 
-def _head(x, params, spec, impl):
-    """Final norm, lm_head (tied: x @ tok_embed.T, plain matmul) and softcap."""
+def _head(x, params, spec, impl, return_hidden=False):
+    """Final norm, lm_head (tied: x @ tok_embed.T, plain matmul) and softcap;
+    the normed x alone with ``return_hidden``."""
     x = _norm(x, params["final_scale"], params["final_bias"], spec, impl)
+    if return_hidden:
+        return x
     if params.get("lm_head") is not None:
         logits = ops.linear(x, params["lm_head"], params.get("lm_head_bias"))
     else:
@@ -291,6 +318,27 @@ def _head(x, params, spec, impl):
     return logits
 
 
+def run_layer_stack(x: torch.Tensor, blocks: Params, spec: ModelSpec, impl: Impl,
+                    cos: Optional[torch.Tensor] = None,
+                    sin: Optional[torch.Tensor] = None, attend=None) -> torch.Tensor:
+    """Run a stack of transformer blocks over x [B, S, H]: every layer of
+    ``blocks`` (stacked on the leading axis, as many as it holds, so a
+    pipeline stage may pass its slice). ``attend(layer, q, k, v)`` gives a
+    layer's attention output; by default causal attention over the S tokens
+    alone (no KV cache), which autograd can follow (``ops.attention``'s
+    training route; nothing is written in place)."""
+    B, S, _ = x.shape
+    if attend is None:
+        def attend(layer, q, k, v):
+            return ops.attention(q, k, v, causal=True, impl=impl)
+    for layer, bp in enumerate(_layers(blocks)):
+        h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
+        attn = attend(layer, q, k, v)
+        attn_out = ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"], bp["bo"])
+        x = _residual_tail(x, attn_out, h_norm, bp, spec, impl)
+    return x
+
+
 def forward(
     params: Params,
     spec: ModelSpec,
@@ -298,8 +346,14 @@ def forward(
     *,
     impl: Impl = Impl(),
     cache: Optional[Dict[str, Any]] = None,
+    positions: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Run the model on ``input_ids`` [B, S].
+
+    ``positions`` ([B, S] or [1, S]; by default the cache's position onward)
+    index the learned position table or the RoPE tables. ``return_hidden``
+    returns the final-normed hidden states [B, S, H] in place of the logits.
 
     Without a cache this is a full (prefill/scoring) forward. With a cache
     (:func:`mlio_tpu_torch.runtime.kv_cache.init_cache`) the S new tokens'
@@ -320,44 +374,40 @@ def forward(
 
     pos = cache["pos"] if cache is not None else 0
     quant = cache is not None and "k_scale" in cache
-    positions = (torch.arange(S, device=x.device) + pos)[None].expand(B, S)
+    if positions is None:
+        positions = (torch.arange(S, device=x.device) + pos)[None].expand(B, S)
     if spec.positional == "learned":
         x = x + params["pos_embed"][positions].to(dtype)
         cos = sin = None
     else:
         cos, sin = rope_cos_sin(positions, spec.rope_dim, spec.rope_theta)
 
-    if cache is not None and S == 1 and impl.attention != "dense":
+    if cache is not None and S == 1 and impl.attention != "dense" and not return_hidden:
         return _decode_forward(params, spec, x, cache, impl, cos, sin)
 
-    blocks = params["blocks"]
-    for layer in range(spec.num_layers):
-        bp = _layer(blocks, layer)
-        h_norm, q, k, v = _attn_in(x, bp, spec, impl, cos, sin)
+    if cache is None:
+        x = run_layer_stack(x, params["blocks"], spec, impl, cos, sin)
+        return _head(x, params, spec, impl, return_hidden), None
+
+    def attend(layer, q, k, v):
+        ck, cv = cache["k"][layer], cache["v"][layer]
         if quant:
             # The INT8 cache: quantize the new K/V per (token, head), write
             # values and scales, attend over the int8 cache with its scales.
-            ck, cv = cache["k"][layer], cache["v"][layer]
             cks, cvs = cache["k_scale"][layer], cache["v_scale"][layer]
             ck[:, pos:pos + S], cks[:, pos:pos + S] = quantize_kv(k)
             cv[:, pos:pos + S], cvs[:, pos:pos + S] = quantize_kv(v)
-            attn = ops.attention(q, ck, cv, causal=True, q_offset=pos, kv_len=pos + S,
+            return ops.attention(q, ck, cv, causal=True, q_offset=pos, kv_len=pos + S,
                                  k_scale=cks, v_scale=cvs, impl=impl)
-        elif cache is not None:
-            # Write the S new tokens into the caller's cache in place, then
-            # attend over the whole static cache with a kv_len mask.
-            ck, cv = cache["k"][layer], cache["v"][layer]
-            ck[:, pos:pos + S] = k.to(ck.dtype)
-            cv[:, pos:pos + S] = v.to(cv.dtype)
-            attn = ops.attention(q, ck.to(dtype), cv.to(dtype), causal=True,
-                                 q_offset=pos, kv_len=pos + S, impl=impl)
-        else:
-            attn = ops.attention(q, k, v, causal=True, impl=impl)
-        attn_out = ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"], bp["bo"])
-        x = _residual_tail(x, attn_out, h_norm, bp, spec, impl)
+        # Write the S new tokens into the caller's cache in place, then
+        # attend over the whole static cache with a kv_len mask.
+        ck[:, pos:pos + S] = k.to(ck.dtype)
+        cv[:, pos:pos + S] = v.to(cv.dtype)
+        return ops.attention(q, ck.to(dtype), cv.to(dtype), causal=True,
+                             q_offset=pos, kv_len=pos + S, impl=impl)
 
-    new_cache = None if cache is None else dict(cache, pos=pos + S)
-    return _head(x, params, spec, impl), new_cache
+    x = run_layer_stack(x, params["blocks"], spec, impl, cos, sin, attend)
+    return _head(x, params, spec, impl, return_hidden), dict(cache, pos=pos + S)
 
 
 _ROUTES = ("auto", "scan", "mega", "tiled")

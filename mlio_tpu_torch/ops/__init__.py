@@ -2,7 +2,8 @@
 (``mlio_tpu/ops/__init__.py``).
 
 ``attention`` and ``norm`` route to the hand-written kernels (K1, or K9
-over an INT8 cache; K2) or to the dense references; ``mlp`` to the fused
+over an INT8 cache, and for a training-shaped call K1 with K13 as its
+backward; K2) or to the dense references; ``mlp`` to the fused
 MLP kernel (K11) or the dense reference, and with quantized weights to the
 dequant-fused matmul (K5) for each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
 with quantized weights to a norm and K5 three times; ``moe_mlp`` to the
@@ -22,6 +23,7 @@ from mlio_tpu_torch.ops import ln_qkv as _ln_qkv
 from mlio_tpu_torch.ops import moe as _moe
 from mlio_tpu_torch.ops import norms as _norms
 from mlio_tpu_torch.ops import quant as _quant
+from mlio_tpu_torch.ops.flash_attention_grad import flash_attention_diff, flash_attention_vjp
 from mlio_tpu_torch.ops.quant import QTensor, dequantize
 from mlio_tpu_torch.ops.reference import (
     activate,
@@ -33,19 +35,33 @@ from mlio_tpu_torch.ops.reference import (
 
 
 def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, k_scale=None,
-              v_scale=None, impl=None):
+              v_scale=None, impl=None, dropout_rate=0.0, dropout_seed=0, return_probs=False):
     """Multi-head attention. q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → [B,Sq,Hq,D].
     With ``k_scale``/``v_scale`` [B,Skv,Hkv] k/v are an INT8 cache: K9 on
-    the flash route, a dense fp32 dequantize on the dense one."""
+    the flash route, a dense fp32 dequantize on the dense one.
+
+    A training-shaped flash call (no ``kv_len``, ``q_offset`` 0, no INT8
+    cache: the JAX package's condition) goes through
+    :func:`flash_attention_diff`: K1 forward, K13 backward, so autograd
+    flows through it; the cache paths take K1 or K9, which have no backward.
+    ``dropout_rate``/``dropout_seed``: position-hashed attention dropout
+    (``ops/dropmask.py``), the same mask on every path. ``return_probs``
+    takes the dense reference and also returns the [B,Hq,Sq,Skv] softmax."""
     kind = impl.attention if impl is not None else "dense"
-    if kind == "flash":
+    if kind == "flash" and not return_probs:
+        if kv_len is None and q_offset == 0 and k_scale is None:
+            return flash_attention_diff(q, k, v, dropout_seed, causal=causal, scale=scale,
+                                        dropout_rate=dropout_rate)
         return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
                                       q_offset=q_offset, kv_len=kv_len, k_scale=k_scale,
-                                      v_scale=v_scale)
-    if kind != "dense":
+                                      v_scale=v_scale, dropout_rate=dropout_rate,
+                                      dropout_seed=dropout_seed)
+    if kind not in ("dense", "flash"):
         raise NotImplementedError(f"attention={kind!r} is not ported yet")
     return attention_reference(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)
+                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale,
+                               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                               return_probs=return_probs)
 
 
 def linear(x, w, bias=None):
@@ -103,6 +119,8 @@ def moe_mlp(x, w_router, w_gate, w_up, w_down, *, top_k, activation="swiglu", me
 
 __all__ = [
     "attention",
+    "flash_attention_diff",
+    "flash_attention_vjp",
     "linear",
     "mlp",
     "moe_mlp",

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "paged_attn", "paged_stack",
            "quant_matmul", "fused_mlp", "ln_matmul", "decode_tiled_bf16", "decode_tiled_int8",
-           "decode_tiled_fp8", "dma_bench", "fp8_convert")
+           "decode_tiled_fp8", "dma_bench", "fp8_convert", "flash_bwd")
 # -Xptxas -v only reports each kernel's registers, stack and spills (kept in
 # BUILD_LOGS, summarised by ptxas_summary); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -173,6 +173,35 @@ def require_contiguous_aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+_DENSE = ("train with the dense Impl: Impl(attention='flash' or 'dense') with norm='dense', "
+          "mlp='dense', fused_ln_qkv=False and unquantized weights, and no KV cache")
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):  # QTensor is a NamedTuple
+        for v in obj:
+            yield from _tensors(v)
+
+
+def refuse_grad(name: str, *args, hint: str = _DENSE) -> None:
+    """Raise where autograd would need a gradient through a kernel that has
+    none: grad mode is on and a floating tensor among ``args`` (searched
+    through dicts, lists and tuples) requires grad. The JAX package cannot
+    differentiate these Pallas kernels either; on the card the output would
+    be detached and the gradient silently wrong."""
+    if not torch.is_grad_enabled():
+        return
+    for t in _tensors(args):
+        if t.is_floating_point() and t.requires_grad:
+            raise RuntimeError(f"{name} has no backward, as in the JAX package (its Pallas "
+                               f"kernel has no VJP); {hint}")
 
 
 def ptr(t):

@@ -116,6 +116,7 @@ def decode_attention(
     if context_lens.shape != (B,):
         raise ValueError(f"decode_attention: context_lens must be [{B}]")
     quant = _build.check_kv_scales("decode_attention", k_cache, v_cache, k_scales, v_scales)
+    _build.refuse_grad("decode_attention (K3)", q, k_cache, v_cache, k_scales, v_scales)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, context_lens, layer=layer,
                                       scale=scale, k_scales=k_scales, v_scales=v_scales)

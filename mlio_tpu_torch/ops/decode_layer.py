@@ -511,6 +511,8 @@ def decode_layer_stack(
     kw = dict(spec=spec, scale=scale, head_norm=head_norm, lm_head=lm_head,
               lm_head_bias=lm_head_bias, lm_vmajor=lm_vmajor, vocab_size=vocab_size,
               pos_embed=pos_embed, steps=steps)
+    _build.refuse_grad("decode_layer_stack (K4)", x, blocks, k_cache, v_cache, k_scales,
+                       v_scales, cos, sin, head_norm, lm_head, lm_head_bias, pos_embed)
     if x.device.type == "cpu":
         return decode_layer_stack_plain(x, blocks, k_cache, v_cache, pos, cos, sin,
                                         k_scales=k_scales, v_scales=v_scales, **kw)

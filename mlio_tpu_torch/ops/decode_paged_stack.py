@@ -162,6 +162,8 @@ def decode_paged_stack(
     V = (vocab_size or (lm_head.shape[0] if lm_vmajor else lm_head.shape[1])) if epilogue else 0
     kw = dict(spec=spec, scale=scale, head_norm=head_norm, lm_head=lm_head,
               lm_head_bias=lm_head_bias, lm_vmajor=lm_vmajor, vocab_size=vocab_size, emit=emit)
+    _build.refuse_grad("decode_paged_stack (K8)", x, blocks, k_pool, v_pool, cos, sin,
+                       head_norm, lm_head, lm_head_bias)
     if x.device.type == "cpu":
         return decode_paged_stack_plain(x, blocks, k_pool, v_pool, block_tables, context_lens,
                                         cos, sin, **kw)

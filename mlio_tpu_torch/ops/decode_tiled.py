@@ -520,6 +520,8 @@ def decode_layer_tiled(
     if router_probs is not None and (router_probs.shape != (L, B, E) or router_probs.dtype
                                      != torch.float32 or router_probs.device != x.device):
         raise ValueError(f"decode_layer_tiled: router_probs must be fp32 [{L}, {B}, {E}] beside x")
+    _build.refuse_grad("decode_layer_tiled (K6)", x, blocks, k_cache, v_cache, k_scales,
+                       v_scales, cos, sin)
     if x.device.type == "cpu":
         return decode_layer_tiled_plain(x, blocks, k_cache, v_cache, pos, cos, sin, spec=spec,
                                         tiling=tiling, k_scales=k_scales, v_scales=v_scales,

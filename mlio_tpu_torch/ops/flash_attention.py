@@ -14,10 +14,19 @@ takes it through :func:`flash_attention_kvq`; its plain version is
 :func:`flash_attention_kvq_plain`. As in the JAX package, a full
 ``[.., Sq, Skv]`` mask and dropout are refused with an INT8 cache.
 
+``dropout_rate``/``dropout_seed`` take K1's dropout instance: the
+position-hashed mask of :mod:`~mlio_tpu_torch.ops.dropmask` over (query
+position, key position) with the seed folded with (batch, query head), the
+kept probabilities scaled by 1/(1 - rate) in the PV product only, as in
+``_flash_fwd_kernel``'s dropout branch.
+
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel or raise. The kernels take bf16 queries and head dims 64
-and 128; user masks, dropout and the LSE output (``return_stats``) are not
-ported yet and raise.
+and 128; user masks and the LSE output (``return_stats``) are not ported
+yet and raise. The kernels have no backward: the wrappers raise when asked
+for a gradient (``_build.refuse_grad``); training goes through
+``ops.attention``, whose training-shaped flash route is
+:func:`~mlio_tpu_torch.ops.flash_attention_grad.flash_attention_diff`.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Optional, Union
 import torch
 
 from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.dropmask import dense_keep_mask
 from mlio_tpu_torch.ops.reference import attention_mask
 
 _HEAD_DIMS = (64, 128)
@@ -43,25 +53,44 @@ def flash_attention_plain(
     kv_len: Union[None, int, torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=0,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, with its rounding: the scale is
     folded into q in fp32 and rounded back to q's dtype, p is rounded to v's
     dtype before the PV product while the row sum uses fp32 p, and a row
-    with no valid key gives 0. With ``k_scale``/``v_scale``, K9's
-    (:func:`flash_attention_kvq_plain`)."""
+    with no valid key gives 0. Under dropout the kept p are scaled by
+    1/(1 - rate) before that rounding and the dropped ones are 0. With
+    ``k_scale``/``v_scale``, K9's (:func:`flash_attention_kvq_plain`)."""
     if k_scale is not None:
         return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
                                          q_offset=q_offset, kv_len=kv_len)
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = D ** -0.5
-    group = Hq // Hkv
+    return flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                           kv_len=kv_len, dropout_rate=dropout_rate,
+                           dropout_seed=dropout_seed)[0]
+
+
+def scaled_q_and_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """(q * scale rounded to q's dtype, k, v) in fp32, k and v repeated over
+    each KV head's group of query heads: what the kernels' products see."""
+    group = q.shape[2] // k.shape[2]
     qs = (q.float() * scale).to(q.dtype).float()
     kf, vf = k.float(), v.float()
     if group > 1:
         kf = kf.repeat_interleave(group, dim=2)
         vf = vf.repeat_interleave(group, dim=2)
+    return qs, kf, vf
+
+
+def flash_plain_lse(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None,
+                    dropout_rate=0.0, dropout_seed=0):
+    """:func:`flash_attention_plain` (bf16 K/V) and the rows' log-sum-exp of
+    the scaled scores, fp32 [B, Hq, Sq], -inf for a row with no valid key."""
+    B, Sq, Hq, D = q.shape
+    Skv = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    qs, kf, vf = scaled_q_and_kv(q, k, v, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
     valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len,
                            device=q.device)
@@ -70,9 +99,24 @@ def flash_attention_plain(
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf)
-    o = o / torch.where(l == 0, 1.0, l)
-    return o.transpose(1, 2).to(q.dtype)
+    if dropout_rate > 0.0:
+        keep = dense_keep_mask(B, Hq, Sq, Skv, dropout_seed, dropout_rate, q_offset=q_offset,
+                               device=q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
+    l_safe = torch.where(l == 0, 1.0, l)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf) / l_safe
+    lse = torch.where(m.isneginf(), float("-inf"), m + torch.log(l_safe))
+    return o.transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
+def dropout_args(rate: float, seed) -> tuple:
+    """The C entries' dropout arguments: (seed as an int32, rate in fp32,
+    1/(1 - rate) in fp32); rate 0 takes the instance without dropout."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {rate}")
+    s = int(seed) & 0xFFFFFFFF
+    return (s - (1 << 32) if s >= 1 << 31 else s, float(rate),
+            1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
 
 
 def flash_attention_kvq_plain(
@@ -122,7 +166,8 @@ def _entry(name="mlio_flash_fwd", quant=False):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p] + [p, p] * quant + [p, p, i, i, i, i, i, i, i, i, f, i, p]
+        fn.argtypes = ([p, p, p] + [p, p] * quant + [p, p, i, i, i, i, i, i, i, i, f, i]
+                       + [i, f, f] * (not quant) + [p])
         fn.restype = i
     return lib, fn
 
@@ -166,6 +211,7 @@ def flash_attention_kvq(
     _build.check_kv_scales("flash_attention_kvq", k, v, k_scale, v_scale)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    _build.refuse_grad("flash_attention_kvq (K9)", q, k, v, k_scale, v_scale)
     if q.device.type == "cpu":
         return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
                                          q_offset=q_offset, kv_len=kv_len)
@@ -202,6 +248,7 @@ def flash_attention(
     kv_len: Union[None, int, torch.Tensor] = None,
     mask=None,
     dropout_rate: float = 0.0,
+    dropout_seed=0,
     return_stats: bool = False,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
@@ -212,7 +259,8 @@ def flash_attention(
     ``q_offset``: absolute position of q[:, 0]. ``kv_len``: int or [B];
     cache slots at or past it are masked out. With ``k_scale``/``v_scale``
     [B, Skv, Hkv] (fp32) k/v are an INT8 cache and K9 runs
-    (:func:`flash_attention_kvq`).
+    (:func:`flash_attention_kvq`). ``dropout_rate``/``dropout_seed``:
+    post-softmax dropout (the module's note).
     """
     if k_scale is not None or v_scale is not None:
         if mask is not None and mask.ndim >= 3 and mask.shape[-2] > 1:
@@ -223,19 +271,22 @@ def flash_attention(
             raise NotImplementedError(
                 "attention dropout with an INT8 KV cache is not supported (dropout is a "
                 "training feature; quantized caches are serving)")
-    if mask is not None or dropout_rate or return_stats:
+    if mask is not None or return_stats:
         raise NotImplementedError(
-            "flash_attention: user masks, dropout and return_stats are not "
-            "ported yet")
+            "flash_attention: user masks and return_stats are not ported yet")
     if k_scale is not None or v_scale is not None:
         return flash_attention_kvq(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
                                    q_offset=q_offset, kv_len=kv_len)
     _check_shapes("flash_attention", q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    drop = dropout_args(dropout_rate, dropout_seed)
+    _build.refuse_grad("flash_attention (K1)", q, k, v,
+                       hint="ops.attention without kv_len or q_offset, whose backward is K13")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     q_offset=q_offset, kv_len=kv_len)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                     kv_len=kv_len, dropout_rate=dropout_rate,
+                                     dropout_seed=dropout_seed)
     dev = _build.require_cuda("flash_attention", q, k, v)
     _build.require_bf16("flash_attention", q=q, k=k, v=v)
     if D not in _HEAD_DIMS:
@@ -247,7 +298,7 @@ def flash_attention(
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(kv_arr),
                  kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
-                 D ** -0.5 if scale is None else scale, int(causal),
+                 D ** -0.5 if scale is None else scale, int(causal), *drop,
                  _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1

@@ -102,6 +102,7 @@ def fused_mlp(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=No
               activation: str = "gelu_new") -> torch.Tensor:
     """Fused MLP. x [..., H], w_up (and w_gate) [H, I], w_down [I, H] →
     [..., H] in x's dtype."""
+    _build.refuse_grad("fused_mlp (K11)", x, w_up, w_down, b_up, b_down, w_gate, b_gate)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w_up, w_down, b_up=b_up, b_down=b_down, w_gate=w_gate,
                                b_gate=b_gate, activation=activation)

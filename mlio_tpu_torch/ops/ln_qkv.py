@@ -81,6 +81,7 @@ def fused_norm_matmul(x, w, scale, bias=None, *, kind: str = "layernorm",
     """norm(x) @ W in one kernel. x [..., H], W [H, N] (``w``, or the
     concatenation of up to three ``parts`` [H, N_i] when ``w`` is None) →
     [..., N] in x's dtype."""
+    _build.refuse_grad("fused_norm_matmul (K12)", x, w, scale, bias, parts)
     if x.device.type == "cpu":
         return fused_norm_matmul_plain(x, w, scale, bias, kind=kind, eps=eps, parts=parts)
     ws = [w] if w is not None else list(parts)

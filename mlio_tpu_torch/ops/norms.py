@@ -76,6 +76,7 @@ def fused_norm(
     """Norm over the last axis, x [..., H] → [..., H] in x's dtype."""
     if kind not in ("layernorm", "rmsnorm"):
         raise ValueError(f"fused_norm: unknown kind {kind!r}")
+    _build.refuse_grad("fused_norm (K2)", x, scale, bias, residual)
     if x.device.type == "cpu":
         return fused_norm_plain(x, scale, bias, kind=kind, eps=eps, residual=residual,
                                 residual_alpha=residual_alpha)

@@ -190,6 +190,7 @@ def paged_attention(
                          f"context_lens [{B}]")
     quant = _build.check_kv_scales("paged_attention", k_pool, v_pool, k_scale_pool,
                                    v_scale_pool)
+    _build.refuse_grad("paged_attention (K7)", q, k_pool, v_pool, k_scale_pool, v_scale_pool)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
                                      layer=layer, scale=scale, k_scale_pool=k_scale_pool,

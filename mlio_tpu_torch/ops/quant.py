@@ -229,6 +229,7 @@ def _entry():
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
                  fmt: str = "int8") -> torch.Tensor:
     """x [..., K] @ dequant(q, scale) [K, N] → [..., N] in x's dtype."""
+    _build.refuse_grad("quant_matmul (K5)", x, scale)
     if x.device.type == "cpu":
         return quant_matmul_plain(x, q, scale, fmt=fmt)
     dev = _build.require_cuda("quant_matmul", x, q, scale)

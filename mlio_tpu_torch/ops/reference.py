@@ -11,6 +11,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from mlio_tpu_torch.ops.dropmask import dense_keep_mask
+
 
 def attention_mask(B: int, Sq: int, Skv: int, *, causal: bool, q_offset: int,
                    kv_len: Union[None, int, torch.Tensor],
@@ -45,18 +47,21 @@ def attention_reference(
     k_scale=None,
     v_scale=None,
     dropout_rate: float = 0.0,
+    dropout_seed=0,
     return_probs: bool = False,
-) -> torch.Tensor:
+):
     """Dense softmax attention with GQA, causal and KV-length masking.
 
     Computation in fp32, output in q's dtype; rows with no valid key give 0.
     With ``k_scale``/``v_scale`` [B, Skv, Hkv] the K/V are an INT8 cache,
-    dequantized densely in fp32 first. User masks, dropout and
-    ``return_probs`` are not ported yet and raise.
+    dequantized densely in fp32 first. ``dropout_rate``/``dropout_seed``:
+    post-softmax dropout over ``dropmask.dense_keep_mask`` (query rows at
+    ``q_offset``), the kept probabilities scaled by 1/(1 - rate).
+    ``return_probs`` also returns the [B, Hq, Sq, Skv] softmax (before
+    dropout). User masks are not ported yet and raise.
     """
-    if mask is not None or dropout_rate or return_probs:
-        raise NotImplementedError(
-            "attention_reference: user masks, dropout and return_probs are not ported yet")
+    if mask is not None:
+        raise NotImplementedError("attention_reference: user masks are not ported yet")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -76,7 +81,13 @@ def attention_reference(
         scores = scores.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(probs.isnan(), 0.0, probs)  # fully masked rows
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    pv_probs = probs
+    if dropout_rate > 0.0:
+        keep = dense_keep_mask(B, Hq, Sq, Skv, dropout_seed, dropout_rate, q_offset=q_offset,
+                               device=q.device)
+        pv_probs = torch.where(keep, probs, 0.0) / (1.0 - dropout_rate)
+    out = torch.einsum("bhqk,bkhd->bqhd", pv_probs, vf).to(q.dtype)
+    return (out, probs) if return_probs else out
 
 
 def activate(u: torch.Tensor, g: Optional[torch.Tensor], activation: str) -> torch.Tensor:

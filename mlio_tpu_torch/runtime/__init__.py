@@ -13,6 +13,7 @@ from mlio_tpu_torch.runtime.quantization import (
     quantized_size_bytes,
 )
 from mlio_tpu_torch.runtime.sampling import SamplingMethod, sample
+from mlio_tpu_torch.runtime.train import next_token_loss, sgd_step, trainable
 
 __all__ = [
     "cache_memory_bytes",
@@ -30,4 +31,7 @@ __all__ = [
     "quantized_size_bytes",
     "SamplingMethod",
     "sample",
+    "next_token_loss",
+    "sgd_step",
+    "trainable",
 ]
