@@ -163,6 +163,35 @@ phase's failure is caught:
    (``Impl()``) is reported beside it; a control whose dK/dV come from one
    query head a group must fail.
 
+13. flash_stream: K10 (``ops/flash_attention.py::flash_attention_stream``,
+   the long-context forward) through ``flash_attention``'s route, against
+   its plain version (``flash_stream_plain``, K/V streamed in 64-key blocks)
+   at Mistral-7B-Instruct-v0.2's prefill (B 1, 32,704 queries over a
+   32,768-slot cache, 32/8 heads of 128), a ragged B 2 with a decode-style
+   q_offset, a non-causal call, head dim 64 and a ragged Sq tail; o and the
+   lse (within 1e-4; also against K13a's at S 16,384); o within K1's limit
+   and each query row within 1e-2 of its own RMS (ROW_REL_RMS: a row over
+   32K keys has |o| near 0.009); failing the plain version one key short,
+   with q_offset one off, with one interior V tile stale (rows past 16K or
+   30K), and all-ones V; the same
+   bits twice; timed beside the plain version, SDPA's flash forward and the
+   bound, and against K1 at 8K, 16K and 32K keys. K1's new lse instance
+   (kv_len, q_offset) against its plain version.
+14. long_context: the long-context slice's path, Mistral-7B-Instruct-v0.2
+   (``spec_from_hf_config`` of its published config's values) at full
+   width and depth, random bf16 weights from the seed, B 1, a 32,704-token
+   prompt into a 32,768-slot cache, 64 greedy tokens through ``generate``
+   with ``Impl(attention="flash", norm="fused")``: launch counters (K10 32
+   and no K1 in the prefill; the decode on the route "auto" names), the
+   prefill (median of 3 by CUDA events, idle share and K10's share from a
+   torch.profiler trace), a decode step at context 32,704, peak memory.
+   First its prefill gate at 2 layers and the full context: the kernel
+   path's logits at 79 positions as far from an fp32 path as the bf16 plain
+   path, within 5 %, two controls (K10 with the causal frontier one key
+   short; K10 with the V tile at key 16,384 stale) failing it; K10's last
+   call of that prefill against its plain version, the stale-tile controls
+   failing; and K6 against its plain version at that context.
+
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
 """
@@ -262,6 +291,7 @@ TOL = {"flash_attention": (2e-2, 2e-2), "flash_attention_kvq": (2e-2, 2e-2),
 # out of every layer.
 TOL["decode_layer_tiled_deep"] = TOL["decode_layer_tiled"]
 ROW_TOL = {"decode_layer_tiled_deep": 2.5e-2}
+ROW_REL_RMS = {}  # name: each row's RMS error over its own RMS (row_rel_rms); K10's below
 # K6's MoE phases take the same limits; at Mixtral's 32 layers the deep one
 # holds x_out and the slots written at every layer alike: a late layer's K/V
 # carry the residual's 31-layer noise, and the 12-layer limit on them failed
@@ -300,7 +330,13 @@ LOGITS_ATOL = 0.1
 LOGITS_8B_OVER_PLAIN = 1.05
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -369,7 +405,9 @@ def timings(kernel, plain, library, reps: int) -> dict:
 def within(name: str, got: torch.Tensor, want: torch.Tensor):
     """(whether got is finite and within name's tolerance of want, max-abs).
     The tolerance is atol + rtol * |want|, plus ROW_TOL[name] times the
-    largest |want| of the element's last-dimension row where one is set."""
+    largest |want| of the element's last-dimension row where one is set;
+    where ROW_REL_RMS[name] is set, each last-dimension row is also held to
+    it relative to its own size (row_rel_rms)."""
     atol, rtol = TOL[name]
     got, want = got.float(), want.float()
     err = (got - want).abs()
@@ -377,7 +415,20 @@ def within(name: str, got: torch.Tensor, want: torch.Tensor):
     if name in ROW_TOL:
         limit = limit + ROW_TOL[name] * want.abs().amax(-1, keepdim=True)
     ok = bool(torch.isfinite(got).all()) and not bool((err > limit).any())
+    if name in ROW_REL_RMS:
+        ok = ok and row_rel_rms(got, want) <= ROW_REL_RMS[name]
     return ok, err.max().item()
+
+
+def row_rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest RMS of got - want over the RMS of want, a last-dimension
+    row at a time; inf where want's row is zero and got's is not."""
+    got, want = got.float(), want.float()
+    num = (got - want).square().sum(-1)
+    den = want.square().sum(-1)
+    rel = torch.where(den > 0, (num / den.clamp_min(1e-30)).sqrt(),
+                      torch.where(num > 0, float("inf"), 0.0))
+    return rel.max().item()
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1476,7 +1527,8 @@ PLAIN = {"flash_attention": "flash_attention_plain",
          "decode_attention": "decode_attention_plain", "fused_mlp": "fused_mlp_plain",
          "fused_norm_matmul": "fused_norm_matmul_plain", "quant_matmul": "quant_matmul_plain",
          "decode_layer_tiled": "decode_layer_tiled_plain", "flash_fwd_lse": "flash_fwd_lse_plain",
-         "flash_bwd_dq": "flash_bwd_dq_plain", "flash_bwd_dkv": "flash_bwd_dkv_plain"}
+         "flash_bwd_dq": "flash_bwd_dq_plain", "flash_bwd_dkv": "flash_bwd_dkv_plain",
+         "flash_attention_stream": "flash_stream_plain"}
 
 
 @contextlib.contextmanager
@@ -3086,9 +3138,10 @@ TOL.update({"flash_attention_dropout": TOL["flash_attention"],
             "flash_bwd_dq": TOL["flash_attention"], "flash_bwd_dkv": TOL["flash_attention"]})
 
 
-def causal_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """(query, key) pairs a causal (or full) attention scores."""
-    return sum(min(Skv, i + 1) for i in range(Sq)) if causal else Sq * Skv
+def causal_pairs(Sq: int, Skv: int, causal: bool, q_offset: int = 0) -> int:
+    """(query, key) pairs a causal (or full) attention scores over Skv valid
+    keys, its queries at positions q_offset onward."""
+    return sum(min(Skv, q_offset + i + 1) for i in range(Sq)) if causal else Sq * Skv
 
 
 @contextlib.contextmanager
@@ -3466,6 +3519,484 @@ def train_8b_phase(dev, seed, fa, fg, wrappers):
 
 
 
+# The long-context slice (flash_stream, long_context): Mistral-7B-Instruct-v0.2
+# as its published config.json gives it, read through the port's
+# spec_from_hf_config; no file is read or fetched.
+MISTRAL_CONFIG = dict(model_type="mistral", hidden_size=4096, num_hidden_layers=32,
+                      num_attention_heads=32, num_key_value_heads=8, intermediate_size=14336,
+                      vocab_size=32000, max_position_embeddings=32768, rope_theta=1000000.0,
+                      rms_norm_eps=1e-05, sliding_window=None, tie_word_embeddings=False)
+LC_PROMPT, LC_CACHE, LC_NEW = 32704, 32768, 64  # a 32,704-token prompt in a 32,768-slot cache
+LC_GATE_LAYERS = 2  # the prefill gate's depth: an fp32 copy beside the plain paths
+LC_TIMED = 3        # timed prefills (the median), after a warm-up
+# K10's cases: (name, B, Sq, K/V slots, Hq, Hkv, D, causal, q_offset, kv_len). Every
+# one routes to K10 at the default budget; the first is the long-context path's call.
+STREAM_CASES = (
+    ("mistral_prefill", 1, LC_PROMPT, LC_CACHE, 32, 8, 128, True, 0, LC_PROMPT),
+    ("ragged_offset", 2, 200, 16384, 32, 8, 128, True, 12900, (13100, 3)),
+    ("noncausal", 1, 1000, 14000, 16, 4, 128, False, 0, None),
+    ("d64", 1, 2048, 16384, 8, 2, 64, True, 14336, 16384),
+    ("sq_tail", 1, 1001, 13056, 8, 8, 128, True, 12000, 13001),
+)
+K1_K10_SKV = (8192, 16384, 32768)  # K1 against K10 on the prefill call (Sq = Skv - 64)
+K13A_S = 16384  # the training-shaped call where K10's lse meets K13a's
+# K10 rounds q and p to bf16 as K1 does, against a running max, in 64-key
+# tiles as its plain version does: K1's limit. Its lse is fp32 throughout
+# (the scores' sums in another order, exp as exp2): 1e-4, as K13a's.
+TOL.update({"flash_attention_stream": TOL["flash_attention"],
+            "flash_attention_stream_lse": (1e-4, 0.0),
+            "flash_attention_lse": TOL["flash_attention"], "flash_attention_lse_lse": (1e-4, 0.0)})
+# A row that sees n keys of these random inputs averages them nearly alike,
+# so |o| falls to about sqrt(e / n), 0.009 at 32K keys, and K1's limit is
+# twice a typical value there: a V tile read from the wrong ring slot, or a
+# bad PV product deep in the stream, moves o by about 1e-3 and would pass
+# it. So each query row (the D values of one (b, s, h)) is also held to its
+# own size: the RMS of kernel - plain within 1e-2 of the plain row's RMS
+# (kernel and plain differ by a flipped bf16 rounding, 2^-8 of one value;
+# one interior tile of 64 keys wrong moves a row by about sqrt(128 / n),
+# 0.06-0.09 at 16K-32K keys), and a row with no key must be zero.
+ROW_REL_RMS["flash_attention_stream"] = 1e-2
+# The depth controls: the V tile at each key taken from the tile before,
+# seen by the rows past 16K and, more faintly, by the last 2K rows alone.
+STALE_KEYS = (16384, 30720)
+
+
+def stale_v_tile(v, key):
+    """v with the 64-key tile at ``key`` replaced by the tile before it: a
+    V tile read from a stale ring slot, seen only by rows past ``key``."""
+    v = v.clone()
+    v[:, key:key + 64] = v[:, key - 64:key]
+    return v
+
+
+def attention_inputs(gen, B, Sq, Skv, Hq, Hkv, D):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device).to(torch.bfloat16)
+
+    return r(B, Sq, Hq, D), r(B, Skv, Hkv, D), r(B, Skv, Hkv, D)
+
+
+def stream_kw(causal, q_offset, kv_len, dev):
+    if isinstance(kv_len, tuple):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    return dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+def sdpa_flash(q, k, v, n):
+    """aten._scaled_dot_product_flash_attention over the first n keys (causal,
+    Sq == n), K/V repeated to the query heads: its (o, logsumexp) call."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+              for t in (k, v))
+    return lambda i: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+
+
+def flash_stream_phase(dev, seed, fa, fg):
+    """K10 (``ops/flash_attention.py::flash_attention_stream``) against its
+    plain version on the card at STREAM_CASES, through ``flash_attention``'s
+    route (each case must take K10 and not K1), both instances (o; o and
+    lse), o within K1's limit and each row within ROW_REL_RMS; the lse also
+    against K13a's at S 16,384; failing the plain version one key short
+    (ragged_offset, whose second sequence sees 3 keys), with q_offset one
+    off (mistral_prefill: the interior/edge boundary moves and row 0 loses
+    its key), with one interior V tile stale (mistral_prefill: STALE_KEYS,
+    rows past 16K or 30K) and all-ones V; the same bits twice. K1's new lse
+    instance (kv_len, q_offset) against its plain version. Times: K10 at the
+    long-context call beside its plain version, SDPA's flash forward and the
+    bound; K1 and K10 at Skv 8,192, 16,384 and 32,768. Returns the kernels
+    line's rows (K10, K1's lse instance)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    checks = {}
+    row = None
+    for name, Bc, Sq, Skv, Hq, Hkv, D, causal, qoff, kvl in STREAM_CASES:
+        if not fa.stream_route(Skv, D, 2):
+            raise AssertionError(f"flash_stream {name}: the call does not route to K10")
+        q, k, v = attention_inputs(gen, Bc, Sq, Skv, Hq, Hkv, D)
+        kw = stream_kw(causal, qoff, kvl, dev)
+        fa.flash_attention.launches = fa.flash_attention_stream.launches = 0
+        o = fa.flash_attention(q, k, v, **kw)
+        o_s, lse = fa.flash_attention(q, k, v, return_stats=True, **kw)
+        if (fa.flash_attention_stream.launches, fa.flash_attention.launches) != (2, 0):
+            raise AssertionError(f"flash_stream {name}: K10 {fa.flash_attention_stream.launches} "
+                                 f"and K1 {fa.flash_attention.launches} launches, not 2 and 0")
+        o_p, lse_p = fa.flash_stream_plain(q, k, v, return_stats=True, **kw)
+        res = dict(o=check_close("flash_attention_stream", o, o_p), row_rel_rms=row_rel_rms(o, o_p),
+                   o_lse_instance=check_close("flash_attention_stream", o_s, o_p),
+                   lse=check_close("flash_attention_stream_lse", lse, lse_p))
+        if name == "mistral_prefill":
+            again = fa.flash_attention_stream(q, k, v, **kw)
+            if not torch.equal(again, o):
+                raise AssertionError("flash_stream: two launches gave different bits")
+            res["same_bits_twice"] = True
+            o_off = fa.flash_stream_plain(q, k, v, **dict(kw, q_offset=qoff - 1))
+            res["q_offset_one_off_max_abs_err"] = must_fail_within(
+                "flash_attention_stream", "against the plain version with q_offset one off", o,
+                o_off)
+            del again, o_off
+            res["stale_v_tile"] = depth_control(fa, o, q, k, v, kw)
+            pairs = Bc * causal_pairs(Sq, kvl, causal, qoff)
+            nbytes = 2 * (2 * q.numel() + 2 * Bc * kvl * Hkv * D)  # q, out, the valid K/V rows
+            b_ms, b_by = bound(nbytes, 4 * Hq * D * pairs, BF16_TENSOR_FLOPS)
+            lb_ms, lb_by = bound(nbytes + 4 * Bc * Hq * Sq, 4 * Hq * D * pairs, BF16_TENSOR_FLOPS)
+            ms = time_ms(lambda i: fa.flash_attention_stream(q, k, v, **kw), 5, warmup=2)[0]
+            row = dict(
+                name="flash_attention_stream", route="cuda",
+                source="mlio_tpu_torch/csrc/flash_stream.cu",
+                replaces="mlio_tpu/ops/flash_attention.py:323 (pallas_call :657)",
+                shape=f"q [{Bc},{Sq},{Hq},{D}] k/v [{Bc},{Skv},{Hkv},{D}] bf16, kv_len {kvl}, "
+                      "causal (Mistral-7B-Instruct-v0.2's prefill at 32K)",
+                max_abs_err=res["o"], atol=TOL["flash_attention_stream"][0],
+                rtol=TOL["flash_attention_stream"][1], ms=ms, kernel_ms=ms,
+                plain_ms=time_ms(lambda i: fa.flash_stream_plain(q, k, v, **kw), 1, warmup=1)[0],
+                library_ms=time_ms(sdpa_flash(q, k, v, kvl), 5, warmup=2)[0],
+                library_note="aten._scaled_dot_product_flash_attention (o and logsumexp) over "
+                             "the kv_len valid keys, K/V repeated to the query heads outside "
+                             "the timing",
+                bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+                lse=dict(max_abs_err=res["lse"], atol=TOL["flash_attention_stream_lse"][0],
+                         ms=time_ms(lambda i: fa.flash_attention_stream(
+                             q, k, v, return_stats=True, **kw), 5, warmup=2)[0],
+                         bound_ms=lb_ms, bound_by=lb_by))
+        elif name == "ragged_offset":  # the second sequence sees keys 0, 1, 2
+            short = tuple(n - 1 for n in kvl)
+            res["one_key_short_max_abs_err"] = must_fail_within(
+                "flash_attention_stream", "against the plain version one key short", o,
+                fa.flash_stream_plain(q, k, v, **stream_kw(causal, qoff, short, dev)))
+        elif name == "sq_tail":
+            res["ones_v_max_abs_err"] = must_fail_within(
+                "flash_attention_stream", "with all-ones V",
+                fa.flash_attention(q, k, torch.ones_like(v), **kw), o_p)
+        checks[name] = res
+        del q, k, v, o, o_s, lse, o_p, lse_p
+        torch.cuda.empty_cache()
+
+    # K10's lse against K13a's (training-shaped: no kv_len)
+    q, k, v = attention_inputs(gen, 1, K13A_S, K13A_S, 32, 8, 128)
+    o, lse = fa.flash_attention(q, k, v, return_stats=True)
+    o13, lse13 = fg.flash_fwd_lse(q, k, v)
+    checks[f"vs_k13a_s{K13A_S}"] = dict(o=check_close("flash_attention_stream", o, o13),
+                                    lse=check_close("flash_attention_stream_lse", lse, lse13))
+    del q, k, v, o, lse, o13, lse13
+
+    # K1 against K10 on the prefill call: Sq = Skv - 64 = kv_len, causal
+    versus = {}
+    for skv in K1_K10_SKV:
+        q, k, v = attention_inputs(gen, 1, skv - 64, skv, 32, 8, 128)
+        kw = dict(kv_len=skv - 64)
+        versus[str(skv)] = dict(
+            routed="k10" if fa.stream_route(skv, 128, 2) else "k1",
+            k1_ms=time_ms(lambda i: fa.flash_attention(q, k, v, kv_vmem_budget=1 << 62, **kw),
+                          3, warmup=1)[0],
+            k10_ms=time_ms(lambda i: fa.flash_attention(q, k, v, kv_vmem_budget=0, **kw),
+                           3, warmup=1)[0],
+            sdpa_ms=time_ms(sdpa_flash(q, k, v, skv - 64), 3, warmup=1)[0])
+        del q, k, v
+    row["k1_vs_k10"] = versus
+    emit(dict(phase="flash_stream", checks=checks, k1_vs_k10=versus))
+    return [row, k1_lse_row(fa, dev, seed)]
+
+
+def depth_control(fa, o, q, k, v, kw):
+    """K10's output o must fail its check against the plain version with
+    one interior V tile stale (stale_v_tile), a fault only rows past the
+    tile see, at each of STALE_KEYS. Returns, by key, the control's max-abs,
+    its largest row_rel_rms, and whether K1's elementwise limit alone would
+    have passed it."""
+    out = {}
+    for key in STALE_KEYS:
+        o_bad = fa.flash_stream_plain(q, k, stale_v_tile(v, key), **kw)
+        err = must_fail_within("flash_attention_stream",
+                               f"against the plain version with the V tile at key {key} stale",
+                               o, o_bad)
+        out[str(key)] = dict(max_abs_err=err, row_rel_rms=row_rel_rms(o, o_bad),
+                             within_k1_limit=within("flash_attention", o, o_bad)[0])
+        del o_bad
+    return out
+
+
+def k1_lse_row(fa, dev, seed):
+    """K1's lse instance (``flash_attention(..., return_stats=True)`` below
+    the K10 threshold) at GPT-2 small's prefill (8 x 704 queries into a
+    1024-slot cache, 12 heads of 64) and at a ragged call with q_offset
+    (B 2, 8/2 heads of 128), against its plain version: o, and lse within
+    1e-4; failing the plain version one key short; timed at GPT-2's."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    q, k, v = attention_inputs(gen, 2, 100, 256, 8, 2, 128)
+    kw = stream_kw(True, 37, (137, 3), dev)
+    o, lse = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    o_p, lse_p = fa.flash_plain_lse(q, k, v, **kw)
+    ragged = dict(o=check_close("flash_attention_lse", o, o_p),
+                  lse=check_close("flash_attention_lse_lse", lse, lse_p))
+    ragged["one_key_short_max_abs_err"] = must_fail_within(
+        "flash_attention_lse", "against the plain version one key short", o,
+        fa.flash_plain_lse(q, k, v, **stream_kw(True, 37, (136, 2), dev))[0])
+    q, k, v = attention_inputs(gen, B, PROMPT, CACHE, 12, 12, 64)
+    kw = dict(causal=True, q_offset=0, kv_len=PROMPT)
+    o, lse = fa.flash_attention(q, k, v, return_stats=True, **kw)
+    o_p, lse_p = fa.flash_plain_lse(q, k, v, **kw)
+    errs = dict(o=check_close("flash_attention_lse", o, o_p),
+                lse=check_close("flash_attention_lse_lse", lse, lse_p))
+    pairs = B * causal_pairs(PROMPT, PROMPT, True)
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * B * PROMPT * 12 * 64) + 4 * B * 12 * PROMPT,
+                       4 * 12 * 64 * pairs, BF16_TENSOR_FLOPS)
+    return dict(
+        name="flash_attention_lse", route="cuda",
+        source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kLse: mlio_flash_fwd_stats)",
+        replaces="mlio_tpu/ops/flash_attention.py:37 (return_stats, :531-535, :889-893)",
+        shape=f"q [{B},{PROMPT},12,64] k/v [{B},{CACHE},12,64] bf16, kv_len {PROMPT}",
+        max_abs_err=errs["o"], lse_max_abs_err=errs["lse"], atol=TOL["flash_attention_lse"][0],
+        rtol=TOL["flash_attention_lse"][1], lse_atol=TOL["flash_attention_lse_lse"][0],
+        ragged_q_offset=ragged,
+        **timings(lambda i: fa.flash_attention(q, k, v, return_stats=True, **kw),
+                  lambda i: fa.flash_plain_lse(q, k, v, **kw), sdpa_flash(q, k, v, PROMPT), 50),
+        library_note="aten._scaled_dot_product_flash_attention (o and logsumexp) over the "
+                     "kv_len valid keys",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def lc_positions():
+    """The logits the prefill gate compares: positions 0-15 (rows that attend
+    over few keys, where attention moves the logits most) and 64 spread over
+    the prompt, the last among them."""
+    spread = np.linspace(0, LC_PROMPT - 1, 64).round().astype(int).tolist()
+    return sorted(set(range(16)) | set(spread))
+
+
+def lc_prefill(spec, params, ids, impl, dtype, dev, positions=None):
+    """A cached prefill of ids into a LC_CACHE-slot cache of ``dtype``:
+    (logits, at ``positions`` when given, in fp32; the cache)."""
+    from mlio_tpu_torch.models import forward
+    from mlio_tpu_torch.runtime import init_cache
+
+    cache = init_cache(spec, ids.shape[0], LC_CACHE, dtype=dtype, device=dev)
+    with torch.inference_mode():
+        logits, cache = forward(params, spec, ids, impl=impl, cache=cache)
+    if positions is not None:
+        logits = logits[0, positions].float()
+    return logits, cache
+
+
+def lc_gate(dev, seed, spec, ids, fa, norms, dt):
+    """The prefill gate at LC_GATE_LAYERS layers, full width and the whole
+    32,704-token context: the kernel path's logits at lc_positions() as far
+    from an fp32 path (fp32 weights, activations and cache, K10's and K2's
+    plain versions) as the bf16 plain path (K10's and K2's plain versions),
+    within LOGITS_8B_OVER_PLAIN in max-abs and RMS; a control (K10 with the
+    causal frontier one key short: q_offset - 1) must fail it, and so must
+    a fault at depth (K10 with the V tile at key 16,384 stale: only rows past
+    16K see it). K10's last call of the kernel prefill, on the model's own
+    q, K and V, is held against its plain version (K1's limit and
+    ROW_REL_RMS), and both depth controls must fail there. Then K6 at the context
+    the prefill leaves (pos 32,704 in the 32,768-slot cache) against its
+    plain version at these 2 layers."""
+    from mlio_tpu_torch.models import Impl, init_params, rope_cos_sin
+
+    spec2 = dataclasses.replace(spec, num_layers=LC_GATE_LAYERS)
+    params = init_params(spec2, torch.Generator(device=dev).manual_seed(seed + 1),
+                         dtype=torch.bfloat16, device=dev)
+    impl = Impl(attention="flash", norm="fused")
+    pos = lc_positions()
+    real = fa.flash_attention_stream
+    seen = {}
+
+    def recording(q, k, v, **kw):  # keeps the last layer's call
+        o = real(q, k, v, **kw)
+        seen.update(q=q, k=k.clone(), v=v.clone(), kw=kw, o=o)
+        return o
+
+    recording.launches = 0
+    fa.flash_attention.launches = 0
+    with patched(fa, "flash_attention_stream", recording):
+        got, cache = lc_prefill(spec2, params, ids, impl, torch.bfloat16, dev, pos)
+    launches = dict(flash_attention_stream=recording.launches,  # K10 counts under its name
+                    flash_attention=fa.flash_attention.launches)
+    if launches != dict(flash_attention_stream=LC_GATE_LAYERS, flash_attention=0):
+        raise AssertionError(f"long_context gate: launches {launches}")
+    with plain_kernels(fa, norms):
+        plain = lc_prefill(spec2, params, ids, impl, torch.bfloat16, dev, pos)[0]
+        p32 = {k: ({n: (t.float() if t is not None else None) for n, t in v.items()}
+                   if isinstance(v, dict) else (v.float() if v is not None else None))
+               for k, v in params.items()}
+        ref = lc_prefill(spec2, p32, ids, impl, torch.float32, dev, pos)[0]
+        del p32
+
+    def frontier_short(q, k, v, **kw):
+        return real(q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) - 1))
+
+    def stale_tile(q, k, v, **kw):
+        return real(q, k, stale_v_tile(v, STALE_KEYS[0]), **kw)
+
+    frontier_short.launches = stale_tile.launches = 0
+    with patched(fa, "flash_attention_stream", frontier_short):
+        control = lc_prefill(spec2, params, ids, impl, torch.bfloat16, dev, pos)[0]
+    with patched(fa, "flash_attention_stream", stale_tile):
+        depth = lc_prefill(spec2, params, ids, impl, torch.bfloat16, dev, pos)[0]
+    errs = dict(kernels_vs_fp32=logit_errors(got, ref), plain_vs_fp32=logit_errors(plain, ref),
+                control_vs_fp32=logit_errors(control, ref),
+                depth_control_vs_fp32=logit_errors(depth, ref),
+                kernels_vs_plain=logit_errors(got, plain),
+                depth_control_vs_kernels=logit_errors(depth, got))
+
+    def passes(path):
+        return all(errs[path][s] <= LOGITS_8B_OVER_PLAIN * errs["plain_vs_fp32"][s]
+                   for s in ("max_abs", "rms"))
+
+    gate = dict(layers=LC_GATE_LAYERS, positions=len(pos), logits=errs,
+                over_plain=LOGITS_8B_OVER_PLAIN, passed=passes("kernels_vs_fp32"),
+                control="K10 with the causal frontier one key short (q_offset - 1)",
+                control_rejected=not passes("control_vs_fp32"),
+                depth_control=f"K10 with the V tile at key {STALE_KEYS[0]} stale",
+                depth_control_rejected=not passes("depth_control_vs_fp32"), launches=launches)
+    del got, plain, ref, control, depth
+    with torch.inference_mode():
+        q, k, v, kw, o = (seen[n] for n in ("q", "k", "v", "kw", "o"))
+        o_p = fa.flash_stream_plain(q, k, v, **kw)
+        gate["k10_in_path"] = dict(layer=LC_GATE_LAYERS - 1,
+                                   o=check_close("flash_attention_stream", o, o_p),
+                                   row_rel_rms=row_rel_rms(o, o_p),
+                                   stale_v_tile=depth_control(fa, o, q, k, v, kw))
+    del seen, q, k, v, o, o_p
+    torch.cuda.empty_cache()
+    # K6 one decode step at the context the prefill left, 2 layers
+    x = params["tok_embed"][ids[:, -1]]
+    cos, sin = rope_cos_sin(torch.arange(LC_PROMPT, LC_PROMPT + 1, device=dev), spec.rope_dim,
+                            spec.rope_theta)
+    gate["k6_ctx32k"] = tiled_check(dt, spec2, params["blocks"], x, cache["k"], cache["v"],
+                                    LC_PROMPT, cos, sin)[2]
+    del params, cache
+    torch.cuda.empty_cache()
+    return gate
+
+
+def long_context_phase(dev, seed, fa, norms, dt, wrappers):
+    """The long-context slice's path: Mistral-7B-Instruct-v0.2 at full width
+    and depth (spec_from_hf_config of MISTRAL_CONFIG), random bf16 weights
+    from the seed drawn on the card, B 1, a LC_PROMPT-token prompt into a
+    LC_CACHE-slot cache, 64 greedy tokens through ``generate`` with
+    Impl(attention="flash", norm="fused"): the launch counters around it (K10
+    a layer and no K1 in the prefill, the decode on the route "auto" names);
+    the prefill by CUDA events (median of LC_TIMED after a warm-up), its idle
+    share and K10's share from a torch.profiler trace; a decode step at the
+    context the prompt leaves; peak memory, beside what was allocated before
+    the generate (the weights and what earlier phases still hold). Then the
+    prefill gate (lc_gate).
+    Returns the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlio_tpu_torch.models import Impl, forward, init_params, spec_from_hf_config
+    from mlio_tpu_torch.models.transformer import decode_route
+    from mlio_tpu_torch.runtime import generate
+
+    spec = spec_from_hf_config(MISTRAL_CONFIG, name="mistral-7b-instruct-v0.2")
+    L = spec.num_layers
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, spec.vocab_size, (1, LC_PROMPT))).to(dev)
+    impl = Impl(attention="flash", norm="fused")
+    gate = lc_gate(dev, seed, spec, ids, fa, norms, dt)
+    emit(dict(phase="long_context_gate", **gate))
+    if not (gate["passed"] and gate["control_rejected"] and gate["depth_control_rejected"]):
+        raise AssertionError(f"long_context: the prefill gate {gate}")
+
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(seed),
+                         dtype=torch.bfloat16, device=dev)
+    picked = decode_route(spec, impl, params["blocks"], 1, smax=LC_CACHE,
+                          on_card=dev.type == "cuda")
+
+    def run(new_tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(params, spec, ids, max_new_tokens=new_tokens, impl=impl,
+                       cache_len=LC_CACHE, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # the weights, and what earlier phases still hold
+    for w in wrappers:
+        w.launches = 0
+    out, _ = run(LC_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {w.__name__: w.launches for w in wrappers}
+    want = route_launches(picked, L, LC_NEW - 1, False)
+    want.update(flash_attention=0, flash_attention_stream=L)
+    if picked == "scan":
+        want["decode_attention"] = L * (LC_NEW - 1)
+        want["fused_norm"] += (2 * L + 1) * (LC_NEW - 1)
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"long_context: launch counts {launches} != expected {want}")
+    if out.shape != (1, LC_PROMPT + LC_NEW) or not torch.equal(out[:, :LC_PROMPT], ids) \
+            or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
+        raise AssertionError("long_context: wrong shape, prompt changed or token out of range")
+
+    # the decode step by the two-length marginal (1 and LC_NEW new tokens)
+    generate_s = {str(n): run(n)[1] for n in (1, LC_NEW)}
+    decode_step_ms = (generate_s[str(LC_NEW)] - generate_s["1"]) / (LC_NEW - 1) * 1e3
+    # the prefill alone: one cache, rewritten by each run
+    from mlio_tpu_torch.runtime import init_cache
+
+    cache = init_cache(spec, 1, LC_CACHE, dtype=torch.bfloat16, device=dev)
+
+    def prefill():
+        with torch.inference_mode():
+            return forward(params, spec, ids, impl=impl, cache=dict(cache, pos=0))
+
+    logits = prefill()[0]
+    if logits.shape != (1, LC_PROMPT, spec.vocab_size) or logits.dtype != torch.bfloat16 \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"long_context: prefill logits {logits.dtype} "
+                             f"{tuple(logits.shape)} or not finite")
+    del logits
+    walls = []
+    for _ in range(LC_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = prefill()[0]
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+        del logits
+    prefill_ms = float(np.median(walls))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        prefill()
+        end.record()
+        torch.cuda.synchronize()
+    traced_ms = start.elapsed_time(end)  # the traced prefill's own span
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms(events)
+    k10_ms = sum(e.time_range.end - e.time_range.start for e in events
+                 if "flash_stream" in e.name) / 1e3
+    if not busy or not k10_ms:
+        raise AssertionError("long_context: the profiler saw no device time, or none in K10")
+    # a decode step at the context the prompt leaves, rewriting one slot
+    tok = out[:, LC_PROMPT:LC_PROMPT + 1]
+    with torch.inference_mode():
+        step_dev_ms = time_ms(lambda i: forward(params, spec, tok, impl=impl,
+                                                cache=dict(cache, pos=LC_PROMPT)), 3)[0]
+    result = dict(phase="long_context", model=spec.name, config=MISTRAL_CONFIG, layers=L,
+                  batch=1, prompt=LC_PROMPT, cache_len=LC_CACHE, new_tokens=LC_NEW,
+                  auto_route=picked, launches=launches, generate_s=generate_s,
+                  prefill_ms=prefill_ms, prefill_ms_runs=walls,
+                  prefill_tok_per_s=LC_PROMPT / (prefill_ms / 1e3),
+                  prefill_traced_ms=traced_ms, prefill_device_busy_ms=busy,
+                  prefill_idle_share=1 - busy / traced_ms,
+                  prefill_k10_ms=k10_ms, prefill_k10_share=k10_ms / busy,
+                  decode_ctx=LC_PROMPT, decode_step_ms=decode_step_ms,
+                  decode_step_device_ms=step_dev_ms, peak_bytes=peak,
+                  allocated_before_bytes=before,
+                  params_bytes=sum(t.numel() * t.element_size()
+                                   for _, t in _named_leaves(params)))
+    emit(result)
+    del params, cache, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3615,7 +4146,22 @@ def main() -> int:
                                       "K13a, K13b and K13c once")
             if not r["launches"]:
                 raise AssertionError(f"{r['name']}: no launch on train_8b's path")
-    rows += [tiled, tiled_moe, widen] + grad_rows + probe_rows
+    # The long-context slice: K10 alone, then Mistral-7B-Instruct-v0.2 at 32K.
+    stream_rows = flash_stream_phase(dev, args.seed, fa, fg)
+    long_launches = long_context_phase(dev, args.seed, fa, norms, dt,
+                                       (fa.flash_attention, fa.flash_attention_stream,
+                                        norms.fused_norm, da.decode_attention,
+                                        dl.decode_layer_stack, dt.decode_layer_tiled))
+    stream_rows[0]["launches"] = long_launches["flash_attention_stream"]
+    stream_rows[0]["lse"]["launches"] = 0
+    stream_rows[0]["lse"]["launches_note"] = ("no path of this run asks for the lse; "
+                                              "launched in flash_stream only")
+    stream_rows[1]["launches"] = 0
+    stream_rows[1]["launches_note"] = ("no path of this run asks for K1's lse; launched in "
+                                       "flash_stream only")
+    if not stream_rows[0]["launches"]:
+        raise AssertionError("flash_attention_stream: no launch on long_context's path")
+    rows += [tiled, tiled_moe, widen] + grad_rows + stream_rows + probe_rows
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

@@ -73,3 +73,17 @@ extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
       q, k, v, k_scale, v_scale, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
       q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f}, static_cast<cudaStream_t>(stream));
 }
+
+// K1 with the log-sum-exp: as mlio_flash_fwd without dropout, and also
+// lse[b, h, i] = m + log(l) fp32 [B, Hq, Sq] (-inf for a row with no valid
+// key), the kLse instance K13a runs (flash_bwd.cu), here with kv_len and
+// q_offset: flash_attention(..., return_stats=True) on K1's route.
+extern "C" int mlio_flash_fwd_stats(const void* q, const void* k, const void* v, void* out,
+                                    float* lse, const int* kv_len, int kv_len_scalar, int B,
+                                    int Sq, int Skv, int Hq, int Hkv, int D, int q_offset,
+                                    float scale, int causal, void* stream) {
+  if (B == 0 || Sq == 0 || Hq == 0) return 0;
+  return flash::launch<__nv_bfloat16, __nv_bfloat16, true>(
+      q, k, v, nullptr, nullptr, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
+      q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f}, static_cast<cudaStream_t>(stream));
+}

@@ -1,9 +1,10 @@
-"""Model loading: presets and HF GPT-2 and Mixtral conversion
+"""Model loading: presets, HF configs, and HF GPT-2 and Mixtral conversion
 (``mlio_tpu/models/loader.py``).
 
 A preset name random-inits from a seed; an in-memory ``transformers`` GPT-2
 or Mixtral model is converted once into the stacked-layer parameter dict
-(Mixtral's experts stacked on an expert axis). ``transformers`` is never
+(Mixtral's experts stacked on an expert axis). :func:`spec_from_hf_config`
+also reads Llama, Mistral and Qwen2 configs. ``transformers`` is never
 imported here: the caller hands over the model. The Llama and other family
 converters, and loading a checkpoint directory, are not ported yet
 (ROADMAP.md, queue 1, item 3).
@@ -27,7 +28,9 @@ def state_dict_from_torch(model) -> StateDict:
 
 
 def spec_from_hf_config(cfg: Any, name: str = "custom") -> ModelSpec:
-    """Derive a ModelSpec from an HF GPT-2 or Mixtral config object or dict."""
+    """Derive a ModelSpec from an HF GPT-2, Mixtral, Llama, Mistral or Qwen2
+    config object or dict (the JAX package's branches for these families;
+    ``sliding_window`` is not read, as there)."""
     get = (lambda k, d=None: cfg.get(k, d)) if isinstance(cfg, dict) else (
         lambda k, d=None: getattr(cfg, k, d))
     model_type = get("model_type", "gpt2")
@@ -45,10 +48,25 @@ def spec_from_hf_config(cfg: Any, name: str = "custom") -> ModelSpec:
             tie_embeddings=bool(get("tie_word_embeddings", False)),
             num_experts=get("num_local_experts", 8),
             num_experts_per_tok=get("num_experts_per_tok", 2))
+    if model_type in ("llama", "mistral", "qwen2"):
+        heads = get("num_attention_heads")
+        return ModelSpec(
+            name=name, vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"), num_layers=get("num_hidden_layers"),
+            num_heads=heads, num_kv_heads=get("num_key_value_heads") or heads,
+            intermediate_size=get("intermediate_size"),
+            max_seq_len=get("max_position_embeddings", 4096),
+            activation="swiglu", norm="rmsnorm",
+            norm_eps=get("rms_norm_eps", 1e-5), positional="rope",
+            rope_theta=get("rope_theta", 10000.0),
+            # Qwen2 carries biases on Q/K/V only
+            use_qkv_bias=(model_type == "qwen2"),
+            use_mlp_bias=False, use_out_bias=False,
+            tie_embeddings=bool(get("tie_word_embeddings", False)))
     if model_type != "gpt2":
         raise NotImplementedError(
-            f"HF model_type {model_type!r} is not ported yet; the port converts GPT-2 and "
-            "Mixtral")
+            f"HF model_type {model_type!r} is not ported yet; the port reads GPT-2, Mixtral, "
+            "Llama, Mistral and Qwen2 configs")
     h = get("n_embd")
     return ModelSpec(
         name=name, vocab_size=get("vocab_size"), hidden_size=h,
@@ -194,6 +212,11 @@ def load_model(
     ``device``."""
     dev = resolve_device(device)
     if torch_model is not None:
+        model_type = getattr(torch_model.config, "model_type", "gpt2")
+        if model_type not in ("gpt2", "mixtral"):
+            raise NotImplementedError(
+                f"load_model: the {model_type!r} converter is not ported yet; the port "
+                "converts GPT-2 and Mixtral")
         if spec is None:
             spec = spec_from_hf_config(torch_model.config, name=name)
         convert = convert_mixtral if spec.num_experts else convert_gpt2

@@ -4,7 +4,9 @@ The model is a plain function over a nested dict of tensors with the JAX
 package's layout: per-layer weights stacked on a leading ``num_layers``
 axis, matmul weights stored [in, out]. The JAX ``lax.scan`` over layers
 becomes a Python loop. :class:`Impl` keeps the JAX package's fields and
-picks the kernels: ``attention="flash"`` takes K1 for prefill and, for
+picks the kernels: ``attention="flash"`` takes K1 for prefill (K10 once the
+K/V pass the JAX package's budget, ``ops.flash_attention.stream_route``: a
+cached prefill over more than 12,288 slots at head dim 128) and, for
 single-token decode, the megakernel K4 (``decode_stack="mega"``), the tiled
 megakernel K6 with the head after it (``"tiled"``) or the per-layer scan
 through K3 (``"scan"``); ``"auto"`` chooses by :func:`decode_route`;

@@ -1,9 +1,9 @@
 """Op dispatch: one call site per op, the implementation chosen by ``Impl``
 (``mlio_tpu/ops/__init__.py``).
 
-``attention`` and ``norm`` route to the hand-written kernels (K1, or K9
-over an INT8 cache, and for a training-shaped call K1 with K13 as its
-backward; K2) or to the dense references; ``mlp`` to the fused
+``attention`` and ``norm`` route to the hand-written kernels (K1, K10 for
+long K/V, or K9 over an INT8 cache, and for a training-shaped call K1 or K10
+with K13 as its backward; K2) or to the dense references; ``mlp`` to the fused
 MLP kernel (K11) or the dense reference, and with quantized weights to the
 dequant-fused matmul (K5) for each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
 with quantized weights to a norm and K5 three times; ``moe_mlp`` to the
@@ -42,8 +42,9 @@ def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, k_sc
 
     A training-shaped flash call (no ``kv_len``, ``q_offset`` 0, no INT8
     cache: the JAX package's condition) goes through
-    :func:`flash_attention_diff`: K1 forward, K13 backward, so autograd
-    flows through it; the cache paths take K1 or K9, which have no backward.
+    :func:`flash_attention_diff`: K1 forward (K10 for long K/V), K13
+    backward, so autograd flows through it; the cache paths take K1, K10 or
+    K9, which have no backward.
     ``dropout_rate``/``dropout_seed``: position-hashed attention dropout
     (``ops/dropmask.py``), the same mask on every path. ``return_probs``
     takes the dense reference and also returns the [B,Hq,Sq,Skv] softmax."""

@@ -1,4 +1,4 @@
-"""Flash attention forward for prefill (K1).
+"""Flash attention forward for prefill (K1, and K10 for long K/V).
 
 Replaces ``mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel``. The kernel
 is CUDA C++ in ``mlio_tpu_torch/csrc/flash_fwd.cu``: one block per (64-row
@@ -6,6 +6,26 @@ q tile, head, batch), Q/K/V tiles in shared memory, both products on the
 tensor cores (WMMA, fp32 accumulate), online softmax in fp32, a kv loop that
 stops at the causal frontier and at ``kv_len``. Its source note gives the
 H100 bound at the main path's shapes and what the design does about it.
+
+K10 replaces ``_flash_fwd_stream_kernel``, the JAX package's long-context
+forward: CUDA C++ in ``mlio_tpu_torch/csrc/flash_stream.cu``, 128-row q
+tiles, K/V streamed in 64-key tiles through a three-stage ``cp.async``
+ring, the unmasked interior tiles apart from the masked edge tiles, both
+products on the tensor cores (``mma.sync``) with the softmax state in
+registers (:func:`flash_attention_stream`; its plain version is
+:func:`flash_stream_plain`). :func:`flash_attention` sends a call to K10
+exactly where the JAX package takes its stream kernel
+(:func:`stream_route`): the K/V of one head need more than one chunk of
+``kv_vmem_budget`` (the JAX package's VMEM budget, 6 MiB, so bf16 K/V at
+head dim 128 past 12,288 keys), there is no user mask, no INT8 cache and no
+dropout. The threshold is the JAX package's rule, kept so that both
+packages run the same kernel at a given shape; it is not a Hopper
+measurement, and ``PERF.md`` records K1's and K10's times on both sides of
+it.
+
+``return_stats=True`` also returns the rows' log-sum-exp of the scaled
+scores, fp32 [B, Hq, Sq] (-inf for a row with no valid key): K10's lse
+instance on its route, K1's (the ``kLse`` instance K13a shares) on K1's.
 
 K9 replaces ``_flash_fwd_kernel_kvq``: the same CUDA kernel instanced for
 an INT8 cache (int8 K/V, fp32 per-(token, head) scales), the dequant fused
@@ -22,10 +42,10 @@ kept probabilities scaled by 1/(1 - rate) in the PV product only, as in
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel or raise. The kernels take bf16 queries and head dims 64
-and 128; user masks and the LSE output (``return_stats``) are not ported
-yet and raise. The kernels have no backward: the wrappers raise when asked
-for a gradient (``_build.refuse_grad``); training goes through
-``ops.attention``, whose training-shaped flash route is
+and 128; user masks are not ported yet and raise, as does ``return_stats``
+with dropout or an INT8 cache. The kernels have no backward: the wrappers
+raise when asked for a gradient (``_build.refuse_grad``); training goes
+through ``ops.attention``, whose training-shaped flash route is
 :func:`~mlio_tpu_torch.ops.flash_attention_grad.flash_attention_diff`.
 """
 from __future__ import annotations
@@ -40,6 +60,32 @@ from mlio_tpu_torch.ops.dropmask import dense_keep_mask
 from mlio_tpu_torch.ops.reference import attention_mask
 
 _HEAD_DIMS = (64, 128)
+# The JAX package's VMEM budget for one head's K and V (flash_attention's
+# ``kv_vmem_budget``), read at call time so that a test may move the route.
+KV_VMEM_BUDGET = 6 << 20
+STREAM_BLOCK_KV = 64  # K10's K/V tile: the block of keys its plain version steps by
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def stream_route(Skv: int, D: int, itemsize: int, *,
+                 kv_vmem_budget: Optional[int] = None) -> bool:
+    """Whether K/V of ``Skv`` keys, head dim ``D`` and ``itemsize`` bytes an
+    element need more than one chunk of the budget: the JAX package's
+    ``n_kv_chunks > 1`` (``flash_attention.py:557-559``, ``:592-604``), where
+    it takes ``_flash_fwd_stream_kernel`` for a call without mask, INT8 cache
+    or dropout (``:634-636``). The chunks are counted in the TPU kernel's
+    default K/V tile, 1024 keys once the budget is passed (512 before), as
+    the JAX package's callers leave it (its autotune table's entries move no
+    call across the rule)."""
+    budget = KV_VMEM_BUDGET if kv_vmem_budget is None else kv_vmem_budget
+    lanes = _round_up(D, 128)
+    needed = 2 * _round_up(Skv, 128) * lanes * itemsize > budget
+    bkv = min(1024 if needed else 512, _round_up(Skv, 128))
+    padded = _round_up(Skv, bkv)
+    return 2 * padded * lanes * itemsize > budget and padded > bkv
 
 
 def flash_attention_plain(
@@ -55,19 +101,90 @@ def flash_attention_plain(
     v_scale: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=0,
-) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, with its rounding: the scale is
+    return_stats: bool = False,
+    kv_vmem_budget: Optional[int] = None,
+):
+    """:func:`flash_attention`'s function in plain PyTorch, on the route it
+    takes: K10's (:func:`flash_stream_plain`) where :func:`stream_route`
+    sends the call there, K9's (:func:`flash_attention_kvq_plain`) with
+    ``k_scale``/``v_scale``, else K1's, with its rounding: the scale is
     folded into q in fp32 and rounded back to q's dtype, p is rounded to v's
     dtype before the PV product while the row sum uses fp32 p, and a row
     with no valid key gives 0. Under dropout the kept p are scaled by
-    1/(1 - rate) before that rounding and the dropped ones are 0. With
-    ``k_scale``/``v_scale``, K9's (:func:`flash_attention_kvq_plain`)."""
+    1/(1 - rate) before that rounding and the dropped ones are 0."""
     if k_scale is not None:
         return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
                                          q_offset=q_offset, kv_len=kv_len)
-    return flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                           kv_len=kv_len, dropout_rate=dropout_rate,
-                           dropout_seed=dropout_seed)[0]
+    if dropout_rate == 0.0 and stream_route(k.shape[1], q.shape[3], k.element_size(),
+                                            kv_vmem_budget=kv_vmem_budget):
+        return flash_stream_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                  kv_len=kv_len, return_stats=return_stats)
+    o, lse = flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                             kv_len=kv_len, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    return (o, lse) if return_stats else o
+
+
+def flash_stream_plain(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None,
+                       return_stats=False):
+    """K10's function in plain PyTorch, over K/V streamed in blocks of
+    :data:`STREAM_BLOCK_KV` keys, with ``_flash_fwd_stream_kernel``'s
+    rounding: q * scale in fp32 rounded to q's dtype; the online (m, l, acc)
+    state in fp32; p rounded to v's dtype for the PV product while l adds
+    the fp32 p; o = acc / l, 0 for a row with no valid key; lse = m + log l,
+    -inf there. In bf16 the block is part of the function: p is rounded
+    against the running max of the blocks seen. The blocks run in ascending
+    order: a q tile's unmasked interior blocks are its lower ones and the
+    masked edge blocks (the causal diagonal, the kv_len tail) follow them;
+    the mask and the -inf guards change no value of an interior block, so
+    every block is masked here. A block's scores are [B, Hq, rows, 64] for
+    the rows that see one of its keys: no [B, Hq, Sq, Skv] tensor is
+    formed. Returns o [B, Sq, Hq, D] in q's dtype, and with
+    ``return_stats`` also lse fp32 [B, Hq, Sq]."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    dev = q.device
+    qs = (q.float() * scale).to(q.dtype).float()
+    qs = qs.view(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, Sq, D]
+    if kv_len is None:
+        kvl = torch.full((B,), Skv, dtype=torch.int64, device=dev)
+    else:
+        kvl = torch.as_tensor(kv_len, device=dev).to(torch.int64).expand(B)
+    kvl = kvl.clamp(max=Skv)
+    m = torch.full((B, Hkv, G, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, D), device=dev)
+    rows = torch.arange(Sq, device=dev) + q_offset  # absolute positions
+    tokens = int(kvl.max()) if B else 0
+    if causal:
+        tokens = min(tokens, q_offset + Sq)
+    for j0 in range(0, max(tokens, 0), STREAM_BLOCK_KV):
+        r0 = min(max(j0 - q_offset, 0), Sq) if causal else 0  # rows before r0 see no key here
+        j1 = j0 + STREAM_BLOCK_KV
+        kb = k[:, j0:j1].float().permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, n, D]
+        vb = v[:, j0:j1].float().permute(0, 2, 1, 3)[:, :, None]
+        cols = torch.arange(j0, j0 + kb.shape[3], device=dev)
+        valid = (cols < kvl[:, None])[:, None, :]  # [B, 1, n]
+        if causal:
+            valid = valid & (rows[r0:, None] >= cols)[None]
+        s = (qs[..., r0:, :] @ kb.transpose(-1, -2)).masked_fill(~valid[:, None, None],
+                                                                  float("-inf"))
+        m_old = m[..., r0:]
+        m_new = torch.maximum(m_old, s.amax(-1))
+        m_safe = torch.where(m_new.isneginf(), 0.0, m_new)
+        alpha = torch.where(m_old.isneginf(), 0.0, torch.exp(m_old - m_safe))
+        p = torch.exp(s - m_safe[..., None])
+        l[..., r0:] = l[..., r0:] * alpha + p.sum(-1)
+        acc[..., r0:, :] = acc[..., r0:, :] * alpha[..., None] + p.to(v.dtype).float() @ vb
+        m[..., r0:] = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    o = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_stats:
+        return o
+    lse = torch.where(l == 0, float("-inf"), torch.where(m.isneginf(), 0.0, m) + torch.log(l_safe))
+    return o, lse.reshape(B, Hq, Sq)
 
 
 def scaled_q_and_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
@@ -161,13 +278,21 @@ def flash_attention_kvq_plain(
     return o.transpose(1, 2).to(q.dtype)
 
 
-def _entry(name="mlio_flash_fwd", quant=False):
-    lib = _build.library("flash_fwd")
+# C entry points: (library, pointer arguments before the shared tail of
+# kv_len_scalar, B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal, whether
+# the dropout arguments follow).
+_ENTRIES = {"mlio_flash_fwd": ("flash_fwd", 5, True), "mlio_flash_fwd_kvq": ("flash_fwd", 7, False),
+            "mlio_flash_fwd_stats": ("flash_fwd", 6, False),
+            "mlio_flash_stream": ("flash_stream", 6, False)}
+
+
+def _entry(name="mlio_flash_fwd"):
+    source, pointers, drop = _ENTRIES[name]
+    lib = _build.library(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p, p, p] + [p, p] * quant + [p, p, i, i, i, i, i, i, i, i, f, i]
-                       + [i, f, f] * (not quant) + [p])
+        fn.argtypes = [p] * pointers + [i] * 8 + [f, i] + [i, f, f] * drop + [p]
         fn.restype = i
     return lib, fn
 
@@ -223,7 +348,7 @@ def flash_attention_kvq(
     _build.require_contiguous_aligned("flash_attention_kvq", q=q, k=k, v=v, k_scale=k_scale,
                                       v_scale=v_scale)
     out = torch.empty_like(q)
-    lib, fn = _entry("mlio_flash_fwd_kvq", quant=True)
+    lib, fn = _entry("mlio_flash_fwd_kvq")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), out.data_ptr(), _build.ptr(kv_arr), kv_scalar, B, Sq, Skv,
@@ -235,6 +360,50 @@ def flash_attention_kvq(
 
 
 flash_attention_kvq.launches = 0
+
+
+def flash_attention_stream(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_len: Union[None, int, torch.Tensor] = None,
+    return_stats: bool = False,
+):
+    """K10, the long-context forward: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]
+    → [B, Sq, Hq, D] in q's dtype, and with ``return_stats`` also the lse
+    fp32 [B, Hq, Sq]; ``q_offset`` and ``kv_len`` as :func:`flash_attention`,
+    which sends long K/V here (:func:`stream_route`)."""
+    _check_shapes("flash_attention_stream", q, k, v)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    _build.refuse_grad("flash_attention_stream (K10)", q, k, v,
+                       hint="ops.attention without kv_len or q_offset, whose backward is K13")
+    if q.device.type == "cpu":
+        return flash_stream_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                  kv_len=kv_len, return_stats=return_stats)
+    dev = _build.require_cuda("flash_attention_stream", q, k, v)
+    _build.require_bf16("flash_attention_stream", q=q, k=k, v=v)
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_stream: head dim {D} not in {_HEAD_DIMS}")
+    kv_arr, kv_scalar = _kv_len_arg("flash_attention_stream", kv_len, B, Skv, dev)
+    _build.require_contiguous_aligned("flash_attention_stream", q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) if return_stats else None
+    lib, fn = _entry("mlio_flash_stream")
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
+                 _build.ptr(kv_arr), kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
+                 D ** -0.5 if scale is None else scale, int(causal), _build.stream_handle(dev))
+    _build.check(lib, err, "flash_attention_stream")
+    flash_attention_stream.launches += 1
+    return (out, lse) if return_stats else out
+
+
+flash_attention_stream.launches = 0
 
 
 def flash_attention(
@@ -252,7 +421,8 @@ def flash_attention(
     return_stats: bool = False,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    kv_vmem_budget: Optional[int] = None,
+):
     """Attention forward in the bshd layout: q [B, Sq, Hq, D], k/v
     [B, Skv, Hkv, D] → [B, Sq, Hq, D] in q's dtype.
 
@@ -260,7 +430,11 @@ def flash_attention(
     cache slots at or past it are masked out. With ``k_scale``/``v_scale``
     [B, Skv, Hkv] (fp32) k/v are an INT8 cache and K9 runs
     (:func:`flash_attention_kvq`). ``dropout_rate``/``dropout_seed``:
-    post-softmax dropout (the module's note).
+    post-softmax dropout (the module's note). ``return_stats``: also return
+    the lse fp32 [B, Hq, Sq]. Long K/V go to K10
+    (:func:`flash_attention_stream`) by the JAX package's rule
+    (:func:`stream_route`, with ``kv_vmem_budget``, by default
+    :data:`KV_VMEM_BUDGET`); the rest to K1.
     """
     if k_scale is not None or v_scale is not None:
         if mask is not None and mask.ndim >= 3 and mask.shape[-2] > 1:
@@ -271,22 +445,29 @@ def flash_attention(
             raise NotImplementedError(
                 "attention dropout with an INT8 KV cache is not supported (dropout is a "
                 "training feature; quantized caches are serving)")
-    if mask is not None or return_stats:
+    if mask is not None:
+        raise NotImplementedError("flash_attention: user masks are not ported yet")
+    if return_stats and (k_scale is not None or v_scale is not None or dropout_rate):
         raise NotImplementedError(
-            "flash_attention: user masks and return_stats are not ported yet")
+            "flash_attention: return_stats with an INT8 KV cache or dropout is not ported yet")
     if k_scale is not None or v_scale is not None:
         return flash_attention_kvq(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
                                    q_offset=q_offset, kv_len=kv_len)
     _check_shapes("flash_attention", q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    if dropout_rate == 0.0 and stream_route(Skv, D, k.element_size(),
+                                            kv_vmem_budget=kv_vmem_budget):
+        return flash_attention_stream(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                      kv_len=kv_len, return_stats=return_stats)
     drop = dropout_args(dropout_rate, dropout_seed)
     _build.refuse_grad("flash_attention (K1)", q, k, v,
                        hint="ops.attention without kv_len or q_offset, whose backward is K13")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                     kv_len=kv_len, dropout_rate=dropout_rate,
-                                     dropout_seed=dropout_seed)
+        o, lse = flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                 kv_len=kv_len, dropout_rate=dropout_rate,
+                                 dropout_seed=dropout_seed)
+        return (o, lse) if return_stats else o
     dev = _build.require_cuda("flash_attention", q, k, v)
     _build.require_bf16("flash_attention", q=q, k=k, v=v)
     if D not in _HEAD_DIMS:
@@ -294,15 +475,21 @@ def flash_attention(
     kv_arr, kv_scalar = _kv_len_arg("flash_attention", kv_len, B, Skv, dev)
     _build.require_contiguous_aligned("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
-    lib, fn = _entry()
+    shape = (kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
+             D ** -0.5 if scale is None else scale, int(causal))
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(kv_arr),
-                 kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
-                 D ** -0.5 if scale is None else scale, int(causal), *drop,
-                 _build.stream_handle(dev))
+        if return_stats:  # K1's kLse instance, the one K13a runs
+            lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+            lib, fn = _entry("mlio_flash_fwd_stats")
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     _build.ptr(kv_arr), *shape, _build.stream_handle(dev))
+        else:
+            lib, fn = _entry()
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     _build.ptr(kv_arr), *shape, *drop, _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_stats else out
 
 
 flash_attention.launches = 0

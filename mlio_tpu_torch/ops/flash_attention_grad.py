@@ -15,9 +15,11 @@ plain PyTorch version and a launch counter:
 The glue stays in plain PyTorch, as it lies outside the Pallas kernels in
 the JAX package too: delta = rowsum(dO * O) and the GQA group sum
 (:func:`group_sum`). :func:`flash_attention_vjp` is an autograd function
-whose forward is K13a; :func:`flash_attention_diff`'s forward is K1 (what
-inference runs) and its backward recomputes (o, lse) with K13a before K13b
-and K13c, as ``flash_attention_diff`` does in JAX. One autograd function
+whose forward is K13a; :func:`flash_attention_diff`'s forward is
+``flash_attention``'s route (K1, or K10 for long K/V: what inference runs,
+as the JAX primal is ``flash_attention`` itself) and its backward recomputes
+(o, lse) with K13a before K13b and K13c, as ``flash_attention_diff`` does in
+JAX. One autograd function
 serves both devices: on CPU tensors every wrapper runs its plain version.
 The dropout seed carries no gradient.
 
@@ -247,7 +249,8 @@ def attention_backward(q, k, v, o, lse, do, *, causal=True, scale=None, dropout_
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward K1 (``recompute``) or K13a; backward K13a (when recomputing),
+    """Forward ``flash_attention``'s route (``recompute``: K1, or K10 for long
+    K/V) or K13a; backward K13a (when recomputing),
     K13b, K13c and the glue. Wrappers are looked up at call time, so a
     caller may swap a module's wrapper for its plain version."""
 
@@ -292,8 +295,9 @@ def flash_attention_vjp(q: Tensor, k: Tensor, v: Tensor, dropout_seed=0, *, caus
 
 def flash_attention_diff(q: Tensor, k: Tensor, v: Tensor, dropout_seed=0, *, causal: bool = True,
                          scale: Optional[float] = None, dropout_rate: float = 0.0) -> Tensor:
-    """Differentiable flash attention whose forward is K1, so wrapping costs
-    inference nothing; the backward recomputes (o, lse) with K13a, then runs
-    K13b and K13c. ``ops.attention``'s training-shaped flash route."""
+    """Differentiable flash attention whose forward is ``flash_attention``'s
+    route (K1, or K10 for long K/V), so wrapping costs inference nothing; the
+    backward recomputes (o, lse) with K13a, then runs K13b and K13c.
+    ``ops.attention``'s training-shaped flash route."""
     return _FlashAttention.apply(q, k, v, _seed(dropout_seed), causal, scale, dropout_rate,
                                  True)

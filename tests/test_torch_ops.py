@@ -123,8 +123,18 @@ def test_unported_options_raise():
     q = torch.zeros(1, 4, 2, 64)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, mask=torch.ones(1, 4))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, return_stats=True)
+    # return_stats is ported (K1's and K10's lse instances): (o, lse) as the
+    # JAX function returns them
+    rng = np.random.default_rng(4)
+    qs, ks, vs = (_randn(rng, 2, 6, 4, 64) for _ in range(3))
+    want_o, want_lse = jax_flash_attention(jnp.asarray(qs), jnp.asarray(ks), jnp.asarray(vs),
+                                           kv_len=jnp.asarray([6, 0], jnp.int32),
+                                           return_stats=True, interpret=True)
+    o, lse = flash_attention(torch.from_numpy(qs), torch.from_numpy(ks), torch.from_numpy(vs),
+                             kv_len=torch.tensor([6, 0]), return_stats=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()), np.isneginf(np.asarray(want_lse)))
+    np.testing.assert_allclose(lse[0].numpy(), np.asarray(want_lse)[0], **TOL)
     # INT8 K/V scales are ported (K3's int8 instances): the result is the
     # attention over the dequantized cache
     rng = np.random.default_rng(5)
