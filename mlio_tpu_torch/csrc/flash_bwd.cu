@@ -1,405 +1,667 @@
 // K13: flash attention for training on Hopper: the forward with the
 // log-sum-exp (K13a), then dQ (K13b) and dK/dV (K13c).
 //
-// Replaces mlio_tpu/ops/flash_attention_grad.py: _fwd_lse_kernel (:49),
-// _bwd_dq_kernel (:122) and _bwd_dkv_kernel (:180). q, o, dO [B, Sq, Hq, D],
-// k/v [B, Skv, Hkv, D], bf16, bshd; lse and delta = rowsum(dO * O) fp32
+// Replaces mlio_tpu/ops/flash_attention_grad.py: _fwd_lse_kernel (:49, its
+// pallas_call at :285), _bwd_dq_kernel (:122, pallas_call :380) and
+// _bwd_dkv_kernel (:180, pallas_call :394). q, o, dO [B, Sq, Hq, D], k/v
+// [B, Skv, Hkv, D], bf16, bshd; lse and delta = rowsum(dO * O) fp32
 // [B, Hq, Sq]. With P = exp(q.k * scale - lse) over the valid keys (j < Skv
 // and, when causal, j <= i) and dP = dO V^T:
 //   dS = P * (dP - delta),  dQ = scale * dS K,  dV = P~^T dO,  dK = dS^T (q * scale)
 // where under dropout dP and P~ = P are kept where the position hash keeps
 // them and scaled by 1 / (1 - rate) (the mask of K1's forward, regenerated
-// from the seed folded with (batch, query head)).
-//
-// K13a is K1's kernel (flash_fwd.cuh) with the lse store. K13b: one block per
-// (64-row q tile, query head, batch), four warps of 16 rows; the scaled Q tile
-// and the dO tile stay in registers as WMMA fragments, dQ accumulates in
-// fp32 fragments, and the K/V tiles of 64 keys are looped to the causal
-// frontier. K13c: one block per (64-key tile, query head, batch); the K/V
-// tile stays in shared memory, the q tiles are looped from the diagonal
-// (causal) or from 0, and dK, dV accumulate in fp32 fragments, each warp
-// owning 16 keys. In both, the bf16 tiles of the elementwise step (dS, P~)
-// are written over the fp32 scores they come from, a row at a time, and
-// that step reads a key a lane, free of bank conflicts; each kernel keeps
-// under 113 KB of shared memory (D 128), so two blocks share an SM. dK and
-// dV come out per query head in fp32 [B, Skv, Hq, D]; the GQA group sum is
-// outside, as in the JAX package. Every
-// output element has one writer and every sum a fixed order: no atomics, so
-// two runs give the same bits (the JAX design, :10-17).
+// from the seed folded with (batch, query head)). dq comes out bf16; dK and
+// dV fp32 per query head [B, Skv, Hq, D], the GQA group sum outside, as in
+// the JAX package (:414-416). Every output element has one writer and every
+// sum a fixed order: no atomics, so two runs give the same bits (the JAX
+// design, :10-17).
 //
 // Rounding follows the TPU kernels: q * scale rounded to bf16; P rounded to
 // bf16 for the PV product (K13a); dO enters dP as bf16; dS rounded to bf16 for
-// dQ and for dK; P~ rounded to bf16 for dV; every sum in fp32.
+// dQ and for dK; P~ rounded to bf16 for dV; every sum in fp32. exp is taken
+// as exp2 of the score times log2(e), a few fp32 ulps from exp.
 //
-// Bound, at llama3-8b's attention (B 1, S 2048, 32 query heads, 8 KV heads,
-// D 128, causal): about 4, 6 and 8 B Hq S^2 D / 2 operations for K13a, K13b
-// and K13c, 34.4, 51.5 and 68.7 GFLOP: 35, 52 and 69 us at 989 TFLOP/s,
-// against a few tens of MB of q, k, v, o, dO, lse and outputs (a few us at
-// ~3.2 TB/s): operations. A simple kernel that is right comes first: WMMA on
-// 64 x 64 tiles with the scores staged in shared memory, no pipelining;
-// register-resident mma.sync fragments, wgmma, TMA and a K/V ring are later
-// work.
+// Bound, at llama3-8b's attention (B 1, S 2048, 32 query and 8 KV heads of
+// 128, causal; pairs = 32 x 128 x 2048 x 2049 / 2 = 8.59e9): K13a does 4,
+// K13b 6 (S, dP, dQ) and K13c 8 (S, dP, dV, dK) x pairs operations, 34.4,
+// 51.6 and 68.7 GFLOP: 35, 52 and 69 us at 989 TFLOP/s (bf16 tensor
+// cores), against 59 MB (K13b: q, dO, k, v, lse, delta read once, dq
+// written) and 109 MB (K13c: fp32 dK and dV per query head), 18 and 34 us
+// at ~3.2 TB/s: bound by operations. So the tensor cores must do the work
+// and everything else keep out of their way.
+//
+// K13a is K1's kernel (flash_fwd.cuh) with the lse store. K13b and K13c are
+// FlashAttention-2's backward layout on Hopper's warpgroup products (wgmma,
+// wgmma.cuh; bf16 inputs, fp32 accumulators), with K10's pieces
+// (flash_stream.cu) around them:
+// - Scores stay in registers. A block is one warpgroup (four warps of 16
+//   rows: K13b's q rows, K13c's keys), and S and dP land in its
+//   accumulators, whose (row, column) of each element is public, so the
+//   mask, the dropout, exp and dS are computed where the products leave them;
+//   dS (K13b) or P~ and dS (K13c), rounded to bf16, are repacked in registers
+//   as the A operand of the next product, as K10 repacks p. No score passes
+//   through shared memory (WMMA hid that layout: the old kernels stored S
+//   and dP as fp32 and read them back twice).
+// - The tensor cores read the other operand from shared memory themselves:
+//   K and V (K13b), q * scale and dO (K13c), and K13c's K and V as A, in
+//   wgmma.cuh's 128-byte swizzled layout, which one tile serves both K-major
+//   (S = Q K^T) and MN-major (dQ = dS K). No ldmatrix and no operand
+//   registers but q and dO's A fragments in K13b.
+// - K13c computes the transposed products, S^T = K (q * scale)^T and dP^T =
+//   V dO^T, with the keys as rows: P~^T and dS^T then come out of the
+//   accumulators already as the A operand of dV += P~^T dO and dK += dS^T
+//   (q * scale). No barrier and no shared-memory transposition sit between
+//   its steps; lse and delta are per column in this orientation.
+// - Overlap: S and dP are two commit groups; exp runs while dP is in the
+//   tensor cores, and a pass's dQ (or dV, dK) product runs while the next
+//   pass starts. The dropout keep bits are hashed while the products run.
+// - Loads are asynchronous: K13b's 64-key K/V tiles come through a
+//   three-stage cp.async ring with K and V in separate commit groups (V is
+//   waited on after the first S product), K10's protocol; K13c's q and dO
+//   tiles, with their lse and delta rows, through a two-stage ring, one
+//   commit group a tile (each thread rescales the q chunks it copied once
+//   they land: cp.async cannot scale). Tile j + 2 (K13b) or j + 1 (K13c) is
+//   copied in while tile j's products run.
+// - Interior tiles take no mask: K13b splits its kv loop as K10 does, K13c
+//   masks only the diagonal q tile and the ragged tails (Sq or Skv).
+// - Tiles and registers: 64-row tiles, each taken in two passes of 32 keys
+//   (K13b) or 32 q rows (K13c). K13b holds q * scale and dO as A fragments
+//   for the whole kv loop and dQ in fp32, 128 registers a thread at D 128,
+//   and a pass's S and dP 32 more; K13c holds dK and dV (128) and a pass's
+//   S^T and dP^T (32). A whole tile's scores at once, or the dropout hash
+//   beside them, spilled the D 128 instances at 255 registers. At D 128
+//   K13b's ring is 96 KB (q and dO are staged in its third slot before the
+//   loop) and K13c's K, V and ring 97 KB: two blocks, two warpgroups, an SM,
+//   each filling the tensor cores while the other computes its exp and dS.
+// - The heaviest blocks start first (K13b: the last q tiles under
+//   causality; K13c: the first key tiles), the query heads of one KV head
+//   side by side so that their K/V meet in L2. Offsets are 64-bit.
+// - The same kernels on mma.sync (ldmatrix, padded rows), the first form of
+//   this design, and on wgmma with an unswizzled layout both ran slower on
+//   the card; a producer warp feeding the ring by TMA (FlashAttention-3) is
+//   the next step.
+#include "cp_async.cuh"
 #include "flash_fwd.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using flash::BKV;
-using flash::BQ;
 using flash::Dropout;
-using flash::kThreads;
+using gemm::cp_async16;
+using gemm::cp_async4;
+using gemm::cp_commit;
+using gemm::cp_wait;
+using gemm::fence_proxy_async;
+using gemm::fence_regs;
+using gemm::kmajor;
+using gemm::ldmatrix_x4;
+using gemm::mnmajor;
+using gemm::pack_bf16;
+using gemm::wgmma_commit;
+using gemm::wgmma_fence;
+using gemm::wgmma_rs;
+using gemm::wgmma_ss_n32;
+using gemm::wgmma_wait;
 using T = __nv_bfloat16;
 
-// Row pitches: 16-bit tiles D + 8 elements, fp32 scores BKV + 4; a bf16
-// tile written over an fp32 one keeps its byte pitch (LDP = 2 LDS elements),
-// so its row r lies inside the scores' row r.
-template <int D>
-struct Pitch {
-  static constexpr int LDH = D + 8;
-  static constexpr int LDS = BKV + 4;
-  static constexpr int LDP = 2 * LDS;
-  static constexpr int LDO = D + 4;  // the fp32 staging of the outputs
-  static constexpr size_t kTile = size_t(64) * LDH * 2;
-  static constexpr size_t kScores = size_t(64) * LDS * 4;
-};
+constexpr int BT = 64;  // rows of a q tile and of a K/V tile
+constexpr int kThreads = 128;  // one warpgroup: four warps of 16 rows
+constexpr int kDqStages = 3;   // K13b's K/V ring
+constexpr int kDkvStages = 2;  // K13c's q/dO ring
+constexpr int SUB = 32;        // keys (K13b) or q rows (K13c) of one pass over a tile
+static_assert(SUB == 32, "K13c's S^T and dP^T products are m64n32k16");
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct DqLayout : Pitch<D> {
-  using P = Pitch<D>;
-  // Q, dO, K, V; S (then dS over it); dP; the q tile's lse and delta. dQ is
-  // staged over K and V after the loop.
-  static constexpr size_t kQ = 0, kdO = P::kTile, kK = 2 * P::kTile, kV = 3 * P::kTile;
-  static constexpr size_t kS = 4 * P::kTile, kdP = kS + P::kScores;
-  static constexpr size_t kRow = kdP + P::kScores;
-  static constexpr size_t kBytes = kRow + size_t(BQ) * 2 * 4;
-  static_assert(size_t(BQ) * P::LDO * 4 <= 2 * P::kTile, "dQ staging must fit over K and V");
+struct Tile {
+  static constexpr size_t kBytes = size_t(BT) * D * 2;
 };
 
+// K13b: the K ring, then the V ring. q * scale and dO are staged in the
+// third slots before the loop.
 template <int D>
-struct DkvLayout : Pitch<D> {
-  using P = Pitch<D>;
-  // K, V, Q, dO; S (then P~ over it); dP (then dS over it); the q tile's lse
-  // and delta. dK and dV are staged over S and dP after the loop.
-  static constexpr size_t kK = 0, kV = P::kTile, kQ = 2 * P::kTile, kdO = 3 * P::kTile;
-  static constexpr size_t kS = 4 * P::kTile, kdP = kS + P::kScores;
-  static constexpr size_t kRow = kdP + P::kScores;
-  static constexpr size_t kBytes = kRow + size_t(BQ) * 2 * 4;
-  static_assert(size_t(BKV) * P::LDO * 4 <= 2 * P::kScores,
-                "dK/dV staging must fit over S and dP");
+struct DqSmem {
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kDqStages * Tile<D>::kBytes;
+  static constexpr size_t kBytes = 2 * kV;
 };
 
-// Rows [r0, r0 + 64) of a [B, S, H, D] bf16 tensor's head h into a tile with
-// row pitch LD; rows past S are 0.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(T* s, const T* g, int b, int h, int r0, int S, int H) {
-  constexpr int V8 = 8, CPR = D / V8;
-  const size_t row = static_cast<size_t>(H) * D;
-  for (int c = threadIdx.x; c < 64 * CPR; c += blockDim.x) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S)
-      raw = *reinterpret_cast<const uint4*>(g + (static_cast<size_t>(b) * S + r0 + r) * row +
-                                            h * D + cc * V8);
-    *reinterpret_cast<uint4*>(s + r * LD + cc * V8) = raw;
-  }
+// K13c: K, V, the q and dO rings, the lse and delta rows of each q slot.
+template <int D>
+struct DkvSmem {
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = Tile<D>::kBytes;
+  static constexpr size_t kQ = 2 * Tile<D>::kBytes;
+  static constexpr size_t kdO = kQ + kDkvStages * Tile<D>::kBytes;
+  static constexpr size_t kLse = kdO + kDkvStages * Tile<D>::kBytes;
+  static constexpr size_t kDelta = kLse + kDkvStages * BT * 4;
+  static constexpr size_t kBytes = kDelta + kDkvStages * BT * 4;
+};
+
+// Element (r, c) of a tile in wgmma.cuh's swizzled layout.
+__device__ __forceinline__ T* at(T* tile, int r, int c) {
+  return reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(tile) + gemm::sw128(r, c));
 }
 
 __device__ __forceinline__ float finite_or_zero(float x) { return x == -INFINITY ? 0.f : x; }
 
-// The q tile's lse (-inf read as 0) and delta into shared memory; rows past
-// Sq get 0.
-__device__ __forceinline__ void load_row_stats(float* sLse, float* sDelta, const float* lse,
-                                               const float* delta, int b, int h, int q_start,
-                                               int Sq, int Hq) {
-  if (threadIdx.x < BQ) {
-    const int qr = q_start + threadIdx.x;
-    const size_t si = (static_cast<size_t>(b) * Hq + h) * Sq + qr;
-    sLse[threadIdx.x] = qr < Sq ? finite_or_zero(lse[si]) : 0.f;
-    sDelta[threadIdx.x] = qr < Sq ? delta[si] : 0.f;
+// Start the cp.async copies of rows [r0, r0 + 64) of head h of a [B, S, H, D]
+// bf16 tensor into a swizzled tile; rows at or past S are zero-filled.
+// Consecutive threads copy consecutive 16-byte chunks of a row; thread t
+// copies chunks t + j * kThreads (rescale_own relies on it).
+template <int D>
+__device__ __forceinline__ void copy_tile(T* s, const T* g, int b, int h, int r0, int S, int H) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  const size_t row = static_cast<size_t>(H) * D;
+  const T* base = g + static_cast<size_t>(b) * S * row + static_cast<size_t>(h) * D;
+#pragma unroll
+  for (int j = 0; j < BT * CPR / kThreads; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    const int r = c / CPR, cc = c % CPR;
+    const bool ok = r0 + r < S;
+    cp_async16(at(s, r, cc * 8), base + (ok ? static_cast<size_t>(r0 + r) * row : 0) + cc * 8,
+               ok);
   }
 }
 
-// The elementwise step for this warp's 16 q rows of a 64-key tile: with
-// P = exp(S - lse) over the valid (row, key) pairs, dP kept and scaled under
-// dropout, dS = P * (dP - delta) and P~ = P kept and scaled (kPt), written as
-// bf16 over S (P~, or dS without kPt) and over dP (dS with kPt). Lane l takes
-// keys l and l + 32 of a row; a row's bf16 values overwrite only that row's
-// fp32 scores, all read before the warp writes.
-template <bool kDrop, bool kPt>
-__device__ __forceinline__ void probs_and_ds(float* sS, float* sdP, const float* sLse,
-                                             const float* sDelta, int warp, int lane, int q_start,
-                                             int kv0, int Sq, int Skv, int causal, uint32_t seed,
-                                             const Dropout& drop) {
-  constexpr int LDS = BKV + 4, LDP = 2 * LDS;
-  T* out_s = reinterpret_cast<T*>(sS);
-  T* out_dp = reinterpret_cast<T*>(sdP);
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r;
-    const int qr = q_start + row;
-    const float lse_r = sLse[row], delta_r = sDelta[row];
-    float pt[2], ds[2];
+// q * scale in fp32, rounded to bf16, in place over the chunks this thread
+// copied into the tile (copy_tile's assignment), once they have landed.
+template <int D>
+__device__ __forceinline__ void rescale_own(T* s, float scale) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int j = 0; j < BT * CPR / kThreads; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    T* p = at(s, c / CPR, (c % CPR) * 8);
+    float f[8];
+    load_vec(p, f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] *= scale;
+    store_vec(p, f);
+  }
+}
+
+// The dropout keep bits of one pass's 16 scores a thread: bit 4n + 2i + e for
+// the element in row r0 + 8i and column c0 + 8n + e of the accumulator layout
+// (c0 = the pass's first column + 2 (lane % 4)); K13b's rows are q rows and
+// its columns keys, K13c's the other way round, and the hash takes (q row,
+// key). Hashed while the pass's products run: hashed beside the scores, the
+// D 128 instances spilled.
+template <bool kRowsAreQ>
+__device__ __forceinline__ uint32_t keep_bits(int c0, int r0, uint32_t seed, float rate) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < SUB / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + 8 * i, col = c0 + 8 * n + e;
+        bits |= static_cast<uint32_t>(kRowsAreQ ? flash::drop_keep(row, col, seed, rate)
+                                                : flash::drop_keep(col, row, seed, rate))
+                << (4 * n + 2 * i + e);
+      }
+  return bits;
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&d)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+}
+
+// Accumulator pairs (n-tiles 2kk and 2kk + 1) rounded to bf16 and repacked
+// as the A fragment of the 16 columns 16kk .. 16kk + 15 (K10's repack of p).
+template <int NT>
+__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&d)[NT][4], int kk) {
+  a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
+  a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
+  a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
+  a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
+}
+
+// ---------------------------------------------------------------------------
+// K13b: dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* lse;
+  const float* delta;
+  T* dq;
+  int B, Sq, Skv, Hq, Hkv, causal;
+  float scale;
+  Dropout drop;
+};
+
+// The per-warp state of 16 q rows: this thread holds rows g and g + 8 of the
+// warp's 16 (g = lane / 4), and in each 8-column n-tile the columns
+// 2 * (lane % 4) and + 1 (wgmma.cuh's layout).
+template <int D>
+struct DqRows {
+  uint32_t qa[D / 16][4];  // q * scale as A fragments, one a 16-wide k step
+  uint32_t da[D / 16][4];  // dO as A fragments
+  float dq[D / 8][4];      // dQ / scale: [n-tile of 8 dims][row g: 0, 1; row g+8: 2, 3]
+  float lse2[2];           // lse * log2(e) of rows g, g + 8 (-inf and rows past Sq read as 0)
+  float delta[2];
+};
+
+// Start the copies of K/V tile j into ring slot j % 3, K and V as two commit
+// groups; every thread commits both, copies or not.
+template <int D>
+__device__ __forceinline__ void dq_load_kv(const DqArgs<D>& a, T* sK, T* sV, int j, int n_tiles,
+                                           int b, int hk) {
+  const int slot = j % kDqStages;
+  if (j < n_tiles) copy_tile<D>(sK + slot * BT * D, a.k, b, hk, j * BT, a.Skv, a.Hkv);
+  cp_commit();
+  if (j < n_tiles) copy_tile<D>(sV + slot * BT * D, a.v, b, hk, j * BT, a.Skv, a.Hkv);
+  cp_commit();
+}
+
+// One K/V tile for the block's 64 rows, in two passes of SUB keys: S =
+// (q * scale) K^T and dP = dO V^T (64 x 32 each), dS = P * (dP - delta) in
+// registers, dQ += dS K. A pass holds 32 fp32 scores a thread where the whole
+// tile would hold 64; the passes share the q and dO fragments, and dQ adds
+// the keys in the same order.
+template <int D, bool kDrop, bool kMasked>
+__device__ __forceinline__ void dq_tile(const DqArgs<D>& a, DqRows<D>& st, const T* sK,
+                                        const T* sV, int j, int row0, uint32_t seed) {
+  const int t4 = threadIdx.x % 4;
+  const int slot = j % kDqStages;
+  const T* k_t = sK + slot * BT * D;
+  const T* v_t = sV + slot * BT * D;
+
+#pragma unroll 1
+  for (int hf = 0; hf < BT / SUB; ++hf) {
+    const int key0 = hf * SUB;  // the pass's first key in the tile
+    float s[SUB / 8][4], dp[SUB / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs<SUB, 0>(s, st.qa[kk], kmajor(k_t, key0, 16 * kk), kk > 0);
+    wgmma_commit();
+    if (hf == 0) {  // V lands while the first S product runs; wait for it only now
+      cp_wait<4>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_rs<SUB, 0>(dp, st.da[kk], kmajor(v_t, key0, 16 * kk), kk > 0);
+    wgmma_commit();
+    const uint32_t keep =
+        kDrop ? keep_bits<true>(j * BT + key0 + 2 * t4, row0, seed, a.drop.rate) : 0u;
+
+    // P over S while dP runs (and the previous pass's dQ is done): rows g
+    // (i = 0) and g + 8 (i = 1).
+    wgmma_wait<1>();
+    fence_regs(s);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int cl = lane + 32 * i;
-      const int col = kv0 + cl;
-      const bool ok = qr < Sq && col < Skv && (!causal || qr >= col);
-      const float p = ok ? expf(sS[row * LDS + cl] - lse_r) : 0.f;
-      float dp = sdP[row * LDS + cl];
-      pt[i] = p;
-      if constexpr (kDrop) {
-        const bool keep = flash::drop_keep(qr, col, seed, drop.rate);
-        pt[i] = keep ? p * drop.inv_keep : 0.f;
-        dp = keep ? dp * drop.inv_keep : 0.f;
-      }
-      ds[i] = p * (dp - delta_r);
-    }
-    __syncwarp();
+      const int row = row0 + 8 * i;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int at = row * LDP + lane + 32 * i;
-      if constexpr (kPt) {
-        out_s[at] = __float2bfloat16(pt[i]);
-        out_dp[at] = __float2bfloat16(ds[i]);
-      } else {
-        out_s[at] = __float2bfloat16(ds[i]);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// K13b: dQ for rows [64 qt, 64 qt + 64) of query head h.
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq,
-                    int Hkv, float scale, int causal, Dropout drop) {
-  using L = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sdO = reinterpret_cast<T*>(smem + L::kdO);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  float* sdP = reinterpret_cast<float*>(smem + L::kdP);
-  const T* sdS = reinterpret_cast<const T*>(sS);  // dS is written over S
-  float* sLse = reinterpret_cast<float*>(smem + L::kRow);
-  float* sDelta = sLse + BQ;
-  float* sO = reinterpret_cast<float*>(smem + L::kK);  // dQ staged over K/V after the loop
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q_start = qt * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const uint32_t seed = kDrop ? flash::fold_seed(drop.seed, b, h) : 0u;
-
-  int tokens = Skv;
-  if (causal) tokens = min(tokens, q_start + BQ);
-  const int n_tiles = (tokens + BKV - 1) / BKV;
-
-  flash::load_q_scaled<T, D, L::LDH>(sQ, q, b, h, q_start, Sq, Hq, scale);
-  load_tile<D, L::LDH>(sdO, dout, b, h, q_start, Sq, Hq);
-  load_row_stats(sLse, sDelta, lse, delta, b, h, q_start, Sq, Hq);
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qa[D / 16], da[D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+      for (int n = 0; n < SUB / 8; ++n) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * L::LDH + kk * 16, L::LDH);
-    wmma::load_matrix_sync(da[kk], sdO + warp * 16 * L::LDH + kk * 16, L::LDH);
-    wmma::fill_fragment(acc[kk], 0.f);
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
-    load_tile<D, L::LDH>(sK, k, b, hk, kv0, Skv, Hkv);
-    load_tile<D, L::LDH>(sV, v, b, hk, kv0, Skv, Hkv);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows.
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc, dc;
-      wmma::fill_fragment(sc, 0.f);
-      wmma::fill_fragment(dc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kb, vb;
-        wmma::load_matrix_sync(kb, sK + n * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::mma_sync(sc, qa[kk], kb, sc);
-        wmma::load_matrix_sync(vb, sV + n * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::mma_sync(dc, da[kk], vb, dc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, sc, L::LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(sdP + warp * 16 * L::LDS + n * 16, dc, L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    probs_and_ds<kDrop, false>(sS, sdP, sLse, sDelta, warp, lane, q_start, kv0, Sq, Skv, causal,
-                               seed, drop);
-
-    // dQ += dS K for this warp's 16 rows.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> sa;
-      wmma::load_matrix_sync(sa, sdS + warp * 16 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> kb;
-        wmma::load_matrix_sync(kb, sK + kk * 16 * L::LDH + n * 16, L::LDH);
-        wmma::mma_sync(acc[n], sa, kb, acc[n]);
-      }
-    }
-    __syncthreads();  // K/V tiles and the scores are overwritten next
-  }
-
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sO + warp * 16 * L::LDO + n * 16, acc[n], L::LDO, wmma::mem_row_major);
-  __syncwarp();
-  // Lanes 2r and 2r+1 write row r of this warp's 16, half of the columns each.
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int qr = q_start + row;
-  if (qr < Sq) {
-    T* out = dq + (static_cast<size_t>(b) * Sq + qr) * Hq * D + h * D;
-    for (int cc = half * (D / 16); cc < (half + 1) * (D / 16); ++cc) {
-      float f[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = sO[row * L::LDO + cc * 8 + i] * scale;
-      store_vec(out + cc * 8, f);
-    }
-  }
-}
-
-// K13c: dK and dV of keys [64 kt, 64 kt + 64) for query head h, fp32.
-template <int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, float scale,
-                     int causal, Dropout drop) {
-  using L = DkvLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sdO = reinterpret_cast<T*>(smem + L::kdO);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  float* sdP = reinterpret_cast<float*>(smem + L::kdP);
-  const T* sPt = reinterpret_cast<const T*>(sS);   // P~ is written over S
-  const T* sdS = reinterpret_cast<const T*>(sdP);  // dS over dP
-  float* sLse = reinterpret_cast<float*>(smem + L::kRow);
-  float* sDelta = sLse + BQ;
-
-  const int kt = blockIdx.x;  // the first key tiles see the most q tiles under causality
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int kv0 = kt * BKV;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const uint32_t seed = kDrop ? flash::fold_seed(drop.seed, b, h) : 0u;
-
-  load_tile<D, L::LDH>(sK, k, b, hk, kv0, Skv, Hkv);
-  load_tile<D, L::LDH>(sV, v, b, hk, kv0, Skv, Hkv);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  // Causal: q tiles wholly above the diagonal see none of these keys.
-  for (int it = causal ? kv0 / BQ : 0; it < n_qt; ++it) {
-    const int q_start = it * BQ;
-    flash::load_q_scaled<T, D, L::LDH>(sQ, q, b, h, q_start, Sq, Hq, scale);
-    load_tile<D, L::LDH>(sdO, dout, b, h, q_start, Sq, Hq);
-    load_row_stats(sLse, sDelta, lse, delta, b, h, q_start, Sq, Hq);
-    __syncthreads();
-
-    // S = Q K^T, then dP = dO V^T, for this warp's 16 q rows.
-#pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      const T* a_tile = pass == 0 ? sQ : sdO;
-      const T* b_tile = pass == 0 ? sK : sV;
-      float* out = pass == 0 ? sS : sdP;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[BKV / 16];
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n) wmma::fill_fragment(sc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::load_matrix_sync(a, a_tile + warp * 16 * L::LDH + kk * 16, L::LDH);
-#pragma unroll
-        for (int n = 0; n < BKV / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, b_tile + n * 16 * L::LDH + kk * 16, L::LDH);
-          wmma::mma_sync(sc[n], a, bt, sc[n]);
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(fmaf(s[n][2 * i + e], kLog2e, -st.lse2[i]));
+          if constexpr (kMasked) {
+            const int col = j * BT + key0 + n * 8 + 2 * t4 + e;
+            if (!(row < a.Sq && col < a.Skv && (!a.causal || row >= col))) p = 0.f;
+          }
+          s[n][2 * i + e] = p;
         }
       }
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n)
-        wmma::store_matrix_sync(out + warp * 16 * L::LDS + n * 16, sc[n], L::LDS,
-                                wmma::mem_row_major);
     }
-    __syncwarp();
-    probs_and_ds<kDrop, true>(sS, sdP, sLse, sDelta, warp, lane, q_start, kv0, Sq, Skv, causal,
-                              seed, drop);
-    __syncthreads();  // every warp reads every q row of P~ and dS
-
-    // dV += P~^T dO and dK += dS^T (q * scale) for this warp's 16 keys.
+    // dS over P.
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> pa, sa;
-      wmma::load_matrix_sync(pa, sPt + kk * 16 * L::LDP + warp * 16, L::LDP);
-      wmma::load_matrix_sync(sa, sdS + kk * 16 * L::LDP + warp * 16, L::LDP);
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> ob, qb;
-        wmma::load_matrix_sync(ob, sdO + kk * 16 * L::LDH + n * 16, L::LDH);
-        wmma::mma_sync(dv_acc[n], pa, ob, dv_acc[n]);
-        wmma::load_matrix_sync(qb, sQ + kk * 16 * L::LDH + n * 16, L::LDH);
-        wmma::mma_sync(dk_acc[n], sa, qb, dk_acc[n]);
+      for (int n = 0; n < SUB / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float d = dp[n][2 * i + e];
+          if constexpr (kDrop) d = (keep >> (4 * n + 2 * i + e)) & 1u ? d * a.drop.inv_keep : 0.f;
+          s[n][2 * i + e] *= d - st.delta[i];
+        }
       }
     }
-    __syncthreads();  // the q tile, P~ and dS are overwritten next
-  }
 
-  // Stage each warp's 16 keys over S/dP and write the rows below Skv.
-  float* stage = sS;
-  const int key = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const size_t grow = static_cast<size_t>(Hq) * D;
+    // dQ += dS K: dS rounded to bf16 and repacked as A fragments, one per 16
+    // keys; K as B, MN-major (the keys are K).
+    uint32_t sa[SUB / 16][4];
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
+    for (int kk = 0; kk < SUB / 16; ++kk) repack(sa[kk], s, kk);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(stage + warp * 16 * L::LDO + n * 16,
-                              which == 0 ? dk_acc[n] : dv_acc[n], L::LDO, wmma::mem_row_major);
-    __syncwarp();
-    if (kv0 + key < Skv) {
-      float* out = (which == 0 ? dk : dv) + (static_cast<size_t>(b) * Skv + kv0 + key) * grow +
-                   h * D;
-      for (int c = half * (D / 8); c < (half + 1) * (D / 8); ++c)
-        *reinterpret_cast<float4*>(out + c * 4) =
-            *reinterpret_cast<const float4*>(stage + key * L::LDO + c * 4);
+    for (int kk = 0; kk < SUB / 16; ++kk)
+      wgmma_rs<D, 1>(st.dq, sa[kk], mnmajor(k_t, key0 + 16 * kk), 1);
+    wgmma_commit();  // waited for by the next pass, or below
+  }
+  wgmma_wait<0>();  // K's slot is refilled after the next tile's barrier
+  fence_regs(st.dq);
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const DqArgs<D> a) {
+  using S = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem + S::kK);
+  T* sV = reinterpret_cast<T*>(smem + S::kV);
+
+  // Block -> (q tile, batch, head): heads fastest, the heaviest q tiles first.
+  const int n_qt = (a.Sq + BT - 1) / BT;
+  const int h = blockIdx.x % a.Hq;
+  const int rest = blockIdx.x / a.Hq;
+  const int b = rest % a.B;
+  const int qt = n_qt - 1 - rest / a.B;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = qt * BT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t seed = kDrop ? flash::fold_seed(a.drop.seed, b, h) : 0u;
+
+  int tokens = a.Skv;
+  if (a.causal) tokens = min(tokens, q0 + BT);
+  const int n_tiles = (tokens + BT - 1) / BT;
+  // Interior tiles: every key at or below the tile's first row and inside Skv.
+  int n_full = a.causal ? q0 / BT : n_tiles;
+  n_full = min(min(n_full, a.Skv / BT), n_tiles);
+
+  // q and dO of the tile, staged in the rings' third slots.
+  T* sQ = sK + 2 * BT * D;
+  T* sdO = sV + 2 * BT * D;
+  copy_tile<D>(sQ, a.q, b, h, q0, a.Sq, a.Hq);
+  copy_tile<D>(sdO, a.dout, b, h, q0, a.Sq, a.Hq);
+  cp_commit();
+  dq_load_kv<D>(a, sK, sV, 0, n_tiles, b, hk);
+  dq_load_kv<D>(a, sK, sV, 1, n_tiles, b, hk);
+
+  DqRows<D> st;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + warp * 16 + g + 8 * i;
+    const size_t si = (static_cast<size_t>(b) * a.Hq + h) * a.Sq + qr;
+    st.lse2[i] = qr < a.Sq ? finite_or_zero(a.lse[si]) * kLog2e : 0.f;
+    st.delta[i] = qr < a.Sq ? a.delta[si] : 0.f;
+  }
+  zero(st.dq);
+  cp_wait<4>();  // q and dO landed; K_0, V_0, K_1, V_1 may be in flight
+  rescale_own<D>(sQ, a.scale);
+  __syncthreads();
+  {
+    // A fragments of the warp's 16 rows: matrices (rows lo, k lo), (rows hi,
+    // k lo), (rows lo, k hi), (rows hi, k hi), each one core matrix.
+    const int mi = lane / 8, r = lane % 8;
+    const int row = warp * 16 + (mi & 1) * 8 + r;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldmatrix_x4(st.qa[kk], at(sQ, row, kk * 16 + (mi >> 1) * 8));
+      ldmatrix_x4(st.da[kk], at(sdO, row, kk * 16 + (mi >> 1) * 8));
     }
-    __syncwarp();
+  }
+  const int row0 = q0 + warp * 16 + g;
+
+  // Groups in flight at the top of tile j: K_j, V_j, K_j+1, V_j+1 (and older,
+  // complete ones). wait_group 3 leaves V_j, K_j+1, V_j+1 pending.
+  int j = 0;
+  for (; j < n_full; ++j) {
+    cp_wait<3>();
+    fence_proxy_async();
+    __syncthreads();  // K_j visible to all; every warp is done with slot (j + 2) % 3
+    dq_load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk);
+    dq_tile<D, kDrop, false>(a, st, sK, sV, j, row0, seed);
+  }
+  for (; j < n_tiles; ++j) {
+    cp_wait<3>();
+    fence_proxy_async();
+    __syncthreads();
+    dq_load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk);
+    dq_tile<D, kDrop, true>(a, st, sK, sV, j, row0, seed);
+  }
+  cp_wait<0>();
+
+  // dq = scale * dQ, rounded to bf16; rows past Sq are not stored.
+  const size_t q_row = static_cast<size_t>(a.Hq) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = row0 + 8 * i;
+    if (qr < a.Sq) {
+      T* out = a.dq + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t4) =
+            pack_bf16(st.dq[n][2 * i] * a.scale, st.dq[n][2 * i + 1] * a.scale);
+    }
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+// ---------------------------------------------------------------------------
+// K13c: dK and dV
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* lse;
+  const float* delta;
+  float* dk;
+  float* dv;
+  int B, Sq, Skv, Hq, Hkv, causal;
+  float scale;
+  Dropout drop;
+};
+
+// Start the copies of q tile it (q and dO rows, lse and delta) into ring slot
+// `slot` as one commit group; threads 0-63 copy the lse, 64-127 the delta
+// (zero past Sq). Every thread commits, copies or not.
+template <int D>
+__device__ __forceinline__ void dkv_load_q(const DkvArgs<D>& a, unsigned char* smem, int it,
+                                           int n_qt, int slot, int b, int h) {
+  using S = DkvSmem<D>;
+  if (it < n_qt) {
+    const int q0 = it * BT;
+    copy_tile<D>(reinterpret_cast<T*>(smem + S::kQ) + slot * BT * D, a.q, b, h, q0, a.Sq, a.Hq);
+    copy_tile<D>(reinterpret_cast<T*>(smem + S::kdO) + slot * BT * D, a.dout, b, h, q0, a.Sq,
+                 a.Hq);
+    const int which = threadIdx.x / BT, rr = threadIdx.x % BT;
+    const bool ok = q0 + rr < a.Sq;
+    const size_t row0 = (static_cast<size_t>(b) * a.Hq + h) * a.Sq;
+    float* dst = reinterpret_cast<float*>(smem + (which == 0 ? S::kLse : S::kDelta)) + slot * BT;
+    cp_async4(dst + rr, (which == 0 ? a.lse : a.delta) + row0 + (ok ? q0 + rr : 0), ok);
+  }
+  cp_commit();
+}
+
+// One q tile for the block's 64 keys, in two passes of SUB q rows (as
+// dq_tile, for the registers): S^T = K (q * scale)^T and dP^T = V dO^T
+// (64 keys x 32 q rows each, K and V as A from shared memory), P~^T and dS^T
+// in registers, dV += P~^T dO and dK += dS^T (q * scale). dK and dV add the
+// q rows in the same order.
+template <int D, bool kDrop, bool kMasked>
+__device__ __forceinline__ void dkv_tile(const DkvArgs<D>& a, float (&dk)[D / 8][4],
+                                         float (&dv)[D / 8][4], const T* sK, const T* sV,
+                                         const T* q_t, const T* do_t, const float* lse_t,
+                                         const float* delta_t, int q0, int key0,
+                                         uint32_t seed) {
+  const int t4 = threadIdx.x % 4;
+
+#pragma unroll 1
+  for (int hf = 0; hf < BT / SUB; ++hf) {
+    const int r0 = hf * SUB;  // the pass's first q row in the tile
+    float s[SUB / 8][4], dp[SUB / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n32(s, kmajor(sK, 0, 16 * kk), kmajor(q_t, r0, 16 * kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n32(dp, kmajor(sV, 0, 16 * kk), kmajor(do_t, r0, 16 * kk), kk > 0);
+    wgmma_commit();
+    // the dropout keep bits, hashed while the products run
+    const uint32_t keep =
+        kDrop ? keep_bits<false>(q0 + r0 + 2 * t4, key0, seed, a.drop.rate) : 0u;
+
+    // P over S^T while dP^T runs: keys g (i = 0) and g + 8 (i = 1), q rows
+    // r0 + n * 8 + 2 * t4 + e of the tile.
+    wgmma_wait<1>();
+    fence_regs(s);
+#pragma unroll
+    for (int n = 0; n < SUB / 8; ++n) {
+      const int c = r0 + n * 8 + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float lse2[2] = {finite_or_zero(l2.x) * kLog2e, finite_or_zero(l2.y) * kLog2e};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(fmaf(s[n][2 * i + e], kLog2e, -lse2[e]));
+          if constexpr (kMasked) {
+            const int qr = q0 + c + e, key = key0 + 8 * i;
+            if (!(qr < a.Sq && key < a.Skv && (!a.causal || qr >= key))) p = 0.f;
+          }
+          s[n][2 * i + e] = p;
+        }
+      }
+    }
+    // P~^T over P and dS^T over dP^T.
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int n = 0; n < SUB / 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_t + r0 + n * 8 + 2 * t4);
+      const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = s[n][2 * i + e];
+          float d = dp[n][2 * i + e];
+          float pt = p;
+          if constexpr (kDrop) {
+            const bool kept = (keep >> (4 * n + 2 * i + e)) & 1u;
+            pt = kept ? p * a.drop.inv_keep : 0.f;
+            d = kept ? d * a.drop.inv_keep : 0.f;
+          }
+          s[n][2 * i + e] = pt;
+          dp[n][2 * i + e] = p * (d - dl[e]);
+        }
+      }
+    }
+
+    // dV += P~^T dO and dK += dS^T (q * scale): P~^T and dS^T rounded to bf16
+    // and repacked as A fragments, one per 16 q rows; dO and q * scale as B,
+    // MN-major (the q rows are K).
+    uint32_t pa[SUB / 16][4], sa[SUB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < SUB / 16; ++kk) {
+      repack(pa[kk], s, kk);
+      repack(sa[kk], dp, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SUB / 16; ++kk) {
+      wgmma_rs<D, 1>(dv, pa[kk], mnmajor(do_t, r0 + 16 * kk), 1);
+      wgmma_rs<D, 1>(dk, sa[kk], mnmajor(q_t, r0 + 16 * kk), 1);
+    }
+    wgmma_commit();  // waited for by the next pass, or below
+  }
+  wgmma_wait<0>();  // the q/dO slot is refilled after the next tile's barrier
+  fence_regs(dv);
+  fence_regs(dk);
+}
+
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_kernel(const DkvArgs<D> a) {
+  using S = DkvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem + S::kK);
+  T* sV = reinterpret_cast<T*>(smem + S::kV);
+
+  // Block -> (key tile, batch, head): heads fastest, the first key tiles (the
+  // most q tiles under causality) first.
+  const int h = blockIdx.x % a.Hq;
+  const int rest = blockIdx.x / a.Hq;
+  const int b = rest % a.B;
+  const int kt = rest / a.B;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int kv0 = kt * BT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t seed = kDrop ? flash::fold_seed(a.drop.seed, b, h) : 0u;
+
+  const int n_qt = (a.Sq + BT - 1) / BT;
+  // Causal: q tiles wholly above the diagonal see none of these keys.
+  const int it0 = a.causal ? kv0 / BT : 0;
+  const bool keys_ragged = kv0 + BT > a.Skv;
+
+  copy_tile<D>(sK, a.k, b, hk, kv0, a.Skv, a.Hkv);
+  copy_tile<D>(sV, a.v, b, hk, kv0, a.Skv, a.Hkv);
+  dkv_load_q<D>(a, smem, it0, n_qt, 0, b, h);  // K and V commit with q tile it0
+
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  const int key0 = kv0 + warp * 16 + g;
+
+  for (int it = it0; it < n_qt; ++it) {
+    const int slot = (it - it0) % kDkvStages;
+    T* q_t = reinterpret_cast<T*>(smem + S::kQ) + slot * BT * D;
+    cp_wait<0>();  // this thread's copies of q tile it have landed
+    rescale_own<D>(q_t, a.scale);
+    fence_proxy_async();
+    __syncthreads();  // tile it visible to all; every warp is done with the other slot
+    dkv_load_q<D>(a, smem, it + 1, n_qt, (it + 1 - it0) % kDkvStages, b, h);
+    const T* do_t = reinterpret_cast<const T*>(smem + S::kdO) + slot * BT * D;
+    const float* lse_t = reinterpret_cast<const float*>(smem + S::kLse) + slot * BT;
+    const float* delta_t = reinterpret_cast<const float*>(smem + S::kDelta) + slot * BT;
+    const int q0 = it * BT;
+    const bool masked = keys_ragged || q0 + BT > a.Sq || (a.causal && q0 < kv0 + BT - 1);
+    if (masked)
+      dkv_tile<D, kDrop, true>(a, dk, dv, sK, sV, q_t, do_t, lse_t, delta_t, q0, key0, seed);
+    else
+      dkv_tile<D, kDrop, false>(a, dk, dv, sK, sV, q_t, do_t, lse_t, delta_t, q0, key0, seed);
+  }
+  cp_wait<0>();
+
+  // The warp's keys below Skv, fp32 per query head.
+  const size_t grow = static_cast<size_t>(a.Hq) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key < a.Skv) {
+      const size_t off =
+          (static_cast<size_t>(b) * a.Skv + key) * grow + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(a.dk + off + n * 8 + 2 * t4) =
+            make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(a.dv + off + n * 8 + 2 * t4) =
+            make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <typename Kernel, typename Args>
+cudaError_t launch_grid(Kernel kernel, const Args& a, size_t smem, long long blocks,
+                        cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D, bool kDrop>
@@ -407,25 +669,20 @@ cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* dout, const 
                        const float* delta, T* dq, float* dk, float* dv, int B, int Sq, int Skv,
                        int Hq, int Hkv, float scale, int causal, Dropout drop, cudaStream_t s) {
   if (dq != nullptr) {
-    auto kernel = flash_bwd_dq_kernel<D, kDrop>;
-    cudaError_t err = prepare(kernel, DqLayout<D>::kBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Sq + BQ - 1) / BQ, Hq, B), kThreads, DqLayout<D>::kBytes, s>>>(
-        q, k, v, dout, lse, delta, dq, Sq, Skv, Hq, Hkv, scale, causal, drop);
-  } else {
-    auto kernel = flash_bwd_dkv_kernel<D, kDrop>;
-    cudaError_t err = prepare(kernel, DkvLayout<D>::kBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Skv + BKV - 1) / BKV, Hq, B), kThreads, DkvLayout<D>::kBytes, s>>>(
-        q, k, v, dout, lse, delta, dk, dv, Sq, Skv, Hq, Hkv, scale, causal, drop);
+    const DqArgs<D> a{q, k, v, dout, lse, delta, dq, B, Sq, Skv, Hq, Hkv, causal, scale, drop};
+    const long long blocks = static_cast<long long>((Sq + BT - 1) / BT) * Hq * B;
+    return launch_grid(flash_bwd_dq_kernel<D, kDrop>, a, DqSmem<D>::kBytes, blocks, s);
   }
-  return cudaGetLastError();
+  const DkvArgs<D> a{q, k, v, dout, lse, delta, dk, dv, B, Sq, Skv, Hq, Hkv, causal, scale, drop};
+  const long long blocks = static_cast<long long>((Skv + BT - 1) / BT) * Hq * B;
+  return launch_grid(flash_bwd_dkv_kernel<D, kDrop>, a, DkvSmem<D>::kBytes, blocks, s);
 }
 
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dq, float* dk, float* dv,
                          int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
                          Dropout drop, cudaStream_t s) {
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
 #define MLIO_BWD(DD, DROP)                                                                  \
   return launch_bwd<DD, DROP>(static_cast<const T*>(q), static_cast<const T*>(k),           \
                               static_cast<const T*>(v), static_cast<const T*>(dout), lse,   \

@@ -55,7 +55,7 @@
 // exp is taken as exp2 of the score times log2(e), a few fp32 ulps from exp.
 //
 // A simple kernel that is right: wgmma and TMA are later work.
-#include "gemm_tile.cuh"
+#include "cp_async.cuh"
 
 #include <math.h>
 
@@ -77,22 +77,10 @@ struct Smem {
   static constexpr size_t kBytes = kV + size_t(kStages) * BKV * LD * 2;
 };
 
-// 16 bytes from global to shared memory, or 16 zero bytes where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(gemm::smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two fp32 values rounded to bf16, lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using gemm::cp_async16;
+using gemm::cp_commit;
+using gemm::cp_wait;
+using gemm::pack_bf16;
 
 template <int D>
 struct Args {

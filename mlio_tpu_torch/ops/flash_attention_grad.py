@@ -12,6 +12,15 @@ plain PyTorch version and a launch counter:
 - K13c :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``): dV = P~^T dO and
   dK = dS^T (q * scale) per query head, fp32 [B, Skv, Hq, D].
 
+K13a is K1's kernel with the lse store. K13b and K13c run on Hopper's
+warpgroup products (``wgmma``) with the scores in registers: dS (and P~) are
+rounded to bf16 and repacked as the next product's operands without passing
+through shared memory, K13c computing the transposed products (keys as
+rows). Their tiles come through ``cp.async`` rings (K13b K and V, K13c q,
+dO, lse and delta) into a swizzled layout the tensor cores read directly,
+and only the diagonal and ragged tiles are masked. Every output element has
+one writer: no atomics, and two runs give the same bits.
+
 The glue stays in plain PyTorch, as it lies outside the Pallas kernels in
 the JAX package too: delta = rowsum(dO * O) and the GQA group sum
 (:func:`group_sum`). :func:`flash_attention_vjp` is an autograd function

@@ -38,6 +38,7 @@ CASES = {
     "causal_g4_ragged": (1, 100, 8, 2, 16, True, 0.0, 0),
     "causal_g2_dropout": (1, 72, 4, 2, 16, True, 0.2, 11),
     "full_g4_dropout_seed_max": (2, 48, 4, 1, 16, False, 0.1, 2**31 - 1),
+    "ragged_tile_g4_dropout": (1, 129, 8, 2, 32, True, 0.1, 5),
 }
 
 
@@ -84,12 +85,16 @@ def test_grads_match_jax(case, which):
 
 # bf16: (B, S, Hq, Hkv, D, causal, dropout_rate, dropout_seed). S <= 128 keeps
 # one 128-key block in the JAX forward, so its p is rounded against the row's
-# final max as the plain versions round it; D 32 makes the scale no power of
-# two, so rounding q * scale matters.
+# final max as the plain versions round it; at S 129 only the last row sees a
+# second block (the card's ragged_tile_g4_dropout case, 17 x 64 + 1 tokens,
+# at this size: the plain versions the card compares against, held to the
+# JAX kernels one row past a tile). D 32 makes the scale no power of two, so
+# rounding q * scale matters.
 BF16_CASES = {
     "causal_g4_d64": (1, 128, 8, 2, 64, True, 0.0, 0),
     "full_g1_ragged_d32": (1, 100, 4, 4, 32, False, 0.0, 0),
     "causal_g2_dropout_d32": (1, 96, 4, 2, 32, True, 0.1, 7),
+    "ragged_tile_g4_dropout": (1, 129, 8, 2, 32, True, 0.1, 5),
 }
 # Relative RMS error from the JAX kernels' bf16 outputs. The plain versions
 # lie at 9.2e-5 or less here (fp32 summation order, then a bf16 rounding that
