@@ -1,5 +1,6 @@
-// The cp.async pieces of the shared-memory rings of K10 (flash_stream.cu) and
-// of K13b/K13c (flash_bwd.cu): 16- and 4-byte asynchronous copies from device
+// The cp.async pieces of the shared-memory rings of K10 (flash_stream.cu), K1
+// and K13a (flash_fwd.cuh), K13b/K13c (flash_bwd.cu) and K12's shapes off the
+// TMA path (ln_matmul.cu): 16- and 4-byte asynchronous copies from device
 // to shared memory with zero fill, their commit groups, and the bf16 packing
 // that turns an accumulator pair into half of an mma.sync A fragment.
 //

@@ -80,13 +80,15 @@
 //   this design, and on wgmma with an unswizzled layout both ran slower on
 //   the card; a producer warp feeding the ring by TMA (FlashAttention-3) is
 //   the next step.
-#include "cp_async.cuh"
 #include "flash_fwd.cuh"
-#include "wgmma.cuh"
 
 namespace {
 
 using flash::Dropout;
+using gemm::at_sw128;
+using flash::kLog2e;
+using flash::keep_bits;
+using flash::repack;
 using gemm::cp_async16;
 using gemm::cp_async4;
 using gemm::cp_commit;
@@ -102,6 +104,7 @@ using gemm::wgmma_fence;
 using gemm::wgmma_rs;
 using gemm::wgmma_ss_n32;
 using gemm::wgmma_wait;
+using gemm::zero;
 using T = __nv_bfloat16;
 
 constexpr int BT = 64;  // rows of a q tile and of a K/V tile
@@ -110,7 +113,6 @@ constexpr int kDqStages = 3;   // K13b's K/V ring
 constexpr int kDkvStages = 2;  // K13c's q/dO ring
 constexpr int SUB = 32;        // keys (K13b) or q rows (K13c) of one pass over a tile
 static_assert(SUB == 32, "K13c's S^T and dP^T products are m64n32k16");
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
@@ -138,11 +140,6 @@ struct DkvSmem {
   static constexpr size_t kBytes = kDelta + kDkvStages * BT * 4;
 };
 
-// Element (r, c) of a tile in wgmma.cuh's swizzled layout.
-__device__ __forceinline__ T* at(T* tile, int r, int c) {
-  return reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(tile) + gemm::sw128(r, c));
-}
-
 __device__ __forceinline__ float finite_or_zero(float x) { return x == -INFINITY ? 0.f : x; }
 
 // Start the cp.async copies of rows [r0, r0 + 64) of head h of a [B, S, H, D]
@@ -159,7 +156,7 @@ __device__ __forceinline__ void copy_tile(T* s, const T* g, int b, int h, int r0
     const int c = threadIdx.x + j * kThreads;
     const int r = c / CPR, cc = c % CPR;
     const bool ok = r0 + r < S;
-    cp_async16(at(s, r, cc * 8), base + (ok ? static_cast<size_t>(r0 + r) * row : 0) + cc * 8,
+    cp_async16(at_sw128(s, r, cc * 8), base + (ok ? static_cast<size_t>(r0 + r) * row : 0) + cc * 8,
                ok);
   }
 }
@@ -172,52 +169,13 @@ __device__ __forceinline__ void rescale_own(T* s, float scale) {
 #pragma unroll
   for (int j = 0; j < BT * CPR / kThreads; ++j) {
     const int c = threadIdx.x + j * kThreads;
-    T* p = at(s, c / CPR, (c % CPR) * 8);
+    T* p = at_sw128(s, c / CPR, (c % CPR) * 8);
     float f[8];
     load_vec(p, f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] *= scale;
     store_vec(p, f);
   }
-}
-
-// The dropout keep bits of one pass's 16 scores a thread: bit 4n + 2i + e for
-// the element in row r0 + 8i and column c0 + 8n + e of the accumulator layout
-// (c0 = the pass's first column + 2 (lane % 4)); K13b's rows are q rows and
-// its columns keys, K13c's the other way round, and the hash takes (q row,
-// key). Hashed while the pass's products run: hashed beside the scores, the
-// D 128 instances spilled.
-template <bool kRowsAreQ>
-__device__ __forceinline__ uint32_t keep_bits(int c0, int r0, uint32_t seed, float rate) {
-  uint32_t bits = 0;
-#pragma unroll
-  for (int n = 0; n < SUB / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int row = r0 + 8 * i, col = c0 + 8 * n + e;
-        bits |= static_cast<uint32_t>(kRowsAreQ ? flash::drop_keep(row, col, seed, rate)
-                                                : flash::drop_keep(col, row, seed, rate))
-                << (4 * n + 2 * i + e);
-      }
-  return bits;
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&d)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-}
-
-// Accumulator pairs (n-tiles 2kk and 2kk + 1) rounded to bf16 and repacked
-// as the A fragment of the 16 columns 16kk .. 16kk + 15 (K10's repack of p).
-template <int NT>
-__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&d)[NT][4], int kk) {
-  a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
-  a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
-  a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
-  a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -294,7 +252,7 @@ __device__ __forceinline__ void dq_tile(const DqArgs<D>& a, DqRows<D>& st, const
       wgmma_rs<SUB, 0>(dp, st.da[kk], kmajor(v_t, key0, 16 * kk), kk > 0);
     wgmma_commit();
     const uint32_t keep =
-        kDrop ? keep_bits<true>(j * BT + key0 + 2 * t4, row0, seed, a.drop.rate) : 0u;
+        kDrop ? keep_bits<SUB / 8, true>(j * BT + key0 + 2 * t4, row0, seed, a.drop.rate) : 0u;
 
     // P over S while dP runs (and the previous pass's dQ is done): rows g
     // (i = 0) and g + 8 (i = 1).
@@ -402,8 +360,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const DqArgs<
     const int row = warp * 16 + (mi & 1) * 8 + r;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      ldmatrix_x4(st.qa[kk], at(sQ, row, kk * 16 + (mi >> 1) * 8));
-      ldmatrix_x4(st.da[kk], at(sdO, row, kk * 16 + (mi >> 1) * 8));
+      ldmatrix_x4(st.qa[kk], at_sw128(sQ, row, kk * 16 + (mi >> 1) * 8));
+      ldmatrix_x4(st.da[kk], at_sw128(sdO, row, kk * 16 + (mi >> 1) * 8));
     }
   }
   const int row0 = q0 + warp * 16 + g;
@@ -510,7 +468,7 @@ __device__ __forceinline__ void dkv_tile(const DkvArgs<D>& a, float (&dk)[D / 8]
     wgmma_commit();
     // the dropout keep bits, hashed while the products run
     const uint32_t keep =
-        kDrop ? keep_bits<false>(q0 + r0 + 2 * t4, key0, seed, a.drop.rate) : 0u;
+        kDrop ? keep_bits<SUB / 8, false>(q0 + r0 + 2 * t4, key0, seed, a.drop.rate) : 0u;
 
     // P over S^T while dP^T runs: keys g (i = 0) and g + 8 (i = 1), q rows
     // r0 + n * 8 + 2 * t4 + e of the tile.
@@ -712,11 +670,11 @@ extern "C" int mlio_flash_fwd_lse(const void* q, const void* k, const void* v, v
                                   float scale, int causal, int drop_seed, float drop_rate,
                                   float drop_inv_keep, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash::launch<T, T, true>(q, k, v, nullptr, nullptr, out, lse, nullptr, Skv, B, Sq,
-                                   Skv, Hq, Hkv, D, 0, scale, causal,
-                                   Dropout{static_cast<uint32_t>(drop_seed), drop_rate,
-                                           drop_inv_keep},
-                                   static_cast<cudaStream_t>(stream));
+  return flash::launch_fwd<true>(q, k, v, out, lse, nullptr, Skv, B, Sq, Skv, Hq, Hkv, D, 0,
+                                 scale, causal,
+                                 Dropout{static_cast<uint32_t>(drop_seed), drop_rate,
+                                         drop_inv_keep},
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // K13b: dq [B, Sq, Hq, D] bf16 from q, k, v, dout (bf16, as mlio_flash_fwd_lse)

@@ -1,48 +1,33 @@
-// K1: flash attention forward (prefill) for Hopper.
+// K1: flash attention forward (prefill) for Hopper, with dropout and with the
+// log-sum-exp; and K9, the same function over an INT8 K/V cache.
 //
-// Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (the path
-// without user mask or LSE output), dropout included. q [B, Sq, Hq, D], k/v
+// K1 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (:37, its
+// pallas_call at :867): the path without a user mask, dropout (:140-150) and
+// the lse output (return_stats, :531-535) included. q [B, Sq, Hq, D], k/v
 // [B, Skv, Hkv, D] in the bshd layout, out [B, Sq, Hq, D]:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
 // over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
 // valid key gives 0.
 //
-// Bound: at the prefill shapes of GPT-2 small (q 704 rows against a
-// 1024-slot cache holding 704 tokens, D = 64) the causal work is ~6 GFLOP
-// against ~35 MB of q, k, v and out that the function must move, so it sits
-// near the H100's flops-per-byte balance point (~295, SXM data sheet); at
-// longer prompts it is bound by operations. The design: one block per (q tile of 64 rows, head,
-// batch), four warps of 16 rows each; Q, K and V tiles in shared memory;
-// both products on the tensor cores through WMMA (bf16 inputs, fp32
-// accumulate); online softmax in fp32. The kv loop stops at
-// min(kv_len[b], q_start + q_offset + 64), the TPU kernel's causal early
-// exit, and the ragged edges (q rows past Sq, keys past kv_len) are masked
-// or zero-filled in the kernel, with no padded copies of the inputs. The
-// heaviest q tiles (the last, under causality) are scheduled first.
+// Bound, on the H100 SXM: at GPT-2 small's prefill (8 x 704 queries against
+// a 1024-slot cache holding 704 tokens, 12 heads of 64, causal) 6.1 GFLOP
+// (6.2 us at 989 TFLOP/s) against 35 MB of q, out and the valid K/V rows (11
+// us at K14's ~3.1 TB/s): bytes, barely; at llama3-8b's training attention
+// (B 1, S 2048, 32/8 heads of 128) 34.4 GFLOP, 35 us: operations. The kernel
+// is flash_fwd.cuh's, which K13a (flash_bwd.cu) shares; its note gives the
+// design: wgmma products with the scores, p and the output in registers, a
+// three-stage cp.async K/V ring, interior tiles unmasked. The earlier kernel
+// (WMMA through shared memory) ran 5.3x SDPA at GPT-2's prefill.
 //
-// Rounding follows _flash_fwd_kernel: the scale is folded into q in fp32 and
-// rounded back to the input dtype; p is rounded to V's dtype before the PV
-// product while the row sum l adds the fp32 p; out = acc / l.
-//
-// A simple kernel that is right: wgmma, TMA and a pipelined K/V ring are
-// later work. The kernel itself lives in flash_fwd.cuh, which K13a's
-// forward with the log-sum-exp (flash_bwd.cu) shares. Dropout is a second
-// instance (kDrop), so the prefill's instance keeps its code.
-//
-// K9, the same kernel over an INT8 cache (TK = int8_t), replaces
-// mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq: k/v are int8
-// [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv] per (token, head). An int8
-// value widens to bf16 exactly (|v| <= 127 fits bf16's 8-bit significand),
-// so the K/V tiles widen on their way into shared memory and both products
-// stay bf16 WMMA with fp32 accumulation; the tile's scales are staged beside
-// them. As in the TPU kernel the dequant is fused: the K scale multiplies
-// the fp32 score column after the QK product, the V scale multiplies p
-// before p is rounded to bf16 for the PV product, and the row sum l adds the
-// unscaled fp32 p. Nothing is padded or copied. Bound at GPT-2 small's
-// prefill (8 x 704 queries, 704 valid int8 K/V rows of 12 heads): 26.5 MB of
-// q, out, K/V and scales, 7.9 us at 3.35 TB/s, and 6.09 GFLOP, 6.2 us at 989
-// TFLOP/s: bytes, by a little (K1's bf16 bound is 10.3 us).
+// K9 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq (:199,
+// pallas_call :837): k/v int8 [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv]
+// per (token, head). It keeps the earlier WMMA body (flash_fwd_kvq.cuh),
+// whose tiles widen int8 to bf16 on their way into shared memory, with the
+// dequant fused as in the TPU kernel. Bound at GPT-2 small's prefill: 26.5
+// MB of q, out, K/V and scales (7.9 us at 3.35 TB/s) against 6.09 GFLOP (6.2
+// us): bytes, by a little.
 #include "flash_fwd.cuh"
+#include "flash_fwd_kvq.cuh"
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. kv_len
 // is a [B] int32 device array, or null to use kv_len_scalar for every
@@ -56,9 +41,9 @@ extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, void*
                               void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   const flash::Dropout drop{static_cast<uint32_t>(drop_seed), drop_rate, drop_inv_keep};
-  return flash::launch<__nv_bfloat16, __nv_bfloat16, false>(
-      q, k, v, nullptr, nullptr, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
-      q_offset, scale, causal, drop, static_cast<cudaStream_t>(stream));
+  return flash::launch_fwd<false>(q, k, v, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
+                                  Hkv, D, q_offset, scale, causal, drop,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // K9: as mlio_flash_fwd with k, v int8 [B, Skv, Hkv, D] and their fp32
@@ -69,9 +54,9 @@ extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
                                   int Hq, int Hkv, int D, int q_offset, float scale, int causal,
                                   void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash::launch<__nv_bfloat16, int8_t, false>(
-      q, k, v, k_scale, v_scale, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
-      q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f}, static_cast<cudaStream_t>(stream));
+  return flash_kvq::launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar,
+                                          B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // K1 with the log-sum-exp: as mlio_flash_fwd without dropout, and also
@@ -83,7 +68,7 @@ extern "C" int mlio_flash_fwd_stats(const void* q, const void* k, const void* v,
                                     int Sq, int Skv, int Hq, int Hkv, int D, int q_offset,
                                     float scale, int causal, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash::launch<__nv_bfloat16, __nv_bfloat16, true>(
-      q, k, v, nullptr, nullptr, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, D,
-      q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f}, static_cast<cudaStream_t>(stream));
+  return flash::launch_fwd<true>(q, k, v, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
+                                 D, q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f},
+                                 static_cast<cudaStream_t>(stream));
 }

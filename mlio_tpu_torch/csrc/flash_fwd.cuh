@@ -1,348 +1,398 @@
-// The flash attention forward shared by K1 and K9 (flash_fwd.cu) and by
-// K13a, the training forward with the log-sum-exp (flash_bwd.cu), and the
-// position-hashed dropout that K1 and K13 regenerate.
+// The bf16 flash attention forward on Hopper's warpgroup products: K1
+// (flash_fwd.cu: mlio_flash_fwd, with dropout, and mlio_flash_fwd_stats) and
+// K13a, its instance with the log-sum-exp (flash_bwd.cu: mlio_flash_fwd_lse).
+// Also the tile helpers that K13b and K13c (flash_bwd.cu) share with it.
 //
-// q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] in the bshd layout, out [B, Sq, Hq, D]:
+// Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (:37, its
+// pallas_call at :867) and mlio_tpu/ops/flash_attention_grad.py::
+// _fwd_lse_kernel (:49, pallas_call :285). q [B, Sq, Hq, D], k/v
+// [B, Skv, Hkv, D] bf16 in the bshd layout, out [B, Sq, Hq, D]:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
 // over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
-// valid key gives 0.
+// valid key gives 0 (and lse -inf). kLse also writes lse[b, h, i] = m +
+// log(l) fp32. kDrop: post-softmax dropout (dropout.cuh): the kept p are
+// scaled by 1 / (1 - rate) in the PV product only, and l keeps the true sum.
 //
-// One block per (q tile of 64 rows, head, batch), four warps of 16 rows
-// each; Q, K and V tiles in shared memory; both products on the tensor cores
-// through WMMA (bf16 inputs, fp32 accumulate); online softmax in fp32. The kv
-// loop stops at min(kv_len[b], q_start + q_offset + 64), the TPU kernel's
-// causal early exit, and the ragged edges (q rows past Sq, keys past kv_len)
-// are masked or zero-filled in the kernel, with no padded copies of the
-// inputs. The heaviest q tiles (the last, under causality) are scheduled
-// first.
+// Rounding follows _flash_fwd_kernel: q * scale in fp32 rounded back to
+// bf16; p rounded to bf16 for the PV product while l adds the fp32 p, p
+// taken against the running max; out = acc / l, lse = m + log(l). exp is
+// taken as exp2 of the score times log2(e), a few fp32 ulps from exp.
 //
-// Rounding follows _flash_fwd_kernel: the scale is folded into q in fp32 and
-// rounded back to the input dtype; p is rounded to V's dtype before the PV
-// product while the row sum l adds the fp32 p; out = acc / l.
-//
-// kDrop (mlio_tpu/ops/flash_attention.py:140-150, and the same branch of
-// _fwd_lse_kernel): post-softmax dropout. A probability is kept where
-// drop_u01(row position, key position, seed folded with (batch, query head))
-// >= rate; the kept p are scaled by 1 / (1 - rate) in the PV product only,
-// and l keeps the true softmax sum. The hash sees absolute positions, so the
-// backward kernels regenerate the same mask whatever their tiles.
-//
-// kLse (K13a, mlio_tpu/ops/flash_attention_grad.py:49): also writes
-// lse[b, h, i] = m + log(l) in fp32, -inf for a row with no valid key.
-//
-// TK is the K/V element type: T (K1, K13a) or int8_t with fp32 scales ks, vs
-// per (token, head) (K9). An int8 value widens to bf16 exactly, so the K/V
-// tiles widen on their way into shared memory and both products stay bf16
-// WMMA; the K scale multiplies the fp32 score after the QK product, the V
-// scale multiplies p before p is rounded to bf16 for the PV product, and l
-// adds the unscaled fp32 p.
+// Bound, on the H100 SXM (989 TFLOP/s bf16, K14's measured ~3.1 TB/s):
+// at llama3-8b's training attention (B 1, S 2048, 32/8 heads of 128, causal)
+// 4 x pairs = 34.4 GFLOP, 35 us, against 42 MB, 13 us: operations; at GPT-2
+// small's prefill (8 x 704 queries, 704 valid keys, 12 heads of 64) 6.1
+// GFLOP, 6.2 us, against 35 MB of q, out and the valid K/V rows, 11 us:
+// bytes, barely. Either way the tensor cores must do the work with the
+// softmax, the loads and the barriers out of their way. The earlier kernel
+// (WMMA) ran 44 TFLOP/s at llama3-8b. What held it back, and what this
+// design does about each:
+// - Scores round-tripped through shared memory (WMMA hides its fragment
+//   layout): S went out as fp32, came back half a row a lane, p went out as
+//   bf16 and came back as a WMMA fragment, and O lived in shared memory as
+//   fp32, rescaled, loaded and stored every tile (103 KB a block at D 128).
+//   Here S = Q K^T lands in wgmma accumulators, whose (row, column) of each
+//   element is public: the mask, the running max (a row spreads over a quad
+//   of lanes: two __shfl_xor), exp, the dropout hash and l are computed on
+//   them; p is rounded to bf16 and repacked in registers as the A operand of
+//   O += P V, and O stays in registers, rescaled there by alpha. No score
+//   and no output passes through shared memory.
+// - Nothing was pipelined: K/V tiles were loaded through registers between
+//   two block barriers. Here the 64-key K/V tiles come through a three-stage
+//   cp.async ring (tile j + 2 copied while tile j computes), one barrier a
+//   tile, and the tensor cores read Q, K and V from shared memory themselves
+//   (wgmma.cuh's 128-byte swizzled layout: Q and K K-major, V MN-major),
+//   so no operand passes through registers but p.
+// - One block of four warps with 16 rows each: here a block is one
+//   warpgroup owning 64 q rows, and two blocks (D 128) or three (D 64) share
+//   an SM, so one block's softmax runs while another's products fill the
+//   tensor cores.
+// - Interior tiles take no mask: the mask applies on the diagonal tile, at
+//   the kv_len tail, and nowhere else (K10's split). The kv loop stops at
+//   min(kv_len, first row + q_offset + 64), the TPU kernel's causal early
+//   exit; keys past kv_len are zero-filled by the copies, q
+//   rows past Sq are zero and not stored, so nothing is padded.
+// The heaviest q tiles (the last, under causality) start first, the query
+// heads of one KV head side by side so that their K/V meet in L2. Every
+// output has one writer and every sum a fixed order: two runs give the same
+// bits.
 #pragma once
 
-#include "common.cuh"
+#include "cp_async.cuh"
+#include "dropout.cuh"
+#include "wgmma.cuh"
 
 #include <math.h>
-#include <mma.h>
 
 namespace flash {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+using gemm::at_sw128;
+using gemm::cp_async16;
+using gemm::cp_commit;
+using gemm::cp_wait;
+using gemm::fence_proxy_async;
+using gemm::fence_regs;
+using gemm::kmajor;
+using gemm::mnmajor;
+using gemm::pack_bf16;
+using gemm::wgmma_commit;
+using gemm::wgmma_fence;
+using gemm::wgmma_rs;
+using gemm::wgmma_ss_n64;
+using gemm::wgmma_wait;
+using gemm::zero;
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BKV = 64;  // keys per kv tile
-constexpr int kWarps = BQ / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int BT = 64;          // q rows of a warpgroup; keys of a K/V tile
+constexpr int kWgThreads = 128;  // a warpgroup: four warps of 16 rows
+constexpr int kStages = 3;       // the K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
 
-// ---------------------------------------------------------------------------
-// Position-hashed dropout (mlio_tpu/ops/dropmask.py), in uint32: the JAX
-// int32 products wrap modulo 2^32 and its shifts are logical, which uint32
-// arithmetic gives as it is.
-// ---------------------------------------------------------------------------
+// Blocks an SM, by head dim; a block is one warpgroup. Two warpgroups a
+// block sharing one K/V ring (half the K/V traffic) measured no faster at
+// llama3-8b's attention and slower at GPT-2's prefill and with dropout
+// (PERF.md, Findings).
+template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
 
-struct Dropout {
-  uint32_t seed;   // the user's seed, as its int32 bit pattern
-  float rate;      // drop probability, compared in fp32
-  float inv_keep;  // 1 / (1 - rate), rounded to fp32
+// Accumulator pairs (n-tiles 2kk and 2kk + 1) rounded to bf16 and repacked
+// as the A fragment of the 16 columns 16kk .. 16kk + 15 (K10's repack of p).
+template <int NT>
+__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&d)[NT][4], int kk) {
+  a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
+  a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
+  a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
+  a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
+}
+
+struct FwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  float* lse;
+  const int* kv_len_arr;  // [B], or null for kv_len_scalar
+  int kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal;
+  float scale;
+  Dropout drop;
 };
 
-__device__ __forceinline__ uint32_t fold_seed(uint32_t seed, int b, int h) {
-  return seed + static_cast<uint32_t>(b) * 131071u + static_cast<uint32_t>(h) * 8191u;
-}
-
-__device__ __forceinline__ float drop_u01(uint32_t i, uint32_t j, uint32_t seed) {
-  uint32_t h = (i * 0x9E3779B9u) ^ (j * 0x85EBCA6Bu);
-  h += seed * 0xC2B2AE35u;
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return static_cast<float>(h & 0x7FFFFFu) * (1.0f / 8388608.0f);
-}
-
-__device__ __forceinline__ bool drop_keep(int row, int col, uint32_t seed, float rate) {
-  return drop_u01(static_cast<uint32_t>(row), static_cast<uint32_t>(col), seed) >= rate;
-}
-
+// The q tile, then the K ring and the V ring; every tile 8 or 16 KB, so each
+// starts 1 KB aligned.
 template <int D>
-struct Layout {
-  // Row pitches, padded against shared-memory bank conflicts; every WMMA
-  // tile pointer stays 32-byte aligned.
-  static constexpr int LDH = D + 8;    // Q, K, V tiles (16-bit elements)
-  static constexpr int LDS = BKV + 4;  // scores (fp32)
-  static constexpr int LDP = BKV + 8;  // probabilities (16-bit elements)
-  static constexpr int LDO = D + 4;    // output accumulator (fp32)
+struct FwdSmem {
+  static constexpr size_t kTile = size_t(BT) * D * 2;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + size_t(BQ) * LDH * 2;
-  static constexpr size_t kV = kK + size_t(BKV) * LDH * 2;
-  static constexpr size_t kS = kV + size_t(BKV) * LDH * 2;
-  static constexpr size_t kP = kS + size_t(BQ) * LDS * 4;
-  static constexpr size_t kO = kP + size_t(BQ) * LDP * 2;
-  static constexpr size_t kBytes = kO + size_t(BQ) * LDO * 4;
+  static constexpr size_t kK = kTile;
+  static constexpr size_t kV = kK + kStages * kTile;
+  static constexpr size_t kBytes = kV + kStages * kTile;
 };
 
-// Eight int8 values (an 8-byte load) widened to T, as one 16-byte vector.
-template <typename T>
-__device__ __forceinline__ uint4 widen_i8(const uint2 raw) {
-  float f[8];
-  unpack_i8x8(raw, f);
-  uint4 out;
-  T* e = reinterpret_cast<T*>(&out);
+// The scaled q tile of rows [q_start, q_start + 64) of head h: q * scale in
+// fp32, rounded to bf16, into the swizzled tile; rows past Sq are 0.
+template <int D>
+__device__ __forceinline__ void load_q(const FwdArgs& a, bf16* sQ, int b, int h, int q_start) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  const size_t q_row = static_cast<size_t>(a.Hq) * D;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = from_f32<T>(f[i]);
-  return out;
-}
-
-// The scaled Q tile of rows [q_start, q_start + 64) of head h: q * scale in
-// fp32, rounded back to T; rows past Sq are 0.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_q_scaled(T* sQ, const T* q, int b, int h, int q_start, int Sq,
-                                              int Hq, float scale) {
-  constexpr int V8 = 8, CPR = D / V8;
-  const size_t q_row = static_cast<size_t>(Hq) * D;
-  for (int c = threadIdx.x; c < BQ * CPR; c += blockDim.x) {
+  for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
+    const int c = threadIdx.x + i * kWgThreads;
     const int r = c / CPR, cc = c % CPR;
     const int qr = q_start + r;
-    float f[V8];
-    if (qr < Sq) {
-      load_vec(q + (static_cast<size_t>(b) * Sq + qr) * q_row + h * D + cc * V8, f);
+    float f[8];
+    if (qr < a.Sq) {
+      load_vec(a.q + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D +
+                   cc * 8,
+               f);
 #pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] *= scale;
+      for (int e = 0; e < 8; ++e) f[e] *= a.scale;
     } else {
 #pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] = 0.f;
+      for (int e = 0; e < 8; ++e) f[e] = 0.f;
     }
-    store_vec(sQ + r * LD + cc * V8, f);
+    store_vec(at_sw128(sQ, r, cc * 8), f);
   }
 }
 
-template <typename T, typename TK, int D, bool kDrop, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const TK* __restrict__ k, const TK* __restrict__ v,
-                 const float* __restrict__ ks, const float* __restrict__ vs,
-                 T* __restrict__ out, float* __restrict__ lse,
-                 const int* __restrict__ kv_len_arr, int kv_len_scalar,
-                 int Sq, int Skv, int Hq, int Hkv, int q_offset, float scale, int causal,
-                 Dropout drop) {
-  using L = Layout<D>;
-  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
-  constexpr int V8 = 8;        // 16-bit elements per 16-byte vector
-  constexpr int CPR = D / V8;  // vectors per row
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  T* sP = reinterpret_cast<T*>(smem + L::kP);
-  float* sO = reinterpret_cast<float*>(smem + L::kO);
-  __shared__ float sKs[BKV], sVs[BKV];  // the tile's K/V scales (K9)
+// Start the copies of K/V tile j (keys 64j .. 64j + 63 of KV head hk) into
+// ring slot j % kStages as one commit group; keys at or past kvl are
+// zero-filled (a V row past the valid keys must not be NaN: p = 0 there, and
+// 0 * NaN is NaN). Every thread commits, copies or not.
+template <int D>
+__device__ __forceinline__ void load_kv(const FwdArgs& a, bf16* sK, bf16* sV, int j, int n_tiles,
+                                        int b, int hk, int kvl) {
+  constexpr int CPR = D / 8;
+  if (j < n_tiles) {
+    const size_t kv_row = static_cast<size_t>(a.Hkv) * D;
+    const size_t base = static_cast<size_t>(b) * a.Skv * kv_row + static_cast<size_t>(hk) * D;
+    bf16* k_t = sK + (j % kStages) * BT * D;
+    bf16* v_t = sV + (j % kStages) * BT * D;
+#pragma unroll
+    for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
+      const int c = threadIdx.x + i * kWgThreads;
+      const int r = c / CPR, cc = c % CPR;
+      const int t = j * BT + r;
+      const bool ok = t < kvl;
+      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 8;
+      cp_async16(at_sw128(k_t, r, cc * 8), a.k + off, ok);
+      cp_async16(at_sw128(v_t, r, cc * 8), a.v + off, ok);
+    }
+  }
+  cp_commit();
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q_start = qt * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const uint32_t seed = kDrop ? fold_seed(drop.seed, b, h) : 0u;
+// A warpgroup's state of 64 q rows: this thread holds rows g and g + 8 of
+// its warp's 16 (g = lane / 4), and in each 8-column n-tile the columns
+// 2 * (lane % 4) and + 1 (wgmma.cuh's layout).
+template <int D>
+struct FwdRows {
+  float o[D / 8][4];  // output accumulator: [n-tile of 8 dims][row g: 0, 1; row g+8: 2, 3]
+  float m[2], l[2];   // running max, and this thread's part of the row sum
+};
 
-  const int kvl = min(kv_len_arr != nullptr ? kv_len_arr[b] : kv_len_scalar, Skv);
-  int tokens = kvl;
-  if (causal) tokens = min(tokens, q_start + q_offset + BQ);
-  const int n_tiles = tokens > 0 ? (tokens + BKV - 1) / BKV : 0;
-
-  const size_t q_row = static_cast<size_t>(Hq) * D;
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
-
-  load_q_scaled<T, D, L::LDH>(sQ, q, b, h, q_start, Sq, Hq, scale);
-  for (int i = tid; i < BQ * L::LDO; i += kThreads) sO[i] = 0.f;
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qa[D / 16];
+// One K/V tile for the warpgroup's 64 rows: S = (q * scale) K^T (64 x 64, q
+// and K from shared memory), the online softmax on the accumulators, O += P V
+// with p repacked in registers and V MN-major from shared memory.
+template <int D, bool kDrop, bool kMasked>
+__device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const bf16* q_t,
+                                         const bf16* k_t, const bf16* v_t, int kv0, int row_abs0,
+                                         int kvl, uint32_t seed) {
+  const int t4 = threadIdx.x % 4;
+  float s[BT / 8][4];
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * L::LDH + kk * 16, L::LDH);
+    wgmma_ss_n64(s, kmajor(q_t, 0, 16 * kk), kmajor(k_t, 0, 16 * kk), kk > 0);
+  wgmma_commit();
+  // the dropout keep bits, hashed while the product runs
+  const uint32_t keep =
+      kDrop ? keep_bits<BT / 8, true>(kv0 + 2 * t4, row_abs0, seed, a.drop.rate) : 0u;
+  wgmma_wait<0>();
+  fence_regs(s);
 
-  // Lanes 2r and 2r+1 own row r of this warp's 16, half of the columns each.
-  const int r = lane / 2;
-  const int half = lane % 2;
-  const int row = warp * 16 + r;
-  const int row_abs = q_start + row + q_offset;
-  float m = -INFINITY, l = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
-    for (int c = tid; c < BKV * CPR; c += kThreads) {
-      const int rr = c / CPR, cc = c % CPR;
-      const int t = kv0 + rr;
-      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
-      if (t < kvl) {
-        const size_t off = (static_cast<size_t>(b) * Skv + t) * kv_row + hk * D + cc * V8;
-        if constexpr (kQuant) {
-          kraw = widen_i8<T>(*reinterpret_cast<const uint2*>(k + off));
-          vraw = widen_i8<T>(*reinterpret_cast<const uint2*>(v + off));
-        } else {
-          kraw = *reinterpret_cast<const uint4*>(k + off);
-          vraw = *reinterpret_cast<const uint4*>(v + off);
+  // Online softmax, rows g (i = 0) and g + 8 (i = 1).
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if constexpr (kMasked) {
+      const int row_abs = row_abs0 + 8 * i;
+#pragma unroll
+      for (int n = 0; n < BT / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + n * 8 + 2 * t4 + e;
+          if (!(col < kvl && (!a.causal || row_abs >= col))) s[n][2 * i + e] = -INFINITY;
         }
       }
-      *reinterpret_cast<uint4*>(sK + rr * L::LDH + cc * V8) = kraw;
-      *reinterpret_cast<uint4*>(sV + rr * L::LDH + cc * V8) = vraw;
     }
-    if (kQuant && tid < BKV) {
-      const int t = kv0 + tid;
-      const size_t si = (static_cast<size_t>(b) * Skv + t) * Hkv + hk;
-      sKs[tid] = t < kvl ? ks[si] : 0.f;
-      sVs[tid] = t < kvl ? vs[si] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
+    float mx = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, sK + n * 16 * L::LDH + kk * 16, L::LDH);
-        wmma::mma_sync(sc, qa[kk], kb, sc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, sc, L::LDS, wmma::mem_row_major);
+    for (int n = 0; n < BT / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[i], mx);
+    float m_safe = m_new;
+    if constexpr (kMasked) {
+      m_safe = (m_new == -INFINITY) ? 0.f : m_new;
+      alpha[i] = (st.m[i] == -INFINITY) ? 0.f : exp2f((st.m[i] - m_safe) * kLog2e);
+    } else {
+      alpha[i] = exp2f((st.m[i] - m_safe) * kLog2e);  // exp(-inf) = 0 on the first tile
     }
-    __syncwarp();
-
-    // Online softmax on row r.
-    const float* srow = sS + row * L::LDS + half * (BKV / 2);
-    float s_loc[BKV / 2];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const int col_abs = kv0 + half * (BKV / 2) + c;
-      const bool ok = col_abs < kvl && (!causal || row_abs >= col_abs);
-      const float sc = kQuant ? srow[c] * sKs[half * (BKV / 2) + c] : srow[c];
-      s_loc[c] = ok ? sc : -INFINITY;
-      tmax = fmaxf(tmax, s_loc[c]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);
-    const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
-    const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_safe);
+    const float mb = m_safe * kLog2e;
     float psum = 0.f;
-    T* prow = sP + row * L::LDP + half * (BKV / 2);
 #pragma unroll
-    for (int c = 0; c < BKV / 2; ++c) {
-      const float p = (s_loc[c] == -INFINITY) ? 0.f : expf(s_loc[c] - m_safe);
-      psum += p;
-      float pv = kQuant ? p * sVs[half * (BKV / 2) + c] : p;
-      if constexpr (kDrop)
-        pv = drop_keep(row_abs, kv0 + half * (BKV / 2) + c, seed, drop.rate)
-                 ? pv * drop.inv_keep : 0.f;
-      prow[c] = from_f32<T>(pv);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = sO + row * L::LDO + half * (D / 2);
+    for (int n = 0; n < BT / 8; ++n) {
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
-      wmma::load_matrix_sync(oc, sO + warp * 16 * L::LDO + n * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vb;
-        wmma::load_matrix_sync(pa, sP + warp * 16 * L::LDP + kk * 16, L::LDP);
-        wmma::load_matrix_sync(vb, sV + kk * 16 * L::LDH + n * 16, L::LDH);
-        wmma::mma_sync(oc, pa, vb, oc);
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(s[n][2 * i + e], kLog2e, -mb));  // exp(-inf) = 0
+        psum += p;
+        if constexpr (kDrop)
+          s[n][2 * i + e] = (keep >> (4 * n + 2 * i + e)) & 1u ? p * a.drop.inv_keep : 0.f;
+        else
+          s[n][2 * i + e] = p;
       }
-      wmma::store_matrix_sync(sO + warp * 16 * L::LDO + n * 16, oc, L::LDO, wmma::mem_row_major);
     }
-    __syncthreads();  // K/V tiles are overwritten next
+    st.l[i] = st.l[i] * alpha[i] + psum;
+    st.m[i] = m_new;
   }
-  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.o[n][0] *= alpha[0];
+    st.o[n][1] *= alpha[0];
+    st.o[n][2] *= alpha[1];
+    st.o[n][3] *= alpha[1];
+  }
 
-  const int qr = q_start + row;
-  if (qr < Sq) {
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    T* orow_g = out + (static_cast<size_t>(b) * Sq + qr) * q_row + h * D;
+  // O += P V: p rounded to bf16 and repacked as A fragments, one per 16 keys;
+  // V as B, MN-major (the keys are K).
+  uint32_t pa[BT / 16][4];
 #pragma unroll
-    for (int cc = half * (CPR / 2); cc < (half + 1) * (CPR / 2); ++cc) {
-      float f[V8];
+  for (int kk = 0; kk < BT / 16; ++kk) repack(pa[kk], s, kk);
+  wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < V8; ++i) f[i] = sO[row * L::LDO + cc * V8 + i] / l_safe;
-      store_vec(orow_g + cc * V8, f);
+  for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs<D, 1>(st.o, pa[kk], mnmajor(v_t, 16 * kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();  // the slot is refilled after the next tile's barrier
+  fence_regs(st.o);
+}
+
+template <int D, bool kDrop, bool kLse>
+__global__ void __launch_bounds__(kWgThreads, kMinBlocks<D>)
+flash_fwd_kernel(const FwdArgs a) {
+  using S = FwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem + S::kQ);
+  bf16* sK = reinterpret_cast<bf16*>(smem + S::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + S::kV);
+
+  // Block -> (q tile, batch, head): heads fastest, the heaviest q tiles first.
+  const int n_qt = (a.Sq + BT - 1) / BT;
+  const int h = blockIdx.x % a.Hq;
+  const int rest = blockIdx.x / a.Hq;
+  const int b = rest % a.B;
+  const int qt = n_qt - 1 - rest / a.B;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q_start = qt * BT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t seed = kDrop ? fold_seed(a.drop.seed, b, h) : 0u;
+
+  const int kvl = min(a.kv_len_arr != nullptr ? a.kv_len_arr[b] : a.kv_len_scalar, a.Skv);
+  // The block's tiles (up to its last row's causal limit), and its interior
+  // ones (every key at or below its first row and inside kvl).
+  const int first_row = q_start + a.q_offset;
+  int tokens = kvl;
+  if (a.causal) tokens = min(tokens, first_row + BT);
+  const int n_tiles = tokens > 0 ? (tokens + BT - 1) / BT : 0;
+  int n_full = a.causal ? (first_row > 0 ? first_row / BT : 0) : n_tiles;
+  n_full = min(min(n_full, kvl / BT), n_tiles);
+
+  load_q<D>(a, sQ, b, h, q_start);
+  load_kv<D>(a, sK, sV, 0, n_tiles, b, hk, kvl);
+  load_kv<D>(a, sK, sV, 1, n_tiles, b, hk, kvl);
+
+  FwdRows<D> st;
+  zero(st.o);
+  st.m[0] = st.m[1] = -INFINITY;
+  st.l[0] = st.l[1] = 0.f;
+  const int row_abs0 = first_row + warp * 16 + g;
+
+  // Groups in flight at the top of tile j: tile j and tile j + 1 (and older,
+  // complete ones). wait_group 1 leaves tile j + 1 pending.
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<1>();
+    fence_proxy_async();
+    // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
+    __syncthreads();
+    load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
+    const bf16* k_t = sK + (j % kStages) * BT * D;
+    const bf16* v_t = sV + (j % kStages) * BT * D;
+    if (j < n_full)
+      fwd_tile<D, kDrop, false>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed);
+    else
+      fwd_tile<D, kDrop, true>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed);
+  }
+  cp_wait<0>();
+
+  // out = O / l, rounded to bf16, and lse = m + log(l); rows past Sq are not
+  // stored.
+  const size_t q_row = static_cast<size_t>(a.Hq) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = st.l[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qr = q_start + warp * 16 + g + 8 * i;
+    if (qr < a.Sq) {
+      const float l_safe = (l == 0.f) ? 1.f : l;
+      bf16* orow =
+          a.out + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
+            pack_bf16(st.o[n][2 * i] / l_safe, st.o[n][2 * i + 1] / l_safe);
+      if (kLse && t4 == 0)
+        a.lse[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + qr] =
+            (st.m[i] == -INFINITY) ? -INFINITY : st.m[i] + logf(l_safe);
     }
-    if (kLse && half == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * Sq + qr] =
-          (m == -INFINITY) ? -INFINITY : m + logf(l_safe);
   }
 }
 
-template <typename T, typename TK, int D, bool kDrop, bool kLse>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const float* ks,
-                     const float* vs, void* out, float* lse, const int* kv_len,
-                     int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv, int q_offset,
-                     float scale, int causal, Dropout drop, cudaStream_t s) {
-  constexpr size_t smem = Layout<D>::kBytes;
-  auto kernel = flash_fwd_kernel<T, TK, D, kDrop, kLse>;
+template <int D, bool kDrop, bool kLse>
+cudaError_t launch_fwd_d(const FwdArgs& a, cudaStream_t s) {
+  constexpr size_t smem = FwdSmem<D>::kBytes;
+  auto kernel = flash_fwd_kernel<D, kDrop, kLse>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const TK*>(k), static_cast<const TK*>(v), ks, vs,
-      static_cast<T*>(out), lse, kv_len, kv_len_scalar, Sq, Skv, Hq, Hkv, q_offset, scale,
-      causal, drop);
+  const long long blocks =
+      static_cast<long long>((a.Sq + BT - 1) / BT) * a.Hq * a.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), kWgThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// The instance for head dim D (64 or 128), with or without dropout.
-template <typename T, typename TK, bool kLse>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
-                   const float* vs, void* out, float* lse, const int* kv_len, int kv_len_scalar,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, float scale,
-                   int causal, Dropout drop, cudaStream_t s) {
-#define MLIO_FLASH_LAUNCH(DD, DROP)                                                           \
-  return launch_d<T, TK, DD, DROP, kLse>(q, k, v, ks, vs, out, lse, kv_len, kv_len_scalar, B, \
-                                         Sq, Skv, Hq, Hkv, q_offset, scale, causal, drop, s)
-  if (drop.rate > 0.f) {
-    if constexpr (std::is_same<TK, int8_t>::value) {
-      return cudaErrorInvalidValue;  // K9 takes no dropout, as in the JAX package
-    } else {
-      if (D == 64) MLIO_FLASH_LAUNCH(64, true);
-      if (D == 128) MLIO_FLASH_LAUNCH(128, true);
-    }
-  } else {
-    if (D == 64) MLIO_FLASH_LAUNCH(64, false);
-    if (D == 128) MLIO_FLASH_LAUNCH(128, false);
+// The instance for head dim D (64 or 128), with dropout where drop.rate > 0.
+// q, out [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D], contiguous bf16; kv_len a
+// [B] int32 device array, or null to use kv_len_scalar for every sequence;
+// lse [B, Hq, Sq] fp32 for kLse.
+template <bool kLse>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                       const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv, int Hq,
+                       int Hkv, int D, int q_offset, float scale, int causal, Dropout drop,
+                       cudaStream_t s) {
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, kv_len,
+                  kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale, drop};
+  const bool dropping = drop.rate > 0.f;
+  if (D == 64) {
+    if (dropping) return launch_fwd_d<64, true, kLse>(a, s);
+    return launch_fwd_d<64, false, kLse>(a, s);
   }
-#undef MLIO_FLASH_LAUNCH
+  if (D == 128) {
+    if (dropping) return launch_fwd_d<128, true, kLse>(a, s);
+    return launch_fwd_d<128, false, kLse>(a, s);
+  }
   return cudaErrorInvalidValue;
 }
 

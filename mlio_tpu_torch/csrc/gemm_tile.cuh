@@ -1,14 +1,17 @@
-// The bf16 tile loop shared by K5 (quant_matmul.cu), K11 (fused_mlp.cu) and
-// K12 (ln_matmul.cu): C[BM, BN] += A[BM, K] @ B[K, BN] with A and B staged in
-// shared memory as bf16 tiles of BK = 32 along K, and the products on the
-// tensor cores through mma.sync m16n8k16 (bf16 inputs, fp32 accumulators in
-// registers).
+// The bf16 tile loop shared by K5 (quant_matmul.cu) and K11 (fused_mlp.cu):
+// C[BM, BN] += A[BM, K] @ B[K, BN] with A and B staged in shared memory as
+// bf16 tiles of BK = 32 along K, and the products on the tensor cores through
+// mma.sync m16n8k16 (bf16 inputs, fp32 accumulators in registers). K12
+// (ln_matmul.cu) left it for wgmma; K5 and K11 are queued to follow
+// (ROADMAP.md, queue 2). The other Hopper kernels take only its small pieces
+// (smem_addr, ldmatrix, load8, the bf16 alias) through wgmma.cuh and
+// cp_async.cuh.
 //
-// What each kernel adds is a prologue on the way into shared memory: K12
-// normalises x, K5 widens int8 or int4 weights to bf16, K11 reads its second
-// product's A operand (the activation tile) from shared memory where the
-// first product left it. So the loaders are the kernels' own; this header
-// gives the pieces they share:
+// What each kernel adds is a prologue on the way into shared memory: K5
+// widens int8 or int4 weights to bf16, K11 reads its second product's A
+// operand (the activation tile) from shared memory where the first product
+// left it. So the loaders are the kernels' own; this header gives the pieces
+// they share:
 //
 //   - warp_k16: one k16 step of a warp over MI x NI fragments of 16 x 8,
 //     operands loaded with ldmatrix (B transposed on the way, so B stays

@@ -1,0 +1,91 @@
+// Hopper's Tensor Memory Accelerator for K12 (ln_matmul.cu): 2-D tile copies
+// from device memory into shared memory in wgmma.cuh's 128-byte swizzled
+// layout, whose completion a shared-memory barrier (mbarrier) counts in
+// bytes. One thread asks for a whole tile; the hardware computes the
+// addresses, swizzles the 16-byte chunks and fills what lies out of bounds
+// with zeros, so the copy costs the other threads no instructions.
+//
+// A tensor map (CUtensorMap) describes the global tensor; it is built on the
+// host by the driver's cuTensorMapEncodeTiled, reached through the runtime's
+// cudaGetDriverEntryPoint (the libraries link no libcuda), and passed to the
+// kernel as a __grid_constant__ parameter.
+#pragma once
+
+#include <cuda.h>
+
+#include "gemm_tile.cuh"
+
+namespace tma {
+
+// A barrier waited for by phase: init with one arrival a phase; the thread
+// that starts a tile's copies arrives with the bytes they will deliver.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(gemm::smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   gemm::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Spin until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(gemm::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The box of map at (column c, row r) into dst (1 KB aligned), counted on bar.
+__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c, int r,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(gemm::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(gemm::smem_addr(bar))
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &q) == cudaSuccess &&
+                    q == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A map of a row-major bf16 matrix [rows, cols] with row stride ld elements
+// (a multiple of 8, the base 16-byte aligned), in boxes of box_rows rows and
+// 64 columns (128 bytes, one swizzle atom wide), zeros out of bounds.
+// Returns cudaErrorNotSupported where the driver has no cuTensorMapEncodeTiled
+// and cudaErrorInvalidValue where it refuses the map.
+inline cudaError_t map_2d(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint64_t ld, uint32_t box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+}  // namespace tma

@@ -1,6 +1,7 @@
-// Hopper's warpgroup products (wgmma) for K13b and K13c (flash_bwd.cu): the
-// shared-memory tile layout and its descriptors, the fences and groups, and
-// the bf16 m64nNk16 instructions they use, with fp32 accumulators.
+// Hopper's warpgroup products (wgmma) for K1 and K13a (flash_fwd.cuh), K13b
+// and K13c (flash_bwd.cu) and K12 (ln_matmul.cu): the shared-memory tile
+// layout and its descriptors, the fences and groups, and the bf16 m64nNk16
+// instructions they use, with fp32 accumulators.
 //
 // Four warps (a warpgroup, 128 threads) issue one product of 64 rows: warp w
 // holds rows 16w .. 16w + 15 of A (when A is in registers) and of D, each in
@@ -36,6 +37,14 @@ namespace gemm {
 // Byte offset of (row r, column c) in a swizzled tile of 64 rows.
 __device__ __forceinline__ int sw128(int r, int c) {
   return (c >> 6) * 8192 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// Element (r, c) of a swizzled tile of 64 rows (or, for a tile 64 columns
+// wide, of any number of rows).
+template <typename E>
+__device__ __forceinline__ E* at_sw128(E* tile, int r, int c) {
+  using Byte = std::conditional_t<std::is_const<E>::value, const unsigned char, unsigned char>;
+  return reinterpret_cast<E*>(reinterpret_cast<Byte*>(tile) + sw128(r, c));
 }
 
 // A descriptor of the 128-byte swizzle layout (type 1) at byte address p,
@@ -78,6 +87,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&d)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
 }
 
 // D[64 x 32] (+)= A (registers) B (32 columns from shared memory).
@@ -161,6 +176,58 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t desc_a,
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A (64 rows from shared memory) B (64 columns), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A (64 rows from shared memory, K-major) B (128 columns from
+// shared memory); TransB 0 for a K-major B, 1 for an MN-major one.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
 // D[64 x N] (+)= A (registers) B: N = 32, 64 or 128 columns; TransB 0 for a

@@ -10,7 +10,7 @@ The JAX hash runs in int32 with wrapping products and logical right shifts.
 Here every value is carried as its uint32 bit pattern in int64: each product
 is taken in 16-bit halves so that nothing exceeds int64, and reduced modulo
 2^32, and a right shift of a non-negative value is logical. The CUDA kernels
-compute the same hash in uint32 (``csrc/flash_fwd.cuh``, ``drop_u01``).
+compute the same hash in uint32 (``csrc/dropout.cuh``, ``drop_u01``).
 """
 from __future__ import annotations
 

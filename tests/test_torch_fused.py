@@ -95,6 +95,27 @@ def test_fused_norm_matmul_matches_jax(kind, bias):
     _close(got, want)
 
 
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_fused_norm_matmul_matches_jax_past_the_tiles(kind, bias):
+    """One row, eight columns of H and eight of N past a tile (the card
+    kernel's 64-deep K tiles; the JAX kernel's 8 x 128 blocks), W in three
+    parts that the port reads in place."""
+    rng = np.random.default_rng(4)
+    x = _randn(rng, 9, 72) + 0.5
+    w = _randn(rng, 72, 136, scale=72 ** -0.5)
+    scale, b = 1 + _randn(rng, 72, scale=0.1), _randn(rng, 72, scale=0.1)
+    want = jax_fused_norm_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
+                                 jnp.asarray(b) if bias else None, kind=kind, block_m=8,
+                                 block_n=128, interpret=True)
+    parts = [torch.from_numpy(np.ascontiguousarray(w[:, a:z])) for a, z in ((0, 72), (72, 104),
+                                                                           (104, 136))]
+    got = lq.fused_norm_matmul(torch.from_numpy(x), None, torch.from_numpy(scale),
+                               torch.from_numpy(b) if bias else None, kind=kind, parts=parts)
+    assert got.shape == (9, 136)
+    _close(got, want)
+
+
 # (kind, Hq, Hkv, with q/k/v biases)
 QKV_CASES = {
     "layernorm_mha_bias": ("layernorm", 4, 4, True),

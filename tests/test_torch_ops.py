@@ -33,6 +33,9 @@ FLASH_CASES = {
     "row_without_keys": (4, 4, 6, 24, True, 0, [0, 9]),
     "full_ragged_mqa": (4, 1, 7, 32, False, 0, [32, 7]),
     "causal_scalar_kv_len": (4, 2, 9, 32, True, 3, 12),
+    # one row and one key past a 64-row tile, the second sequence's keys
+    # ending inside the first tile: the card kernel's tile edges
+    "causal_gqa4_past_tile_ragged": (8, 2, 65, 80, True, 0, [80, 41]),
 }
 
 
