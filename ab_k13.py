@@ -1,5 +1,6 @@
-"""K1, K12 and K13 and llama3-8b's training step, timed on one card from one
-checkout of this repository: one JSON line.
+"""K1, K5, K11, K12 and K13, the runner's configurations, the quick start's
+prefill and llama3-8b's training step, timed on one card from one checkout
+of this repository: one JSON line.
 
     python3 ab_k13.py [--tree DIR] [--label NAME]
 
@@ -10,15 +11,24 @@ directory (``git archive <commit> | tar -x -C build/parent``) and run, in one
 call on the card: the other, this, this, the other.
 
 The line carries the card's name and power limit and the device ms
-(``chip_smoke.time_ms``) of: K12 and ``F.layer_norm``/``F.rms_norm`` then
-``torch.matmul`` at GPT-2's and llama3-8b's QKV projection; K1 and SDPA's
+(``chip_smoke.time_ms``) of: K11 and its library call (matmul, activation,
+matmul) at GPT-2's MLP (x [5632, 768], I 3072, gelu_new, biases) and
+llama3-8b's (x [2048, 4096], I 14336, SwiGLU); K5 and ``x @
+dequantize(q)`` int8 at GPT-2's up projection (M 5632 and M 8), int4 per
+channel and with g 128 at llama3-8b's (M 2048, K 4096, N 14336); K12 and
+``F.layer_norm``/``F.rms_norm`` then ``torch.matmul`` at GPT-2's and
+llama3-8b's QKV projection; K1 and SDPA's
 forward at GPT-2 small's prefill (8 x 704 queries into a 1024-slot cache)
 and at llama3-8b's attention (B 1, S 2048, 32 query and 8 KV heads of 128,
 causal), K1 with dropout 0.1 there; K13a, K13b, K13c, the whole backward
 (K13a, K13b, K13c and the glue, as ``flash_attention_diff``'s backward runs
 them) and SDPA's backward at llama3-8b's attention; and
 ``chip_smoke.train_8b_phase``'s line (three SGD steps of llama3-8b at full
-width and depth, and its gradient gate). Needs a CUDA card.
+width and depth, and its gradient gate). Then ``runner``: the device ms of
+a forward of each runner configuration (``chip_smoke.runner_phase``: GPT-2
+small, 8 x 704 tokens, its logits held against the plain path), and
+``quick_start_prefill_ms``: the device ms of the README quick start's
+prefill (int8 weights, an INT8 cache; K9, K5 and K2). Needs a CUDA card.
 """
 import argparse
 import json
@@ -41,17 +51,22 @@ def main() -> int:
     sys.path.insert(0, tree)
     import chip_smoke as cs
     from mlio_tpu_torch.ops import _build
+    from mlio_tpu_torch.ops import decode_attention as da
+    from mlio_tpu_torch.ops import decode_layer as dl
+    from mlio_tpu_torch.ops import decode_paged_stack as dps
     from mlio_tpu_torch.ops import flash_attention as fa
     from mlio_tpu_torch.ops import flash_attention_grad as fg
     from mlio_tpu_torch.ops import fused_mlp as fm
     from mlio_tpu_torch.ops import ln_qkv as lq
     from mlio_tpu_torch.ops import norms
+    from mlio_tpu_torch.ops import paged_attention as pa
     from mlio_tpu_torch.ops import quant as qm
 
     if not os.path.samefile(_build.CSRC.parents[1], tree):
         raise RuntimeError(f"ab_k13: imported the port from {_build.CSRC}, not from {tree}")
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
-               build_s=_build.build_all(("flash_fwd", "flash_bwd", "ln_matmul")))
+               build_s=_build.build_all(("flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp",
+                                         "quant_matmul", "fused_norm")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
     reps = 30
@@ -59,6 +74,32 @@ def main() -> int:
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    # K11 at GPT-2's MLP (gelu_new, biases) and llama3-8b's (SwiGLU)
+    x, wu, wd = rn(5632, 768), rn(768, 3072, scale=768 ** -0.5), rn(3072, 768, scale=3072 ** -0.5)
+    bu, bd = rn(3072, scale=0.1), rn(768, scale=0.1)
+    ms["k11_gpt2"] = cs.time_ms(
+        lambda i: fm.fused_mlp(x, wu, wd, b_up=bu, b_down=bd, activation="gelu_new"), reps)[0]
+    ms["k11_gpt2_library"] = cs.time_ms(
+        lambda i: F.gelu(x @ wu + bu, approximate="tanh") @ wd + bd, reps)[0]
+    x, wd = rn(2048, 4096), rn(14336, 4096, scale=14336 ** -0.5)
+    wu, wg = (rn(4096, 14336, scale=4096 ** -0.5) for _ in range(2))
+    ms["k11_llama3_8b"] = cs.time_ms(
+        lambda i: fm.fused_mlp(x, wu, wd, w_gate=wg, activation="swiglu"), 8)[0]
+    ms["k11_llama3_8b_library"] = cs.time_ms(lambda i: (F.silu(x @ wg) * (x @ wu)) @ wd, 8)[0]
+    del x, wu, wg, wd
+
+    # K5: int8 at GPT-2's up projection (M 5632 and 8), int4 at llama3-8b's
+    for key, m, k, n, fmt, gs in (("k5_int8_gpt2", 5632, 768, 3072, "int8", None),
+                                  ("k5_int8_m8", 8, 768, 3072, "int8", None),
+                                  ("k5_int4_llama3_8b", 2048, 4096, 14336, "int4", None),
+                                  ("k5_int4_g128_llama3_8b", 2048, 4096, 14336, "int4", 128)):
+        x, w = rn(m, k), torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        t = qm.quantize_int8(w) if fmt == "int8" else qm.quantize_int4(w, group_size=gs)
+        r = reps if m < 2048 else 10
+        ms[key] = cs.time_ms(lambda i: qm.quant_matmul(x, t.q, t.scale, fmt=fmt), r)[0]
+        ms[key + "_library"] = cs.time_ms(lambda i: x @ qm.dequantize(t, torch.bfloat16), r)[0]
+        del x, w, t
 
     # K12 at GPT-2's (LayerNorm with bias, q/k/v of 768) and llama3-8b's QKV
     # (RMSNorm, 4096 + 1024 + 1024)
@@ -115,12 +156,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lines = []
-    cs.emit = lines.append  # train_8b_phase's line, kept for this one
+    cs.emit = lines.append  # the phases' lines (train_8b, runner), kept for this one
     cs.train_8b_phase(dev, 0, fa, fg, (fa.flash_attention, fg.flash_fwd_lse, fg.flash_bwd_dq,
                                        fg.flash_bwd_dkv, norms.fused_norm, fm.fused_mlp,
                                        lq.fused_norm_matmul, qm.quant_matmul,
                                        fa.flash_attention_kvq))
     out["train_8b"] = lines[-1]
+    torch.cuda.empty_cache()
+
+    # the runner's configurations (the harness's, on GPT-2 small at 8 x 704)
+    wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention,
+                dl.decode_layer_stack, pa.paged_attention, dps.decode_paged_stack,
+                fm.fused_mlp, lq.fused_norm_matmul, qm.quant_matmul)
+    cs.runner_phase(dev, 0, wrappers, (fa, norms, da, fm, lq, qm))
+    out["runner_device_ms"] = {name: c["device_ms"] for name, c in lines[-1]["configs"].items()}
+
+    # the README quick start's prefill: int8 weights, an INT8 cache
+    from mlio_tpu_torch.models import forward
+    from mlio_tpu_torch.runtime import init_cache, quantize_params
+
+    spec, params, ids, impl = cs.workload(0, dev)
+    params = quantize_params(params, spec, "int8")
+
+    def prefill(i):
+        cache = init_cache(spec, cs.B, cs.CACHE, dtype=torch.bfloat16, quant="int8", device=dev)
+        with torch.inference_mode():
+            return forward(params, spec, ids, impl=impl, cache=cache)
+
+    ms["quick_start_prefill"] = cs.time_ms(prefill, 5)[0]
     print(json.dumps(out), flush=True)
     return 0
 

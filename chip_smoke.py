@@ -37,7 +37,11 @@ phase's failure is caught:
    rows are not compared and must not touch a live row. K11, K12 and K5 run
    at the runner's GPT-2 shapes (8 x 704 rows) and at one llama3-8b layer's
    (2048 rows; K5 int8 also at 8 rows), and each must fail its check against
-   the plain version with the weight's last 32 rows of K zeroed. The int8
+   the plain version with the weight's last 32 rows of K zeroed, and with a
+   64-row K slice halfway down the weight taken from the slice before (K12's
+   W, K11's w_up, K5's q: a stale ring slot); K11 also with w_down's rows of
+   its second I chunk taken from the first (the fixed-order sum over the
+   chunks), and must give the same bits in two launches. The int8
    instances (the K3, K4, K7 and K8 rows' ``int8`` entries, and K9's row):
    K9 at GPT-2's prefill into a 1024-slot INT8 cache and at llama3-8b's
    head geometry; K3 and K7 over INT8 caches; K4 with int8 weights, an INT8
@@ -258,9 +262,12 @@ N_PROMPTS, ENGINE_NEW, WARM_NEW, DISPATCH = 24, 256, 128, 128  # engine_bench
 # versions (fp32 matmuls): their bf16 outputs differ by the output's rounding
 # (one ulp, 2^-8 relative) and, in K11 and K12, by an intermediate (the
 # activation, the normalised x) rounded to bf16 the other way, which moves
-# an output by a small fraction of an ulp. K11 also adds its partial sums
-# with atomics in no fixed order. 1e-2 + 1e-2*|plain| holds them; zeroing
-# the weight's last 32 rows of K moves the outputs far past it.
+# an output by a small fraction of an ulp. K11 adds its chunks' partial
+# sums over I one after another in a fixed order, so two launches give the
+# same bits (checked). 1e-2 + 1e-2*|plain| holds them; zeroing the weight's
+# last 32 rows of K moves the outputs far past it, and so does a 64-row K
+# slice of the weight read from the slice before (a stale ring slot) or, in
+# K11, w_down's rows of the second I chunk read from the first.
 #
 # K9 (flash attention over an INT8 cache) rounds q and p * v_scale to bf16 as
 # K1 rounds q and p, against a running max where the plain version takes the
@@ -1315,21 +1322,37 @@ def must_fail(name, got, plain_fn, weight, rows):
     return must_fail_within(name, "with the weight's last K tile zeroed", got, want)
 
 
-def stale_k_slice(got, plain_fn, weights, at):
-    """K12's output must fail its check against the plain version with W's
-    64-row K slice at ``at`` taken from the slice before, in every part: a K
-    tile read from a stale ring slot. Returns that max-abs."""
-    saved = [w[at:at + 64].clone() for w in weights]
+def stale_rows(name, got, plain_fn, weights, at, src, count, what):
+    """name's output must fail its check against the plain version with rows
+    [at, at + count) of each weight taken from rows [src, src + count): a K
+    tile read from a stale ring slot, or a chunk's rows summed in place of
+    another's. Returns that max-abs."""
+    saved = [w[at:at + count].clone() for w in weights]
     for w in weights:
-        w[at:at + 64] = w[at - 64:at]
+        w[at:at + count] = w[src:src + count]
     try:
         want = plain_fn()
     finally:
         for w, old in zip(weights, saved):
-            w[at:at + 64] = old
-    return must_fail_within("fused_norm_matmul",
-                            f"against W's K slice at row {at} taken from the slice before",
-                            got, want)
+            w[at:at + count] = old
+    return must_fail_within(name, f"against {what} rows {at}.. taken from rows {src}..", got,
+                            want)
+
+
+def stale_k_slice(got, plain_fn, weights, at, name="fused_norm_matmul", what="W's K slice"):
+    """The output must fail its check against the plain version with the
+    weights' 64-row K slice at ``at`` taken from the slice before, in every
+    part (K12's W, K11's w_up, K5's q): a K tile read from a stale ring slot.
+    Returns that max-abs."""
+    return stale_rows(name, got, plain_fn, weights, at, at - 64, 64, what)
+
+
+def same_bits_twice(name, kernel):
+    """Two launches on the same inputs must give the same bits (a sum in a
+    fixed order)."""
+    if not torch.equal(kernel(), kernel()):
+        raise AssertionError(f"{name}: two launches on the same inputs gave different bits")
+    return True
 
 
 def gemm_row(name, source, replaces, shape, kernel, plain, library, nbytes, flops, weight, rows,
@@ -1358,9 +1381,23 @@ def gemm_rows(dev, seed, fm, lq, qm):
 
     def extra(row, key, other):  # a second shape's numbers beside the first's
         row[key] = {k: other[k] for k in ("shape", "max_abs_err", "last_k_tile_zeroed_max_abs_err",
-                                          "stale_k_slice_max_abs_err", "tflop_per_s", "ms",
-                                          "plain_ms", "library_ms", "bound_ms", "bound_by")
+                                          "stale_k_slice_max_abs_err",
+                                          "stale_w_down_chunk_max_abs_err", "same_bits_twice",
+                                          "tflop_per_s", "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")
                     if k in other}
+
+    def k11_checks(row, kernel, plain, wu, wd, h, flops):
+        """K11's same bits twice, its stale w_up K slice (at H/2) and w_down's
+        second I chunk taken from the first: the ring and the fixed-order sum."""
+        row["same_bits_twice"] = same_bits_twice("fused_mlp", kernel)
+        row["stale_k_slice_max_abs_err"] = stale_k_slice(kernel(), plain, [wu], h // 2,
+                                                         "fused_mlp", "w_up's K slice")
+        row["stale_w_down_chunk_max_abs_err"] = stale_rows(
+            "fused_mlp", kernel(), plain, [wd], fm.BLOCK_I, 0, fm.BLOCK_I,
+            "w_down's second I chunk")
+        row["tflop_per_s"] = flops / (row["ms"] * 1e-3) / 1e12
+        return row
 
     rows = []
     spec_h, spec_i = GPT2_H, GPT2_I
@@ -1370,21 +1407,24 @@ def gemm_rows(dev, seed, fm, lq, qm):
     bu, bd = rn(spec_i, scale=0.1), rn(spec_h, scale=0.1)
     kw = dict(b_up=bu, b_down=bd, activation="gelu_new")
     src = ("fused_mlp", "mlio_tpu_torch/csrc/fused_mlp.cu", "mlio_tpu/ops/fused_mlp.py:45")
-    k11 = gemm_row(*src, f"x [{GPT2_M},{spec_h}], I {spec_i}, gelu_new, b_up and b_down, bf16",
-                   lambda: fm.fused_mlp(x, wu, wd, **kw), lambda: fm.fused_mlp_plain(x, wu, wd, **kw),
-                   lambda i: F.gelu(x @ wu + bu, approximate="tanh") @ wd + bd,
-                   (2 * GPT2_M * spec_h + 2 * spec_h * spec_i + spec_i + spec_h) * 2,
-                   2 * GPT2_M * spec_h * spec_i * 2, wu, slice(spec_h - 32, spec_h), 20)
+    kernel, plain = (lambda: fm.fused_mlp(x, wu, wd, **kw)), (lambda: fm.fused_mlp_plain(x, wu, wd, **kw))
+    flops = 2 * GPT2_M * spec_h * spec_i * 2
+    k11 = k11_checks(gemm_row(
+        *src, f"x [{GPT2_M},{spec_h}], I {spec_i}, gelu_new, b_up and b_down, bf16", kernel, plain,
+        lambda i: F.gelu(x @ wu + bu, approximate="tanh") @ wd + bd,
+        (2 * GPT2_M * spec_h + 2 * spec_h * spec_i + spec_i + spec_h) * 2, flops, wu,
+        slice(spec_h - 32, spec_h), 20), kernel, plain, wu, wd, spec_h, flops)
     x = rn(LLAMA_M, LLAMA_H)
     wu, wg = (rn(LLAMA_H, LLAMA_I, scale=LLAMA_H ** -0.5) for _ in range(2))
     wd = rn(LLAMA_I, LLAMA_H, scale=LLAMA_I ** -0.5)
     kw = dict(w_gate=wg, activation="swiglu")
-    extra(k11, "llama3_8b", gemm_row(
-        *src, f"x [{LLAMA_M},{LLAMA_H}], I {LLAMA_I}, swiglu, no biases, bf16",
-        lambda: fm.fused_mlp(x, wu, wd, **kw), lambda: fm.fused_mlp_plain(x, wu, wd, **kw),
+    kernel, plain = (lambda: fm.fused_mlp(x, wu, wd, **kw)), (lambda: fm.fused_mlp_plain(x, wu, wd, **kw))
+    flops = 2 * LLAMA_M * LLAMA_H * LLAMA_I * 3
+    extra(k11, "llama3_8b", k11_checks(gemm_row(
+        *src, f"x [{LLAMA_M},{LLAMA_H}], I {LLAMA_I}, swiglu, no biases, bf16", kernel, plain,
         lambda i: (F.silu(x @ wg) * (x @ wu)) @ wd,
-        (2 * LLAMA_M * LLAMA_H + 3 * LLAMA_H * LLAMA_I) * 2, 2 * LLAMA_M * LLAMA_H * LLAMA_I * 3,
-        wu, slice(LLAMA_H - 32, LLAMA_H), 4))
+        (2 * LLAMA_M * LLAMA_H + 3 * LLAMA_H * LLAMA_I) * 2, flops,
+        wu, slice(LLAMA_H - 32, LLAMA_H), 4), kernel, plain, wu, wd, LLAMA_H, flops))
     rows.append(k11)
     del x, wu, wg, wd
 
@@ -1426,14 +1466,19 @@ def gemm_rows(dev, seed, fm, lq, qm):
         t = qm.quantize_int8(w) if fmt == "int8" else qm.quantize_int4(w, group_size=gs)
         del w
         deq_rows = slice(k - 32, k) if fmt == "int8" else slice(k // 2 - 16, k // 2)
-        return gemm_row(
+        kernel = lambda: qm.quant_matmul(x, t.q, t.scale, fmt=fmt)  # noqa: E731
+        plain = lambda: qm.quant_matmul_plain(x, t.q, t.scale, fmt=fmt)  # noqa: E731
+        row = gemm_row(
             name, "mlio_tpu_torch/csrc/quant_matmul.cu", f"mlio_tpu/ops/quant.py:{line}",
             f"x [{m},{k}] @ {fmt} q {list(t.q.shape)}, scale {list(t.scale.shape)}, bf16",
-            lambda: qm.quant_matmul(x, t.q, t.scale, fmt=fmt),
-            lambda: qm.quant_matmul_plain(x, t.q, t.scale, fmt=fmt),
-            lambda i: x @ qm.dequantize(t, torch.bfloat16),
+            kernel, plain, lambda i: x @ qm.dequantize(t, torch.bfloat16),
             m * k * 2 + t.q.numel() + t.scale.numel() * 4 + m * n * 2, 2 * m * k * n,
             t.q, deq_rows, reps)
+        if m > DECODE_M:  # q's 64-row slice halfway down its rows from the slice before
+            row["stale_k_slice_max_abs_err"] = stale_k_slice(
+                kernel(), plain, [t.q], t.q.shape[0] // 2, name, "q's row slice")
+        row["tflop_per_s"] = 2 * m * k * n / (row["ms"] * 1e-3) / 1e12
+        return row
 
     row = k5("quant_matmul", 221, "int8", GPT2_M, spec_h, spec_i, None, 20)
     extra(row, "m8", k5("quant_matmul", 221, "int8", DECODE_M, spec_h, spec_i, None, 200))
@@ -1452,7 +1497,12 @@ def gemm_variants(dev, seed, fm, lq, qm):
     rows, columns and depths that are not multiples of the tiles (nor of 8,
     the 16-byte vector width), every activation, biases, grouped heads; K12
     also at the widest H whose scale and bias it stages in shared memory
-    (8,952) and past it, by the TMA and by cp.async."""
+    (8,952) and past it, by the TMA and by cp.async. Past the 128-row tiles
+    of K5 and K11 (M 130): K5 with N past 256 (int8) or 128 (int4), K not a
+    multiple of 64, int4's K/2 crossing a 64-row step, groups of 16, 32 and
+    64; K11 with I past a chunk and not a multiple of 64, H past a 256-column
+    tile; each by the TMA and by cp.async (int8 N % 16 != 0, int4 K % 16 !=
+    0, K11 H or I % 8 != 0)."""
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
 
     def rn(*shape, scale=1.0):
@@ -1462,7 +1512,10 @@ def gemm_variants(dev, seed, fm, lq, qm):
     for i, (m, k, n, fmt, gs) in enumerate([
             (37, 200, 72, "int8", None), (130, 776, 264, "int8", None), (1, 64, 17, "int8", None),
             (37, 200, 72, "int4", None), (50, 512, 136, "int4", 128), (9, 96, 40, "int4", 16),
-            (5, 30, 24, "int4", None)]):
+            (5, 30, 24, "int4", None), (130, 200, 272, "int8", None),
+            (130, 272, 272, "int4", None), (130, 288, 144, "int4", 16),
+            (70, 320, 136, "int4", 32), (130, 384, 272, "int4", 64),
+            (130, 200, 264, "int8", None), (130, 264, 136, "int4", None)]):
         x, w = rn(m, k), torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         t = qm.quantize_int8(w) if fmt == "int8" else qm.quantize_int4(w, group_size=gs)
         errs[f"quant_matmul[{i}]"] = check_close(
@@ -1470,7 +1523,9 @@ def gemm_variants(dev, seed, fm, lq, qm):
             qm.quant_matmul_plain(x, t.q, t.scale, fmt=fmt))
     for i, (m, h, inter, act, with_bias) in enumerate([
             (37, 72, 200, "gelu", True), (70, 64, 300, "relu", False), (3, 40, 24, "geglu", True),
-            (130, 136, 520, "swiglu", True), (9, 36, 20, "gelu_new", False)]):
+            (130, 136, 520, "swiglu", True), (9, 36, 20, "gelu_new", False),
+            (130, 264, 584, "gelu_new", True), (200, 200, 776, "geglu", False),
+            (130, 100, 300, "swiglu", True), (131, 260, 580, "gelu", True)]):
         gated = act in ("swiglu", "geglu")
         x, wu, wd = rn(m, h), rn(h, inter, scale=h ** -0.5), rn(inter, h, scale=inter ** -0.5)
         kw = dict(activation=act, w_gate=rn(h, inter, scale=h ** -0.5) if gated else None)

@@ -2,11 +2,13 @@
 
 Replaces ``mlio_tpu/ops/fused_mlp.py::_fused_mlp_kernel``. The kernel is
 CUDA C++ in ``mlio_tpu_torch/csrc/fused_mlp.cu``: the [M, I] activation
-never goes to device memory. Each block takes a tile of rows and a chunk of
-the intermediate axis, keeps its activation tile in shared memory and adds
-its share of the down product to an fp32 [M, H] sum with atomics; a second
-launch rounds the sum to bf16 and adds ``b_down`` (see the source's note for
-the H100 bound, the design and the order of the atomic adds).
+never goes to device memory. Each block takes a tile of 128 rows and a chunk
+of the intermediate axis, keeps its activation tile in shared memory and
+adds its share of the down product to an fp32 [M, H] workspace in a fixed
+order, chunk after chunk, each waiting for its ticket; the last chunk rounds
+the sum to bf16 and adds ``b_down``. One launch, no atomics: the output is
+the same bits from run to run (see the source's note for the H100 bound and
+the design).
 
 The function is the JAX kernel's: the up (and gate) products sum in fp32,
 their biases added in fp32, the activation in fp32 (tanh-GELU for
@@ -85,17 +87,20 @@ def fused_mlp_plain(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_g
     return out + b_down if b_down is not None else out
 
 
-def _entry(name):
+def _entry():
     lib = _build.library("fused_mlp")
-    fn = getattr(lib, name)
+    fn = lib.mlio_fused_mlp
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "mlio_fused_mlp":
-            fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        else:
-            fn.argtypes = [p, p, p, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
     return lib, fn
+
+
+# The kernel's block tile (csrc/fused_mlp.cu): 128 rows, a chunk of
+# BLOCK_I columns of I, and 256 columns of H a down-product tile; one split-K
+# ticket and one fp32 workspace tile per (row tile, H tile).
+_BLOCK_M, BLOCK_I, _BLOCK_H = 128, 256, 256
 
 
 def fused_mlp(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=None,
@@ -115,20 +120,19 @@ def fused_mlp(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=No
     _build.require_contiguous_aligned("fused_mlp", x=x2, w_up=w_up, w_down=w_down, b_up=b_up,
                                       b_down=b_down, w_gate=w_gate, b_gate=b_gate)
     M = x2.shape[0]
-    acc = torch.zeros((M, H), dtype=torch.float32, device=dev)
+    tiles = -(-M // _BLOCK_M) * -(-H // _BLOCK_H)
+    ws = torch.empty(tiles * _BLOCK_M * _BLOCK_H, dtype=torch.float32, device=dev)  # split-K sums
+    tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
     out = torch.empty((M, H), dtype=x.dtype, device=dev)
 
-    lib, fn = _entry("mlio_fused_mlp")
-    lib, fin = _entry("mlio_fused_mlp_finish")
+    lib, fn = _entry()
     with torch.cuda.device(dev):
-        stream = _build.stream_handle(dev)
         # as in the JAX kernel, b_gate is added only together with b_up
         err = fn(x2.data_ptr(), w_up.data_ptr(), _build.ptr(w_gate), w_down.data_ptr(),
-                 _build.ptr(b_up), _build.ptr(b_gate) if b_up is not None else None, acc.data_ptr(), M, H, I,
-                 _ACT_CODE[activation], stream)
-        _build.check(lib, err, "fused_mlp")
-        err = fin(acc.data_ptr(), _build.ptr(b_down), out.data_ptr(), M, H, stream)
-    _build.check(lib, err, "fused_mlp (finish)")
+                 _build.ptr(b_up), _build.ptr(b_gate) if b_up is not None else None,
+                 _build.ptr(b_down), ws.data_ptr(), tickets.data_ptr(), out.data_ptr(), M, H, I,
+                 _ACT_CODE[activation], _build.stream_handle(dev))
+    _build.check(lib, err, "fused_mlp")
     fused_mlp.launches += 1
     return out.reshape(x.shape)
 

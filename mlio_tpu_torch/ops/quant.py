@@ -7,8 +7,8 @@ sends int8 and int4 to :func:`quant_matmul`. That wrapper launches K5, the
 CUDA C++ kernel in ``mlio_tpu_torch/csrc/quant_matmul.cu`` which replaces
 ``_quant_matmul_kernel``, ``_int4_matmul_kernel`` and
 ``_int4_group_matmul_kernel``: the weights cross device memory quantized and
-are widened to bf16 on the way into shared memory; the scales multiply the
-fp32 sums (see the source's note for the H100 bound and design).
+are widened to bf16 in shared memory; the scales multiply the fp32 sums
+(see the source's note for the H100 bound and design).
 
 The quantizers reproduce the JAX package's payloads and scales bit for bit
 on the same fp32 weights (``torch.round`` and ``jnp.round`` both round half
@@ -265,7 +265,7 @@ def linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
             raise NotImplementedError(
                 "QTensor.act_scale (W8A8: calibrate_activation_scales, "
                 "apply_activation_scales, w8a8_matmul) is not ported yet; see ROADMAP.md, "
-                "queue 1, item 6")
+                "queue 1, item 4")
         if w.fmt == "fp8":
             out = x @ dequantize(w, x.dtype)
         else:

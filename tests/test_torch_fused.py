@@ -56,6 +56,32 @@ def test_fused_mlp_matches_jax(activation, bias):
     _close(got, ref.numpy())
 
 
+@pytest.mark.parametrize("activation", fm.ACTIVATIONS)
+def test_fused_mlp_matches_jax_past_the_tiles(activation):
+    """Two rows past the card kernel's 128-row tile, H eight columns past a
+    64-deep K tile, and I past one 256-column chunk and not a multiple of 64
+    (nor of the JAX kernel's 128-wide blocks), so the down product's sum runs
+    over a ragged second chunk."""
+    rng = np.random.default_rng(5)
+    M, H, I = 130, 72, 300
+    gated = activation in ("swiglu", "geglu")
+    x = _randn(rng, M, H)
+    w_up, w_down = _randn(rng, H, I, scale=H ** -0.5), _randn(rng, I, H, scale=I ** -0.5)
+    w_gate = _randn(rng, H, I, scale=H ** -0.5) if gated else None
+    b = dict(b_up=_randn(rng, I, scale=0.1), b_down=_randn(rng, H, scale=0.1),
+             b_gate=_randn(rng, I, scale=0.1) if gated else None)
+    want = jax_fused_mlp(jnp.asarray(x), jnp.asarray(w_up), jnp.asarray(w_down),
+                         w_gate=None if w_gate is None else jnp.asarray(w_gate),
+                         activation=activation, block_m=136, block_i=128, interpret=True,
+                         **{k: (None if v is None else jnp.asarray(v)) for k, v in b.items()})
+    got = fm.fused_mlp(torch.from_numpy(x), torch.from_numpy(w_up), torch.from_numpy(w_down),
+                       w_gate=None if w_gate is None else torch.from_numpy(w_gate),
+                       activation=activation,
+                       **{k: (None if v is None else torch.from_numpy(v)) for k, v in b.items()})
+    assert got.shape == (M, H)
+    _close(got, want)
+
+
 def test_fused_mlp_plain_rounds_the_activation_like_the_kernel():
     """In bf16 the activation is rounded to bf16 before the down product and
     b_down is added after the output's rounding, as in the JAX kernel."""

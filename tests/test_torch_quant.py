@@ -90,6 +90,13 @@ QM_CASES = {
     "int4": ("int4", None, 37, 512, 136),
     "int4_g128": ("int4", 128, 45, 512, 136),
     "int4_g64": ("int4", 64, 9, 256, 130),
+    # past the card kernel's tiles: 130 rows (128-row tiles), N past 256
+    # (int8) and 128 (int4) columns, K not a multiple of 64, K/2 = 384 over
+    # six 64-row steps with groups of 16 and 64
+    "int8_past_the_tiles": ("int8", None, 130, 200, 264),
+    "int4_past_the_tiles": ("int4", None, 130, 768, 264),
+    "int4_g16_past_the_tiles": ("int4", 16, 130, 768, 264),
+    "int4_g64_past_the_tiles": ("int4", 64, 130, 768, 264),
 }
 
 
