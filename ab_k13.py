@@ -1,6 +1,6 @@
-"""K1, K5, K11, K12 and K13, the runner's configurations, the quick start's
-prefill and llama3-8b's training step, timed on one card from one checkout
-of this repository: one JSON line.
+"""K1, K3, K5, K7, K10, K11, K12 and K13, the runner's configurations, the
+quick start's and the 32K prefill and llama3-8b's training step, timed on one
+card from one checkout of this repository: one JSON line.
 
     python3 ab_k13.py [--tree DIR] [--label NAME]
 
@@ -24,13 +24,19 @@ causal), K1 with dropout 0.1 there; K13a, K13b, K13c, the whole backward
 (K13a, K13b, K13c and the glue, as ``flash_attention_diff``'s backward runs
 them) and SDPA's backward at llama3-8b's attention; and
 ``chip_smoke.train_8b_phase``'s line (three SGD steps of llama3-8b at full
-width and depth, and its gradient gate). Then ``runner``: the device ms of
-a forward of each runner configuration (``chip_smoke.runner_phase``: GPT-2
-small, 8 x 704 tokens, its logits held against the plain path), and
-``quick_start_prefill_ms``: the device ms of the README quick start's
-prefill (int8 weights, an INT8 cache; K9, K5 and K2). Needs a CUDA card.
+width and depth, and its gradient gate); K10 and SDPA's flash forward at
+Mistral-7B-Instruct-v0.2's 32K prefill call (B 1, 32,704 queries over a
+32,768-slot cache, 32/8 heads of 128, causal); K3 and SDPA at GPT-2 small's
+decode (B 8, ctx 896) and Mistral's at 32K (B 1, ctx 32,704); K7 at the
+engine's pools. Then ``runner``: the device ms of a forward of each runner
+configuration (``chip_smoke.runner_phase``: GPT-2 small, 8 x 704 tokens,
+its logits held against the plain path), ``quick_start_prefill_ms``: the
+device ms of the README quick start's prefill (int8 weights, an INT8
+cache; K9, K5 and K2), and ``long_context_prefill``: Mistral's 32K prefill
+through the model (K10 32 times). Needs a CUDA card.
 """
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -66,7 +72,8 @@ def main() -> int:
         raise RuntimeError(f"ab_k13: imported the port from {_build.CSRC}, not from {tree}")
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
                build_s=_build.build_all(("flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp",
-                                         "quant_matmul", "fused_norm")))
+                                         "quant_matmul", "fused_norm", "flash_stream",
+                                         "decode_attn", "paged_attn")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
     reps = 30
@@ -155,6 +162,49 @@ def main() -> int:
     del q, k, v, do, o, lse, delta, bwd, qg, kg, vg, sdpa_o, sdpa_do, qt, kx, vx
     torch.cuda.empty_cache()
 
+    # K10 at Mistral-7B-Instruct-v0.2's 32K prefill call, beside SDPA's flash forward
+    n = cs.LC_PROMPT
+    q, k, v = cs.attention_inputs(gen, 1, n, cs.LC_CACHE, 32, 8, 128)
+    ms["k10_mistral"] = cs.time_ms(lambda i: fa.flash_attention_stream(q, k, v, kv_len=n), 5,
+                                   warmup=2)[0]
+    ms["k10_mistral_sdpa"] = cs.time_ms(cs.sdpa_flash(q, k, v, n), 5, warmup=2)[0]
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K3 at GPT-2 small's decode (B 8, 12 heads of 64, ctx 896 of 1024 slots,
+    # the 12 layers in turn) and Mistral's at 32K (B 1, 32/8 heads of 128, ctx
+    # 32,704 of 32,768, 2 layers in turn), beside SDPA over the valid K/V
+    # (repeated to the query heads where they are grouped, outside the timing)
+    for key, b, hq, hkv, d, L, smax, n in (("k3_gpt2", 8, 12, 12, 64, 12, 1024, 896),
+                                           ("k3_mistral", 1, 32, 8, 128, 2, 32768, 32704)):
+        qd, kc, vc = rn(b, hq, d), rn(L, b, smax, hkv, d), rn(L, b, smax, hkv, d)
+        ctx = torch.full((b,), n, dtype=torch.int32, device=dev)
+        g = hq // hkv
+        dense = [tuple(t[l, :, :n].transpose(1, 2) if g == 1 else
+                       t[l, :, :n].transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+                       for t in (kc, vc)) for l in range(L)]
+        reps_d = 240 if L > 2 else 50
+        ms[key] = cs.time_ms(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L),
+                             reps_d)[0]
+        ms[key + "_sdpa"] = cs.time_ms(lambda i: F.scaled_dot_product_attention(
+            qd[:, :, None], *dense[i % L]), reps_d)[0]
+        del qd, kc, vc, dense
+        torch.cuda.empty_cache()
+
+    # K7 at the engine's pools (GPT-2 small, 256 blocks of 128, permuted
+    # tables of 8 blocks, the ragged contexts), the 12 layers in turn
+    kp, vp = (rn(12, cs.POOL_BLOCKS, cs.POOL_BS, 12, 64) for _ in range(2))
+    tables = cs.paged_tables(gen, dev, cs.B, cs.TABLE_BLOCKS, cs.POOL_BLOCKS)
+    ctx = torch.tensor(cs.RAGGED, dtype=torch.int32, device=dev) + 1
+    qd = rn(cs.B, 12, 64)
+    ms["k7_gpt2"] = cs.time_ms(lambda i: pa.paged_attention(qd, kp, vp, tables, ctx,
+                                                            layer=i % 12), 240)[0]
+    # the output's bits, to compare across checkouts (the same inputs in each)
+    out["k7_sha256"] = hashlib.sha256(pa.paged_attention(
+        qd, kp, vp, tables, ctx, layer=5).view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    del kp, vp, qd
+    torch.cuda.empty_cache()
+
     lines = []
     cs.emit = lines.append  # the phases' lines (train_8b, runner), kept for this one
     cs.train_8b_phase(dev, 0, fa, fg, (fa.flash_attention, fg.flash_fwd_lse, fg.flash_bwd_dq,
@@ -184,6 +234,27 @@ def main() -> int:
             return forward(params, spec, ids, impl=impl, cache=cache)
 
     ms["quick_start_prefill"] = cs.time_ms(prefill, 5)[0]
+    del params
+    torch.cuda.empty_cache()
+
+    # the long-context prefill: Mistral-7B-Instruct-v0.2 at full width and
+    # depth, 32,704 tokens into a 32,768-slot cache (K10 a layer)
+    from mlio_tpu_torch.models import Impl, init_params, spec_from_hf_config
+
+    spec = spec_from_hf_config(cs.MISTRAL_CONFIG, name="mistral-7b-instruct-v0.2")
+    params = init_params(spec, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16,
+                         device=dev)
+    ids = torch.randint(0, spec.vocab_size, (1, cs.LC_PROMPT), generator=gen, device=dev)
+    cache = init_cache(spec, 1, cs.LC_CACHE, dtype=torch.bfloat16, device=dev)
+    impl = Impl(attention="flash", norm="fused")
+
+    def lc_prefill(i):
+        with torch.inference_mode():
+            return forward(params, spec, ids, impl=impl, cache=dict(cache, pos=0))[0]
+
+    fa.flash_attention_stream.launches = 0
+    ms["long_context_prefill"] = cs.time_ms(lc_prefill, 3, warmup=1)[0]
+    out["long_context_k10_launches"] = fa.flash_attention_stream.launches
     print(json.dumps(out), flush=True)
     return 0
 

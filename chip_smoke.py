@@ -30,8 +30,12 @@ phase's failure is caught:
    stated tolerance, then timed with CUDA events beside its plain version,
    one PyTorch library call of the same function where there is one, and
    the least time the card could take (bound). K3's, K4's, K7's and K8's
-   checks are shown to catch a context one token short; K4 is also held
-   against its plain version over 8 in-kernel steps. K7 and K8 run over the
+   checks are shown to catch a context one token short. K3 splits each
+   sequence's context across a cluster of blocks: its row gives the split
+   (n_split, chunk), the same bits in two launches, contexts on and one slot
+   past the chunk edges, at 1 and at 0 (at GPT-2's shape and a grouped one),
+   and a row at Mistral-7B-Instruct-v0.2's decode over its 32K cache. K4
+   is also held against its plain version over 8 in-kernel steps. K7 and K8 run over the
    engine's pools (256 blocks of 128, permuted tables) at ragged contexts
    and at a context of 896; K8 also with two inactive engine slots, whose
    rows are not compared and must not touch a live row. K11, K12 and K5 run
@@ -169,7 +173,7 @@ phase's failure is caught:
 
 13. flash_stream: K10 (``ops/flash_attention.py::flash_attention_stream``,
    the long-context forward) through ``flash_attention``'s route, against
-   its plain version (``flash_stream_plain``, K/V streamed in 64-key blocks)
+   its plain version (``flash_stream_plain``, K/V streamed in 128-key blocks)
    at Mistral-7B-Instruct-v0.2's prefill (B 1, 32,704 queries over a
    32,768-slot cache, 32/8 heads of 128), a ragged B 2 with a decode-style
    q_offset, a non-causal call, head dim 64 and a ragged Sq tail; o and the
@@ -178,8 +182,8 @@ phase's failure is caught:
    32K keys has |o| near 0.009); failing the plain version one key short,
    with q_offset one off, with one interior V tile stale (rows past 16K or
    30K), and all-ones V; the same
-   bits twice; timed beside the plain version, SDPA's flash forward and the
-   bound, and against K1 at 8K, 16K and 32K keys. K1's new lse instance
+   bits twice; timed (and its TFLOP/s) beside the plain version, SDPA's
+   flash forward and the bound, and against K1 at 8K, 16K and 32K keys. K1's new lse instance
    (kv_len, q_offset) against its plain version.
 14. long_context: the long-context slice's path, Mistral-7B-Instruct-v0.2
    (``spec_from_hf_config`` of its published config's values) at full
@@ -187,8 +191,8 @@ phase's failure is caught:
    prompt into a 32,768-slot cache, 64 greedy tokens through ``generate``
    with ``Impl(attention="flash", norm="fused")``: launch counters (K10 32
    and no K1 in the prefill; the decode on the route "auto" names), the
-   prefill (median of 3 by CUDA events, idle share and K10's share from a
-   torch.profiler trace), a decode step at context 32,704, peak memory.
+   prefill (median of 3 by CUDA events, idle share, K10's share and its ms
+   a layer from a torch.profiler trace), a decode step at context 32,704, peak memory.
    First its prefill gate at 2 layers and the full context: the kernel
    path's logits at 79 positions as far from an fp32 path as the bf16 plain
    path, within 5 %, two controls (K10 with the causal frontier one key
@@ -299,6 +303,13 @@ TOL = {"flash_attention": (2e-2, 2e-2), "flash_attention_kvq": (2e-2, 2e-2),
 TOL["decode_layer_tiled_deep"] = TOL["decode_layer_tiled"]
 ROW_TOL = {"decode_layer_tiled_deep": 2.5e-2}
 ROW_REL_RMS = {}  # name: each row's RMS error over its own RMS (row_rel_rms); K10's, K13's below
+# K3's grouped instance (q and p in bf16 on the tensor cores) is also held
+# row by row: at Mistral's 32K decode most heads' outputs are about 0.008
+# RMS, below the elementwise limit, and one slot of a chunk left out moves a
+# row at context 513 by about 0.005; each row's RMS error must stay within
+# 2e-2 of its own RMS, as K1's (the kernel's rows lay within 1.2e-4 to 2e-3
+# max-abs of the plain version's on the card, NVIDIA H100 80GB HBM3, 700 W).
+ROW_REL_RMS["decode_attention_grouped"] = 2e-2
 ROW_RMS_FLOOR = {}  # name: the least RMS a row is taken to have, over the tensor's (K13's below)
 # K6's MoE phases take the same limits; at Mixtral's 32 layers the deep one
 # holds x_out and the slots written at every layer alike: a late layer's K/V
@@ -834,8 +845,15 @@ def kernel_phase(rng, dev, seed, fa, norms, da, dl):
                       q4, kc[i % L, :, :DECODE_CTX].transpose(1, 2),
                       vc[i % L, :, :DECODE_CTX].transpose(1, 2)), 240),
         bound_ms=b_ms, bound_by=b_by))
+    n_split, chunk = da.split_plan(B, H, CACHE)
+    rows[-1].update(
+        gb_per_s=nbytes / (rows[-1]["ms"] * 1e-3) / 1e9, n_split=n_split, chunk=chunk,
+        same_bits_twice=same_bits_twice("decode_attention",
+                                        lambda: da.decode_attention(qd, kc, vc, ctx, layer=5)))
     del kc, vc
+    rows[-1]["split_edges"] = decode_split_edges(da, dev, seed)
     rows[-1]["int8"] = decode_attention_int8(da, dev, seed, spec)
+    rows[-1]["mistral_decode"] = decode_attention_mistral(da, dev, seed)
     rows.append(flash_kvq_row(fa, dev, seed))
     rows.append(stack_row(dl, dev, seed))
     return rows
@@ -892,6 +910,122 @@ def flash_kvq_row(fa, dev, seed):
     return row
 
 
+def decode_split_edges(da, dev, seed):
+    """K3's context split at its chunk edges, against its plain version: at
+    GPT-2 small's shape (B 8, 12 heads of 64, a 1024-slot cache, G 1) and a
+    grouped one (B 4, 8 KV heads of 128, G 4, a 4096-slot cache, bf16 and
+    INT8), contexts that end on a chunk boundary and one slot past it, the
+    whole cache, 1 and 0 (whose output must be all zeros). The one slot past
+    a chunk edge is the only slot of its block, so its key is half its
+    group's first query head (about a quarter of that head's weight at
+    context 513) and the control must fail: the kernel with that slot left
+    out (the context one short) against the plain version; the INT8 case
+    must also fail with all-ones V scales. Returns each case's plan,
+    contexts, max-abs and largest row_rel_rms beside the controls'."""
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    out = {}
+    for case, b, hkv, g, d, smax in (("gpt2", B, 12, 1, 64, CACHE),
+                                     ("grouped", 4, 8, 4, 128, 4096)):
+        n_split, chunk = da.split_plan(b, hkv, smax)
+        last = (n_split - 1) * chunk
+        ctx = [chunk, chunk + 1, last, last + 1, smax, 2 * chunk - 1, 1, 0][:b - 2] + [1, 0]
+        edge = [i for i, c in enumerate(ctx) if c > 1 and c % chunk == 1]
+        q = torch.randn((b, hkv * g, d), generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((2, b, smax, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        for i in edge:
+            kc[1, i, ctx[i] - 1] = 0.5 * q[i, ::g]
+        c = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        short = c.clone()
+        short[edge] -= 1
+        name = "decode_attention" if g == 1 else "decode_attention_grouped"
+        caches = {case: (kc, vc, {})}
+        if g > 1:
+            (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kc, vc))
+            caches[f"{case}_int8"] = (kq, vq, dict(k_scales=ks, v_scales=vs))
+        for key, (kt, vt, sc) in caches.items():
+            got = da.decode_attention(q, kt, vt, c, layer=1, **sc)
+            want = da.decode_attention_plain(q, kt, vt, c, layer=1, **sc)
+            err = check_close(name, got, want)
+            if got[-1].any():
+                raise AssertionError(f"decode_attention {key}: a context of 0 gave a nonzero "
+                                     "output")
+            bad = da.decode_attention(q, kt, vt, short, layer=1, **sc)
+            row = dict(n_split=n_split, chunk=chunk, ctx=ctx, max_abs_err=err,
+                       row_rel_rms=row_rel_rms(got, want),
+                       edge_slot_left_out_max_abs_err=must_fail_within(
+                           name, "the slot past a chunk edge left out", bad, want),
+                       edge_slot_left_out_row_rel_rms=row_rel_rms(bad, want))
+            if sc:
+                bad = da.decode_attention(q, kt, vt, c, layer=1, k_scales=sc["k_scales"],
+                                          v_scales=torch.ones_like(sc["v_scales"]))
+                row.update(ones_v_scale_max_abs_err=must_fail_within(
+                    name, "with all-ones V scales", bad, want),
+                    ones_v_scale_row_rel_rms=row_rel_rms(bad, want))
+            out[key] = row
+        del kc, vc, caches
+    return out
+
+
+def decode_attention_mistral(da, dev, seed):
+    """K3 at Mistral-7B-Instruct-v0.2's decode step over its 32K cache: q
+    [1, 32, 128] bf16, a 2-layer bf16 cache [2, 1, LC_CACHE, 8, 128] at
+    context LC_PROMPT, the timed launches alternating the layers (each
+    layer's 134 MB of valid K/V is past the 50 MB L2). Held against its plain
+    version (the grouped limit), the same bits twice, and failing with a
+    context one token short. At 32K random keys one token moves o by about
+    1 / 32,704 of a value, below any bf16 limit, so the last slot's key is
+    the first query head of its group, as a decode step's current token often
+    leads its own attention: that head puts about half its weight there.
+    Timed beside its plain version and SDPA over the valid K/V repeated to
+    the query heads (outside the timing). Returns the K3 row's
+    ``mistral_decode`` entry."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    L, Hq, Hkv, D, n = 2, 32, 8, 128, LC_PROMPT
+    G = Hq // Hkv
+    q = torch.randn((1, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((L, 1, LC_CACHE, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    kc[:, 0, n - 1] = q[0, ::G]
+    ctx = torch.full((1,), n, dtype=torch.int32, device=dev)
+    name = "decode_attention_grouped"
+    want = da.decode_attention_plain(q, kc, vc, ctx, layer=1)
+    got = da.decode_attention(q, kc, vc, ctx, layer=1)
+    err = check_close(name, got, want)
+    bad = da.decode_attention(q, kc, vc, ctx - 1, layer=1)
+    short = must_fail_within(name, "a context one token short", bad, want)
+    rel, short_rel = row_rel_rms(got, want), row_rel_rms(bad, want)
+    del got, bad
+    twice = same_bits_twice("decode_attention",
+                            lambda: da.decode_attention(q, kc, vc, ctx, layer=1))
+    nbytes = (2 * q.numel() + 2 * n * Hkv * D) * 2
+    b_ms, b_by = bound(nbytes, 4 * Hq * n * D, FP32_FLOPS)
+    q4 = q[:, :, None, :]
+    dense = [tuple(t[l, :, :n].transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+                   for t in (kc, vc)) for l in range(L)]
+    n_split, chunk = da.split_plan(1, Hkv, LC_CACHE)
+    row = dict(
+        shape=f"q [1,{Hq},{D}] cache [{L},1,{LC_CACHE},{Hkv},{D}] bf16, ctx {n} "
+              "(Mistral-7B-Instruct-v0.2's decode at 32K)",
+        n_split=n_split, chunk=chunk, max_abs_err=err, atol=TOL[name][0], rtol=TOL[name][1],
+        tolerance_of=name, row_rel_rms=rel, row_rel_rms_limit=ROW_REL_RMS[name],
+        ctx_minus_1_max_abs_err=short, ctx_minus_1_row_rel_rms=short_rel, same_bits_twice=twice,
+        **timings(lambda i: da.decode_attention(q, kc, vc, ctx, layer=i % L),
+                  lambda i: da.decode_attention_plain(q, kc, vc, ctx, layer=i % L),
+                  lambda i: F.scaled_dot_product_attention(q4, *dense[i % L]), 50),
+        library_note="F.scaled_dot_product_attention over the valid K/V repeated to the 32 "
+                     "query heads outside the timing",
+        bound_ms=b_ms, bound_by=b_by, launches=0,
+        launches_note="long_context decodes Mistral on the route \"auto\" picks (K6), not "
+                      "the scan route")
+    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    del kc, vc, dense
+    torch.cuda.empty_cache()
+    return row
+
+
 def decode_attention_int8(da, dev, seed, spec):
     """K3's int8 instance at GPT-2 small's decode step over a 1024-slot INT8
     cache at context DECODE_CTX, held against its plain version, failing
@@ -917,9 +1051,11 @@ def decode_attention_int8(da, dev, seed, spec):
     dense = [(dequant_bf16(kc[l, :, :DECODE_CTX], ks[l, :, :DECODE_CTX]).transpose(1, 2),
               dequant_bf16(vc[l, :, :DECODE_CTX], vs[l, :, :DECODE_CTX]).transpose(1, 2))
              for l in range(L)]
+    n_split, chunk = da.split_plan(B, H, CACHE)
     return dict(
         shape=f"q [{B},{H},{D}] bf16, cache int8 [{L},{B},{CACHE},{H},{D}] + fp32 scales, "
               f"ctx {DECODE_CTX}",
+        n_split=n_split, chunk=chunk,
         max_abs_err=err, atol=TOL["decode_attention"][0], rtol=TOL["decode_attention"][1],
         ones_v_scale_max_abs_err=ones, ctx_minus_1_max_abs_err=short,
         **timings(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L, **sc),
@@ -3769,7 +3905,7 @@ STREAM_CASES = (
 )
 K1_K10_SKV = (8192, 16384, 32768)  # K1 against K10 on the prefill call (Sq = Skv - 64)
 K13A_S = 16384  # the training-shaped call where K10's lse meets K13a's
-# K10 rounds q and p to bf16 as K1 does, against a running max, in 64-key
+# K10 rounds q and p to bf16 as K1 does, against a running max, in 128-key
 # tiles as its plain version does: K1's limit. Its lse is fp32 throughout
 # (the scores' sums in another order, exp as exp2): 1e-4, as K13a's.
 TOL.update({"flash_attention_stream": TOL["flash_attention"],
@@ -3782,20 +3918,21 @@ TOL.update({"flash_attention_stream": TOL["flash_attention"],
 # it. So each query row (the D values of one (b, s, h)) is also held to its
 # own size: the RMS of kernel - plain within 1e-2 of the plain row's RMS
 # (kernel and plain differ by a flipped bf16 rounding, 2^-8 of one value;
-# one interior tile of 64 keys wrong moves a row by about sqrt(128 / n),
-# 0.06-0.09 at 16K-32K keys), and a row with no key must be zero.
+# one interior tile of 128 keys wrong moves a row by about sqrt(256 / n),
+# 0.09-0.125 at 16K-32K keys), and a row with no key must be zero.
 ROW_REL_RMS["flash_attention_stream"] = 1e-2
-# The depth controls: the V tile at each key taken from the tile before,
-# seen by the rows past 16K and, more faintly, by the last 2K rows alone.
+# The depth controls: the V tile at each key (K10's ring slot,
+# STREAM_BLOCK_KV keys) taken from the tile before, seen by the rows past 16K
+# and, more faintly, by the last 2K rows alone.
 STALE_KEYS = (16384, 30720)
 
 
-def stale_tile(t, at):
-    """t ([B, S, H, D]) with the 64 rows at ``at`` replaced by the 64 before
-    them: a tile read from a stale ring slot (K10's V; K13b's K and V; K13c's
-    q and dO)."""
+def stale_tile(t, at, rows=64):
+    """t ([B, S, H, D]) with the ``rows`` rows at ``at`` replaced by the
+    ``rows`` before them: a tile read from a stale ring slot (K13b's K and V,
+    K13c's q and dO: 64; K10's V: its 128-key tile)."""
     t = t.clone()
-    t[:, at:at + 64] = t[:, at - 64:at]
+    t[:, at:at + rows] = t[:, at - rows:at]
     return t
 
 
@@ -3855,15 +3992,13 @@ def flash_stream_phase(dev, seed, fa, fg):
                    o_lse_instance=check_close("flash_attention_stream", o_s, o_p),
                    lse=check_close("flash_attention_stream_lse", lse, lse_p))
         if name == "mistral_prefill":
-            again = fa.flash_attention_stream(q, k, v, **kw)
-            if not torch.equal(again, o):
-                raise AssertionError("flash_stream: two launches gave different bits")
-            res["same_bits_twice"] = True
+            res["same_bits_twice"] = same_bits_twice(
+                "flash_attention_stream", lambda: fa.flash_attention_stream(q, k, v, **kw))
             o_off = fa.flash_stream_plain(q, k, v, **dict(kw, q_offset=qoff - 1))
             res["q_offset_one_off_max_abs_err"] = must_fail_within(
                 "flash_attention_stream", "against the plain version with q_offset one off", o,
                 o_off)
-            del again, o_off
+            del o_off
             res["stale_v_tile"] = depth_control(fa, o, q, k, v, kw)
             pairs = Bc * causal_pairs(Sq, kvl, causal, qoff)
             nbytes = 2 * (2 * q.numel() + 2 * Bc * kvl * Hkv * D)  # q, out, the valid K/V rows
@@ -3884,6 +4019,7 @@ def flash_stream_phase(dev, seed, fa, fg):
                              "the kv_len valid keys, K/V repeated to the query heads outside "
                              "the timing",
                 bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+                tflop_per_s=4 * Hq * D * pairs / (ms * 1e-3) / 1e12,
                 lse=dict(max_abs_err=res["lse"], atol=TOL["flash_attention_stream_lse"][0],
                          ms=time_ms(lambda i: fa.flash_attention_stream(
                              q, k, v, return_stats=True, **kw), 5, warmup=2)[0],
@@ -3935,7 +4071,7 @@ def depth_control(fa, o, q, k, v, kw):
     have passed it."""
     out = {}
     for key in STALE_KEYS:
-        o_bad = fa.flash_stream_plain(q, k, stale_tile(v, key), **kw)
+        o_bad = fa.flash_stream_plain(q, k, stale_tile(v, key, fa.STREAM_BLOCK_KV), **kw)
         err = must_fail_within("flash_attention_stream",
                                f"against the plain version with the V tile at key {key} stale",
                                o, o_bad)
@@ -4055,7 +4191,7 @@ def lc_gate(dev, seed, spec, ids, fa, norms, dt):
         return real(q, k, v, **dict(kw, q_offset=kw.get("q_offset", 0) - 1))
 
     def stale_v(q, k, v, **kw):
-        return real(q, k, stale_tile(v, STALE_KEYS[0]), **kw)
+        return real(q, k, stale_tile(v, STALE_KEYS[0], fa.STREAM_BLOCK_KV), **kw)
 
     frontier_short.launches = stale_v.launches = 0
     with patched(fa, "flash_attention_stream", frontier_short):
@@ -4215,6 +4351,7 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
                   prefill_traced_ms=traced_ms, prefill_device_busy_ms=busy,
                   prefill_idle_share=1 - busy / traced_ms,
                   prefill_k10_ms=k10_ms, prefill_k10_share=k10_ms / busy,
+                  prefill_k10_ms_a_layer=k10_ms / L,
                   decode_ctx=LC_PROMPT, decode_step_ms=decode_step_ms,
                   decode_step_device_ms=step_dev_ms, peak_bytes=peak,
                   allocated_before_bytes=before,

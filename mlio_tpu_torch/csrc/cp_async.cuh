@@ -1,8 +1,7 @@
-// The cp.async pieces of the shared-memory rings of K10 (flash_stream.cu), K1
-// and K13a (flash_fwd.cuh), K13b/K13c (flash_bwd.cu) and K12's shapes off the
-// TMA path (ln_matmul.cu): 16- and 4-byte asynchronous copies from device
-// to shared memory with zero fill, their commit groups, and the bf16 packing
-// that turns an accumulator pair into half of an mma.sync A fragment.
+// The cp.async pieces of the shared-memory rings of K1 and K13a
+// (flash_fwd.cuh), K13b/K13c (flash_bwd.cu) and K12's shapes off the TMA
+// path (ln_matmul.cu): 16- and 4-byte asynchronous copies from device to
+// shared memory with zero fill, and their commit groups.
 //
 // cp.async groups are counted per thread: cp.async.wait_group N makes a
 // thread's own copies of all but its N newest groups visible to that thread,
@@ -28,12 +27,6 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two fp32 values rounded to bf16, lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 }  // namespace gemm

@@ -9,22 +9,27 @@
 // blocks past the context). A sequence with ctx[b] == 0 gives 0.
 //
 // The kernel, its bound and its design are in decode_attn.cuh, shared with
-// K7; this source gives the contiguous cache's rows. Rounding follows
-// _decode_kernel: with G == 1 everything stays fp32; with G > 1 the scaled
-// query and the probabilities are rounded to the cache's dtype before their
-// products, as its MXU path does. An INT8 cache (int8 rows, fp32 scales
-// [L, B, Smax, Hkv]) takes the int8 instances: the K scale on the fp32 score,
-// the V scale on the probability; with G > 1 the scaled query and the scaled
-// probabilities are rounded to bf16, as _decode_kernel's kv_quant path.
-// Bound at GPT-2 small, B = 8, context 896: 11.0 MB of int8 K/V and 0.69 MB
-// of scales a layer, 3.5 us at 3.35 TB/s (bf16: 6.6 us).
+// K7; this source gives the contiguous cache's rows and launches the split
+// instance: a cluster of n_split blocks a (sequence, kv head), each over one
+// chunk of the cache's slots, their softmax states merged in rank order.
+// Rounding follows _decode_kernel: with G == 1 everything stays fp32; with
+// G > 1 the scaled query and the probabilities are rounded to the cache's
+// dtype before their products (on the tensor cores), as its MXU path does.
+// An INT8 cache (int8 rows, fp32 scales [L, B, Smax, Hkv]) takes the int8
+// instances: the K scale on the fp32 score, the V scale on the probability;
+// with G > 1 the scaled query and the scaled probabilities are rounded to
+// bf16, as _decode_kernel's kv_quant path. Bound at GPT-2 small, B = 8,
+// context 896: 11.0 MB of int8 K/V and 0.69 MB of scales a layer, 3.5 us at
+// 3.35 TB/s (bf16: 6.6 us); at Mistral-7B-Instruct-v0.2's decode (B 1, 8 KV
+// heads of 128, context 32,704): 134 MB of bf16 K/V a layer, 40 us.
 #include "decode_attn.cuh"
 
 namespace {
 
-// Slot t of sequence b at layer `layer` of the [L, B, Smax, Hkv, D] cache.
+// Slot t of sequence b at layer `layer` of the [L, B, Smax, Hkv, D] cache;
+// the split: n_split blocks a (sequence, kv head), `chunk` slots each.
 struct ContiguousRows {
-  int B, Smax, Hkv, D, layer;
+  int B, Smax, Hkv, D, layer, n_split, chunk;
   __device__ int count(int b, const int* ctx) const { return max(0, min(ctx[b], Smax)); }
   __device__ size_t offset(int b, int hk, int t) const {
     return ((static_cast<size_t>(layer) * B + b) * Smax + t) * Hkv * D + static_cast<size_t>(hk) * D;
@@ -35,13 +40,19 @@ struct ContiguousRows {
 
 // q, out: [B, Hkv * G, D] bf16; k_cache, v_cache: [L, B, Smax, Hkv, D] bf16,
 // or int8 with fp32 k_scale, v_scale [L, B, Smax, Hkv] (null for bf16);
-// ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}.
+// ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}. Each
+// (sequence, kv head) takes a cluster of n_split blocks (1 to 8), each
+// block `chunk` slots (a multiple of kTokenStep, 128) from rank * chunk;
+// n_split * chunk must cover Smax.
 extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* v_cache,
                                 const float* k_scale, const float* v_scale, const int* ctx,
                                 void* out, int B, int Smax, int Hkv, int G, int D, int layer,
-                                float scale, void* stream) {
+                                float scale, int n_split, int chunk, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
-  const ContiguousRows rows{B, Smax, Hkv, D, layer};
+  if (n_split < 1 || n_split > decode_attn::kMaxSplit || (D != 64 && D != 128) || chunk <= 0 ||
+      chunk % decode_attn::kTokenStep || static_cast<long long>(n_split) * chunk < Smax)
+    return cudaErrorInvalidValue;
+  const ContiguousRows rows{B, Smax, Hkv, D, layer, n_split, chunk};
   return decode_attn::launch<__nv_bfloat16, true>(q, k_cache, v_cache, k_scale, v_scale, ctx,
                                                   out, B, Hkv, G, D, rows, scale,
                                                   static_cast<cudaStream_t>(stream));

@@ -76,6 +76,7 @@ using gemm::fence_regs;
 using gemm::kmajor;
 using gemm::mnmajor;
 using gemm::pack_bf16;
+using gemm::repack;
 using gemm::wgmma_commit;
 using gemm::wgmma_fence;
 using gemm::wgmma_rs;
@@ -93,16 +94,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 // llama3-8b's attention and slower at GPT-2's prefill and with dropout
 // (PERF.md, Findings).
 template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
-
-// Accumulator pairs (n-tiles 2kk and 2kk + 1) rounded to bf16 and repacked
-// as the A fragment of the 16 columns 16kk .. 16kk + 15 (K10's repack of p).
-template <int NT>
-__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&d)[NT][4], int kk) {
-  a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
-  a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
-  a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
-  a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
-}
 
 struct FwdArgs {
   const bf16* q;

@@ -15,182 +15,214 @@
 // 2 = 5.35e8 a head, so QK^T and PV take 4 x 128 x 32 x 5.35e8 = 8.76 TFLOP,
 // 8.86 ms at 989 TFLOP/s (bf16 tensor cores), against 0.67 GB of q, out and
 // the valid K/V rows, about 0.2 ms at the card's memory rate: bound by
-// operations, 40 times over. So the tensor cores must do the work, and
-// everything else must keep out of their way: the design keeps the softmax
-// state and both products' operands in registers, hides the K/V loads behind
-// the products, and spends no mask arithmetic where no mask applies.
+// operations, 40 times over. The tensor cores must run without a pause, and
+// the softmax (a 128 x 128 tile's 16K exponentials take about half as long
+// on the SM's 16 MUFU lanes as the tile's two products on its tensor
+// cores), the loads and the barriers must stay out of their way.
 //
-// The design, for Hopper rather than copied from the TPU's blocks:
-// - One block per (q tile of 128 rows, query head, batch), eight warps of 16
-//   rows each. The TPU kernel takes up to 1024 rows a tile so that K/V are
-//   fetched fewer times (:625); here 128 rows are what the registers hold
-//   (the fp32 output accumulator of 16 rows x D a warp) and the shared memory
-//   allows beside the K/V ring. The heaviest q tiles (the last, under
-//   causality) are scheduled first, the query heads of one KV head side by
-//   side so that their K/V meet in L2.
-// - The K/V stream: 64-key tiles through a three-stage cp.async ring, the
-//   counterpart of the TPU kernel's depth-3 DMA slots (:362-397). Tile j + 2
-//   is copied in while tile j's products run; K and V are committed as
-//   separate groups, and V is waited on only after the QK^T product. At
-//   D = 128: Q 34 KB and the two rings 102 KB of shared memory, rows padded
-//   by 16 bytes so that ldmatrix reads eight rows on distinct banks.
-// - Interior and edge tiles: the kv loop runs in two parts. Interior tiles
-//   lie wholly below the causal diagonal of the tile's first row and inside
-//   kv_len: no mask and no -inf guards. Edge tiles (the diagonal and the
-//   kv_len tail) are masked. At a 32K context nearly every tile is interior.
-// - Both products on the tensor cores with mma.sync m16n8k16 (bf16 inputs,
-//   fp32 accumulate): Q stays in registers as A fragments for the whole kv
-//   loop, the scores land in registers in the accumulator layout, and p,
-//   rounded to bf16, is repacked in registers as the A fragments of the PV
-//   product (FlashAttention-2's layout); K and V enter through ldmatrix (V
-//   transposed). Nothing is staged through shared memory but K and V.
-// - Limits: the causal early exit at min(kv_len[b], q_start + q_offset + 128);
-//   a per-batch kv_len array or one scalar; keys past kv_len are zero-filled
-//   by the copy (never read past the tensor); rows past Sq are zero and not
-//   stored. Offsets are 64-bit.
+// The design (FlashAttention-3's shape, written for this kernel):
+// - One block per (q tile of 128 rows, query head, batch), the heaviest q
+//   tiles (the last, under causality) first and the query heads of one KV
+//   head side by side, so that their K/V meet in L2. Three warpgroups a
+//   block, one block an SM: a producer and two consumers of 64 q rows each.
+//   setmaxnreg gives the producer 24 registers a thread and the consumers
+//   240: a consumer holds S (64 fp32 at 128 keys), O (64 at D 128) and p
+//   (32 packed bf16) at once.
+// - The producer: one thread asks the TMA (tma.cuh) for every tile. Q once,
+//   each consumer's 64 rows on its own barrier; K and V in 128-key tiles
+//   (wgmma.cuh's 128-byte swizzle, K K-major and V MN-major as K1 reads
+//   them) into a ring of as many stages as shared memory holds (three at
+//   D 128: 32 KB of Q and 3 x 64 KB of K/V). K and V have their own full
+//   and empty mbarriers a stage, so a K slot is refilled as soon as both
+//   consumers' S products have read it, and V one tile later. K/V come
+//   through a 3-D map [B, Skv, Hkv * D]: rows past Skv read as zeros and a
+//   tile never runs into the next sequence. Rows between kv_len[b] and Skv
+//   arrive as the cache holds them; the masked scores ignore K there, and
+//   the producer warp zeroes those rows of the last V tile before handing it
+//   over (p = 0 there, and 0 * NaN is NaN), as the earlier kernel's copies
+//   zero-filled them.
+// - The consumers: the Q tile is scaled in place, q * scale in fp32 rounded
+//   back to bf16 (fence.proxy.async before the products read it), then each
+//   K/V tile j takes S(j) = Q K(j)^T issued together with O += P(j-1)
+//   V(j-1), the softmax of S(j) while O's product runs, O rescaled once it
+//   lands, and p rounded to bf16 and repacked in registers as the next PV
+//   product's A operand (wgmma.cuh's repack). O stays in registers. The two
+//   consumers run unordered: named barriers that handed the tensor cores
+//   from one to the other at each issue (ping-pong) measured no faster at
+//   Mistral's 32K call (ab_k10.py's `turns`; PERF.md). No block-wide
+//   barrier runs after the set-up; every mbarrier wait is bounded
+//   (tma::bar_wait_bounded), so a miscounted copy fails the launch instead
+//   of hanging the card.
+// - Interior tiles (every key at or below the warpgroup's first row and
+//   inside kv_len) take no mask; the diagonal tile and the kv_len tail do.
+//   The causal early exit stops at min(kv_len[b], q_start + q_offset + 128).
+//   q rows past Sq are computed from whatever the map reads there and not
+//   stored. Offsets are 64-bit. Every output has one writer: two launches
+//   give the same bits.
 //
 // Rounding follows _flash_fwd_stream_kernel: the scale is folded into q in
 // fp32 and rounded back to bf16; the online (m, l, acc) state is fp32; p is
-// rounded to bf16 for the PV product while l adds the fp32 p; out = acc / l.
-// exp is taken as exp2 of the score times log2(e), a few fp32 ulps from exp.
-//
-// A simple kernel that is right: wgmma and TMA are later work.
-#include "cp_async.cuh"
+// rounded to bf16 for the PV product while l adds the fp32 p, p taken
+// against the running max of the 128-key tiles seen; out = acc / l. exp is
+// taken as exp2 of the score times log2(e), a few fp32 ulps from exp.
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 #include <math.h>
 
 namespace stream {
 
-constexpr int BQ = 128;  // query rows a block
-constexpr int BKV = 64;  // keys a K/V tile
-constexpr int kWarps = BQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStages = 3;  // the cp.async ring's depth
+using bf16 = __nv_bfloat16;
+using gemm::fence_proxy_async;
+using gemm::fence_regs;
+using gemm::kmajor;
+using gemm::pack_bf16;
+using gemm::repack;
+using gemm::wgmma_commit;
+using gemm::wgmma_desc;
+using gemm::wgmma_fence;
+using gemm::wgmma_wait;
+using gemm::zero;
+using tma::bar_arrive;
+using tma::bar_wait_bounded;
+
+constexpr int BQ = 128;            // q rows a block: two consumer warpgroups of 64
+constexpr int BKV = 128;           // keys a K/V tile
+constexpr int kWg = 128;           // threads a warpgroup
+constexpr int kThreads = 3 * kWg;  // the producer and two consumers
+constexpr int kConsumerWarps = 8;  // arrivals that release a K or V slot
+// setmaxnreg moves registers within the block: launched at 168 a thread
+// (65,536 / 384, rounded down to a multiple of 8), the producer gives up
+// 128 x (168 - 24) = 18,432, exactly what the consumers take to reach 240;
+// a producer left at 32 would give 1,024 too few, and the consumers' request
+// would wait forever.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr size_t kSmemLimit = 232448;  // a block's shared memory on the H100
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Named barriers (0 is __syncthreads): consumer w publishes its scaled Q
+// tile to its own four warps at kQReady + w.
+constexpr int kQReady = 1;
 
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 8;  // bf16 elements a row: 16 bytes of pad
+  static constexpr size_t kQTile = size_t(64) * D * 2;    // one consumer's q rows
+  static constexpr size_t kKvTile = size_t(BKV) * D * 2;  // one K or V tile
+  static constexpr int kStages =
+      (kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile) < 4
+          ? static_cast<int>((kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile))
+          : 4;
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + size_t(BQ) * LD * 2;
-  static constexpr size_t kV = kK + size_t(kStages) * BKV * LD * 2;
-  static constexpr size_t kBytes = kV + size_t(kStages) * BKV * LD * 2;
+  static constexpr size_t kK = 2 * kQTile;
+  static constexpr size_t kV = kK + kStages * kKvTile;
+  static constexpr size_t kBars = kV + kStages * kKvTile;
+  // full K, full V, empty K, empty V a stage; Q a consumer; the tail V tile
+  static constexpr int kNumBars = 4 * kStages + 3;
+  static constexpr size_t kBytes = kBars + kNumBars * 8;
+  static_assert(kStages >= 2 && kBytes <= kSmemLimit, "the ring must fit");
 };
 
-using gemm::cp_async16;
-using gemm::cp_commit;
-using gemm::cp_wait;
-using gemm::pack_bf16;
-
-template <int D>
 struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;
+  bf16* out;
   float* lse;
   const int* kv_len_arr;
   int kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal;
   float scale;
 };
 
-// Start the cp.async copies of K/V tile j (rows kv0..kv0+63 of KV head hk)
-// into ring slot j % kStages, K and V as two commit groups. Rows at or past
-// kvl are zero-filled. Every thread commits both groups, copies or not, so
-// that the group counts stay uniform.
-template <int D>
-__device__ __forceinline__ void load_tile(const Args<D>& a, __nv_bfloat16* sK,
-                                          __nv_bfloat16* sV, int j, int n_tiles, int b, int hk,
-                                          int kvl) {
-  using S = Smem<D>;
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
-  const bool live = j < n_tiles;
-  const int slot = j % kStages;
-  const size_t kv_row = static_cast<size_t>(a.Hkv) * D;
-  const size_t base = static_cast<size_t>(b) * a.Skv * kv_row + static_cast<size_t>(hk) * D;
-  if (live) {
-#pragma unroll
-    for (int c = threadIdx.x; c < BKV * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
-      const int t = j * BKV + r;
-      const bool ok = t < kvl;
-      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 8;
-      cp_async16(sK + (slot * BKV + r) * S::LD + cc * 8, a.k + off, ok);
-    }
-  }
-  cp_commit();
-  if (live) {
-#pragma unroll
-    for (int c = threadIdx.x; c < BKV * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
-      const int t = j * BKV + r;
-      const bool ok = t < kvl;
-      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 8;
-      cp_async16(sV + (slot * BKV + r) * S::LD + cc * 8, a.v + off, ok);
-    }
-  }
-  cp_commit();
-}
-
-// The per-warp state of 16 query rows: this thread holds rows g and g + 8 of
-// the warp's 16 (g = lane / 4), and in each 8-column n-tile the columns
-// 2 * (lane % 4) and + 1.
-template <int D>
-struct Rows {
-  uint32_t qa[D / 16][4];  // q * scale (bf16) as A fragments, one a 16-wide k step
-  float o[D / 8][4];       // output accumulator: [n-tile of 8 dims][row g: 0, 1; row g+8: 2, 3]
-  float m[2], l[2];        // running max and this thread's part of the row sum
+// q as [B * Sq, Hq * D] in [64 x 64] boxes; k and v as [B, Skv, Hkv * D] in
+// [BKV x 64] boxes.
+struct Maps {
+  CUtensorMap q, k, v;
 };
 
-// One K/V tile: S = Q K^T (16 x 64 a warp), the online softmax, O += P V.
-template <int D, bool kMasked>
-__device__ __forceinline__ void tile(const Args<D>& a, Rows<D>& st, const __nv_bfloat16* sK,
-                                     const __nv_bfloat16* sV, int j, int row_abs0, int kvl) {
-  using S = Smem<D>;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane % 4;
-  const int slot = j % kStages;
-  const __nv_bfloat16* k_t = sK + slot * BKV * S::LD;
-  const __nv_bfloat16* v_t = sV + slot * BKV * S::LD;
+template <int S>
+struct Bars {
+  uint64_t* full_k;
+  uint64_t* full_v;
+  uint64_t* empty_k;
+  uint64_t* empty_v;
+  uint64_t* q;
+  uint64_t* tail;
+  __device__ explicit Bars(uint64_t* b)
+      : full_k(b), full_v(b + S), empty_k(b + 2 * S), empty_v(b + 3 * S), q(b + 4 * S),
+        tail(b + 4 * S + 2) {}
+};
 
-  // S = Q K^T: eight n-tiles of 8 keys. ldmatrix x4 reads two n-tiles' K rows
-  // (keys n0 .. n0+15) at one 16-wide k step: matrices (n-tile 0, dims lo),
-  // (n-tile 0, dims hi), (n-tile 1, dims lo), (n-tile 1, dims hi).
-  float s[BKV / 8][4];
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The registers of p (the A operand of an asynchronous PV product) kept
+// live, unchanged, up to here: the product reads them until its group is
+// waited for.
+template <int KK>
+__device__ __forceinline__ void fence_pa(uint32_t (&pa)[KK][4]) {
 #pragma unroll
-  for (int n = 0; n < BKV / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  {
-    const int mi = lane / 8, r = lane % 8;
+  for (int k = 0; k < KK; ++k)
 #pragma unroll
-    for (int np = 0; np < BKV / 16; ++np) {
-      const __nv_bfloat16* kp = k_t + (np * 16 + (mi >> 1) * 8 + r) * S::LD + (mi & 1) * 8;
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[k][e])::"memory");
+}
+
+// A K tile (BKV rows as N, columns c0 .. c0 + 15 as K): each 64-column half
+// of the tile is BKV rows of 128 bytes, the second half BKV x 128 bytes on.
+__device__ __forceinline__ uint64_t k_desc(const bf16* k_t, int c0) {
+  return wgmma_desc(reinterpret_cast<const unsigned char*>(k_t) + (c0 >> 6) * (BKV * 128) +
+                        (c0 & 63) * 2,
+                    16, 1024);
+}
+// A V tile MN-major: keys [r0, r0 + 16) as K, every column as N; along N the
+// next 64 columns BKV x 128 bytes on.
+__device__ __forceinline__ uint64_t v_desc(const bf16* v_t, int r0) {
+  return wgmma_desc(reinterpret_cast<const unsigned char*>(v_t) + r0 * 128, BKV * 128, 1024);
+}
+
+// S[64 x BKV] = (q * scale) K^T: q (64 rows, K-major) and K from shared memory.
+template <int D, int NT>
+__device__ __forceinline__ void s_product(float (&s)[NT][4], const bf16* q_t, const bf16* k_t) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        gemm::ldmatrix_x4(b, kp + kk * 16);
-        gemm::mma16816(s[2 * np], st.qa[kk], b[0], b[1]);
-        gemm::mma16816(s[2 * np + 1], st.qa[kk], b[2], b[3]);
-      }
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (NT == 16)
+      gemm::wgmma_ss_n128<0>(s, kmajor(q_t, 0, 16 * kk), k_desc(k_t, 16 * kk), kk > 0);
+    else
+      gemm::wgmma_ss_n64(s, kmajor(q_t, 0, 16 * kk), k_desc(k_t, 16 * kk), kk > 0);
   }
+}
 
-  // V lands while the QK^T product runs; wait for it only now.
-  cp_wait<4>();
-  __syncthreads();
+// O[64 x D] += P V: p from registers, V MN-major from shared memory.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 8][4],
+                                           const uint32_t (&pa)[BKV / 16][4], const bf16* v_t) {
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) gemm::wgmma_rs<D, 1>(o, pa[kk], v_desc(v_t, 16 * kk), 1);
+}
 
-  // Online softmax over this tile, rows g (i = 0) and g + 8 (i = 1).
-  float alpha[2];
+// The online softmax of one tile's scores, rows g (i = 0) and g + 8 (i = 1)
+// of this thread's warp: masked (the diagonal tile, the kv_len tail) or not;
+// s becomes p (fp32), m and l move on, alpha rescales O.
+__device__ __forceinline__ void softmax(float (&s)[BKV / 8][4], float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2], bool masked, int kv0, int row_abs0,
+                                        int kvl, int causal) {
+  const int t4 = threadIdx.x % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if constexpr (kMasked) {
+    if (masked) {
       const int row_abs = row_abs0 + 8 * i;
 #pragma unroll
       for (int n = 0; n < BKV / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = j * BKV + n * 8 + 2 * t4 + e;
-          const bool ok = col < kvl && (!a.causal || row_abs >= col);
-          if (!ok) s[n][2 * i + e] = -INFINITY;
+          const int col = kv0 + n * 8 + 2 * t4 + e;
+          if (!(col < kvl && (!causal || row_abs >= col))) s[n][2 * i + e] = -INFINITY;
         }
       }
     }
@@ -199,14 +231,9 @@ __device__ __forceinline__ void tile(const Args<D>& a, Rows<D>& st, const __nv_b
     for (int n = 0; n < BKV / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(st.m[i], mx);
-    float m_safe = m_new;
-    if constexpr (kMasked) {
-      m_safe = (m_new == -INFINITY) ? 0.f : m_new;
-      alpha[i] = (st.m[i] == -INFINITY) ? 0.f : exp2f((st.m[i] - m_safe) * kLog2e);
-    } else {
-      alpha[i] = exp2f((st.m[i] - m_safe) * kLog2e);  // exp(-inf) = 0 on the first tile
-    }
+    const float m_new = fmaxf(m[i], mx);
+    const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
+    alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f((m[i] - m_safe) * kLog2e);
     const float mb = m_safe * kLog2e;
     float psum = 0.f;
 #pragma unroll
@@ -218,45 +245,205 @@ __device__ __forceinline__ void tile(const Args<D>& a, Rows<D>& st, const __nv_b
         psum += p;
       }
     }
-    st.l[i] = st.l[i] * alpha[i] + psum;
-    st.m[i] = m_new;
+    l[i] = l[i] * alpha[i] + psum;
+    m[i] = m_new;
   }
+}
+
+// The producer warp: lane 0 asks for Q, then K(0), and for each tile j
+// K(j + 1) before V(j), the order the consumers need them in; each slot
+// once both consumers have released it. The last V tile, where it holds
+// rows past kv_len, lands on its own barrier and the warp zeroes those rows
+// before it hands the tile over.
+template <int D>
+__device__ __forceinline__ void produce(const Maps& maps, bf16* sQ, bf16* sK, bf16* sV,
+                                        const Bars<Smem<D>::kStages>& bar, int b, int h, int hk,
+                                        int q_row0, int n_tiles, int kvl) {
+  using S = Smem<D>;
+  constexpr int kS = S::kStages;
+  constexpr int kHalves = D / 64;
+  const int lane = threadIdx.x % 32;
+  const bool tail = n_tiles * BKV > kvl;
+
+  auto load_k = [&](int i) {
+    const int slot = i % kS;
+    if (i >= kS) bar_wait_bounded(&bar.empty_k[slot], ((i / kS) + 1) & 1);
+    tma::bar_expect(&bar.full_k[slot], static_cast<uint32_t>(S::kKvTile));
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    st.o[n][0] *= alpha[0];
-    st.o[n][1] *= alpha[0];
-    st.o[n][2] *= alpha[1];
-    st.o[n][3] *= alpha[1];
+    for (int c = 0; c < kHalves; ++c)
+      tma::load_3d(sK + slot * BKV * D + c * BKV * 64, &maps.k, hk * D + c * 64, i * BKV, b,
+                   &bar.full_k[slot]);
+  };
+  auto load_v = [&](int i, uint64_t* full) {
+    const int slot = i % kS;
+    if (i >= kS) bar_wait_bounded(&bar.empty_v[slot], ((i / kS) + 1) & 1);
+    tma::bar_expect(full, static_cast<uint32_t>(S::kKvTile));
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c)
+      tma::load_3d(sV + slot * BKV * D + c * BKV * 64, &maps.v, hk * D + c * 64, i * BKV, b,
+                   full);
+  };
+
+  if (lane == 0) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      tma::bar_expect(&bar.q[w], static_cast<uint32_t>(S::kQTile));
+#pragma unroll
+      for (int c = 0; c < kHalves; ++c)
+        tma::load_2d(sQ + w * 64 * D + c * 64 * 64, &maps.q, h * D + c * 64, q_row0 + 64 * w,
+                     &bar.q[w]);
+    }
+    load_k(0);
+    for (int j = 0; j < n_tiles; ++j) {
+      if (j + 1 < n_tiles) load_k(j + 1);
+      if (!(tail && j == n_tiles - 1)) load_v(j, &bar.full_v[j % kS]);
+    }
+  }
+  __syncwarp();
+  if (tail) {
+    const int j = n_tiles - 1, slot = j % kS;
+    if (lane == 0) load_v(j, bar.tail);
+    bar_wait_bounded(bar.tail, 0);
+    // rows [kvl - j * BKV, BKV) of each half (0 < kvl - j * BKV < BKV): the
+    // swizzle moves chunks within a row only, so whole rows are zeroed in place
+    const int r0 = kvl - j * BKV, chunks = (BKV - r0) * 8;
+    unsigned char* v_t = reinterpret_cast<unsigned char*>(sV + slot * BKV * D);
+    for (int c = lane; c < chunks * kHalves; c += 32) {
+      const int half = c / chunks, rest = c % chunks;
+      *reinterpret_cast<uint4*>(v_t + half * BKV * 128 + (r0 + rest / 8) * 128 + (rest % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) bar_arrive(&bar.full_v[slot]);
+  }
+}
+
+// A consumer warpgroup (w = 0, 1): q rows [q_start + 64w, q_start + 64w + 64).
+template <int D, bool kLse>
+__device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK, const bf16* sV,
+                                        const Bars<Smem<D>::kStages>& bar, int w, int b, int h,
+                                        int q_start, int n_tiles, int kvl) {
+  constexpr int kS = Smem<D>::kStages;
+  const int tid = threadIdx.x % kWg;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = q_start + 64 * w;
+  const int first_row = row0 + a.q_offset;
+  // Interior tiles: every key at or below this warpgroup's first row and inside kvl.
+  int n_full = a.causal ? (first_row > 0 ? first_row / BKV : 0) : n_tiles;
+  n_full = min(min(n_full, kvl / BKV), n_tiles);
+  const int row_abs0 = first_row + warp * 16 + g;
+
+  float o[D / 8][4];
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (n_tiles > 0) {
+    bf16* q_t = sQ + w * 64 * D;
+    bar_wait_bounded(&bar.q[w], 0);
+    // q * scale in fp32, rounded to bf16, in place: element by element, so
+    // the swizzle does not matter.
+    for (int c = tid; c < 64 * D / 8; c += kWg) {
+      float f[8];
+      uint4* p = reinterpret_cast<uint4*>(q_t) + c;
+      unpack_vec<bf16>(*p, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] *= a.scale;
+      store_vec(reinterpret_cast<bf16*>(p), f);
+    }
+    fence_proxy_async();
+    named_sync(kQReady + w, kWg);
+
+    float s[BKV / 8][4];
+    uint32_t pa[BKV / 16][4];
+    float alpha[2];
+
+    // Tile 0: S(0) and its softmax.
+    bar_wait_bounded(&bar.full_k[0], 0);
+    wgmma_fence();
+    s_product<D>(s, q_t, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) bar_arrive(&bar.empty_k[0]);
+    softmax(s, m, l, alpha, 0 >= n_full, 0, row_abs0, kvl, a.causal);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) repack(pa[kk], s, kk);
+
+    // Tile j: S(j) issued with O += P(j-1) V(j-1); the softmax of S(j) while
+    // the PV product runs; O rescaled once it has landed.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int sk = j % kS, sv = (j - 1) % kS;
+      bar_wait_bounded(&bar.full_k[sk], (j / kS) & 1);
+      bar_wait_bounded(&bar.full_v[sv], ((j - 1) / kS) & 1);
+      wgmma_fence();
+      s_product<D>(s, q_t, sK + sk * BKV * D);
+      wgmma_commit();
+      pv_product<D>(o, pa, sV + sv * BKV * D);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (lane == 0) bar_arrive(&bar.empty_k[sk]);
+      softmax(s, m, l, alpha, j >= n_full, j * BKV, row_abs0, kvl, a.causal);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_pa(pa);
+      if (lane == 0) bar_arrive(&bar.empty_v[sv]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) repack(pa[kk], s, kk);
+    }
+
+    // The last PV product.
+    const int sv = (n_tiles - 1) % kS;
+    bar_wait_bounded(&bar.full_v[sv], ((n_tiles - 1) / kS) & 1);
+    wgmma_fence();
+    pv_product<D>(o, pa, sV + sv * BKV * D);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
   }
 
-  // O += P V: p rounded to bf16 and repacked as A fragments, one per 16 keys
-  // (n-tiles 2kk and 2kk+1); V through ldmatrix.trans, matrices (keys lo,
-  // dims n0), (keys hi, dims n0), (keys lo, dims n0+8), (keys hi, dims n0+8).
-  const int mi = lane / 8, r = lane % 8;
+  // out = O / l, rounded to bf16 (0 for a row with no valid key), and
+  // lse = m + log(l); rows past Sq are not stored.
+  const size_t q_row = static_cast<size_t>(a.Hq) * D;
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    const __nv_bfloat16* vp = v_t + (kk * 16 + (mi & 1) * 8 + r) * S::LD + (mi >> 1) * 8;
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int qr = row0 + warp * 16 + g + 8 * i;
+    if (qr < a.Sq) {
+      const float l_safe = (lt == 0.f) ? 1.f : lt;
+      bf16* orow =
+          a.out + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      gemm::ldmatrix_x4_trans(b, vp + np * 16);
-      gemm::mma16816(st.o[2 * np], pa, b[0], b[1]);
-      gemm::mma16816(st.o[2 * np + 1], pa, b[2], b[3]);
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
+            pack_bf16(o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
+      if (kLse && t4 == 0)
+        a.lse[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + qr] =
+            (lt == 0.f) ? -INFINITY : (m[i] == -INFINITY ? 0.f : m[i]) + logf(l_safe);
     }
   }
 }
 
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1) flash_stream_kernel(const Args<D> a) {
+__global__ void __launch_bounds__(kThreads, 1)
+flash_stream_kernel(const Args a, const __grid_constant__ Maps maps) {
   using S = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + S::kQ);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
+  constexpr int kS = S::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem + S::kQ);
+  bf16* sK = reinterpret_cast<bf16*>(smem + S::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + S::kV);
+  const Bars<kS> bar(reinterpret_cast<uint64_t*>(smem + S::kBars));
 
   // Block -> (q tile, batch, head): heads fastest, the heaviest q tiles first.
   const int n_qt = (a.Sq + BQ - 1) / BQ;
@@ -266,97 +453,39 @@ __global__ void __launch_bounds__(kThreads, 1) flash_stream_kernel(const Args<D>
   const int qt = n_qt - 1 - rest / a.B;
   const int hk = h / (a.Hq / a.Hkv);
   const int q_start = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
 
   const int kvl = min(a.kv_len_arr != nullptr ? a.kv_len_arr[b] : a.kv_len_scalar, a.Skv);
   int tokens = kvl;
   if (a.causal) tokens = min(tokens, q_start + a.q_offset + BQ);
   const int n_tiles = tokens > 0 ? (tokens + BKV - 1) / BKV : 0;
-  // Interior tiles: every key at or below the tile's first row and inside kvl.
-  const int first_row = q_start + a.q_offset;
-  int n_full = a.causal ? (first_row > 0 ? first_row / BKV : 0) : n_tiles;
-  n_full = min(min(n_full, kvl / BKV), n_tiles);
 
-  // The scaled Q tile: q * scale in fp32, rounded to bf16; rows past Sq are 0.
-  constexpr int CPR = D / 8;
-  const size_t q_row = static_cast<size_t>(a.Hq) * D;
-  for (int c = threadIdx.x; c < BQ * CPR; c += kThreads) {
-    const int rr = c / CPR, cc = c % CPR;
-    const int qr = q_start + rr;
-    float f[8];
-    if (qr < a.Sq) {
-      load_vec(a.q + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D +
-                   cc * 8,
-               f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] *= a.scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      tma::bar_init(&bar.full_k[i]);
+      tma::bar_init(&bar.full_v[i]);
+      tma::bar_init(&bar.empty_k[i], kConsumerWarps);
+      tma::bar_init(&bar.empty_v[i], kConsumerWarps);
     }
-    store_vec(sQ + rr * S::LD + cc * 8, f);
+    tma::bar_init(&bar.q[0]);
+    tma::bar_init(&bar.q[1]);
+    tma::bar_init(bar.tail);
+    tma::bar_init_fence();
   }
-  load_tile<D>(a, sK, sV, 0, n_tiles, b, hk, kvl);
-  load_tile<D>(a, sK, sV, 1, n_tiles, b, hk, kvl);
   __syncthreads();
 
-  Rows<D> st;
-  {
-    // A fragments of the warp's 16 rows: matrices (rows lo, k lo), (rows hi,
-    // k lo), (rows lo, k hi), (rows hi, k hi).
-    const int mi = lane / 8, r = lane % 8;
-    const __nv_bfloat16* qp = sQ + (warp * 16 + (mi & 1) * 8 + r) * S::LD + (mi >> 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) gemm::ldmatrix_x4(st.qa[kk], qp + kk * 16);
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32 && n_tiles > 0)
+      produce<D>(maps, sQ, sK, sV, bar, b, h, hk, b * a.Sq + q_start, n_tiles, kvl);
+    return;
   }
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
-  st.m[0] = st.m[1] = -INFINITY;
-  st.l[0] = st.l[1] = 0.f;
-  const int row_abs0 = first_row + warp * 16 + g;
-
-  // Groups in flight at the top of tile j: K_j, V_j, K_j+1, V_j+1 (and
-  // older, complete ones). wait_group 3 leaves V_j, K_j+1, V_j+1 pending.
-  int j = 0;
-  for (; j < n_full; ++j) {
-    cp_wait<3>();
-    __syncthreads();  // K_j visible to all; every warp is done with slot (j + 2) % 3
-    load_tile<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
-    tile<D, false>(a, st, sK, sV, j, row_abs0, kvl);
-  }
-  for (; j < n_tiles; ++j) {
-    cp_wait<3>();
-    __syncthreads();
-    load_tile<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
-    tile<D, true>(a, st, sK, sV, j, row_abs0, kvl);
-  }
-  cp_wait<0>();
-
-  // out = acc / l (0 for a row with no valid key); lse = m + log(l).
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = st.l[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    const int qr = q_start + warp * 16 + g + 8 * i;
-    if (qr < a.Sq) {
-      __nv_bfloat16* orow =
-          a.out + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-            pack_bf16(st.o[n][2 * i] / l_safe, st.o[n][2 * i + 1] / l_safe);
-      if (kLse && t4 == 0)
-        a.lse[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + qr] =
-            (l == 0.f) ? -INFINITY : (st.m[i] == -INFINITY ? 0.f : st.m[i]) + logf(l_safe);
-    }
-  }
+  setmaxnreg_inc<kConsumerRegs>();
+  consume<D, kLse>(a, sQ, sK, sV, bar, wg - 1, b, h, q_start, n_tiles, kvl);
 }
 
 template <int D, bool kLse>
-cudaError_t launch_d(const Args<D>& a, cudaStream_t s) {
+cudaError_t launch_d(const Args& a, const Maps& maps, cudaStream_t s) {
   constexpr size_t smem = Smem<D>::kBytes;
   auto kernel = flash_stream_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,18 +493,21 @@ cudaError_t launch_d(const Args<D>& a, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   const long long blocks = static_cast<long long>((a.Sq + BQ - 1) / BQ) * a.Hq * a.B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(a, maps);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv,
-                   int q_offset, float scale, int causal, cudaStream_t s) {
-  const Args<D> a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
-                  kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale};
-  return lse != nullptr ? launch_d<D, true>(a, s) : launch_d<D, false>(a, s);
+cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, cudaStream_t s) {
+  Maps maps{};  // with no key (Skv 0) no block loads a tile
+  const uint64_t q_cols = static_cast<uint64_t>(a.Hq) * D, kv_cols = uint64_t(a.Hkv) * D;
+  cudaError_t err = tma::map_2d(&maps.q, q, static_cast<uint64_t>(a.B) * a.Sq, q_cols, q_cols, 64);
+  if (err == cudaSuccess && a.Skv > 0)
+    err = tma::map_3d(&maps.k, k, a.B, a.Skv, kv_cols, kv_cols, kv_cols * a.Skv, BKV);
+  if (err == cudaSuccess && a.Skv > 0)
+    err = tma::map_3d(&maps.v, v, a.B, a.Skv, kv_cols, kv_cols, kv_cols * a.Skv, BKV);
+  if (err != cudaSuccess) return err;
+  return a.lse != nullptr ? launch_d<D, true>(a, maps, s) : launch_d<D, false>(a, maps, s);
 }
 
 }  // namespace stream
@@ -389,13 +521,11 @@ extern "C" int mlio_flash_stream(const void* q, const void* k, const void* v, vo
                                  int Skv, int Hq, int Hkv, int D, int q_offset, float scale,
                                  int causal, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv || Skv < 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return stream::launch<64>(q, k, v, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
-                              q_offset, scale, causal, s);
-  if (D == 128)
-    return stream::launch<128>(q, k, v, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
-                               q_offset, scale, causal, s);
+  const stream::Args a{static_cast<__nv_bfloat16*>(out), lse, kv_len, kv_len_scalar, B, Sq, Skv,
+                       Hq, Hkv, q_offset, causal, scale};
+  if (D == 64) return stream::launch<64>(q, k, v, a, s);
+  if (D == 128) return stream::launch<128>(q, k, v, a, s);
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,15 @@
 // Small pieces of the tensor-core kernels: the bf16 alias, shared-memory
-// addresses for inline PTX, ldmatrix (plain and transposed) and mma.sync
-// m16n8k16 (bf16 inputs, fp32 accumulators), which K10 (flash_stream.cu)
-// runs its products on, and load8, a masked 16-byte fetch of a row's 8 bf16
-// (K12's row statistics and norm columns, ln_matmul.cu). wgmma.cuh,
-// cp_async.cuh and tma.cuh build on it; the Hopper products of K1, K5, K11,
-// K12 and K13 are wgmma (wgmma.cuh, gemm_wgmma.cuh).
+// addresses for inline PTX, ldmatrix (K13b's q and dO fragments,
+// flash_bwd.cu), mma.sync m16n8k16 (bf16 inputs, fp32 accumulators: K3's
+// grouped heads, decode_attn.cuh), the bf16 packing of an accumulator pair
+// (wgmma.cuh's repack of p), and load8, a masked 16-byte fetch of a row's 8
+// bf16 (K12's row statistics and norm columns, ln_matmul.cu). wgmma.cuh,
+// cp_async.cuh and tma.cuh build on it.
 //
-// The accumulator layout of mma.sync is fixed (PTX ISA, "Matrix fragments for
-// mma.m16n8k16"): lane l holds rows l/4 and l/4 + 8, columns 2(l%4) and
-// 2(l%4) + 1 of each 16 x 8 fragment; wgmma's accumulators follow it a warp
-// at a time (wgmma.cuh).
+// The accumulator layout of a warp's 16 rows is mma.sync m16n8k16's (PTX
+// ISA, "Matrix fragments for mma.m16n8k16"): lane l holds rows l/4 and
+// l/4 + 8, columns 2(l%4) and 2(l%4) + 1 of each 16 x 8 fragment; wgmma's
+// accumulators follow it a warp at a time (wgmma.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -30,12 +30,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
+// d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 inputs: lane l holds a's
+// rows l/4 and l/4 + 8 at columns 2(l%4) + {0, 1} (a[0], a[1]) and + 8
+// (a[2], a[3]), b's rows 2(l%4) + {0, 1} (b0) and + 8 (b1) of column l/4.
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -43,6 +40,12 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 8 bf16 of row r from column c of a row-major [rows, cols] matrix with row

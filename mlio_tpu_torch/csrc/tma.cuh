@@ -1,8 +1,8 @@
-// Hopper's Tensor Memory Accelerator for K12 (ln_matmul.cu) and for K5 and
-// K11 (gemm_wgmma.cuh): 2-D tile copies from device memory into shared
-// memory, bf16 tiles in wgmma.cuh's 128-byte swizzled layout and byte tiles
-// (K5's quantised weights) row by row, whose completion a shared-memory
-// barrier (mbarrier) counts in bytes. One thread asks for a whole tile; the hardware computes the
+// Hopper's Tensor Memory Accelerator for K12 (ln_matmul.cu), K5 and K11
+// (gemm_wgmma.cuh) and K10 (flash_stream.cu): 2-D and 3-D tile copies from
+// device memory into shared memory, bf16 tiles in wgmma.cuh's 128-byte
+// swizzled layout and byte tiles (K5's quantised weights) row by row, whose
+// completion a shared-memory barrier (mbarrier) counts in bytes. One thread asks for a whole tile; the hardware computes the
 // addresses, swizzles the 16-byte chunks and fills what lies out of bounds
 // with zeros, so the copy costs the other threads no instructions.
 //
@@ -18,10 +18,18 @@
 
 namespace tma {
 
-// A barrier waited for by phase: init with one arrival a phase; the thread
-// that starts a tile's copies arrives with the bytes they will deliver.
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(gemm::smem_addr(bar)) : "memory");
+// A barrier waited for by phase: init with `count` arrivals a phase (one
+// by default: the thread that starts a tile's copies arrives with the bytes
+// they will deliver).
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(gemm::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// One plain arrival (no bytes): a consumer releasing a slot.
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(gemm::smem_addr(bar))
+               : "memory");
 }
 __device__ __forceinline__ void bar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -49,7 +57,7 @@ __device__ __forceinline__ uint64_t now_ns() {
   return t;
 }
 
-// bar_wait for K5 and K11, whose rings run long streams of tiles: a wait of
+// bar_wait for K5, K10 and K11, whose rings run long streams of tiles: a wait of
 // 2 s means a copy that never comes (its bytes miscounted), so the launch
 // fails rather than hang the card.
 __device__ __forceinline__ void bar_wait_bounded(uint64_t* bar, uint32_t parity) {
@@ -76,6 +84,17 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(gemm::smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(gemm::smem_addr(bar))
+      : "memory");
+}
+
+// The box of a 3-D map at (column c, row r, batch z) into dst (1 KB aligned),
+// counted on bar.
+__device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map, int c, int r, int z,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(gemm::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(z), "r"(gemm::smem_addr(bar))
       : "memory");
 }
 
@@ -110,6 +129,26 @@ inline cudaError_t map_2d(CUtensorMap* map, const void* base, uint64_t rows, uin
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// A map of `batches` row-major bf16 matrices [rows, cols] with row stride ld
+// elements and batch stride batch_ld elements (both multiples of 8, the base
+// 16-byte aligned), in boxes of box_rows rows and 64 columns of one batch,
+// swizzled as map_2d. A row past `rows` reads as zeros: a box never runs into
+// the next batch's rows. Errors as map_2d.
+inline cudaError_t map_3d(CUtensorMap* map, const void* base, uint64_t batches, uint64_t rows,
+                          uint64_t cols, uint64_t ld, uint64_t batch_ld, uint32_t box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cols, rows, batches};
+  const cuuint64_t strides[2] = {ld * 2, batch_ld * 2};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess

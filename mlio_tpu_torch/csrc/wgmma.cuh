@@ -1,7 +1,8 @@
 // Hopper's warpgroup products (wgmma) for K1 and K13a (flash_fwd.cuh), K13b
-// and K13c (flash_bwd.cu) and K12 (ln_matmul.cu): the shared-memory tile
-// layout and its descriptors, the fences and groups, and the bf16 m64nNk16
-// instructions they use, with fp32 accumulators.
+// and K13c (flash_bwd.cu), K10 (flash_stream.cu), K12 (ln_matmul.cu) and K5
+// and K11 (gemm_wgmma.cuh): the shared-memory tile layout and its
+// descriptors, the fences and groups, and the bf16 m64nNk16 instructions
+// they use, with fp32 accumulators.
 //
 // Four warps (a warpgroup, 128 threads) issue one product of 64 rows: warp w
 // holds rows 16w .. 16w + 15 of A (when A is in registers) and of D, each in
@@ -93,6 +94,17 @@ template <int NT>
 __device__ __forceinline__ void zero(float (&d)[NT][4]) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+}
+
+// Accumulator pairs (n-tiles 2kk and 2kk + 1) rounded to bf16 and repacked
+// as the A fragment of the 16 columns 16kk .. 16kk + 15: p of K1 and K10
+// becomes the A operand of O += P V.
+template <int NT>
+__device__ __forceinline__ void repack(uint32_t (&a)[4], const float (&d)[NT][4], int kk) {
+  a[0] = pack_bf16(d[2 * kk][0], d[2 * kk][1]);
+  a[1] = pack_bf16(d[2 * kk][2], d[2 * kk][3]);
+  a[2] = pack_bf16(d[2 * kk + 1][0], d[2 * kk + 1][1]);
+  a[3] = pack_bf16(d[2 * kk + 1][2], d[2 * kk + 1][3]);
 }
 
 // D[64 x 32] (+)= A (registers) B (32 columns from shared memory).

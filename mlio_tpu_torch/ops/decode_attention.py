@@ -1,11 +1,16 @@
 """Single-token decode attention over the contiguous KV cache (K3).
 
 Replaces ``mlio_tpu/ops/decode_attention.py::_decode_kernel``. The kernel is
-CUDA C++ in ``mlio_tpu_torch/csrc/decode_attn.cu``: one block per (sequence,
-KV head) so the G query heads of a group share each K/V read, 16-byte loads
-of only the ``context_lens[b]`` valid slots of ``[layer, b]``, fp32 online
-softmax. It is bound by bytes; its source note gives the H100 bound at the
-main path's shapes and what the design does about it.
+CUDA C++ in ``mlio_tpu_torch/csrc/decode_attn.cu``: a thread-block cluster
+per (sequence, KV head), so the G query heads of a group share each K/V
+read, whose blocks each take one chunk of the cache's slots (16-byte loads
+of only the ``context_lens[b]`` valid slots of ``[layer, b]``, an online
+softmax; grouped heads' products on the tensor cores) and merge their
+softmax states in rank order through distributed shared memory.
+:func:`split_plan` picks the chunks from the shapes alone, so a call stays
+one launch with no synchronisation. It is bound by bytes; its
+source note gives the H100 bound at the main path's shapes and what the
+design does about it.
 
 An INT8 cache (``init_cache(quant="int8")``) comes with per-(slot, head)
 fp32 scales [L, B, Smax, Hkv]: the kernel's int8 instances read 8-byte rows
@@ -27,6 +32,28 @@ from mlio_tpu_torch.ops import _build
 
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (64, 128)
+# The kernel's split (csrc/decode_attn.cuh): a chunk is a multiple of the
+# slots a block step covers, and a cluster holds at most 8 blocks.
+TOKEN_STEP, MAX_SPLIT = 128, 8
+# Blocks the split aims at: two for each of the H100's 132 SMs.
+BLOCK_TARGET = 2 * 132
+
+
+def split_plan(B: int, Hkv: int, Smax: int) -> tuple:
+    """(n_split, chunk): each (sequence, KV head) runs as a cluster of
+    n_split blocks, block r over slots [r * chunk, (r + 1) * chunk) of the
+    cache. From the shapes alone: the fewest blocks that reach
+    ``BLOCK_TARGET`` (about two for each SM), or, where ``MAX_SPLIT`` chunks
+    do not reach it, the most; a chunk a multiple of ``TOKEN_STEP``, and no
+    chunk wholly past Smax."""
+    Smax = max(Smax, 1)
+    want = -(-BLOCK_TARGET // max(1, B * Hkv))
+    capped = -(-Smax // MAX_SPLIT // TOKEN_STEP) * TOKEN_STEP  # the smallest chunk allowed
+    if want <= 1:
+        chunk = -(-Smax // TOKEN_STEP) * TOKEN_STEP
+    else:  # the largest chunk that still gives at least `want` of them
+        chunk = max(capped, (Smax - 1) // (want - 1) // TOKEN_STEP * TOKEN_STEP)
+    return -(-Smax // chunk), chunk
 
 
 def decode_attention_plain(
@@ -79,7 +106,7 @@ def _entry():
     fn = lib.mlio_decode_attn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
         fn.restype = i
     return lib, fn
 
@@ -133,11 +160,13 @@ def decode_attention(
     _build.require_contiguous_aligned("decode_attention", q=q, k_cache=k_cache,
                                       v_cache=v_cache, k_scales=k_scales, v_scales=v_scales)
     out = torch.empty_like(q)
+    n_split, chunk = split_plan(B, Hkv, Smax)
     lib, fn = _entry()
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _build.ptr(k_scales),
                  _build.ptr(v_scales), context_lens.data_ptr(), out.data_ptr(), B, Smax, Hkv, G,
-                 D, layer, D ** -0.5 if scale is None else scale, _build.stream_handle(dev))
+                 D, layer, D ** -0.5 if scale is None else scale, n_split, chunk,
+                 _build.stream_handle(dev))
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out

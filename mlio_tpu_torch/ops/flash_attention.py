@@ -3,25 +3,24 @@
 Replaces ``mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel``. The kernel
 is CUDA C++ in ``mlio_tpu_torch/csrc/flash_fwd.cu``: one block per (64-row
 q tile, head, batch), Q/K/V tiles in shared memory, both products on the
-tensor cores (WMMA, fp32 accumulate), online softmax in fp32, a kv loop that
+tensor cores (wgmma, fp32 accumulate), online softmax in fp32, a kv loop that
 stops at the causal frontier and at ``kv_len``. Its source note gives the
 H100 bound at the main path's shapes and what the design does about it.
 
 K10 replaces ``_flash_fwd_stream_kernel``, the JAX package's long-context
 forward: CUDA C++ in ``mlio_tpu_torch/csrc/flash_stream.cu``, 128-row q
-tiles, K/V streamed in 64-key tiles through a three-stage ``cp.async``
-ring, the unmasked interior tiles apart from the masked edge tiles, both
-products on the tensor cores (``mma.sync``) with the softmax state in
-registers (:func:`flash_attention_stream`; its plain version is
-:func:`flash_stream_plain`). :func:`flash_attention` sends a call to K10
-exactly where the JAX package takes its stream kernel
+tiles, a producer warp streaming 128-key K/V tiles by TMA into a ring of
+shared memory and two consumer warpgroups taking turns at the tensor cores
+(``wgmma``), the unmasked interior tiles apart from the masked edge tiles,
+the softmax state and O in registers (:func:`flash_attention_stream`; its
+plain version is :func:`flash_stream_plain`). :func:`flash_attention` sends
+a call to K10 exactly where the JAX package takes its stream kernel
 (:func:`stream_route`): the K/V of one head need more than one chunk of
 ``kv_vmem_budget`` (the JAX package's VMEM budget, 6 MiB, so bf16 K/V at
 head dim 128 past 12,288 keys), there is no user mask, no INT8 cache and no
-dropout. The threshold is the JAX package's rule, kept so that both
-packages run the same kernel at a given shape; it is not a Hopper
-measurement, and ``PERF.md`` records K1's and K10's times on both sides of
-it.
+dropout. The threshold is the JAX package's rule, kept so that both packages
+run the same kernel at a given shape; it is not a Hopper measurement, and
+``PERF.md`` records K1's and K10's times on both sides of it.
 
 ``return_stats=True`` also returns the rows' log-sum-exp of the scaled
 scores, fp32 [B, Hq, Sq] (-inf for a row with no valid key): K10's lse
@@ -63,7 +62,7 @@ _HEAD_DIMS = (64, 128)
 # The JAX package's VMEM budget for one head's K and V (flash_attention's
 # ``kv_vmem_budget``), read at call time so that a test may move the route.
 KV_VMEM_BUDGET = 6 << 20
-STREAM_BLOCK_KV = 64  # K10's K/V tile: the block of keys its plain version steps by
+STREAM_BLOCK_KV = 128  # K10's K/V tile: the block of keys its plain version steps by
 
 
 def _round_up(x: int, m: int) -> int:

@@ -135,11 +135,11 @@ def _rel_rms(got, want) -> float:
 
 def test_bf16_stream_rounds_as_jax():
     """The plain version on bf16 inputs against the JAX stream kernel at
-    K10's K/V tile, 64 keys: p is rounded against the running max of the
-    blocks seen so far, so the tile is part of the function in bf16 (against
-    the JAX kernel at 128 keys the relative RMS was 1.4e-3). Six key blocks,
-    so the running max moves; D 32 makes the scale no power of two, so
-    rounding q * scale matters."""
+    K10's K/V tile (``STREAM_BLOCK_KV``, 128 keys): p is rounded against the
+    running max of the blocks seen so far, so the tile is part of the
+    function in bf16 (a 64-key plain version against the JAX kernel at 128
+    keys lay 1.4e-3 off). Three key blocks, so the running max moves; D 32
+    makes the scale no power of two, so rounding q * scale matters."""
     B, Sq, Skv, Hq, Hkv, D = 1, 200, 384, 4, 2, 32
     arrs = _inputs(B, Sq, Skv, Hq, Hkv, D, seed=5)
     kw = dict(causal=True, q_offset=Skv - Sq)
