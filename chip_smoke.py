@@ -105,8 +105,12 @@ phase's failure is caught:
    weights; each against its plain version (x_out under the deep
    tolerance), failing a context one token short (and all-ones V scales over
    the INT8 cache), and failing on x_out with one KV head's query group left
-   out of attention at every layer; device ms beside the plain version's,
-   the bound, K4's at the same shapes and the phase durations.
+   out of attention at every layer, and (bf16) with one 64-row tile of wq
+   set to inf; two runs must give the same bits (bf16, int8 + INT8 cache);
+   device ms beside the plain version's, the bound, K4's at the
+   same shapes, the phase durations with each GEMV phase's GB/s; the card's
+   own GEMV item plan held against ``decode_tiled.item_plan`` (the mirror
+   the CPU tests hold), and every K6 instance's registers and spills.
 9. generate_8b: the slice's path, llama3-8b (32 layers), B 8, a 704-token
    prompt, a 1024-slot cache, greedy, bf16 weights and then the README quick
    start (int8 weights, ``cache_quant="int8"``): prefill logits held against
@@ -116,21 +120,25 @@ phase's failure is caught:
    step by the two-length marginal, tok/s, a step's device ms, the idle
    share, and the K4-or-K6 rule's pick beside both times.
 9b. widen: K15 (``utils/fp8_convert.py``), the weight-widening probe: its
-   four widenings (int8; fp8 by the e4m3x2 convert K6 uses; fp8 through
+   four widenings (int8; fp8 by the e4m3x2 convert; fp8 through
    fp32; fp8 by bit assembly) over a seeded 1 GB slab (256 chunks of 2048 x
    2048), each held against its plain version, failing over 255 of the 256
    chunks and with one chunk's bytes changed, then timed by the two-length
    marginal (2 and 6 passes) beside K14's rate and its bound.
-9c. tiled_moe: K6's MoE phases (the router in the kernel, every expert's
-   intermediate chunks weighted by the rows' routing weights) at Mixtral's
-   widths, 4 layers, bf16, fp8 and int8 (INT8 cache) weights, B 1, 8 and
-   32; then at full depth (32 layers), int8 weights drawn on the card
+9c. tiled_moe: K6's MoE phases (the router in the kernel, the experts some
+   row picks weighted by the rows' routing weights) at Mixtral's widths, 4
+   layers, bf16, fp8 and int8 (INT8 cache) weights, B 1, 8 and 32 (fp8 at
+   B 8 must fail with one 64-row tile of a picked expert's w_down NaN);
+   then at full depth (32 layers), int8 weights drawn on the card
    (``init_quantized_params``: the build's peak must show no wider copy)
    and an INT8 cache, B 8, ctx 896. Each against the plain version that
    follows the kernel's expert picks, the routing itself held by ROUTE_TOL;
    the full-depth x_out must fail with each row's second expert dropped,
-   and a context one token short must fail; device ms, the bound (the
-   experts this run's rows pick, and all of them), the phase durations.
+   and a context one token short must fail; two runs must give the same
+   bits, an unpicked expert's int8 weights all 127 and scales 1e30 must
+   leave them as they are, and a 64-row tile of a picked expert's w_down at
+   127 must change them; device ms, the bound (the experts this run's rows
+   pick, and all of them), the phase durations with each GEMV phase's GB/s.
 9d. generate_moe: the MoE slice's path, Mixtral-8x7B (32 layers, int8
    weights and head), B 8, a 704-token prompt, a 1024-slot INT8 cache,
    greedy, ``Impl(attention="flash", norm="fused", moe="ragged")``: prefill
@@ -210,6 +218,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2340,12 +2349,130 @@ def tiled_x_must_fail(dt, spec, blocks, x, kc, vc, pos, cos, sin, plain, scales=
     return err
 
 
-def tiled_phase_us(dt, spec, stamps):
-    """K6's phases (us), averaged over the layers, from its phase probe."""
+def gemv_phase_bytes(spec, blocks, picks=None) -> dict:
+    """The bytes a layer of each of K6's GEMV phases streams: the weights'
+    payloads and scales (an MoE model's experts those some row picks,
+    ``picks`` [L, B, E]; None: all of them), averaged over the layers."""
+    from mlio_tpu_torch.ops.quant import QTensor
+
+    L, E = spec.num_layers, spec.num_experts
+
+    def per_layer(name, share=1.0):
+        w = blocks.get(name)
+        if w is None:
+            return 0.0
+        ts = (w.q, w.scale) if isinstance(w, QTensor) else (w,)
+        return sum(t.numel() * t.element_size() for t in ts) / L * share
+
+    share = 1.0
+    if E:
+        share = (L * E if picks is None else int(picks.any(1).sum())) / (L * E)
+    up, gate, down = ("moe_up", "moe_gate", "moe_down") if E else ("w_up", "w_gate", "w_down")
+    return dict(qkv=per_layer("wq") + per_layer("wk") + per_layer("wv"), out_proj=per_layer("wo"),
+                mlp_up=per_layer(up, share) + per_layer(gate, share),
+                mlp_down=per_layer(down, share))
+
+
+def tiled_phase_us(dt, spec, stamps, nbytes=None):
+    """K6's phases (us), averaged over the layers, from its phase probe;
+    with ``nbytes`` (gemv_phase_bytes) each GEMV phase's streaming rate
+    (GB/s) beside them."""
     us = (stamps[1:] - stamps[:-1]).double().cpu() / 1e3
-    per = us[1:].reshape(spec.num_layers, len(dt.PHASES)).mean(0).tolist()
-    return dict(start=us[0].item(), **dict(zip(dt.PHASES, per)),
-                launch_total=(stamps[-1] - stamps[0]).item() / 1e3)
+    per = dict(zip(dt.PHASES, us[1:].reshape(spec.num_layers, len(dt.PHASES)).mean(0).tolist()))
+    out = dict(start=us[0].item(), **per, launch_total=(stamps[-1] - stamps[0]).item() / 1e3)
+    if nbytes is not None:
+        out["gb_per_s"] = {k: v / (per[k] * 1e3) for k, v in nbytes.items()}
+    return out
+
+
+def k6_instances():
+    """Registers (kernels), stack frame and spill-store bytes of every K6
+    kernel and phase instance, by source, from ptxas's report: kernels
+    tiled_kernel<head dim, INT8 cache, query heads a KV head sized for>,
+    gemv_phase<batch rows, format, phase, up and gate>, attention_phase<head
+    dim, INT8 cache, query heads>."""
+    from mlio_tpu_torch.ops import _build
+
+    out = {}
+    for src in ("decode_tiled_bf16", "decode_tiled_int8", "decode_tiled_fp8"):
+        fns = {}
+        for mangled, v in _build.ptxas_functions(src).items():
+            m = re.search(r"\d+(tiled_kernel|gemv_phase|attention_phase|moe_route)"
+                          r"((?:I(?:L[ib]\d+E)+E)?)", mangled)
+            if m is None:
+                continue
+            args = ",".join(("true" if n == "1" else "false") if t == "b" else n
+                            for t, n in re.findall(r"L([ib])(\d+)E", m.group(2)))
+            fns[f"{m.group(1)}<{args}>" if args else m.group(1)] = v
+        out[src] = fns
+    return out
+
+
+def tiled_plan_check(dt):
+    """The card's own GEMV item plan (mlio_decode_tiled_items, at the blocks
+    the plan function sizes the launch for) against decode_tiled.item_plan,
+    the mirror the CPU tests hold: llama3-8b (bf16, int8) and Mixtral-8x7B
+    (int8, 2 and 8 experts picked), every phase. Raises where they differ."""
+    from mlio_tpu_torch.models import get_spec
+
+    items = {}
+    for model, fmt in ((LLAMA, None), (LLAMA, "int8"), (MIXTRAL, "int8")):
+        spec = get_spec(model)
+        for npk in ((2, 8) if spec.num_experts else (1,)):
+            experts = list(range(npk)) if spec.num_experts else None
+            for phase in dt.GEMV_PHASES:
+                nb, card = dt.card_items(spec, fmt, B, phase, npk)
+                mirror = dt.item_plan(spec, fmt, nb=nb, experts=experts)[phase]["items"]
+                if card != [tuple(i) for i in mirror]:
+                    raise AssertionError(f"decode_layer_tiled: the card's plan of {model} "
+                                         f"{fmt or 'bf16'} {phase} ({npk} experts) differs "
+                                         "from item_plan's")
+                items[f"{model}/{fmt or 'bf16'}/{npk}/{phase}"] = len(card)
+    return dict(plan_matches_mirror=True, blocks=nb, items=items)
+
+
+def partials_bytes(dt, spec, fmt, batch, nb):
+    """The fp32 partials K6's plan sizes: the largest phase's (blocks +
+    tiles) slots of a tile's columns by the tier's batch rows."""
+    mb = 8 if batch <= 8 else 16 if batch <= 16 else 32
+    return max((nb + p["ntiles"]) * p["nm"] * p["tc"] * mb * 4
+               for p in dt.item_plan(spec, fmt, nb=nb).values())
+
+
+@contextlib.contextmanager
+def changed_weights(blocks, name, index, value):
+    """``blocks[name]`` (its payload for a QTensor) with ``index`` set to
+    ``value`` (and, given a (payload, scale) pair, the scales at
+    index[:-2] set to value[1]) for the with-block; restored after."""
+    from mlio_tpu_torch.ops.quant import QTensor
+
+    w = blocks[name]
+    q = w.q if isinstance(w, QTensor) else w
+    pv, sv = value if isinstance(value, tuple) else (value, None)
+    saved = q[index].clone()
+    ssaved = w.scale[index[:-2]].clone() if sv is not None else None
+    q[index] = pv
+    if sv is not None:
+        w.scale[index[:-2]] = sv
+    try:
+        yield
+    finally:
+        q[index] = saved
+        if sv is not None:
+            w.scale[index[:-2]] = ssaved
+
+
+def tile_read_control(dt, spec, blocks, name, index, value, x, kc, vc, pos, cos, sin,
+                      plain_x, what, scales=None):
+    """K6 run with one 64-row tile of weight ``name`` changed must fail the
+    deep x_out check against the plain run of the unchanged weights: the
+    kernel reads that tile. Returns its max-abs."""
+    sk = {} if scales is None else dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
+    with changed_weights(blocks, name, index, value):
+        xk = dt.decode_layer_tiled(x, blocks, kc.clone(), vc.clone(), pos, cos, sin, spec=spec,
+                                   **sk)
+        torch.cuda.synchronize()
+    return must_fail_within("decode_layer_tiled_deep", what, xk, plain_x)
 
 
 def tiled_row(dt, dl, dev, seed, spec, weights):
@@ -2384,6 +2511,22 @@ def tiled_row(dt, dl, dev, seed, spec, weights):
                             "a context one token short", scales)),
             head_group_out_max_abs_err=tiled_x_must_fail(dt, spec, blocks, x, *caches, pos, cos,
                                                          sin, x_plain, scales))
+        if variant in ("bf16", "w8kv8"):  # the fixed-order sums: two runs give the same bits
+            sk2 = [{} if scales is None else dict(k_scales=scales[0].clone(),
+                                                  v_scales=scales[1].clone()) for _ in range(2)]
+            twice = [dt.decode_layer_tiled(x, blocks, caches[0].clone(), caches[1].clone(), pos,
+                                           cos, sin, spec=spec, **kw) for kw in sk2]
+            if not torch.equal(*twice):
+                raise AssertionError(f"decode_layer_tiled ({variant}): two runs give different "
+                                     "bits")
+            row["repeat_bitwise_equal"] = True
+            del twice
+        if variant == "bf16":  # every tile is read: one 64-row tile of wq set to inf
+            r0, c0 = spec.hidden_size // 4, spec.q_dim // 16
+            at = (spec.num_layers // 2, slice(r0, r0 + 64), slice(c0, c0 + 128))
+            row["wq_tile_inf_max_abs_err"] = tile_read_control(
+                dt, spec, blocks, "wq", at, float("inf"), x, *caches, pos, cos, sin, x_plain,
+                "one 64-row tile of wq set to inf", scales)
         if kv8:
             row["ones_v_scale_max_abs_err"] = tiled_must_fail(
                 dt, spec, blocks, x, *caches, pos, pos, cos, sin, plain, "with all-ones V scales",
@@ -2408,7 +2551,7 @@ def tiled_row(dt, dl, dev, seed, spec, weights):
         stamps = torch.zeros(dt.phase_stamps(spec), dtype=torch.int64, device=dev)
         dt.decode_layer_tiled(x, blocks, tk, tv, pos, cos, sin, spec=spec, phase_times=stamps,
                               **sk)
-        row["phase_us"] = tiled_phase_us(dt, spec, stamps)
+        row["phase_us"] = tiled_phase_us(dt, spec, stamps, gemv_phase_bytes(spec, blocks))
         out[variant] = row
         del tk, tv
     bf = out.pop("bf16")
@@ -2879,8 +3022,15 @@ def moe_small_variants(dt, dev, seed, spec):
             if wname == "int8":  # the quick start's pairing: an INT8 cache
                 (kc, ks), (vc, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
                 scales = (ks, vs)
-            _, _, errs, picks = moe_check(dt, spec4, params["blocks"], x, kc, vc, pos, cos, sin,
-                                          scales)
+            x_plain, _, errs, picks = moe_check(dt, spec4, params["blocks"], x, kc, vc, pos, cos,
+                                                sin, scales)
+            if wname == "fp8" and batch == 8:  # every tile is read: a NaN tile of w_down
+                lp, ep = picks.any(1).nonzero().tolist()[0]
+                r0, c0 = spec.intermediate_size // 2, spec.hidden_size // 4
+                errs["w_down_tile_nan_max_abs_err"] = tile_read_control(
+                    dt, spec4, params["blocks"], "moe_down",
+                    (lp, ep, slice(r0, r0 + 64), slice(c0, c0 + 256)), float("nan"), x, kc, vc,
+                    pos, cos, sin, x_plain, "one 64-row tile of a picked expert's w_down NaN")
             sk = {} if scales is None else dict(k_scales=scales[0].clone(),
                                                 v_scales=scales[1].clone())
             tk, tv = kc.clone(), vc.clone()
@@ -2952,14 +3102,52 @@ def tiled_moe_row(dt, dev, seed, spec, params, small):
     x_plain, pcaches, errs, picks = moe_check(dt, spec, blocks, x, kq, vq, pos, cos, sin,
                                               (ks, vs), x_name="decode_layer_tiled_deep")
     plain = (x_plain, pcaches)
-    again = [dt.decode_layer_tiled(x, blocks, kq.clone(), vq.clone(), pos, cos, sin, spec=spec,
-                                   k_scales=ks.clone(), v_scales=vs.clone()) for _ in range(2)]
+    def run(**kw):
+        return dt.decode_layer_tiled(x, blocks, kq.clone(), vq.clone(), pos, cos, sin, spec=spec,
+                                     k_scales=ks.clone(), v_scales=vs.clone(), **kw)
+
+    again = [run() for _ in range(2)]
     if not torch.equal(*again):
         raise AssertionError("decode_layer_tiled (MoE): two runs give different bits")
     tiling = dt.choose_tiling(spec, B)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     workspace = dict(bytes=dt.decode_layer_tiled.workspace_bytes,
-                     partials_bytes=tiling.km * B * spec.hidden_size * 4)
-    del again
+                     partials_bytes=partials_bytes(dt, spec, "int8", B, sms))
+    # the experts no row picks are never read: one unpicked (layer, expert)'s
+    # int8 weights all 127 and its scales 1e30 leave x_out's bits as they are
+    unpicked = (~picks.any(1)).nonzero().tolist()
+    if not unpicked:
+        raise AssertionError("tiled_moe: every (layer, expert) is picked; the unpicked-expert "
+                             "control shows nothing")
+    lu, eu = unpicked[len(unpicked) // 2]
+    whole = (lu, eu, slice(None), slice(None))
+    with changed_weights(blocks, "moe_up", whole, (127, 1e30)), \
+            changed_weights(blocks, "moe_gate", whole, (127, 1e30)), \
+            changed_weights(blocks, "moe_down", whole, (127, 1e30)):
+        x_unpicked = run()
+        torch.cuda.synchronize()
+    if not torch.equal(x_unpicked, again[0]):
+        raise AssertionError(f"decode_layer_tiled (MoE): wrecking unpicked expert {eu} of layer "
+                             f"{lu} changed x_out: its weights were read")
+    unpicked_control = dict(layer=lu, expert=eu, x_out_bitwise_equal=True,
+                            unpicked_pairs=len(unpicked))
+    # every tile is read: one 64-row tile of a picked expert's int8 w_down at
+    # 127 must change x_out's bits (at random weights no int8 tile moves it
+    # past the 32-layer tolerance; the 4-layer e4m3 variant's NaN tile must
+    # fail it, moe_small_variants)
+    lp, ep = picks.any(1).nonzero().tolist()[len(unpicked) % 7]
+    r0, c0 = spec.intermediate_size // 2, spec.hidden_size // 4
+    with changed_weights(blocks, "moe_down", (lp, ep, slice(r0, r0 + 64), slice(c0, c0 + 256)),
+                         127):
+        x_tile = run()
+        torch.cuda.synchronize()
+    if torch.equal(x_tile, again[0]):
+        raise AssertionError(f"decode_layer_tiled (MoE): a 64-row tile of expert {ep}'s w_down "
+                             f"at layer {lp} set to 127 left x_out's bits as they are")
+    down_tile_control = dict(layer=lp, expert=ep, x_out_bits_changed=True,
+                             max_abs_vs_unchanged=(x_tile.float() - again[0].float()).abs().max()
+                             .item())
+    del again, x_unpicked, x_tile
     top1 = dataclasses.replace(spec, num_experts_per_tok=1)
     sk = dict(k_scales=ks.clone(), v_scales=vs.clone())
     xt = dt.decode_layer_tiled(x, blocks, kq.clone(), vq.clone(), pos, cos, sin, spec=top1, **sk)
@@ -2995,9 +3183,11 @@ def tiled_moe_row(dt, dev, seed, spec, params, small):
         atol=TOL["decode_layer_tiled"][0],
         rtol=TOL["decode_layer_tiled"][1], x_out_row_tol=ROW_TOL["decode_layer_tiled_deep"],
         route_tol=ROUTE_TOL, errors=errs, max_abs_err=errs["x_out"],
-        top1_max_abs_err=top1_err, ctx_minus_1_max_abs_err=short, **t, bound_ms=b_ms,
+        top1_max_abs_err=top1_err, ctx_minus_1_max_abs_err=short,
+        unpicked_expert_control=unpicked_control,
+        down_tile_control=down_tile_control, **t, bound_ms=b_ms,
         bound_by=b_by, bound_experts_used=used, bound_ms_all_experts=all_ms,
-        phase_us=tiled_phase_us(dt, spec, stamps),
+        phase_us=tiled_phase_us(dt, spec, stamps, gemv_phase_bytes(spec, blocks, picks)),
         library_note="no single PyTorch call computes a decode step", variants=small)
 
 
@@ -4420,6 +4610,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec8, weights8 = llama_weights(dev, args.seed)
     tiled = tiled_row(dt, dl, dev, args.seed, spec8, weights8)
+    tiled.update(card_plan=tiled_plan_check(dt), ptxas=k6_instances())
     emit(dict(phase="tiled", **tiled))
     del weights8["fp8"]  # no later phase runs fp8 weights
     torch.cuda.empty_cache()

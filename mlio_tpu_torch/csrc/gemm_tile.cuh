@@ -1,7 +1,8 @@
 // Small pieces of the tensor-core kernels: the bf16 alias, shared-memory
 // addresses for inline PTX, ldmatrix (K13b's q and dO fragments,
-// flash_bwd.cu), mma.sync m16n8k16 (bf16 inputs, fp32 accumulators: K3's
-// grouped heads, decode_attn.cuh), the bf16 packing of an accumulator pair
+// flash_bwd.cu; transposed, K6's weight tiles), mma.sync m16n8k16 (bf16
+// inputs, fp32 accumulators: K3's grouped heads, decode_attn.cuh; K6's
+// GEMVs, decode_tiled.cuh), the bf16 packing of an accumulator pair
 // (wgmma.cuh's repack of p), and load8, a masked 16-byte fetch of a row's 8
 // bf16 (K12's row statistics and norm columns, ln_matmul.cu). wgmma.cuh,
 // cp_async.cuh and tma.cuh build on it.
@@ -28,6 +29,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// The transposed load: lane l gives the address of row l % 8 of matrix l / 8
+// (eight rows of 16 bytes), and receives in r[j] that matrix's 16-bit
+// elements (row 2(l%4), column l/4) in the low half and (row 2(l%4) + 1,
+// column l/4) in the high half. K6 (decode_tiled.cuh) reads its weight
+// tiles, stored [k][n], as mma16816's A operand (n rows, k columns) so;
+// `addr` is a shared-memory address (smem_addr).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // d (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16 inputs: lane l holds a's

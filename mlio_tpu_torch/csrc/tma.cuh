@@ -1,5 +1,5 @@
 // Hopper's Tensor Memory Accelerator for K12 (ln_matmul.cu), K5 and K11
-// (gemm_wgmma.cuh) and K10 (flash_stream.cu): 2-D and 3-D tile copies from
+// (gemm_wgmma.cuh), K10 (flash_stream.cu) and K6's GEMVs (decode_tiled.cuh): 2-D and 3-D tile copies from
 // device memory into shared memory, bf16 tiles in wgmma.cuh's 128-byte
 // swizzled layout and byte tiles (K5's quantised weights) row by row, whose
 // completion a shared-memory barrier (mbarrier) counts in bytes. One thread asks for a whole tile; the hardware computes the
@@ -57,7 +57,7 @@ __device__ __forceinline__ uint64_t now_ns() {
   return t;
 }
 
-// bar_wait for K5, K10 and K11, whose rings run long streams of tiles: a wait of
+// bar_wait for K5, K6, K10 and K11, whose rings run long streams of tiles: a wait of
 // 2 s means a copy that never comes (its bytes miscounted), so the launch
 // fails rather than hang the card.
 __device__ __forceinline__ void bar_wait_bounded(uint64_t* bar, uint32_t parity) {
@@ -157,10 +157,14 @@ inline cudaError_t map_3d(CUtensorMap* map, const void* base, uint64_t batches, 
 
 // A map of a row-major byte matrix [rows, cols] with row stride ld bytes (a
 // multiple of 16, the base 16-byte aligned), in boxes of box_rows rows and
-// box_cols bytes (a multiple of 16, at most 256), unswizzled: a box lands as
-// box_rows rows of box_cols bytes. Zeros out of bounds; errors as map_2d.
+// box_cols bytes (a multiple of 16, at most 256), unswizzled by default: a
+// box lands as box_rows rows of box_cols bytes. With CU_TENSOR_MAP_SWIZZLE_128B
+// (box_cols 128, the destination 1 KB aligned) the 16-byte chunk c of box row
+// r lands at chunk c ^ (r % 8) (K6's weight tiles). Zeros out of bounds;
+// errors as map_2d.
 inline cudaError_t map_2d_u8(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                             uint64_t ld, uint32_t box_cols, uint32_t box_rows) {
+                             uint64_t ld, uint32_t box_cols, uint32_t box_rows,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cols, rows};
@@ -168,7 +172,7 @@ inline cudaError_t map_2d_u8(CUtensorMap* map, const void* base, uint64_t rows, 
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;

@@ -1,6 +1,8 @@
 // Weight loads into registers and their widening to fp32: the inner loop
-// that K6 (decode_tiled.cuh) streams its GEMV weights through, shared with
-// K15 (fp8_convert.cu), which measures what that widening costs.
+// that K6 (decode_tiled.cuh) streamed its GEMV weights through before it
+// moved to the tensor cores, kept for K15 (fp8_convert.cu), which measures
+// what that widening costs. frag_pair, at the end, is K6's widening into
+// mma.sync fragments.
 //
 // Formats (FMT): 0 bf16; 1 int8 (a shift pair and a convert a weight);
 // 2 fp8 e4m3, two at a time by the card's e4m3x2 -> f16x2 convert (K6's);
@@ -12,8 +14,10 @@
 // bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -78,3 +82,25 @@ struct WRaw {
             std::conditional_t<kBytes == 8, uint2,
             std::conditional_t<kBytes == 4, unsigned, unsigned short>>>;
 };
+
+// K6's widening into tensor-core fragments: bytes P and P + 2 of a 32-bit
+// word of int8 (FMT 1) or e4m3 (FMT 2) weights (one column at two k rows, as
+// ldmatrix.trans over bytes hands them over) as a bf16x2, byte P in the low
+// half. Exact: every int8 and e4m3 value is a bf16. int8: the byte, offset
+// to unsigned, becomes the low mantissa of 2^23 and the float sum removes
+// the offset (an integer of at most 8 bits, so the top half of the float is
+// its bf16); e4m3: the card's e4m3x2 -> f16x2 convert, then bf16x2.
+template <int FMT, int P>
+__device__ __forceinline__ uint32_t frag_pair(uint32_t w) {
+  static_assert(FMT == 1 || FMT == 2, "int8 or e4m3 bytes");
+  if constexpr (FMT == 1) {
+    const uint32_t x = w ^ 0x80808080u;
+    const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + P)) - 8388736.f;
+    const float hi = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7442 + P)) - 8388736.f;
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+  } else {
+    const float2 f = fp8x2(static_cast<unsigned short>(__byte_perm(w, 0u, 0x20 + 0x11 * P)));
+    __nv_bfloat162 v = __floats2bfloat162_rn(f.x, f.y);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}

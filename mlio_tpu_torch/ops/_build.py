@@ -120,6 +120,28 @@ def ptxas_summary() -> Dict[str, dict]:
     return out
 
 
+def ptxas_functions(name: str) -> Dict[str, dict]:
+    """Per function of source ``name`` built by this process, from ptxas's
+    report: its stack frame and spill-store bytes and, for a kernel (an
+    entry function), its registers a thread. Keys are the mangled names."""
+    out, fn, entry = {}, None, None
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and fn:
+            out[fn].update(stack_frame=int(m.group(1)), spill_store_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:

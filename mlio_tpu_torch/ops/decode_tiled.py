@@ -1,6 +1,5 @@
 """The tiled decode megakernel (K6): one decode step of every layer of a
-large dense model in one launch, with the weights streamed by head group
-and intermediate chunk and no head epilogue.
+large dense or sparse-MoE model in one launch, no head epilogue.
 
 Replaces ``mlio_tpu/ops/decode_tiled.py::_tiled_kernel`` (entry
 ``decode_layer_tiled``). The kernel is CUDA C++ in
@@ -8,19 +7,20 @@ Replaces ``mlio_tpu/ops/decode_tiled.py::_tiled_kernel`` (entry
 (``decode_tiled_{bf16,int8,fp8}.cu``): one persistent cooperative launch a
 step whose phases, a layer at a time, are the QKV projections, attention by
 (sequence, head group, context split) with the cache write, the
-out-projection into the fp32 residual, the MLP by intermediate chunk (each
-block streams its chunk's up, gate and down weights straight into
-registers) and the fixed-order sum of the chunks' partial
-down-projections. Its source note gives the H100 bound and the design.
+out-projection into the fp32 residual, up (and gate) with the activation,
+and down into the residual. The four GEMV phases load their weight tiles by
+TMA into a shared-memory ring and multiply on the tensor cores; their units
+(tile, k rows) are cut into one equal run a block (:func:`item_plan`
+mirrors the card's plan), and the partials are summed in a fixed order.
+Its source note gives the H100 bound and the design.
 
 Sparse-MoE models (Mixtral) run the JAX kernel's MoE phases: at the fold
-each MLP block routes every row itself from the normed rows (an fp32
-softmax over the E experts of ``hn @ router[l]``, the top-k by repeated max
-with the lowest index first, renormalized), then walks its intermediate
-chunk over all E experts in expert order, each expert's down product scaled
-by its per-channel scales and the rows' routing weights into the chunk's
-partial. Every expert is streamed, picked or not (an unpicked one adds
-exactly 0), as the TPU kernel streams them.
+each block routes every row itself from the normed rows (an fp32 softmax
+over the E experts of ``hn @ router[l]``, the top-k by repeated max with the
+lowest index first, renormalized), then streams only the experts some row
+picks, each expert's down product scaled by its per-channel scales and the
+rows' routing weights. An expert no row picks would add exactly 0, so it is
+never read.
 
 The final norm and the lm_head run after it, in ``models.transformer``, as
 the JAX package runs them after its kernel.
@@ -30,8 +30,9 @@ On CPU tensors :func:`decode_layer_tiled` runs
 raises. The cache is the port's ``[L, B, Smax, Hkv, D]`` and is written in
 place; an INT8 cache keeps its scales in the scan layout ``[L, B, Smax,
 Hkv]``, so the JAX package's ``pad_scales_for_tiled`` has no counterpart.
-The tiling (:class:`Tiling`) is Hopper's own (:func:`choose_tiling`), not the
-TPU's VMEM budget; the port has no autotune table.
+:class:`Tiling` is the JAX package's view (head groups and intermediate
+chunks), which the plain version walks; the kernel takes its head groups
+and plans its GEMVs itself. The port has no autotune table.
 """
 from __future__ import annotations
 
@@ -48,25 +49,29 @@ from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
 from mlio_tpu_torch.ops.reference import activate
 
 # The CUDA instances' limits.
-MAX_BATCH = 32     # rows of the widest GEMV tier (32 batch rows x 2 columns a thread)
+MAX_BATCH = 32     # rows of the widest GEMV tier (four n-tiles of 8 batch rows)
 MAX_HIDDEN = 8192
 MAX_GROUP = 8      # query heads a KV head: the attention item's register arrays
 MAX_EXPERTS = 16   # the router's register array (the kernel's kMaxE)
 _HEAD_DIMS = (64, 128)
-_WIDTH_ALIGN = 16  # hidden and intermediate widths: 16-byte int8 weight rows
+_WIDTH_ALIGN = 16  # hidden and intermediate widths: 16-byte int8 weight rows (TMA strides)
 # Hopper's budgets that the tiling is chosen from (hopper-kernels guide §1).
 SMS = 132
 L2_BYTES = 50 << 20
-MAX_CHUNK = 256    # intermediate columns an MLP item, at most (the kernel's kMaxChunk)
+MAX_CHUNK = 256    # intermediate columns a chunk of the plain version's tiling, at most
 _THREADS = 256
-_ACT_BYTES = 32 << 10  # shared memory for a chunk's [ic, batch rows] fp32 activations
+_ACT_BYTES = 32 << 10  # the chunk's [ic, batch rows] fp32 activations (the tiling's rule)
+# The kernel's GEMV plan (csrc/decode_tiled.cuh, mirrored by item_plan).
+TILE_BYTES = 256   # a matrix's bytes in a tile row: two 128-byte TMA boxes
+SLOT_BYTES = 32768  # a unit's weights: 128 rows of one matrix, 64 of up and gate
+GEMV_PHASES = ("qkv", "out_proj", "mlp_up", "mlp_down")
 
 
 class Tiling(NamedTuple):
     """``ka`` head groups of ``hg`` query heads (attention items) and ``km``
-    intermediate chunks of ``ic`` columns (MLP items). The JAX package's
-    ``ws`` (VMEM weight-pool slots) has no counterpart: K6 streams its
-    weights into registers."""
+    intermediate chunks of ``ic`` columns (the plain version's MLP chunks;
+    the kernel plans its GEMVs itself, :func:`item_plan`). The JAX package's
+    ``ws`` (VMEM weight-pool slots) has no counterpart."""
 
     hg: int
     ic: int
@@ -75,7 +80,8 @@ class Tiling(NamedTuple):
 
 
 def _tier(B: int):
-    """(batch rows, columns a thread) of the kernel's GEMV tier for B."""
+    """(batch rows, columns a thread) of the tier that sizes the plain
+    version's intermediate chunks for B (:func:`choose_tiling`'s rule)."""
     return (8, 8) if B <= 8 else (16, 4) if B <= 16 else (32, 2)
 
 
@@ -85,17 +91,14 @@ def choose_tiling(spec, B: int) -> Optional[Tiling]:
     - ``ka``: the fewest head groups (a divisor of the KV heads) whose
       ``B * ka`` attention items fill the SMs, else one KV head a group;
       context splits fill the rest.
-    - ``ic``: as many chunks as SMs, one a block, unless their fp32 partial
-      down-projections (``km * B * H * 4`` bytes) would pass half of L2; a
-      multiple of 16 (16-byte int8 rows), at most 256 (:data:`MAX_CHUNK`),
-      what a block's GEMV covers (``256 * columns a
-      thread``, up and gate side by side) and what the shared memory holds of
-      its activations.
+    - ``ic``: the plain version's intermediate chunk: as many chunks as SMs
+      while ``km * B * H`` fp32 partials stay within half of L2; a multiple
+      of 16, at most 256 (:data:`MAX_CHUNK`), ``256 * columns a thread``
+      (up and gate side by side) and what ``_ACT_BYTES`` holds. The kernel
+      does not take it: its GEMV units are :func:`item_plan`'s.
 
     Unlike the TPU's, the tiling does not depend on the weights' or the
-    cache's itemsize: the kernel streams a chunk's rows, not a whole chunk
-    into a pool. An MoE model's chunks are the same: each MLP item walks its
-    chunk over every expert, so the partials stay ``km * B * H``."""
+    cache's itemsize."""
     if spec.num_heads % spec.num_kv_heads:
         return None
     Hkv, H, I = spec.num_kv_heads, spec.hidden_size, spec.intermediate_size
@@ -226,6 +229,112 @@ def prefer_mega(spec, weight_itemsize: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# The kernel's GEMV plan (mirror of csrc/decode_tiled.cuh's make_job,
+# unit_begin, unit_owner and finish_group's order)
+# ---------------------------------------------------------------------------
+
+def _job(phase: str, H: int, Qd: int, KVd: int, I: int, isz: int, gated: bool,
+         npicked: int) -> dict:
+    """One GEMV phase's shape: ``ntiles`` tiles of ``tc`` columns of each of
+    its ``nm`` matrices (up and gate side by side), ``nk`` units of ``kb``
+    weight rows each over its ``K`` rows, ``ct`` column tiles a matrix (an
+    expert's)."""
+    tc = TILE_BYTES // isz
+    nm = 2 if phase == "mlp_up" and gated else 1
+    kb = SLOT_BYTES // (nm * TILE_BYTES)
+    tiles = lambda n: -(-n // tc)  # noqa: E731
+    if phase == "qkv":
+        ct, K = tiles(Qd), H
+        ntiles = ct + 2 * tiles(KVd)
+    elif phase == "out_proj":
+        ct = ntiles = tiles(H)
+        K = Qd
+    elif phase == "mlp_up":
+        ct, K = tiles(I), H
+        ntiles = npicked * ct
+    else:
+        ct, K = tiles(H), I
+        ntiles = npicked * ct
+    return dict(ntiles=ntiles, nk=-(-K // kb), kb=kb, K=K, tc=tc, ct=ct, nm=nm)
+
+
+def unit_begin(U: int, nb: int, b: int) -> int:
+    """The first of block b's units: blocks take equal runs of the U units."""
+    return U * b // nb
+
+
+def unit_owner(U: int, nb: int, u: int) -> int:
+    """The block whose run holds unit u."""
+    return -(-((u + 1) * nb) // U) - 1
+
+
+def item_plan(spec, fmt: Optional[str] = None, nb: int = SMS,
+              experts: Optional[list] = None) -> dict:
+    """K6's GEMV plan at ``nb`` blocks, as the card walks it: for each of
+    :data:`GEMV_PHASES`, the phase's shape (:func:`_job`), its ``tiles``
+    (``matrix``, ``expert``, first column ``col0``, ``width`` in columns,
+    the matrix's row stride ``stride`` in bytes), its ``items`` (segments:
+    ``(block, tile, first unit, end unit)``, unit u of tile u // nk at k rows
+    (u % nk) * kb) and, for each sum group (a tile; mlp_down: a column tile
+    over the experts), ``order``: the partial slots (block + tile) in the
+    order the last segment to arrive adds them, whatever the order of
+    arrival. ``experts``: the experts some row picks at this layer, in
+    order (an MoE model; None: all of them); a dense MLP is expert 0."""
+    isz = 2 if fmt is None else 1
+    H, I = spec.hidden_size, spec.intermediate_size
+    Qd, KVd = spec.num_heads * spec.head_size, spec.num_kv_heads * spec.head_size
+    gated = spec.activation in ("swiglu", "geglu")
+    if spec.num_experts:
+        picks = list(range(spec.num_experts)) if experts is None else sorted(experts)
+    else:
+        picks = [0]
+    out = {}
+    for phase in GEMV_PHASES:
+        j = _job(phase, H, Qd, KVd, I, isz, gated, len(picks) if phase.startswith("mlp") else 1)
+        tiles = []
+        for i in range(j["ntiles"]):
+            if phase == "qkv":
+                tq, tk = -(-Qd // j["tc"]), -(-KVd // j["tc"])
+                m = 0 if i < tq else 1 if i < tq + tk else 2
+                tt = i - (0, tq, tq + tk)[m]
+                tiles.append(dict(matrix=("wq", "wk", "wv")[m], expert=None, col0=tt * j["tc"],
+                                  N=Qd if m == 0 else KVd))
+            elif phase == "out_proj":
+                tiles.append(dict(matrix="wo", expert=None, col0=i * j["tc"], N=H))
+            else:
+                up = phase == "mlp_up"
+                tiles.append(dict(matrix=("w_up+w_gate" if j["nm"] == 2 else "w_up") if up
+                                  else "w_down", expert=picks[i // j["ct"]],
+                                  col0=(i % j["ct"]) * j["tc"], N=I if up else H))
+        for t in tiles:
+            t["width"] = min(j["tc"], t.pop("N") - t["col0"])
+            t["stride"] = (Qd if t["matrix"] == "wq" else KVd if t["matrix"] in ("wk", "wv")
+                           else I if t["matrix"].startswith("w_up") else H) * isz
+        U = j["ntiles"] * j["nk"]
+        items = []
+        for b in range(nb):
+            u, end = unit_begin(U, nb, b), unit_begin(U, nb, b + 1)
+            while u < end:
+                stop = min((u // j["nk"] + 1) * j["nk"], end)
+                items.append((b, u // j["nk"], u, stop))
+                u = stop
+
+        def slots(i):  # the blocks between the tile's first and last that stream units
+            first = unit_owner(U, nb, i * j["nk"])
+            last = unit_owner(U, nb, (i + 1) * j["nk"] - 1)
+            return [b + i for b in range(first, last + 1)
+                    if unit_begin(U, nb, b) < unit_begin(U, nb, b + 1)]
+
+        if phase == "mlp_down":
+            order = [[s for r in range(len(picks)) for s in slots(r * j["ct"] + h)]
+                     for h in range(j["ct"])]
+        else:
+            order = [slots(i) for i in range(j["ntiles"])]
+        out[phase] = dict(j, tiles=tiles, items=items, order=order)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
@@ -259,6 +368,7 @@ def decode_layer_tiled_plain(
     scale: Optional[float] = None,
     router_probs: Optional[torch.Tensor] = None,
     experts: Optional[torch.Tensor] = None,
+    every_expert: bool = False,
 ) -> torch.Tensor:
     """``_tiled_kernel``'s function in plain PyTorch, phase by phase as the
     JAX kernel runs it, with the decode megakernels' rounding points (the
@@ -286,7 +396,10 @@ def decode_layer_tiled_plain(
     each layer's softmax; ``experts`` ([L, B, E] bool, top_k per row) makes
     the rows take those experts instead of their own top-k, the weights
     still renormalized from this run's softmax: a run can follow the
-    kernel's routing where two experts' probabilities are nearly tied.
+    kernel's routing where two experts' probabilities are nearly tied. An
+    expert no row picks at a layer is skipped, as the kernel skips it (it
+    would add comb 0 x a finite product); ``every_expert`` adds every
+    expert's product, as the TPU kernel streams them: the same bits.
 
     Writes slot ``pos`` of every layer in place; returns x_out [B, H].
     ``tiling`` defaults to :func:`choose_tiling`'s."""
@@ -352,6 +465,8 @@ def decode_layer_tiled_plain(
             comb = comb / comb.sum(-1, keepdim=True)
         up, gate, down = (bp[n] if n in bp else None for n in _mlp_names(spec))
         for e in range(max(E, 1)):  # a dense MLP is one "expert"
+            if E and not every_expert and not bool(picks[:, e].any()):
+                continue
             at = (layer, e) if E else layer
             for kk in range(-(-I // ic)):
                 cols = slice(kk * ic, min((kk + 1) * ic, I))
@@ -370,7 +485,7 @@ def decode_layer_tiled_plain(
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-PHASES = ("qkv", "attention", "out_proj", "mlp", "mlp_sum")
+PHASES = ("qkv", "attention", "out_proj", "mlp_up", "mlp_down")
 
 
 def phase_stamps(spec) -> int:
@@ -386,8 +501,7 @@ _VECTORS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bq", "bk", "bv", 
 _PTRS = ("x", "x_out", "k_cache", "v_cache", "k_scale", "v_scale", *_VECTORS, *_WEIGHTS,
          *_SCALES, "cos", "sin", "work", "sync", "stamps", "router", "router_probs")
 _INTS = ("B", "H", "Hq", "Hkv", "D", "I", "L", "Smax", "pos", "rope_dim", "rmsnorm",
-         "activation", "wfmt", "ka", "ic", "splits", "ks_qkv", "ks_o", "nblocks", "smem", "E",
-         "top_k")
+         "activation", "wfmt", "ka", "splits", "nblocks", "smem", "E", "top_k")
 _FLOATS = ("eps", "scale")
 _FMTS = {None: 0, "int8": 1, "fp8": 2}
 _PAYLOAD = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -401,17 +515,60 @@ class _Params(ctypes.Structure):
 
 
 def _entry(fmt: Optional[str]):
-    """(library, plan, run) of K6's instance for the weights' format
-    (``csrc/decode_tiled_{bf16,int8,fp8}.cu``)."""
+    """K6's library for the weights' format
+    (``csrc/decode_tiled_{bf16,int8,fp8}.cu``), its entry points typed."""
     lib = _build.library(f"decode_tiled_{fmt or 'bf16'}")
-    plan, run = lib.mlio_decode_tiled_plan, lib.mlio_decode_tiled
-    if plan.argtypes is None:
-        pp = ctypes.POINTER(_Params)
-        plan.argtypes = [pp, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
-        plan.restype = ctypes.c_int
-        run.argtypes = [pp, ctypes.c_void_p]
-        run.restype = ctypes.c_int
-    return lib, plan, run
+    if lib.mlio_decode_tiled_plan.argtypes is None:
+        pp, i, vp = ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p
+        for fn, args in ((lib.mlio_decode_tiled_plan,
+                          [pp, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i)]),
+                         (lib.mlio_decode_tiled, [pp, vp, vp]),
+                         (lib.mlio_decode_tiled_maps, [pp, vp]),
+                         (lib.mlio_decode_tiled_maps_bytes, []),
+                         (lib.mlio_decode_tiled_items, [pp, i, i, ctypes.POINTER(i), i])):
+            fn.argtypes, fn.restype = args, i
+    return lib
+
+
+# The weights' tensor maps (mlio_decode_tiled_maps), built once per set of
+# weight tensors: keyed by the format, the MLP's gating and each tensor's
+# address, shape and dtype (what a map encodes).
+_MAPS: dict = {}
+_MAPS_KEEP = 8  # sets of maps kept (a model's, a copy's, the checks' variants)
+
+
+def _tensor_maps(lib, prm: "_Params", key) -> ctypes.Array:
+    maps = _MAPS.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(lib.mlio_decode_tiled_maps_bytes())
+        _build.check(lib, lib.mlio_decode_tiled_maps(ctypes.byref(prm), maps),
+                     "decode_layer_tiled (tensor maps)")
+        if len(_MAPS) >= _MAPS_KEEP:
+            _MAPS.pop(next(iter(_MAPS)))
+        _MAPS[key] = maps
+    return maps
+
+
+def card_items(spec, fmt: Optional[str], B: int, phase: str, npicked: int = 1):
+    """The card's own plan of one GEMV phase (``mlio_decode_tiled_items`` at
+    the blocks the plan function sizes the launch for): a list of ``(block,
+    tile, first unit, end unit)``, for holding :func:`item_plan` against."""
+    lib = _entry(fmt)
+    prm = _Params(B=B, H=spec.hidden_size, Hq=spec.num_heads, Hkv=spec.num_kv_heads,
+                  D=spec.head_size, I=spec.intermediate_size, L=spec.num_layers, Smax=128,
+                  pos=0, activation=_ACTIVATIONS.index(spec.activation), wfmt=_FMTS[fmt], ka=1,
+                  E=spec.num_experts, top_k=spec.num_experts_per_tok,
+                  router=1 if spec.num_experts else None)
+    work, sync = ctypes.c_longlong(), ctypes.c_int()
+    _build.check(lib, lib.mlio_decode_tiled_plan(ctypes.byref(prm), ctypes.byref(work),
+                                                 ctypes.byref(sync)), "card_items (plan)")
+    cap = 1 << 16
+    buf = (ctypes.c_int * (4 * cap))()
+    n = lib.mlio_decode_tiled_items(ctypes.byref(prm), GEMV_PHASES.index(phase), npicked, buf,
+                                    cap)
+    if n < 0:
+        raise RuntimeError(f"card_items: {phase} has more than {cap} items")
+    return prm.nblocks, [tuple(buf[4 * i:4 * i + 4]) for i in range(n)]
 
 
 def _weight_names(spec):
@@ -553,11 +710,6 @@ def decode_layer_tiled(
     limit = kernel_limit(spec, B)
     if limit is not None:
         raise ValueError(f"decode_layer_tiled: {limit}")
-    mb, cpt = _tier(B)
-    ic_max = min(MAX_CHUNK, _THREADS * cpt // (2 if gated else 1), _ACT_BYTES // (4 * mb))
-    if tiling.ic % _WIDTH_ALIGN or tiling.ic > ic_max:
-        raise ValueError(f"decode_layer_tiled: the kernel does not take {tiling} at batch {B} "
-                         f"(ic a multiple of {_WIDTH_ALIGN} up to {ic_max})")
     _build.require_bf16("decode_layer_tiled", **tensors)
     for name, t in {**quant_t, **(caches if quant else {})}.items():
         want = (torch.float32 if name.startswith("s") or name.endswith("scale")
@@ -597,18 +749,23 @@ def decode_layer_tiled(
         I=spec.intermediate_size, L=L, Smax=Smax, pos=pos,
         rope_dim=0 if cos is None else cos.shape[1],
         rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
-        wfmt=_FMTS[fmt], ka=tiling.ka, ic=tiling.ic, eps=spec.norm_eps,
+        wfmt=_FMTS[fmt], ka=tiling.ka, eps=spec.norm_eps,
         scale=D ** -0.5 if scale is None else scale)
-    lib, plan, run = _entry(fmt)
+    lib = _entry(fmt)
     work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
+    weights = [quant_t.get(n, tensors.get(n)) for n in _WEIGHTS]
+    key = (fmt, gated, L, E, H, spec.num_heads, Hkv, D, spec.intermediate_size,
+           *((w.data_ptr(), w.dtype) if w is not None else None for w in weights))
     with torch.cuda.device(dev):
-        _build.check(lib, plan(ctypes.byref(prm), ctypes.byref(work_floats),
-                               ctypes.byref(sync_ints)), "decode_layer_tiled (plan)")
+        _build.check(lib, lib.mlio_decode_tiled_plan(ctypes.byref(prm), ctypes.byref(work_floats),
+                                                     ctypes.byref(sync_ints)),
+                     "decode_layer_tiled (plan)")
+        maps = _tensor_maps(lib, prm, key)
         decode_layer_tiled.workspace_bytes = 4 * (work_floats.value + sync_ints.value)
         work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
         sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
         prm.work, prm.sync = work.data_ptr(), sync.data_ptr()
-        err = run(ctypes.byref(prm), _build.stream_handle(dev))
+        err = lib.mlio_decode_tiled(ctypes.byref(prm), maps, _build.stream_handle(dev))
     _build.check(lib, err, "decode_layer_tiled")
     decode_layer_tiled.launches += 1
     return x_out

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mlio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                  ROOT / "profile_torch.py",
                                                                  ROOT / "ab_k13.py",
-                                                                 ROOT / "ab_k10.py"]
+                                                                 ROOT / "ab_k10.py",
+                                                                 ROOT / "ab_k6.py"]
 NEVER = ("jax", "jaxlib", "mlio_tpu")      # nowhere in the port
 LAZY = ("transformers", "safetensors", "triton")  # only inside functions
 
