@@ -1,8 +1,8 @@
-"""K6 (the tiled decode megakernel) at its main shapes, and the decode steps
-that run it, timed on one card from one checkout of this repository: one
-JSON line.
+"""K6 (the tiled decode megakernel) and K4 and K8 (the decode megakernels of
+decode_stack.cuh) at their main shapes, and the decode steps that run them,
+timed on one card from one checkout of this repository: one JSON line.
 
-    python3 ab_k6.py [--tree DIR] [--label NAME]
+    python3 ab_k6.py [--tree DIR] [--label NAME] [--only stack] [--rounds N]
 
 DIR (default: the directory of this script) is the checkout whose
 ``chip_smoke.py`` and ``mlio_tpu_torch`` are imported and whose kernels are
@@ -20,8 +20,20 @@ layers (int8, INT8 cache) at B 1 and B 32. Then the decode step of
 ``generate`` on the "tiled" route (two-length marginal, 16 against 80 new
 tokens after a 704-token prompt at B 8): llama3-8b bf16, the quick start's
 llama3-8b (int8, INT8 cache) and Mixtral-8x7B (int8, INT8 cache,
-``moe="ragged"``). One model is loaded at a time and freed before the next.
-Random weights from seed 0. Needs a CUDA card.
+``moe="ragged"``).
+
+K4 and K8 (``--only stack`` runs these alone, without K6's part, whose
+models take most of a call): K4 at GPT-2 small, B 8, context 896, the
+tied-head greedy epilogue (bf16; int8 weights over an INT8 cache; int8
+weights alone; an INT8 cache alone; int8 weights but wo and w_down over an
+INT8 cache), and at llama3-8b's width with 2 of its layers (int8 weights
+over an INT8 cache, the untied head), with block 0's phase durations; K8 at
+GPT-2 small over the engine's pools at chip_smoke.py's ragged contexts (the
+GPT-2 rows ``--rounds`` times, each a list of one entry a round); the
+decode step of GPT-2 small's ``generate`` on its default route (K4) and of
+the quick start's llama3-8b on the "mega" route (K4). One model is loaded at
+a time and freed before the next. Random weights from seed 0. Needs a CUDA
+card.
 """
 import argparse
 import dataclasses
@@ -42,6 +54,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", choices=("all", "stack"), default="all")
+    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_k6: no CUDA device is available", file=sys.stderr)
@@ -60,8 +74,10 @@ def main() -> int:
         raise RuntimeError(f"ab_k6: imported the port from {_build.CSRC}, not from {tree}")
     t_start = time.perf_counter()
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
-               build_s=_build.build_all(("decode_tiled_bf16", "decode_tiled_int8", "flash_fwd",
-                                         "fused_norm", "quant_matmul", "decode_attn")))
+               build_s=_build.build_all(tuple(n for n in _build.SOURCES if n in (
+                   ("flash_fwd", "fused_norm", "quant_matmul", "decode_layer", "decode_layer_kv8",
+                    "paged_stack") + (() if args.only == "stack" else (
+                        "decode_tiled_bf16", "decode_tiled_int8", "decode_attn"))))))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(6)
     k6, steps = out["k6_ms"], out["step_ms"] = {}, {}
@@ -112,6 +128,12 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    stack_part(cs, dev, gen, out, step_ms, free, args.rounds)
+    if args.only == "stack":
+        out["seconds"] = time.perf_counter() - t_start
+        print(json.dumps(out))
+        return 0
+
     tiled = Impl(attention="flash", norm="fused", decode_stack="tiled")
     spec = get_spec(cs.LLAMA)
     params = init_params(spec, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16,
@@ -148,6 +170,79 @@ def main() -> int:
     out["seconds"] = time.perf_counter() - t_start
     print(json.dumps(out))
     return 0
+
+
+def stack_part(cs, dev, gen, out, step_ms, free, rounds):
+    """K4's and K8's rows of the line (see the module note)."""
+    from mlio_tpu_torch.models import Impl, get_spec, init_params, load_model
+    from mlio_tpu_torch.ops import decode_layer as dl
+    from mlio_tpu_torch.ops import decode_paged_stack as dps
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
+
+    ms, phases = out["k4_k8_ms"], out["k4_k8_phase_us"] = {}, {}
+    pos = CTX - 1
+
+    def time_k4(key, spec, params, kv8):
+        x, kc, vc, cos, sin, kw = cs.stack_inputs(spec, params, B, CACHE, pos, 1, gen)
+        sk = {}
+        if kv8:
+            (kc, ks), (vc, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
+            sk = dict(k_scales=ks, v_scales=vs)
+        blocks = params["blocks"]
+        t = cs.time_ms(lambda i: dl.decode_layer_stack(x, blocks, kc, vc, pos, cos, sin,
+                                                       **kw, **sk), 20)[0]
+        stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
+        dl.decode_layer_stack(x, blocks, kc, vc, pos, cos, sin, phase_times=stamps, **kw, **sk)
+        ms.setdefault(key, []).append(t)
+        phases.setdefault(key, []).append(cs.phase_us(spec, stamps))
+
+    spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=0)
+    q8 = quantize_params(params, spec, "int8")
+    mixed = quantize_params(params, spec, "int8", skip=("wo", "w_down"))
+    # K8 at the ragged contexts over the engine's pools
+    shape = (spec.num_layers, cs.POOL_BLOCKS, cs.POOL_BS, spec.num_kv_heads, spec.head_size)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    tables = cs.paged_tables(gen, dev, B, cs.TABLE_BLOCKS, cs.POOL_BLOCKS)
+    past = torch.tensor(cs.RAGGED, dtype=torch.int32, device=dev)
+    ids = torch.randint(0, spec.vocab_size, (B,), generator=gen, device=dev)
+    x, _, _ = cs.paged_x(spec, params, ids, past)
+    pkw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
+               lm_head=params["tok_embed"], lm_head_bias=None, lm_vmajor=True)
+    for _ in range(rounds):
+        time_k4("k4_gpt2_bf16", spec, params, False)
+        time_k4("k4_gpt2_w8kv8", spec, q8, True)
+        time_k4("k4_gpt2_w8", spec, q8, False)
+        time_k4("k4_gpt2_kv8", spec, params, True)
+        time_k4("k4_gpt2_w8kv8_wo_wdown_bf16", spec, mixed, True)
+        ms.setdefault("k8_gpt2_ragged", []).append(cs.time_ms(lambda i: dps.decode_paged_stack(
+            x, params["blocks"], kp, vp, tables, past, **pkw), 20)[0])
+        stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
+        dps.decode_paged_stack(x, params["blocks"], kp, vp, tables, past, phase_times=stamps,
+                               **pkw)
+        phases.setdefault("k8_gpt2_ragged", []).append(cs.phase_us(spec, stamps))
+    del kp, vp, q8, mixed
+    step_ms("generate_gpt2", spec, params, Impl(attention="flash", mlp="fused", norm="fused"),
+            None)
+    del params
+    free()
+    spec2 = dataclasses.replace(get_spec(cs.LLAMA), num_layers=2)
+    bf = init_params(spec2, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16,
+                     device=dev)
+    time_k4("k4_llama3_8b_2_layers_w8kv8", spec2, quantize_params(bf, spec2, "int8"), True)
+    del bf
+    free()
+    spec = get_spec(cs.LLAMA)
+    bf = init_params(spec, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16,
+                     device=dev)
+    q8 = quantize_params(bf, spec, "int8")
+    del bf
+    free()
+    step_ms("generate_8b_mega_w8kv8", spec, q8,
+            Impl(attention="flash", norm="fused", decode_stack="mega"), "int8")
+    del q8
+    free()
 
 
 if __name__ == "__main__":

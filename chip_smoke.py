@@ -685,7 +685,7 @@ def stack_row(dl, dev, seed):
     # barrier): the five phases of a layer averaged over the layers.
     stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
     dl.decode_layer_stack(x, blocks, kc, vc, pos, phase_times=stamps, **kw)
-    row["phase_us"] = phase_us(spec, stamps)
+    row["phase_us"] = phase_us(spec, stamps, gemv_phase_bytes(spec, blocks))
     row["int8"] = stack_int8(dl, dev, seed)
     return row
 
@@ -754,22 +754,27 @@ def stack_int8(dl, dev, seed):
             stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
             dl.decode_layer_stack(x, blocks, tk, tv, pos, cos, sin, phase_times=stamps, **kw,
                                   **sk)
-            row["phase_us"] = phase_us(spec, stamps)
+            row["phase_us"] = phase_us(spec, stamps, gemv_phase_bytes(spec, blocks))
             out[f"{model}_{variant}"] = row
         del params, qparams, kc, vc, kq, vq
     return out
 
 
-def phase_us(spec, stamps):
+def phase_us(spec, stamps, nbytes=None):
     """Phase durations (us) of one single-step launch from its phase probe
-    (block 0's timer after each grid barrier): the five phases of a layer
-    averaged over the layers, and the logits."""
+    (block 0's timer at each of its waits): the five phases of a layer
+    averaged over the layers, and the logits; with ``nbytes``
+    (gemv_phase_bytes) each GEMV phase's weight rate (GB/s) beside them."""
     us = (stamps[1:] - stamps[:-1]).double().cpu() / 1e3
     L = spec.num_layers
-    layers = us[1:1 + 5 * L].reshape(L, 5).mean(0).tolist()
-    return dict(start=us[0].item(), **dict(zip(
-        ("qkv", "attention", "out_proj", "up", "down"), layers)),
-        logits=us[1 + 5 * L].item(), launch_total=(stamps[-1] - stamps[0]).item() / 1e3)
+    layers = dict(zip(("qkv", "attention", "out_proj", "up", "down"),
+                      us[1:1 + 5 * L].reshape(L, 5).mean(0).tolist()))
+    out = dict(start=us[0].item(), **layers, logits=us[1 + 5 * L].item(),
+               launch_total=(stamps[-1] - stamps[0]).item() / 1e3)
+    if nbytes is not None:
+        out["gb_per_s"] = {k: nbytes[n] / (layers[k] * 1e3) for k, n in (
+            ("qkv", "qkv"), ("out_proj", "out_proj"), ("up", "mlp_up"), ("down", "mlp_down"))}
+    return out
 
 
 def kernel_phase(rng, dev, seed, fa, norms, da, dl):
@@ -1254,7 +1259,7 @@ def paged_rows(pa, dps, dev, seed):
         bound_ms_ctx896=stack_bound(spec, params, B, B * DECODE_CTX)[0])
     stamps = torch.zeros(dl.phase_stamps(spec), dtype=torch.int64, device=dev)
     dps.decode_paged_stack(x, blocks, kp, vp, tables, past, phase_times=stamps, **kw)
-    k8["phase_us"] = phase_us(spec, stamps)
+    k8["phase_us"] = phase_us(spec, stamps, gemv_phase_bytes(spec, params["blocks"]))
 
     # K8's int8 weight path over the same bf16 pools (the JAX K8 has no INT8
     # KV path): the ragged contexts, a context one token short must fail.
@@ -1330,7 +1335,8 @@ def paged_variants(dev, seed, pa, dps):
     """K7's and K8's other instances against their plain versions at small
     shapes: grouped heads, head dim 128, block sizes 8 to 64, batch 3 and 5,
     and K8 with GQA 4, RMSNorm, SwiGLU, per-sequence RoPE, an untied head
-    with a bias, learned positions and a past context of 0."""
+    with a bias, learned positions and a past context of 0, each with bf16,
+    int8 and mixed (MIXED_SKIP left bf16) weights."""
     from mlio_tpu_torch.models import get_spec, init_params
     from mlio_tpu_torch.ops.quant import quantize_kv
     from mlio_tpu_torch.runtime import quantize_params
@@ -1389,12 +1395,194 @@ def paged_variants(dev, seed, pa, dps):
         errs[f"decode_paged_stack_int8_weights[{name}]"] = paged_stack_check(
             dps, spec, quantize_params(params, spec, "int8"), x, kp, vp, tables, past, cos, sin,
             kw)[1]
+        errs[f"decode_paged_stack_mixed_weights[{name}]"] = paged_stack_check(
+            dps, spec, quantize_params(params, spec, "int8", skip=MIXED_SKIP), x, kp, vp, tables,
+            past, cos, sin, kw)[1]
     return errs
+
+
+STACK_REPEATS = 20       # launches each of K4 bf16, K4 w8+kv8 and K8 that must agree bit for bit
+HOLD_NS = 20000          # a held-back block's delay before each of its waits
+HOLD_BLOCKS = (0, 77)    # the blocks held back, one launch each
+# K4/K8's mixed weights: int8 but these (QKV in two formats, the out-projection
+# bf16 and down int8; tests/test_torch_decode_stack_plan.py's MIXED)
+MIXED_SKIP = ("wk", "wo", "w_up", "w_gate")
+CLUSTERS = (2, 4, 8, 16)  # cluster sizes of the cooperative cluster-launch probe
+
+
+def stack_instances():
+    """Registers (kernels), stack frame and spill-store bytes of every
+    decode_stack.cuh instance, by source, from ptxas's report: kernels
+    stack_kernel<head dim, query heads a KV head, cache>, and the functions
+    they call (gemv_phase, one for every phase and format; produce;
+    logits_phase<cache>)."""
+    from mlio_tpu_torch.ops import _build
+
+    out = {}
+    for src in ("decode_layer", "decode_layer_kv8", "paged_stack"):
+        fns = {}
+        for mangled, v in _build.ptxas_functions(src).items():
+            m = re.search(r"\d+(stack_kernel|gemv_phase|produce|finish_group|attention_phase|"
+                          r"logits_phase|token_phase|wait_for|row_stats|tile_stats)(.*)$", mangled)
+            if m is None:
+                continue
+            tail, args = m.group(2), []
+            if tail.startswith("I"):  # a template's arguments: literals, then the cache
+                args = [n for _, n in re.findall(r"L([ib])(\d+)E", tail[1:].split("N")[0])]
+                if "PagedCache" in tail:
+                    args.append("paged")
+                elif "ContiguousCache" in tail:
+                    args.append("int8_cache" if "ContiguousCacheILb1E" in tail else "bf16_cache")
+            fns[f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)] = v
+        out[src] = fns
+    return out
+
+
+def stack_plan_check(dl):
+    """The card's own plan of K4 and K8 (mlio_*_stack_items at the blocks
+    and ring slots the plan function sizes the launch for) against
+    decode_layer.stack_plan and attention_split, the mirror the CPU tests
+    hold: GPT-2 small, gpt2-xl and llama3-8b, bf16, int8 and mixed weights
+    (MIXED_SKIP left bf16), every GEMV phase, its shape (KB, nk, tiles,
+    tile columns, ring slots) and its segments, with and without the
+    epilogue (the ring's slots); the waits on part of a phase (the counters
+    of every out and down segment and every attention item, segment_wait
+    and attention_wait, against block_program's); attention's split (C,
+    each sequence's splits and first split) at K4's context and K8's
+    ragged ones. Raises where they differ."""
+    from mlio_tpu_torch.models import get_spec
+
+    mixed = {n: (None if n in MIXED_SKIP else "int8") for n in dl.PROJECTIONS}
+    items, splits, waits = {}, {}, {}
+    for name in ("decode_layer", "paged_stack"):
+        for model in ("gpt2", "gpt2-xl", LLAMA):
+            spec = get_spec(model)
+            for label, fmt in (("bf16", None), ("int8", "int8"), ("mixed", mixed)):
+                for phase in dl.STACK_PHASES:
+                    for epilogue in (True, False):
+                        nb, shape, card = dl.card_items(name, spec, fmt, B, phase, epilogue)
+                        mirror = dl.stack_plan(spec, fmt, nb=nb, epilogue=epilogue)
+                        ph = mirror["phases"][phase]
+                        want = (ph["KB"], ph["nk"], ph["ntiles"], ph["tc"], mirror["slots"])
+                        if shape != want or card != [tuple(i) for i in ph["items"]]:
+                            raise AssertionError(
+                                f"{name}: the card's plan of {model} {label} {phase} "
+                                f"(epilogue {epilogue}) {shape} differs from stack_plan's {want}")
+                        items[f"{name}/{model}/{label}/{phase}/epilogue={int(epilogue)}"] = \
+                            [*shape, len(card)]
+                # the waits on part of a phase: every out and down segment's
+                # and every attention item's counters, the card's against the
+                # mirror's (the waits the CPU tests' happens-before walk holds)
+                nb, _, _ = dl.card_items(name, spec, fmt, B, "qkv")
+                mirror = dl.stack_plan(spec, fmt, nb=nb)
+                card = dl.card_waits(name, spec, fmt, B)
+                mine = {}
+                for b in range(nb):
+                    mine.update(dl.program_waits(mirror, spec, B, b))
+                segs = {k for k in card if k[0] == "seg"}
+                if segs != {k for k in mine if k[0] == "seg"} or any(
+                        card[k] != v for k, v in mine.items()):
+                    raise AssertionError(f"{name}: the card's waits of {model} {label} differ "
+                                         "from block_program's")
+                waits[f"{name}/{model}/{label}"] = len(segs)
+            for ctx, n in (("ctx_896", [DECODE_CTX + 1] * B),
+                           ("ragged", [c + 1 for c in RAGGED]), ("b1_ctx_1", [1])):
+                card = dl.card_split(name, spec, n)
+                want = dl.attention_split(n, spec.num_kv_heads, card["nb"])
+                if {k: card[k] for k in want} != want:
+                    raise AssertionError(f"{name}: the card's attention split of {model} at "
+                                         f"{ctx} {card} differs from attention_split's {want}")
+                splits[f"{name}/{model}/{ctx}"] = dict(C=card["C"], items=card["items"])
+    return dict(plan_matches_mirror=True, blocks=nb,
+                shape_key="KB, nk, ntiles, tc, slots, segments", phases=items,
+                attention_split=splits, waits_segments=waits)
+
+
+def cluster_launch_probe(dl):
+    """Whether the card takes a cooperative launch with a cluster dimension
+    at K4's block size and shared memory (decode_layer.cluster_probe), for
+    each of CLUSTERS: the design's split-K inside a cluster needs both."""
+    from mlio_tpu_torch.models import get_spec
+
+    return [dl.cluster_probe("decode_layer", get_spec("gpt2"), c) for c in CLUSTERS]
+
+
+def same_bits(name, launch, outs):
+    """``launch()`` STACK_REPEATS times, then once with each of
+    HOLD_BLOCKS held back HOLD_NS before each of its waits
+    (decode_layer.HOLD): every output the same bits as ``outs`` (the
+    first launch's). Raises otherwise."""
+    from mlio_tpu_torch.ops import decode_layer as dl
+
+    ref = [t.clone() for t in outs]  # the caches are written in place
+
+    def agree(got, what):
+        torch.cuda.synchronize()
+        for g, w in zip(got, ref):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: {what} changed the output bits")
+
+    for r in range(STACK_REPEATS):
+        agree(launch(), f"launch {r + 1} of {STACK_REPEATS}")
+    for blk in HOLD_BLOCKS:
+        with patched(dl, "HOLD", (blk, HOLD_NS)):
+            agree(launch(), f"holding block {blk} back {HOLD_NS} ns at each wait")
+    return dict(repeats=STACK_REPEATS, held_back_blocks=list(HOLD_BLOCKS), hold_ns=HOLD_NS,
+                same_bits=True)
+
+
+def stack_phase(dev, seed, dl, dps):
+    """K4's and K8's plan and determinism: the card's plan against the
+    mirror (stack_plan_check); the same bits over STACK_REPEATS launches and
+    with a held-back block (same_bits) of K4 bf16 and K4 with int8 weights
+    over an INT8 cache at GPT-2 small (B 8, context DECODE_CTX) and K8 at the
+    ragged contexts; the registers and spills of every instance."""
+    from mlio_tpu_torch.models import load_model
+    from mlio_tpu_torch.ops.quant import quantize_kv
+    from mlio_tpu_torch.runtime import quantize_params
+
+    spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    pos = DECODE_CTX - 1
+    x, kc, vc, _, _, kw = stack_inputs(spec, params, B, CACHE, pos, 1, gen)
+    out = dict(card_plan=stack_plan_check(dl))
+
+    def k4(blocks, caches, sk):
+        def launch():
+            xo, tok = dl.decode_layer_stack(x, blocks, *caches, pos, **kw, **sk)
+            return (xo, tok, *caches, *sk.values())
+        return launch
+
+    run = k4(params["blocks"], (kc, vc), {})
+    out["decode_layer_stack"] = same_bits("decode_layer_stack", run, run())
+    (kq, ks), (vq, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
+    run = k4(quantize_params(params, spec, "int8")["blocks"], (kq, vq),
+             dict(k_scales=ks, v_scales=vs))
+    out["decode_layer_stack_w8kv8"] = same_bits("decode_layer_stack (w8+kv8)", run, run())
+    shape = (spec.num_layers, POOL_BLOCKS, POOL_BS, spec.num_kv_heads, spec.head_size)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    tables = paged_tables(gen, dev, B, TABLE_BLOCKS, POOL_BLOCKS)
+    past = torch.tensor(RAGGED, dtype=torch.int32, device=dev)
+    ids = torch.randint(0, spec.vocab_size, (B,), generator=gen, device=dev)
+    xp, _, _ = paged_x(spec, params, ids, past)
+    pkw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
+               lm_head=params["tok_embed"], lm_head_bias=None, lm_vmajor=True, emit="logits")
+
+    def k8():
+        xo, logits = dps.decode_paged_stack(xp, params["blocks"], kp, vp, tables, past, **pkw)
+        return xo, logits, kp, vp
+
+    out["decode_paged_stack"] = same_bits("decode_paged_stack", k8, k8())
+    out["ptxas"] = stack_instances()
+    out["cluster_launch"] = cluster_launch_probe(dl)
+    return out
 
 
 def stack_variants(dev, seed, dl):
     """K4's other instances against its plain version at small shapes, with
-    norm scales and every bias drawn from the seed."""
+    norm scales and every bias drawn from the seed: bf16 weights, int8
+    weights over an INT8 cache, and mixed weights (MIXED_SKIP left bf16)."""
     import dataclasses
 
     from mlio_tpu_torch.models import get_spec, init_params
@@ -1443,6 +1631,10 @@ def stack_variants(dev, seed, dl):
         errs[f"decode_layer_stack_int8[{name}]"] = stack_check(
             dl, spec, quantize_params(params, spec, "int8"), x, kq, vq, pos, cos, sin, kw,
             scales=(ks, vs))[1]
+        # a mixed set: int8 but MIXED_SKIP
+        errs[f"decode_layer_stack_mixed[{name}]"] = stack_check(
+            dl, spec, quantize_params(params, spec, "int8", skip=MIXED_SKIP), x, kc, vc, pos,
+            cos, sin, kw)[1]
     return errs
 
 
@@ -4590,6 +4782,8 @@ def main() -> int:
     rows += gemm_rows(dev, args.seed, fm, lq, qm)
     emit(dict(phase="kernels", checked=[r["name"] for r in rows]))
     variant_phase(rng, dev, args.seed, fa, norms, da, dl, pa, dps, fm, lq, qm, dt)
+    stack = stack_phase(dev, args.seed, dl, dps)
+    emit(dict(phase="stack", **{k: v for k, v in stack.items() if k != "ptxas"}))
     launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm)
     scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, decode_stack="scan")
     int8_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, int8=True)
@@ -4663,6 +4857,12 @@ def main() -> int:
     # the int8 instances' launches on the quick start's paths: K4 in its
     # decode, K3 in its scan decode, K8 in the engine with int8 weights
     by_name = {r["name"]: r for r in rows}
+    for name in ("decode_layer_stack", "decode_paged_stack"):  # PR 16's checks of K4 and K8
+        by_name[name].update(card_plan=stack["card_plan"]["plan_matches_mirror"],
+                             same_bits=stack[name], ptxas=stack["ptxas"],
+                             cluster_launch=stack["cluster_launch"])
+    by_name["decode_layer_stack"]["int8"]["gpt2_w8kv8"]["same_bits"] = \
+        stack["decode_layer_stack_w8kv8"]
     for entry, count in ((by_name["decode_layer_stack"]["int8"]["gpt2_w8kv8"],
                           int8_launches["decode_layer_stack"]),
                          (by_name["decode_attention"]["int8"],

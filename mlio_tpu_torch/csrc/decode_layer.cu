@@ -24,29 +24,27 @@
 //
 // Design. The TPU kernel walks a sequential grid (steps, layers + vocab
 // chunks) and carries the residual in VMEM. Hopper runs blocks in parallel,
-// so this is one persistent cooperative launch (as many 256-thread blocks as
-// can be resident, every SM busy) whose phases are separated by grid-wide
-// barriers on a counter with a generation word:
+// so this is one persistent cooperative launch, one block an SM, whose
+// phases are
 //   1. norm1, QKV projections; 2. RoPE, cache write, attention;
 //   3. out-projection + residual; 4. norm2, up/gate + activation;
 //   5. down-projection + residual; then per step the logits with a
 //   per-block (max, first index), and the token with the next step's input.
 // The residual lives in a global fp32 [B, H] buffer; each block recomputes
-// the norm statistics it needs from it instead of paying another barrier.
-// A projection phase splits its weight [K, N] into 64-column tiles and
-// K-chunks so that every SM streams weights: 8 threads read a 128-byte row
-// segment (16 bytes each, rows of the [in, out] layout), 32 rows at once and
-// four rows in flight a thread, each thread keeping B x 8 fp32 sums in
-// registers. Each item writes its
-// partial sums to a global buffer; the last item of a tile to arrive (an
-// atomic counter per tile) sums the partials in a fixed order and applies
-// the bias, activation or residual, so two runs give the same bits and no
-// float atomics are used. Attention uses K3's split: one item per
-// (sequence, KV head), D/8 lanes per token row, 16-byte loads of the valid
-// slots only. Buffers written inside the launch are read with ld.global.cg
-// (L2), never through a possibly stale L1. The vocabulary is spread over all
-// warps, each keeping a running (max, first index); partials are merged in
-// a fixed order by every block, so all blocks agree on the token.
+// the norm statistics it needs from it. A producer warp streams every
+// block's weight units by TMA into a shared-memory ring ahead of the
+// consumers' waits, across phases, layers and steps; the GEMVs run on the
+// tensor cores (mma.sync, the batch as n); each phase's K-split is summed
+// in a fixed order by the last segment of a tile to arrive, so two runs give
+// the same bits; and no grid barrier separates the phases: each consumer
+// waits on readiness counters of the producers of what it reads
+// (decode_stack.cuh has the details). Attention uses K3's split: one item
+// per (sequence, KV head), D/8 lanes per token row, 16-byte loads of the
+// valid slots only. Buffers written inside the launch are read with
+// ld.global.cg (L2), never through a possibly stale L1. The vocabulary is
+// spread over all warps, each keeping a running (max, first index);
+// partials are merged in a fixed order by every block, so all blocks agree
+// on the token.
 //
 // The phases live in decode_stack.cuh, shared with K8 (paged_stack.cu); this
 // source gives the contiguous cache: slot pos + s of [layer, b] for every
@@ -62,16 +60,14 @@
 // weights, the 77 MB bf16 lm_head, 132 MB of int8 K/V, 8 MB of scales); int8
 // weights alone 0.127 ms; INT8 KV alone 0.116 ms.
 //
-// Limits: bf16 activations; B <= 8 (the register accumulators); H <= 8192 (the
+// Limits: bf16 activations; B <= 8 (one mma n-tile); H <= 8192 (the
 // epilogue keeps [8, H] bf16 in shared memory); head dim 64 or 128 and
-// groups 1, 2, 4, 8 (template instances); every width a multiple of 8. The
-// wrapper raises on anything else. GEMVs use CUDA-core FMAs.
+// groups 1, 2, 4, 8 (template instances); every width a multiple of 8 (the
+// int8 weights' widths of 16, the tensor maps' row stride); each projection
+// weight bf16 or int8, a gated MLP's w_up and w_gate the same. The wrapper
+// raises on anything else.
 //
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.945 ms a step at
-// the shapes above, 6.2x the bound. Each phase is a chain of dependent L2
-// round trips (norm statistics, staging, weight rows, partial sums, the
-// tile counter, the barrier) of 10-18 us, against 4.2 us for a layer's
-// weight bytes; fewer phases and deeper load pipelines are later work.
+// Measured (chip_smoke.py, ab_k6.py; NVIDIA H100 80GB HBM3): PERF.md.
 #include "decode_stack.cuh"
 
 namespace {
@@ -94,13 +90,32 @@ struct ContiguousCache {
 
 }  // namespace
 
-// A bf16 cache, or an INT8 one where p->k_scale is set.
+// The bf16 cache's instances (decode_layer_kv8.cu: the INT8 cache's, so the
+// two build in parallel).
+#ifndef MLIO_STACK_KV8
+#define MLIO_STACK_KV8 false
+#endif
+using Cache = ContiguousCache<MLIO_STACK_KV8>;
+
 extern "C" int mlio_decode_stack_plan(StackParams* p, long long* work_floats, int* sync_ints) {
-  return p->k_scale != nullptr ? stack_plan<ContiguousCache<true>>(p, work_floats, sync_ints)
-                               : stack_plan<ContiguousCache<false>>(p, work_floats, sync_ints);
+  return (p->k_scale != nullptr) == MLIO_STACK_KV8 ? stack_plan<Cache>(p, work_floats, sync_ints)
+                                                   : cudaErrorInvalidValue;
 }
 
-extern "C" int mlio_decode_stack(const StackParams* p, void* stream) {
-  return p->k_scale != nullptr ? stack_launch<ContiguousCache<true>>(p, stream)
-                               : stack_launch<ContiguousCache<false>>(p, stream);
+extern "C" int mlio_decode_stack_maps(const StackParams* p, void* out) {
+  return stack_maps(p, out);
+}
+
+extern "C" int mlio_decode_stack_maps_bytes() { return static_cast<int>(sizeof(StackMaps)); }
+
+extern "C" int mlio_decode_stack_items(const StackParams* p, int kind, int* out, int cap) {
+  return stack_items(p, kind, out, cap);
+}
+
+extern "C" int mlio_decode_stack_cluster_probe(const StackParams* p, int cluster, int* out) {
+  return stack_cluster_probe<Cache>(p, cluster, out);
+}
+
+extern "C" int mlio_decode_stack(const StackParams* p, const void* maps, void* stream) {
+  return stack_launch<Cache>(p, maps, stream);
 }

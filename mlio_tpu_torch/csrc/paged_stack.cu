@@ -27,8 +27,9 @@
 // with int8 weights: 162 MB of weights, norms and the tied lm_head and the
 // same K/V, 0.078 ms.
 //
-// Design: K4's phases (decode_stack.cuh), with the cache addressed through
-// the policy below. The current token's K/V are written by the attention
+// Design: K4's phases (decode_stack.cuh: weights streamed by TMA ahead of
+// every wait, tensor-core GEMVs, readiness counters in place of grid
+// barriers), with the cache addressed through the policy below. The current token's K/V are written by the attention
 // item of (sequence, kv head) and read back by that same item after a block
 // barrier, as in K4; no other item reads that row. Inactive engine slots
 // all point at scratch block 0 and write its row 0; the items of different
@@ -60,6 +61,20 @@ extern "C" int mlio_paged_stack_plan(StackParams* p, long long* work_floats, int
   return stack_plan<PagedCache>(p, work_floats, sync_ints);
 }
 
-extern "C" int mlio_paged_stack(const StackParams* p, void* stream) {
-  return stack_launch<PagedCache>(p, stream);
+extern "C" int mlio_paged_stack_maps(const StackParams* p, void* out) {
+  return stack_maps(p, out);
+}
+
+extern "C" int mlio_paged_stack_maps_bytes() { return static_cast<int>(sizeof(StackMaps)); }
+
+extern "C" int mlio_paged_stack_items(const StackParams* p, int kind, int* out, int cap) {
+  return stack_items(p, kind, out, cap);
+}
+
+extern "C" int mlio_paged_stack_cluster_probe(const StackParams* p, int cluster, int* out) {
+  return stack_cluster_probe<PagedCache>(p, cluster, out);
+}
+
+extern "C" int mlio_paged_stack(const StackParams* p, const void* maps, void* stream) {
+  return stack_launch<PagedCache>(p, maps, stream);
 }

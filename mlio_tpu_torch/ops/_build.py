@@ -24,13 +24,14 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "paged_attn", "paged_stack",
+SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "decode_layer_kv8",
+           "paged_attn", "paged_stack",
            "quant_matmul", "fused_mlp", "ln_matmul", "decode_tiled_bf16", "decode_tiled_int8",
            "decode_tiled_fp8", "dma_bench", "fp8_convert", "flash_bwd", "flash_stream")
 # -Xptxas -v only reports each kernel's registers, stack and spills (kept in
@@ -59,7 +60,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    src = CSRC / f"{name}.cu"
+    # a source may include another source (decode_layer_kv8.cu: decode_layer.cu)
+    included = [CSRC / n for n in re.findall(r'#include "(\w+\.cu)"', src.read_text())]
+    for f in [src, *included, *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -153,6 +157,29 @@ def library(name: str) -> ctypes.CDLL:
             lib.mlio_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+# The decode megakernels' weight tensor maps (K4/K8's mlio_*_stack_maps, K6's
+# mlio_decode_tiled_maps), built once per set of weight tensors: the last
+# MAPS_KEEP keys' (a model's, a copy's, the checks' variants) are kept.
+_maps: Dict[tuple, ctypes.Array] = {}
+MAPS_KEEP = 16
+
+
+def tensor_maps(key: tuple, nbytes: int, fill: Callable[[ctypes.Array], int],
+                lib: ctypes.CDLL, what: str) -> ctypes.Array:
+    """The maps cached under ``key`` (the kernel and every field the maps
+    encode: the weights' addresses, shapes and formats), else a new buffer
+    of ``nbytes`` that ``fill(buffer)`` writes (a C entry's error code,
+    raised on)."""
+    maps = _maps.get(key)
+    if maps is None:
+        maps = ctypes.create_string_buffer(nbytes)
+        check(lib, fill(maps), what)
+        if len(_maps) >= MAPS_KEEP:
+            _maps.pop(next(iter(_maps)))
+        _maps[key] = maps
+    return maps
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -181,6 +181,9 @@ def decode_paged_stack(
     if epilogue:
         _k4.check_head("decode_paged_stack", lm_head, lm_vmajor, V, H)
     _k4.check_operands("decode_paged_stack", tensors, qt)
+    lm_ld = 0
+    if epilogue:
+        tensors["lm_head"], lm_ld = _k4.head_operand(lm_head, lm_vmajor, V)
     if cos is not None:
         # the tables are rounded to the compute dtype first, as K4's are
         cos = cos.to(dev, x.dtype).float().contiguous()
@@ -203,6 +206,7 @@ def decode_paged_stack(
         tokens=_build.ptr(out) if emit == "greedy" else None,
         logits=_build.ptr(out) if emit == "logits" else None,
         steps=1, bs=bs, max_blocks=block_tables.shape[1], num_blocks=NB,
+        wfmt=_k4.weight_format(blocks), lm_ld=lm_ld,
         **_k4.base_params(spec, B, H, L, V, lm_vmajor, scale,
                           0 if cos is None else cos.shape[1], epilogue))
     _k4.launch("paged_stack", prm, dev, "decode_paged_stack")

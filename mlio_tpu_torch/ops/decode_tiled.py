@@ -530,25 +530,6 @@ def _entry(fmt: Optional[str]):
     return lib
 
 
-# The weights' tensor maps (mlio_decode_tiled_maps), built once per set of
-# weight tensors: keyed by the format, the MLP's gating and each tensor's
-# address, shape and dtype (what a map encodes).
-_MAPS: dict = {}
-_MAPS_KEEP = 8  # sets of maps kept (a model's, a copy's, the checks' variants)
-
-
-def _tensor_maps(lib, prm: "_Params", key) -> ctypes.Array:
-    maps = _MAPS.get(key)
-    if maps is None:
-        maps = ctypes.create_string_buffer(lib.mlio_decode_tiled_maps_bytes())
-        _build.check(lib, lib.mlio_decode_tiled_maps(ctypes.byref(prm), maps),
-                     "decode_layer_tiled (tensor maps)")
-        if len(_MAPS) >= _MAPS_KEEP:
-            _MAPS.pop(next(iter(_MAPS)))
-        _MAPS[key] = maps
-    return maps
-
-
 def card_items(spec, fmt: Optional[str], B: int, phase: str, npicked: int = 1):
     """The card's own plan of one GEMV phase (``mlio_decode_tiled_items`` at
     the blocks the plan function sizes the launch for): a list of ``(block,
@@ -754,13 +735,17 @@ def decode_layer_tiled(
     lib = _entry(fmt)
     work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
     weights = [quant_t.get(n, tensors.get(n)) for n in _WEIGHTS]
-    key = (fmt, gated, L, E, H, spec.num_heads, Hkv, D, spec.intermediate_size,
+    # the tensor maps (built once per set of weight tensors): keyed by the
+    # format, the MLP's gating and each tensor's address, shape and dtype
+    key = ("decode_tiled", fmt, gated, L, E, H, spec.num_heads, Hkv, D, spec.intermediate_size,
            *((w.data_ptr(), w.dtype) if w is not None else None for w in weights))
     with torch.cuda.device(dev):
         _build.check(lib, lib.mlio_decode_tiled_plan(ctypes.byref(prm), ctypes.byref(work_floats),
                                                      ctypes.byref(sync_ints)),
                      "decode_layer_tiled (plan)")
-        maps = _tensor_maps(lib, prm, key)
+        maps = _build.tensor_maps(key, lib.mlio_decode_tiled_maps_bytes(),
+                                  lambda buf: lib.mlio_decode_tiled_maps(ctypes.byref(prm), buf),
+                                  lib, "decode_layer_tiled (tensor maps)")
         decode_layer_tiled.workspace_bytes = 4 * (work_floats.value + sync_ints.value)
         work = torch.empty(work_floats.value, dtype=torch.float32, device=dev)
         sync = torch.zeros(sync_ints.value, dtype=torch.int32, device=dev)
