@@ -1,8 +1,8 @@
-"""K1, K3, K5, K7, K10, K11, K12 and K13, the runner's configurations, the
-quick start's and the 32K prefill and llama3-8b's training step, timed on one
-card from one checkout of this repository: one JSON line.
+"""K1, K3, K5, K7, K9, K10, K11, K12 and K13, the runner's configurations,
+the quick start's and the 32K prefill and llama3-8b's training step, timed on
+one card from one checkout of this repository: one JSON line.
 
-    python3 ab_k13.py [--tree DIR] [--label NAME]
+    python3 ab_k13.py [--tree DIR] [--label NAME] [--only attention]
 
 DIR (default: the directory of this script) is the checkout whose
 ``chip_smoke.py`` and ``mlio_tpu_torch`` are imported and whose kernels are
@@ -26,20 +26,35 @@ them) and SDPA's backward at llama3-8b's attention; and
 ``chip_smoke.train_8b_phase``'s line (three SGD steps of llama3-8b at full
 width and depth, and its gradient gate); K10 and SDPA's flash forward at
 Mistral-7B-Instruct-v0.2's 32K prefill call (B 1, 32,704 queries over a
-32,768-slot cache, 32/8 heads of 128, causal); K3 and SDPA at GPT-2 small's
-decode (B 8, ctx 896) and Mistral's at 32K (B 1, ctx 32,704); K7 at the
-engine's pools. Then ``runner``: the device ms of a forward of each runner
-configuration (``chip_smoke.runner_phase``: GPT-2 small, 8 x 704 tokens,
-its logits held against the plain path), ``quick_start_prefill_ms``: the
-device ms of the README quick start's prefill (int8 weights, an INT8
-cache; K9, K5 and K2), and ``long_context_prefill``: Mistral's 32K prefill
-through the model (K10 32 times). Needs a CUDA card.
+32,768-slot cache, 32/8 heads of 128, causal). Then the attention part,
+which ``--only attention`` runs alone (building only the sources it needs):
+K9 alone at GPT-2 small's prefill (8 x 704 queries into a 1024-slot INT8
+cache), at chip_smoke's ``KVQ_LLAMA`` (2 x 1024 into 2048, 32/8 heads of
+128) and at generate_moe's shape (8 x 704 into 1024, Mixtral's 32/8 heads
+of 128); K3 and SDPA at GPT-2 small's decode (B 8, ctx 896) and Mistral's
+at 32K (B 1, ctx 32,704), and ``k3_sha256``, a hash of K3's outputs of its
+fp32 pass, its grouped (tensor-core) pass and its int8 instances on seeded
+inputs, equal across two checkouts exactly where K3 gives the same bits; K7
+at the engine's pools (GPT-2 small, 256 blocks of 128, permuted tables of
+8) at the ragged contexts, at context 896, with INT8 pools, and with
+llama3-8b's heads (B 8, 32/8 heads of 128), and its output's hash; and
+``perop_engine``: the engine's per-op decode (GPT-2 small, B 8,
+engine_bench's first 8 prompts, 64 new tokens, 8 steps a dispatch): its
+generated tok/s by the host clock and K7's device ms a launch from a
+torch.profiler trace of the same run. Then ``runner``: the device ms of a
+forward of each runner configuration (``chip_smoke.runner_phase``: GPT-2
+small, 8 x 704 tokens, its logits held against the plain path),
+``quick_start_prefill_ms``: the device ms of the README quick start's
+prefill (int8 weights, an INT8 cache; K9, K5 and K2), and
+``long_context_prefill``: Mistral's 32K prefill through the model (K10 32
+times). Needs a CUDA card.
 """
 import argparse
 import hashlib
 import json
 import os
 import sys
+import time
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +64,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", choices=("all", "attention"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_k13: no CUDA device is available", file=sys.stderr)
@@ -70,10 +86,11 @@ def main() -> int:
 
     if not os.path.samefile(_build.CSRC.parents[1], tree):
         raise RuntimeError(f"ab_k13: imported the port from {_build.CSRC}, not from {tree}")
+    attention_sources = ("flash_fwd", "fused_norm", "decode_attn", "paged_attn")
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
-               build_s=_build.build_all(("flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp",
-                                         "quant_matmul", "fused_norm", "flash_stream",
-                                         "decode_attn", "paged_attn")))
+               build_s=_build.build_all(attention_sources if args.only == "attention" else (
+                   "flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp", "quant_matmul",
+                   "fused_norm", "flash_stream", "decode_attn", "paged_attn")))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
     reps = 30
@@ -81,6 +98,11 @@ def main() -> int:
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    if args.only == "attention":
+        attention_part(cs, out, dev, gen, rn)
+        print(json.dumps(out), flush=True)
+        return 0
 
     # K11 at GPT-2's MLP (gelu_new, biases) and llama3-8b's (SwiGLU)
     x, wu, wd = rn(5632, 768), rn(768, 3072, scale=768 ** -0.5), rn(3072, 768, scale=3072 ** -0.5)
@@ -171,39 +193,7 @@ def main() -> int:
     del q, k, v
     torch.cuda.empty_cache()
 
-    # K3 at GPT-2 small's decode (B 8, 12 heads of 64, ctx 896 of 1024 slots,
-    # the 12 layers in turn) and Mistral's at 32K (B 1, 32/8 heads of 128, ctx
-    # 32,704 of 32,768, 2 layers in turn), beside SDPA over the valid K/V
-    # (repeated to the query heads where they are grouped, outside the timing)
-    for key, b, hq, hkv, d, L, smax, n in (("k3_gpt2", 8, 12, 12, 64, 12, 1024, 896),
-                                           ("k3_mistral", 1, 32, 8, 128, 2, 32768, 32704)):
-        qd, kc, vc = rn(b, hq, d), rn(L, b, smax, hkv, d), rn(L, b, smax, hkv, d)
-        ctx = torch.full((b,), n, dtype=torch.int32, device=dev)
-        g = hq // hkv
-        dense = [tuple(t[l, :, :n].transpose(1, 2) if g == 1 else
-                       t[l, :, :n].transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-                       for t in (kc, vc)) for l in range(L)]
-        reps_d = 240 if L > 2 else 50
-        ms[key] = cs.time_ms(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L),
-                             reps_d)[0]
-        ms[key + "_sdpa"] = cs.time_ms(lambda i: F.scaled_dot_product_attention(
-            qd[:, :, None], *dense[i % L]), reps_d)[0]
-        del qd, kc, vc, dense
-        torch.cuda.empty_cache()
-
-    # K7 at the engine's pools (GPT-2 small, 256 blocks of 128, permuted
-    # tables of 8 blocks, the ragged contexts), the 12 layers in turn
-    kp, vp = (rn(12, cs.POOL_BLOCKS, cs.POOL_BS, 12, 64) for _ in range(2))
-    tables = cs.paged_tables(gen, dev, cs.B, cs.TABLE_BLOCKS, cs.POOL_BLOCKS)
-    ctx = torch.tensor(cs.RAGGED, dtype=torch.int32, device=dev) + 1
-    qd = rn(cs.B, 12, 64)
-    ms["k7_gpt2"] = cs.time_ms(lambda i: pa.paged_attention(qd, kp, vp, tables, ctx,
-                                                            layer=i % 12), 240)[0]
-    # the output's bits, to compare across checkouts (the same inputs in each)
-    out["k7_sha256"] = hashlib.sha256(pa.paged_attention(
-        qd, kp, vp, tables, ctx, layer=5).view(torch.int16).cpu().numpy().tobytes()).hexdigest()
-    del kp, vp, qd
-    torch.cuda.empty_cache()
+    attention_part(cs, out, dev, gen, rn)
 
     lines = []
     cs.emit = lines.append  # the phases' lines (train_8b, runner), kept for this one
@@ -257,6 +247,127 @@ def main() -> int:
     out["long_context_k10_launches"] = fa.flash_attention_stream.launches
     print(json.dumps(out), flush=True)
     return 0
+
+
+def sha(t) -> str:
+    """The hash of a tensor's bits."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def attention_part(cs, out, dev, gen, rn):
+    """K9, K3 (and its output hash) and K7 alone, and the per-op engine."""
+    from mlio_tpu_torch.ops import decode_attention as da
+    from mlio_tpu_torch.ops import flash_attention as fa
+    from mlio_tpu_torch.ops import paged_attention as pa
+
+    ms = out["ms"]
+    # K9 at GPT-2's prefill, KVQ_LLAMA and generate_moe's shape
+    for key, (b, sq, skv, hq, hkv, d) in (("k9_gpt2", (8, 704, 1024, 12, 12, 64)),
+                                          ("k9_llama", (2, 1024, 2048, 32, 8, 128)),
+                                          ("k9_moe", (8, 704, 1024, 32, 8, 128))):
+        q = rn(b, sq, hq, d)
+        kq, ks = cs.int8_kv(gen, (b, skv, hkv, d), dev)
+        vq, vs = cs.int8_kv(gen, (b, skv, hkv, d), dev)
+        ms[key] = cs.time_ms(lambda i: fa.flash_attention_kvq(q, kq, vq, ks, vs, kv_len=sq),
+                             30 if d == 64 else 20)[0]
+        del q, kq, vq, ks, vs
+
+    # K3 at GPT-2 small's decode (B 8, 12 heads of 64, ctx 896 of 1024 slots,
+    # the 12 layers in turn) and Mistral's at 32K (B 1, 32/8 heads of 128, ctx
+    # 32,704 of 32,768, 2 layers in turn), beside SDPA over the valid K/V
+    # (repeated to the query heads where they are grouped, outside the timing)
+    for key, b, hq, hkv, d, L, smax, n in (("k3_gpt2", 8, 12, 12, 64, 12, 1024, 896),
+                                           ("k3_mistral", 1, 32, 8, 128, 2, 32768, 32704)):
+        qd, kc, vc = rn(b, hq, d), rn(L, b, smax, hkv, d), rn(L, b, smax, hkv, d)
+        ctx = torch.full((b,), n, dtype=torch.int32, device=dev)
+        g = hq // hkv
+        dense = [tuple(t[l, :, :n].transpose(1, 2) if g == 1 else
+                       t[l, :, :n].transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+                       for t in (kc, vc)) for l in range(L)]
+        reps_d = 240 if L > 2 else 50
+        ms[key] = cs.time_ms(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L),
+                             reps_d)[0]
+        ms[key + "_sdpa"] = cs.time_ms(lambda i: F.scaled_dot_product_attention(
+            qd[:, :, None], *dense[i % L]), reps_d)[0]
+        del qd, kc, vc, dense
+        torch.cuda.empty_cache()
+    # K3's bits: its fp32 pass (G 1), its grouped pass (G 4) and their int8
+    # instances on inputs from their own seed, hashed together
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    hgen = torch.Generator(device=dev).manual_seed(17)
+    outs = []
+    for b, hq, hkv, d, smax in ((8, 12, 12, 64, 1024), (4, 32, 8, 128, 4096)):
+        qd = torch.randn((b, hq, d), generator=hgen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((2, b, smax, hkv, d), generator=hgen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        ctx = torch.randint(0, smax + 1, (b,), generator=hgen, device=dev).to(torch.int32)
+        outs.append(da.decode_attention(qd, kc, vc, ctx, layer=1))
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kc, vc))
+        outs.append(da.decode_attention(qd, kq, vq, ctx, layer=1, k_scales=ks, v_scales=vs))
+        del kc, vc, kq, vq
+    out["k3_sha256"] = sha(torch.cat([o.flatten() for o in outs]))
+
+    # K7 at the engine's pools (GPT-2 small, 256 blocks of 128, permuted
+    # tables of 8 blocks), the 12 layers in turn: the ragged contexts, 896,
+    # INT8 pools; then llama3-8b's heads (2 layers)
+    kp, vp = (rn(12, cs.POOL_BLOCKS, cs.POOL_BS, 12, 64) for _ in range(2))
+    tables = cs.paged_tables(gen, dev, cs.B, cs.TABLE_BLOCKS, cs.POOL_BLOCKS)
+    ctx = torch.tensor(cs.RAGGED, dtype=torch.int32, device=dev) + 1
+    c896 = torch.full((cs.B,), cs.DECODE_CTX, dtype=torch.int32, device=dev)
+    qd = rn(cs.B, 12, 64)
+
+    def k7(c, kt=kp, vt=vp, **sc):
+        return lambda i: pa.paged_attention(qd, kt, vt, tables, c, layer=i % 12, **sc)
+
+    ms["k7_gpt2"] = cs.time_ms(k7(ctx), 240)[0]
+    ms["k7_gpt2_ctx896"] = cs.time_ms(k7(c896), 240)[0]
+    if hasattr(pa, "paged_split_plan"):  # this checkout's split
+        out["k7_plan"] = pa.paged_split_plan(cs.B, 12, cs.TABLE_BLOCKS, cs.POOL_BS)
+    # the output's bits, to compare across checkouts (the same inputs in each)
+    out["k7_sha256"] = sha(k7(ctx)(5))
+    (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kp, vp))
+    ms["k7_gpt2_int8"] = cs.time_ms(k7(ctx, kq, vq, k_scale_pool=ks, v_scale_pool=vs), 240)[0]
+    del kp, vp, kq, vq, ks, vs
+    kp, vp = (rn(2, cs.POOL_BLOCKS, cs.POOL_BS, 8, 128) for _ in range(2))
+    qd = rn(cs.B, 32, 128)
+    ms["k7_llama3_8b_heads"] = cs.time_ms(
+        lambda i: pa.paged_attention(qd, kp, vp, tables, ctx, layer=i % 2), 240)[0]
+    del kp, vp
+    torch.cuda.empty_cache()
+    out["perop_engine"] = perop_engine(cs, dev)
+
+
+def perop_engine(cs, dev):
+    """The engine's per-op decode (K7 a layer a step): GPT-2 small, B 8,
+    engine_bench's first 8 prompts, 64 new tokens, 8 steps a dispatch, after
+    a warm-up; generated tok/s by the host clock, then K7's device ms a
+    launch from a torch.profiler trace of a second run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlio_tpu_torch.models import Impl, load_model
+    from mlio_tpu_torch.runtime import InferenceEngine
+
+    spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=0)
+    prompts = cs.engine_prompts(0, spec.vocab_size)[:cs.B]
+    eng = InferenceEngine(spec, params, max_batch=cs.B, num_blocks=cs.POOL_BLOCKS,
+                          block_size=cs.POOL_BS, impl=Impl(attention="flash", norm="fused"),
+                          device=dev, steps_per_dispatch=8, decode_stack="perop")
+    eng.run(prompts, max_new_tokens=8)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(prompts, max_new_tokens=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(prompts, max_new_tokens=64)
+        torch.cuda.synchronize()
+    k7 = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "paged" in e.name.lower() and "stack" not in e.name.lower()]
+    us = sum(e.time_range.end - e.time_range.start for e in k7)
+    return dict(prompts=len(prompts), max_new_tokens=64, wall_s=wall,
+                generated_tok_per_s=len(prompts) * 64 / wall, k7_launches=len(k7),
+                k7_device_ms_per_launch=us / 1e3 / max(1, len(k7)))
 
 
 if __name__ == "__main__":

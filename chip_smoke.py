@@ -873,27 +873,73 @@ def kernel_phase(rng, dev, seed, fa, norms, da, dl):
     return rows
 
 
+def kernel_instances(source, pattern):
+    """Registers, stack frame and spill-store bytes of each kernel instance
+    of ``source`` (built by this process) whose mangled name matches the
+    regular expression ``pattern``, from ptxas's report."""
+    from mlio_tpu_torch.ops import _build
+
+    return {name: info for name, info in _build.ptxas_functions(source).items()
+            if "registers" in info and re.search(pattern, name)}
+
+
+# K9's kQuant instances of flash_fwd_kernel<D, kDrop, kLse, kQuant>
+K9_INSTANCES = r"flash_fwd_kernelILi(64|128)ELb0ELb0ELb1E"
+# generate_moe's prefill attention: Mixtral's 32 query and 8 KV heads of 128
+KVQ_MOE = (B, PROMPT, CACHE, 32, 8, 128)
+
+
 def flash_kvq_row(fa, dev, seed):
     """K9 at GPT-2 small's prefill (8 x 704 queries into a 1024-slot INT8
-    cache, 12 heads of 64, G 1) and at llama3-8b's head geometry (32 query
-    heads, 8 KV heads of 128: 2 x 1024 queries into a 2048-slot cache), each
-    held against its plain version, failing its check with all-ones V scales
-    and with a context one token short; timed beside SDPA over the K/V
-    already dequantized to bf16 (the dequantize not timed)."""
+    cache, 12 heads of 64, G 1), at llama3-8b's head geometry (32 query
+    heads, 8 KV heads of 128: 2 x 1024 queries into a 2048-slot cache) and
+    at generate_moe's (8 x 704 queries, Mixtral's 32/8 heads of 128, a
+    1024-slot cache), each held against its plain version, failing its
+    check with all-ones V scales and with a context one token short, giving
+    the same bits twice and the same bits with every cache slot past kv_len
+    poisoned (int8 127, NaN scales: never read); timed beside SDPA over the
+    K/V already dequantized to bf16 (the dequantize not timed). Also a
+    kv_len ending mid-tile with q_offset > 0 (a chunked prefill's second
+    chunk), and the kQuant instances' registers and spills."""
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     name = "flash_attention_kvq"
 
-    def case(b, sq, skv, hq, hkv, d, reps):
+    def inputs(b, sq, skv, hq, hkv, d):
         q = torch.randn((b, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
         kq, ks = int8_kv(gen, (b, skv, hkv, d), dev)
         vq, vs = int8_kv(gen, (b, skv, hkv, d), dev)
-        args = dict(causal=True, q_offset=0, kv_len=sq)
+        return q, kq, vq, ks, vs
+
+    def checks(q, kq, vq, ks, vs, args):
+        """max-abs, the controls' max-abs, same bits twice and poisoned."""
+        kv_len = args["kv_len"]
+        got = fa.flash_attention_kvq(q, kq, vq, ks, vs, **args)
         want = fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, **args)
-        err = check_close(name, fa.flash_attention_kvq(q, kq, vq, ks, vs, **args), want)
-        ones = must_fail_within(name, "with all-ones V scales", fa.flash_attention_kvq(
-            q, kq, vq, ks, torch.ones_like(vs), **args), want)
-        short = must_fail_within(name, "a context one token short", fa.flash_attention_kvq(
-            q, kq, vq, ks, vs, **dict(args, kv_len=sq - 1)), want)
+        out = dict(max_abs_err=check_close(name, got, want))
+        out["ones_v_scale_max_abs_err"] = must_fail_within(
+            name, "with all-ones V scales",
+            fa.flash_attention_kvq(q, kq, vq, ks, torch.ones_like(vs), **args), want)
+        out["ctx_minus_1_max_abs_err"] = must_fail_within(
+            name, "a context one token short",
+            fa.flash_attention_kvq(q, kq, vq, ks, vs, **dict(args, kv_len=kv_len - 1)), want)
+        out["same_bits_twice"] = same_bits_twice(
+            name, lambda: fa.flash_attention_kvq(q, kq, vq, ks, vs, **args))
+        # the kernel's check: the plain version, on the CPU, multiplies the
+        # masked slots' p = 0 by their NaN scales
+        out["poisoned_past_kv_len_same_bits"] = dev.type == "cuda"
+        if dev.type == "cuda":
+            pk, pv, pks, pvs = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+            for t, fill in ((pk, 127), (pv, 127), (pks, float("nan")), (pvs, float("nan"))):
+                t[:, kv_len:] = fill
+            if not torch.equal(fa.flash_attention_kvq(q, pk, pv, pks, pvs, **args), got):
+                raise AssertionError(f"{name}: int8 127 and NaN scales past kv_len changed "
+                                     "the output")
+            del pk, pv, pks, pvs
+        return out
+
+    def case(b, sq, skv, hq, hkv, d, reps):
+        q, kq, vq, ks, vs = inputs(b, sq, skv, hq, hkv, d)
+        args = dict(causal=True, q_offset=0, kv_len=sq)
         pairs = sum(min(sq, i + 1) for i in range(sq))
         nbytes = 2 * q.numel() * 2 + 2 * b * sq * hkv * d + 2 * b * sq * hkv * 4
         b_ms, b_by = bound(nbytes, 4 * b * hq * d * pairs, BF16_TENSOR_FLOPS)
@@ -904,13 +950,14 @@ def flash_kvq_row(fa, dev, seed):
         row = dict(
             shape=f"q [{b},{sq},{hq},{d}] bf16, k/v int8 [{b},{skv},{hkv},{d}] + fp32 scales "
                   f"[{b},{skv},{hkv}], kv_len {sq}",
-            max_abs_err=err, ones_v_scale_max_abs_err=ones, ctx_minus_1_max_abs_err=short,
+            **checks(q, kq, vq, ks, vs, args),
             **timings(lambda i: fa.flash_attention_kvq(q, kq, vq, ks, vs, **args),
                       lambda i: fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, **args),
                       None, reps),
             sdpa_dequantized_ms=time_ms(lambda i: F.scaled_dot_product_attention(
                 qs, kd, vd, is_causal=True), reps)[0],
             bound_ms=b_ms, bound_by=b_by)
+        row["tflop_per_s"] = 4 * b * hq * d * pairs / (row["ms"] * 1e-3) / 1e12
         return row
 
     row = dict(name=name, route="cuda", source="mlio_tpu_torch/csrc/flash_fwd.cu",
@@ -919,8 +966,24 @@ def flash_kvq_row(fa, dev, seed):
                atol=TOL[name][0], rtol=TOL[name][1], tolerance_of="flash_attention (K1)",
                library_note="no single PyTorch call attends over int8 K/V with per-(token, "
                             "head) scales; sdpa_dequantized_ms is F.scaled_dot_product_attention "
-                            "over the K/V already dequantized to bf16, the dequantize not timed")
+                            "over the K/V already dequantized to bf16, the dequantize not timed "
+                            "(a yardstick only)")
     row["llama3_8b"] = case(*KVQ_LLAMA, 20)
+    row["generate_moe"] = case(*KVQ_MOE, 20)
+    # a chunked prefill's second chunk: 200 queries from position 333, kv_len
+    # 533 (mid-tile: 533 = 8 x 64 + 21), grouped heads of 128. The last key
+    # is half the last query row of each group's first head, so that the
+    # context one token short must fail (it takes about a quarter of that
+    # row's weight).
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    q, kq, vq, ks, vs = inputs(2, 200, 1024, 32, 8, 128)
+    kq[:, 532], ks[:, 532] = quantize_kv(0.5 * q[:, 199, ::4].float())
+    row["mid_tile"] = dict(
+        shape="q [2,200,32,128] bf16, k/v int8 [2,1024,8,128], q_offset 333, kv_len 533",
+        **checks(q, kq, vq, ks, vs, dict(causal=True, q_offset=333, kv_len=533)))
+    del q, kq, vq, ks, vs
+    row["ptxas"] = kernel_instances("flash_fwd", K9_INSTANCES)
     return row
 
 
@@ -1102,6 +1165,118 @@ def paged_attention_check(pa, q, kp, vp, tables, ctx, layer, short=False):
         q, kp, vp, tables, ctx - 1, layer=layer), want)
 
 
+def paged_split_edges(pa, dev, seed):
+    """K7's context split at its chunk and page edges, against its plain
+    version: at the engine's geometry (B 10, 12 heads of 64, blocks of 128,
+    tables of 8, G 1) and a grouped one (B 10, 8 KV heads of 128, G 4,
+    blocks of 16, tables of 256: 4096 slots), bf16 and INT8 pools, permuted
+    tables; contexts that end on a chunk edge and one slot past it, on a
+    page edge inside the first chunk (where no block merges) and inside the
+    second, and one past each, one slot into the last chunk, the whole
+    table, 1 and 0 (whose output must be all zeros). The
+    one slot past a chunk edge is the only slot of its block, so its key is
+    half its group's first query head and the control must fail: the
+    kernel with that slot left out (the context one short) against the plain
+    version; the INT8 case must also fail with all-ones V scales. The table
+    entries past ceil(ctx / bs) then name a block far outside the pool: the
+    output's bits must not change (the kernel reads no block past the
+    context). Returns each case's plan, contexts, max-abs and largest
+    row_rel_rms beside the controls'."""
+    from mlio_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    out = {}
+    for case, b, hkv, g, d, bs, nblk, nb in (("gpt2", 10, 12, 1, 64, POOL_BS, TABLE_BLOCKS,
+                                              POOL_BLOCKS),
+                                             ("grouped", 10, 8, 4, 128, 16, 256, 2600)):
+        n_split, chunk = pa.paged_split_plan(b, hkv, nblk, bs)
+        smax, last = nblk * bs, (n_split - 1) * chunk
+        ctx = [chunk, chunk + 1, bs, bs + 1, chunk + bs, chunk + bs + 1, last + 1, smax, 1, 0]
+        edge = [i for i, c in enumerate(ctx) if c > 1 and c % chunk == 1]
+        q = torch.randn((b, hkv * g, d), generator=gen, device=dev).to(torch.bfloat16)
+        kp, vp = (torch.randn((2, nb, bs, hkv, d), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        tables = paged_tables(gen, dev, b, nblk, nb)
+        for i in edge:
+            t = ctx[i] - 1
+            kp[1, tables[i, t // bs], t % bs] = 0.5 * q[i, ::g]
+        c = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        short = c.clone()
+        short[edge] -= 1
+        far = tables.clone()
+        for i, n in enumerate(ctx):
+            far[i, -(-n // bs):] = nb + (1 << 20)
+        name = "paged_attention" if g == 1 else "paged_attention_grouped"
+        pools = {case: (kp, vp, {})}
+        (kq, ks), (vq, vs) = (quantize_kv(t.float()) for t in (kp, vp))
+        pools[f"{case}_int8"] = (kq, vq, dict(k_scale_pool=ks, v_scale_pool=vs))
+        for key, (kt, vt, sc) in pools.items():
+            got = pa.paged_attention(q, kt, vt, tables, c, layer=1, **sc)
+            want = pa.paged_attention_plain(q, kt, vt, tables, c, layer=1, **sc)
+            err = check_close(name, got, want)
+            if got[-1].any():
+                raise AssertionError(f"paged_attention {key}: a context of 0 gave a nonzero "
+                                     "output")
+            # (the plain version, on the CPU, gathers every entry: the kernel's check)
+            if dev.type == "cuda" and not torch.equal(
+                    pa.paged_attention(q, kt, vt, far, c, layer=1, **sc), got):
+                raise AssertionError(f"paged_attention {key}: table entries past the context "
+                                     "changed the output")
+            bad = pa.paged_attention(q, kt, vt, tables, short, layer=1, **sc)
+            row = dict(n_split=n_split, chunk=chunk, block_size=bs, ctx=ctx, max_abs_err=err,
+                       row_rel_rms=row_rel_rms(got, want),
+                       far_table_entries_same_bits=dev.type == "cuda",
+                       edge_slot_left_out_max_abs_err=must_fail_within(
+                           name, "the slot past a chunk edge left out", bad, want),
+                       edge_slot_left_out_row_rel_rms=row_rel_rms(bad, want))
+            if sc:
+                bad = pa.paged_attention(q, kt, vt, tables, c, layer=1,
+                                         k_scale_pool=sc["k_scale_pool"],
+                                         v_scale_pool=torch.ones_like(sc["v_scale_pool"]))
+                row.update(ones_v_scale_max_abs_err=must_fail_within(
+                    name, "with all-ones V scales", bad, want),
+                    ones_v_scale_row_rel_rms=row_rel_rms(bad, want))
+            out[key] = row
+        del kp, vp, pools, kq, vq
+    return out
+
+
+def paged_grouped_row(pa, dev, seed):
+    """K7's G 4, D 128 instance at llama3-8b's heads (32 query and 8 KV heads
+    of 128), B 8, blocks of 128, permuted tables of 8, the ragged contexts:
+    held against its plain version, the same bits twice, a context one token
+    short failing; timed with the bound. Returns the K7 row's
+    ``llama3_8b_heads`` entry."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    L, hkv, g, d = 2, 8, 4, 128
+    shape = (L, POOL_BLOCKS, POOL_BS, hkv, d)
+    kp, vp = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    tables = paged_tables(gen, dev, B, TABLE_BLOCKS, POOL_BLOCKS)
+    ctx = torch.tensor(RAGGED, dtype=torch.int32, device=dev) + 1
+    q = torch.randn((B, hkv * g, d), generator=gen, device=dev).to(torch.bfloat16)
+    err, short = paged_attention_check(pa, q, kp, vp, tables, ctx, 1, short=True)
+    slots = int(ctx.sum())
+    b_ms, b_by = bound((2 * q.numel() + 2 * slots * hkv * d) * 2 + tables.numel() * 4 + B * 4,
+                       4 * hkv * g * d * slots, FP32_FLOPS)
+    n_split, chunk = pa.paged_split_plan(B, hkv, TABLE_BLOCKS, POOL_BS)
+    row = dict(
+        shape=f"q [{B},{hkv * g},{d}] bf16, pools [{L},{POOL_BLOCKS},{POOL_BS},{hkv},{d}], "
+              f"tables [{B},{TABLE_BLOCKS}] permuted, contexts {ctx.tolist()} (llama3-8b's "
+              "heads)",
+        n_split=n_split, chunk=chunk, max_abs_err=err,
+        atol=TOL["paged_attention_grouped"][0], rtol=TOL["paged_attention_grouped"][1],
+        ctx_minus_1_max_abs_err=short,
+        same_bits_twice=same_bits_twice("paged_attention", lambda: pa.paged_attention(
+            q, kp, vp, tables, ctx, layer=1)),
+        **timings(lambda i: pa.paged_attention(q, kp, vp, tables, ctx, layer=i % L),
+                  lambda i: pa.paged_attention_plain(q, kp, vp, tables, ctx, layer=i % L),
+                  None, 240),
+        bound_ms=b_ms, bound_by=b_by, launches=0,
+        launches_note="no main path of this run serves a grouped model through K7")
+    del kp, vp
+    return row
+
+
 def paged_stack_check(dps, spec, params, x, kp, vp, tables, past, cos, sin, kw, active=None):
     """K8 from (x, kp, vp) against its plain version on clones of the pools:
     x_out, the written pool rows and the greedy token (its plain logit
@@ -1193,13 +1368,17 @@ def paged_rows(pa, dps, dev, seed):
               pa.gather_blocks(vp, l, tables).transpose(1, 2).contiguous()) for l in range(L)]
     mask = (torch.arange(T, device=dev)[None, :] < ctx[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
+    n_split, chunk = pa.paged_split_plan(B, spec.num_kv_heads, TABLE_BLOCKS, POOL_BS)
     k7 = dict(
         name="paged_attention", route="cuda", source="mlio_tpu_torch/csrc/paged_attn.cu",
         replaces="mlio_tpu/ops/paged_attention.py:177",
         shape=f"q [{B},{H},{D}], {shp} (+1 current token)",
+        n_split=n_split, chunk=chunk,
         max_abs_err=err, atol=TOL["paged_attention"][0], rtol=TOL["paged_attention"][1],
         ctx_minus_1_max_abs_err=short_err, max_abs_err_ctx896=err896,
         ctx896_minus_1_max_abs_err=short896,
+        same_bits_twice=same_bits_twice("paged_attention", lambda: pa.paged_attention(
+            q, kp, vp, tables, ctx, layer=5)),
         library_note="F.scaled_dot_product_attention over the dense K/V the tables name, "
                      "masked to each context; the gather is not timed",
         **timings(lambda i: pa.paged_attention(q, kp, vp, tables, ctx, layer=i % L),
@@ -1212,6 +1391,8 @@ def paged_rows(pa, dps, dev, seed):
         bound_ms_ctx896=bound((2 * q.numel() + 2 * B * DECODE_CTX * H * D) * 2,
                               4 * H * D * B * DECODE_CTX, FP32_FLOPS)[0])
     del dense
+    k7["split_edges"] = paged_split_edges(pa, dev, seed)
+    k7["llama3_8b_heads"] = paged_grouped_row(pa, dev, seed)
 
     # K8: one step with the tied-head epilogue.
     ids = torch.randint(0, spec.vocab_size, (B,), generator=gen, device=dev)
@@ -4872,6 +5053,15 @@ def main() -> int:
         entry["launches"] = count
         if not count:
             raise AssertionError(f"{entry['shape']}: no launch on the path that runs it")
+    # K9 at generate_moe's shape: its prefill (Mixtral), and generate_8b's
+    # quick-start prefill at llama3-8b's (the same heads and shape)
+    kvq = by_name["flash_attention_kvq"]
+    kvq["generate_moe"].update(launches=ranm["flash_attention_kvq"],
+                               launches_generate_8b=ran8[("int8", "tiled")]["flash_attention_kvq"])
+    kvq["llama3_8b"].update(launches=0, launches_note="no path of this run prefills 2 x 1024 "
+                            "tokens into a 2048-slot INT8 cache")
+    if not kvq["generate_moe"]["launches"]:
+        raise AssertionError("flash_attention_kvq: no launch on generate_moe's prefill")
     # K6: the tiled route of generate_8b (bf16; the quick start's int8
     # weights over an INT8 cache); F1's batch-16 generate runs it too
     tiled["launches"] = ran8[("bf16", "tiled")]["decode_layer_tiled"]

@@ -8,9 +8,9 @@
 // token. Slots at or past ctx[b] are never read (the TPU kernel's skip of
 // blocks past the context). A sequence with ctx[b] == 0 gives 0.
 //
-// The kernel, its bound and its design are in decode_attn.cuh, shared with
-// K7; this source gives the contiguous cache's rows and launches the split
-// instance: a cluster of n_split blocks a (sequence, kv head), each over one
+// The kernel, its bound and its design are in decode_attn.cuh (its merge
+// shared with K7); this source gives the contiguous cache's rows and
+// launches it: a cluster of n_split blocks a (sequence, kv head), each over one
 // chunk of the cache's slots, their softmax states merged in rank order.
 // Rounding follows _decode_kernel: with G == 1 everything stays fp32; with
 // G > 1 the scaled query and the probabilities are rounded to the cache's
@@ -53,7 +53,7 @@ extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* 
       chunk % decode_attn::kTokenStep || static_cast<long long>(n_split) * chunk < Smax)
     return cudaErrorInvalidValue;
   const ContiguousRows rows{B, Smax, Hkv, D, layer, n_split, chunk};
-  return decode_attn::launch<__nv_bfloat16, true>(q, k_cache, v_cache, k_scale, v_scale, ctx,
-                                                  out, B, Hkv, G, D, rows, scale,
-                                                  static_cast<cudaStream_t>(stream));
+  return decode_attn::launch<__nv_bfloat16>(q, k_cache, v_cache, k_scale, v_scale, ctx, out, B,
+                                            Hkv, G, D, rows, scale,
+                                            static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,8 @@
-// Single-token decode attention, shared by K3 (decode_attn.cu: the
-// contiguous [L, B, Smax, Hkv, D] cache) and K7 (paged_attn.cu: the
-// [L, NB, bs, Hkv, D] block-table pools). The two differ in where a
-// sequence's token row lives and how far its context reaches, which the
-// Rows policy of each source gives, and in their grids and grouped passes
-// (kSplit).
+// Single-token decode attention over the contiguous [L, B, Smax, Hkv, D]
+// cache: K3 (decode_attn.cu). Its Rows policy gives where a sequence's token
+// row lives and how far its context reaches. cluster_merge, the split's
+// rank-order merge through distributed shared memory, is shared with K7
+// (paged_attn.cu), which has its own kernel.
 //
 // For each sequence b and query head h (kv head h / G):
 //   out[b, h] = softmax(q[b, h] . K[b, :n_b, h/G]^T * scale) @ V[b, :n_b, h/G]
@@ -15,36 +14,34 @@
 // ~295 flops per byte (SXM data sheet). Every valid K/V byte is read once,
 // with 16-byte loads, and the G query heads of a group share each K/V row.
 //
-// The fp32 pass (K7; K3 at G == 1): D / 8 lanes (bf16) cover one token's
-// row, so a warp reads 32 * 16 contiguous-per-token bytes per step, and each
-// step keeps kUnroll tokens of K and V in flight (32 KB a block). Softmax is
+// The fp32 pass (G == 1): D / 8 lanes (bf16) cover one token's row, so a
+// warp reads 32 * 16 contiguous-per-token bytes per step, and each step
+// keeps kUnroll tokens of K and V in flight (32 KB a block). Softmax is
 // online in fp32, one running (max, sum, acc) per lane group, merged across
 // groups by shuffles and across warps in shared memory.
 //
-// The tensor-core pass (K3 at G > 1, grouped_mma_pass): both products on
+// The tensor-core pass (G > 1, grouped_mma_pass): both products on
 // mma.sync, the heads as the rows of 16-row tiles, 16-slot tiles a warp, the
 // next block step's rows asked of L2 ahead (prefetch_l2).
 //
-// The grid. K7 (kSplit false) runs one block per (sequence, kv head). K3
-// (kSplit true) splits each sequence's slots into n_split chunks of `chunk`
-// slots (a multiple of kTokenStep) and runs a thread-block cluster of
-// n_split blocks per (sequence, kv head), one chunk a block: B * Hkv blocks
+// The grid. Each sequence's slots are split into n_split chunks of `chunk`
+// slots (a multiple of kTokenStep), and a thread-block cluster of n_split
+// blocks runs per (sequence, kv head), one chunk a block: B * Hkv blocks
 // alone (96 at GPT-2 small's batch 8, 8 at Mistral's decode at batch 1)
 // leave most of the 132 SMs idle and keep too few loads in flight to cover
 // the memory's latency. A chunk at or past n_b skips the loop (m = -inf,
-// l = 0). Each block leaves its merged (m, l, acc[G][D]) in its shared
-// memory; after a cluster barrier each block reads every peer's state
-// through distributed shared memory (ld.shared::cluster) for its share of
-// the G * D outputs and merges them in rank order, in fp32, so two launches
-// give the same bits; a second cluster barrier keeps every block's shared
-// memory alive until its peers are done. ops/decode_attention.py::
-// split_plan picks (n_split, chunk) from the shapes alone, never from the
-// context lengths on the card.
+// l = 0). Each block pushes its merged (m, l, acc[G][D]) through
+// distributed shared memory (st.shared::cluster) to the peer whose share of
+// the G * D outputs holds each element; after one cluster barrier each
+// block merges its share in rank order, in fp32, so two launches give the
+// same bits (cluster_merge). ops/
+// decode_attention.py::split_plan picks (n_split, chunk) from the shapes
+// alone, never from the context lengths on the card.
 //
-// Rounding: K3's grouped heads (the tensor-core pass) round the scaled
-// query and the probabilities to bf16 before their products, as the MXU
-// path of _decode_kernel does, p against the running max of its warp's
-// 16-slot tiles; the fp32 pass keeps everything in fp32 (K3 at G == 1, K7).
+// Rounding: grouped heads (the tensor-core pass) round the scaled query and
+// the probabilities to bf16 before their products, as the MXU path of
+// _decode_kernel does, p against the running max of its warp's 16-slot
+// tiles; the fp32 pass keeps everything in fp32.
 //
 // INT8 caches (TC = int8_t): each slot row of a kv head carries an fp32
 // scale at element offset / D of the [.., Hkv] scale array beside the
@@ -104,7 +101,7 @@ __device__ __forceinline__ void bf16_words(const Raw8<TC>& raw, uint32_t* w) {
   }
 }
 
-// K3's grouped heads (kSplit, G > 1) on the tensor cores, as _decode_kernel's
+// K3's grouped heads (G > 1) on the tensor cores, as _decode_kernel's
 // MXU path: S = (q * scale rounded to bf16) K^T and O += (p rounded to bf16)
 // V by mma.sync m16n8k16 with fp32 sums, the online softmax over tiles of
 // kTile slots. The fp32 pass spends about 120 instructions a slot at G 4
@@ -254,12 +251,75 @@ __device__ __forceinline__ void grouped_mma_pass(
   }
 }
 
+// The split's merge (K3 and K7). A kernel that ends in cluster_merge calls
+// cluster_arrive() at its start: the cluster barrier's first phase, whose
+// wait in cluster_merge guarantees that every peer block has started before
+// its shared memory is written.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Each block of the cluster has its (m, l) of the G heads in blk_m, blk_l
+// and its unnormalised acc [G, D] in blk_acc (blk_acc[e] written by thread
+// e % kBlockThreads, blk_m[g] and blk_l[g] by the thread of e = g * D).
+// Block `rank` of n_split pushes each element into the shared memory of the
+// peer whose share of the G * D outputs holds it, and (m, l) to every peer
+// (st.shared::cluster); one cluster barrier makes the pushes visible, and
+// each block merges its share locally, the ranks in order in fp32 (mx = max
+// m_r, f_r = exp(m_r - mx), 0 where m_r = -inf; out = sum f_r acc_r /
+// sum f_r l_r, 0 where the sum of l is 0), into out [G, D], the (sequence,
+// kv head)'s rows. A merge that reads the peers' memory after a barrier
+// needs a round trip of remote loads and a second barrier to keep that
+// memory alive; pushing needs one barrier and no remote load.
+// Every thread of every block of the cluster calls it.
+template <typename T, int G, int D, int kBlockThreads>
+__device__ __forceinline__ void cluster_merge(const float* blk_m, const float* blk_l,
+                                              const float* blk_acc, int rank, int n_split,
+                                              T* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  // the ranks' states of this block's share: acc [rank][share], m and l [rank][G]
+  __shared__ float got_acc[G * D + kMaxSplit], got_m[kMaxSplit * G], got_l[kMaxSplit * G];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int share = (G * D + n_split - 1) / n_split;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer started
+  for (int e = threadIdx.x; e < G * D; e += kBlockThreads) {
+    const int p = e / share;
+    *cluster.map_shared_rank(&got_acc[rank * share + e - p * share], p) = blk_acc[e];
+    if (e % D == 0) {
+      const int g = e / D;
+      for (int r = 0; r < n_split; ++r) {
+        *cluster.map_shared_rank(&got_m[rank * G + g], r) = blk_m[g];
+        *cluster.map_shared_rank(&got_l[rank * G + g], r) = blk_l[g];
+      }
+    }
+  }
+  // every push visible; no peer reads this block's memory after it
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  const int e0 = rank * share;
+  const int cnt = max(0, min(G * D, e0 + share) - e0);
+  for (int j = threadIdx.x; j < cnt; j += kBlockThreads) {
+    const int g = (e0 + j) / D;
+    float mx = -INFINITY;
+    for (int r = 0; r < n_split; ++r) mx = fmaxf(mx, got_m[r * G + g]);
+    float lt = 0.f, o = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float mr = got_m[r * G + g];
+      const float f = (mr == -INFINITY) ? 0.f : expf(mr - mx);
+      lt += got_l[r * G + g] * f;
+      o += got_acc[r * share + j] * f;
+    }
+    const float l_safe = (lt == 0.f) ? 1.f : lt;
+    out[e0 + j] = from_f32<T>(o / l_safe);
+  }
+}
+
 // Rows policy: count(b, ctx) is the number of valid slots of sequence b;
-// offset(b, hk, t) the element offset of slot t's row of kv head hk; with
-// kSplit also n_split and chunk: the block is rank blockIdx.x % n_split of
-// its cluster and takes slots [rank * chunk, (rank + 1) * chunk).
+// offset(b, hk, t) the element offset of slot t's row of kv head hk;
+// n_split and chunk: the block is rank blockIdx.x % n_split of its cluster
+// and takes slots [rank * chunk, (rank + 1) * chunk).
 // ks, vs: the INT8 cache's scales (TC = int8_t), else null.
-template <typename T, typename TC, int D, int G, bool kSplit, class Rows>
+template <typename T, typename TC, int D, int G, class Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
               const float* __restrict__ ks, const float* __restrict__ vs,
@@ -277,15 +337,12 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][D];
 
-  // (sequence, kv head); with kSplit the block's rank in its cluster. pair
-  // stays unsigned, as blockIdx.x is: with a signed pair (b and hk by signed
+  cluster_arrive();  // cluster_merge's first barrier phase
+  // (sequence, kv head) and the block's rank in its cluster. pair stays
+  // unsigned, as blockIdx.x is: with a signed pair (b and hk by signed
   // division) K7's build spilled and ran 1.5 % slower.
-  unsigned pair = blockIdx.x;
-  int rank = 0;
-  if constexpr (kSplit) {
-    pair = blockIdx.x / rows.n_split;
-    rank = blockIdx.x % rows.n_split;
-  }
+  const unsigned pair = blockIdx.x / rows.n_split;
+  const int rank = blockIdx.x % rows.n_split;
   const int b = pair / Hkv;
   const int hk = pair % Hkv;
   const int warp = threadIdx.x / 32;
@@ -293,13 +350,11 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
   const int grp = lane / LPT;  // token slot within the warp step
   const int sub = lane % LPT;  // 16-byte chunk of the row
   const int Hq = Hkv * G;
-  int t_begin = 0, n = rows.count(b, ctx);  // this block's slots: [t_begin, n)
-  if constexpr (kSplit) {
-    t_begin = rank * rows.chunk;
-    n = min(n, t_begin + rows.chunk);
-  }
+  // this block's slots: [t_begin, n)
+  const int t_begin = rank * rows.chunk;
+  const int n = min(rows.count(b, ctx), t_begin + rows.chunk);
 
-  if constexpr (kSplit && G > 1) {
+  if constexpr (G > 1) {
     grouped_mma_pass<TC, D, G>(q + (static_cast<size_t>(b) * Hq + hk * G) * D, kc, vc, ks, vs,
                                rows, b, hk, scale, t_begin, n, sm_m, sm_l, sm_acc);
   } else {
@@ -402,10 +457,9 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
   }
   __syncthreads();
 
-  // Merge the warps: the block's (max, sum, acc) of each (g, d). K7 writes
-  // its [G, D] outputs (l == 0, no valid token, gives 0); a split block
-  // leaves its state in shared memory for its cluster.
-  __shared__ float blk_m[G], blk_l[G], blk_acc[kSplit ? G * D : 1];
+  // Merge the warps: the block's (max, sum, acc) of each (g, d), left in
+  // shared memory for its cluster.
+  __shared__ float blk_m[G], blk_l[G], blk_acc[G * D];
   for (int e = threadIdx.x; e < G * D; e += kThreads) {
     const int g = e / D, d = e % D;
     float mx = -INFINITY;
@@ -418,46 +472,19 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
       lt += sm_l[w][g] * f;
       o += sm_acc[w][g][d] * f;
     }
-    if constexpr (!kSplit) {
-      const float l_safe = (lt == 0.f) ? 1.f : lt;
-      out[(static_cast<size_t>(b) * Hq + hk * G + g) * D + d] = from_f32<T>(o / l_safe);
-    } else {
-      blk_acc[e] = o;
-      if (d == 0) {
-        blk_m[g] = mx;
-        blk_l[g] = lt;
-      }
+    blk_acc[e] = o;
+    if (d == 0) {
+      blk_m[g] = mx;
+      blk_l[g] = lt;
     }
   }
-  if constexpr (kSplit) {
-    namespace cg = cooperative_groups;
-    const cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // every block's state written
-    // This block's share of the G * D outputs, the ranks merged in order.
-    const int n_split = rows.n_split;
-    const int share = (G * D + n_split - 1) / n_split;
-    const int e_end = min(G * D, (rank + 1) * share);
-    for (int e = rank * share + threadIdx.x; e < e_end; e += kThreads) {
-      const int g = e / D;
-      float mx = -INFINITY;
-      for (int r = 0; r < n_split; ++r) mx = fmaxf(mx, *cluster.map_shared_rank(&blk_m[g], r));
-      float lt = 0.f, o = 0.f;
-      for (int r = 0; r < n_split; ++r) {
-        const float mr = *cluster.map_shared_rank(&blk_m[g], r);
-        const float f = (mr == -INFINITY) ? 0.f : expf(mr - mx);
-        lt += *cluster.map_shared_rank(&blk_l[g], r) * f;
-        o += *cluster.map_shared_rank(&blk_acc[e], r) * f;
-      }
-      const float l_safe = (lt == 0.f) ? 1.f : lt;
-      out[(static_cast<size_t>(b) * Hq + hk * G + g) * D + e % D] = from_f32<T>(o / l_safe);
-    }
-    cluster.sync();  // no block's shared memory goes while a peer still reads it
-  }
+  cluster_merge<T, G, D, kThreads>(blk_m, blk_l, blk_acc, rank, rows.n_split,
+                                   out + (static_cast<size_t>(b) * Hq + hk * G) * D);
 }
 
-// The instance picked by (D, G): one launch of B * Hkv blocks, or (kSplit)
-// of B * Hkv clusters of n_split blocks.
-template <typename T, typename TC, bool kSplit, class Rows>
+// The instance picked by (D, G): one launch of B * Hkv clusters of n_split
+// blocks.
+template <typename T, typename TC, class Rows>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
                       const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
                       const Rows& rows, float scale, cudaStream_t s) {
@@ -467,24 +494,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   T* op = static_cast<T*>(out);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3(B * Hkv);
+  cfg.gridDim = dim3(B * Hkv * rows.n_split);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
-  if constexpr (kSplit) {
-    cfg.gridDim.x *= rows.n_split;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = rows.n_split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-#define MLIO_DECODE_ATTN_CASE(DD, GG)                                                  \
-  if (D == DD && G == GG) {                                                            \
-    const cudaError_t err = cudaLaunchKernelEx(                                        \
-        &cfg, decode_kernel<T, TC, DD, GG, kSplit, Rows>, qp, kp, vp, ks, vs, ctx, op, \
-        rows, Hkv, scale);                                                             \
-    return err != cudaSuccess ? err : cudaGetLastError();                              \
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = rows.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define MLIO_DECODE_ATTN_CASE(DD, GG)                                                         \
+  if (D == DD && G == GG) {                                                                   \
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_kernel<T, TC, DD, GG, Rows>, qp, \
+                                               kp, vp, ks, vs, ctx, op, rows, Hkv, scale);    \
+    return err != cudaSuccess ? err : cudaGetLastError();                                     \
   }
   MLIO_DECODE_ATTN_CASE(64, 1) MLIO_DECODE_ATTN_CASE(64, 2)
   MLIO_DECODE_ATTN_CASE(64, 4) MLIO_DECODE_ATTN_CASE(64, 8)
@@ -495,15 +518,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
 }
 
 // The bf16 cache's instances, or with scales (ks != null) the int8 cache's.
-template <typename T, bool kSplit, class Rows>
+template <typename T, class Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
                    const Rows& rows, float scale, cudaStream_t s) {
   if (ks != nullptr)
-    return launch_tc<T, int8_t, kSplit, Rows>(q, k, v, ks, vs, ctx, out, B, Hkv, G, D, rows,
-                                              scale, s);
-  return launch_tc<T, T, kSplit, Rows>(q, k, v, nullptr, nullptr, ctx, out, B, Hkv, G, D, rows,
-                                       scale, s);
+    return launch_tc<T, int8_t, Rows>(q, k, v, ks, vs, ctx, out, B, Hkv, G, D, rows, scale, s);
+  return launch_tc<T, T, Rows>(q, k, v, nullptr, nullptr, ctx, out, B, Hkv, G, D, rows, scale,
+                               s);
 }
 
 }  // namespace decode_attn

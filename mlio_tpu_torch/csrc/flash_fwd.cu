@@ -21,13 +21,14 @@
 //
 // K9 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq (:199,
 // pallas_call :837): k/v int8 [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv]
-// per (token, head). It keeps the earlier WMMA body (flash_fwd_kvq.cuh),
-// whose tiles widen int8 to bf16 on their way into shared memory, with the
-// dequant fused as in the TPU kernel. Bound at GPT-2 small's prefill: 26.5
-// MB of q, out, K/V and scales (7.9 us at 3.35 TB/s) against 6.09 GFLOP (6.2
-// us): bytes, by a little.
+// per (token, head). It is the kQuant instance of the same kernel
+// (flash_fwd.cuh): int8 tiles through a ring of raw tiles, widened exactly
+// to bf16 into the swizzled K and V slots under the products, the K scale
+// on the fp32 score and the V scale on p before its bf16 rounding, as the
+// TPU kernel fuses the dequant. Bound at GPT-2 small's prefill: 26.5 MB of
+// q, out, K/V and scales (7.9 us at 3.35 TB/s) against 6.09 GFLOP (6.2 us):
+// bytes, by a little.
 #include "flash_fwd.cuh"
-#include "flash_fwd_kvq.cuh"
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. kv_len
 // is a [B] int32 device array, or null to use kv_len_scalar for every
@@ -54,9 +55,9 @@ extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
                                   int Hq, int Hkv, int D, int q_offset, float scale, int causal,
                                   void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash_kvq::launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar,
-                                          B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal,
-                                          static_cast<cudaStream_t>(stream));
+  return flash::launch_fwd_kvq(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar, B, Sq, Skv,
+                               Hq, Hkv, D, q_offset, scale, causal,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // K1 with the log-sum-exp: as mlio_flash_fwd without dropout, and also

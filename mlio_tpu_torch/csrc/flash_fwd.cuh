@@ -1,17 +1,25 @@
 // The bf16 flash attention forward on Hopper's warpgroup products: K1
-// (flash_fwd.cu: mlio_flash_fwd, with dropout, and mlio_flash_fwd_stats) and
-// K13a, its instance with the log-sum-exp (flash_bwd.cu: mlio_flash_fwd_lse).
-// Also the tile helpers that K13b and K13c (flash_bwd.cu) share with it.
+// (flash_fwd.cu: mlio_flash_fwd, with dropout, and mlio_flash_fwd_stats),
+// K13a, its instance with the log-sum-exp (flash_bwd.cu: mlio_flash_fwd_lse),
+// and K9, its instance over an INT8 K/V cache (flash_fwd.cu:
+// mlio_flash_fwd_kvq). Also the tile helpers that K13b and K13c
+// (flash_bwd.cu) share with it.
 //
 // Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (:37, its
-// pallas_call at :867) and mlio_tpu/ops/flash_attention_grad.py::
-// _fwd_lse_kernel (:49, pallas_call :285). q [B, Sq, Hq, D], k/v
-// [B, Skv, Hkv, D] bf16 in the bshd layout, out [B, Sq, Hq, D]:
+// pallas_call at :867), mlio_tpu/ops/flash_attention_grad.py::
+// _fwd_lse_kernel (:49, pallas_call :285) and mlio_tpu/ops/
+// flash_attention.py::_flash_fwd_kernel_kvq (:199, pallas_call :837). q
+// [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] bf16 in the bshd layout, out
+// [B, Sq, Hq, D]:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
 // over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
 // valid key gives 0 (and lse -inf). kLse also writes lse[b, h, i] = m +
 // log(l) fp32. kDrop: post-softmax dropout (dropout.cuh): the kept p are
 // scaled by 1 / (1 - rate) in the PV product only, and l keeps the true sum.
+// kQuant (K9): k/v int8 with fp32 scales ks, vs [B, Skv, Hkv] per (token,
+// head): s = (q * scale) . k_int8 in fp32, times ks[j]; the PV product takes
+// p * vs[j] rounded to bf16 while l adds the unscaled p. The K scale goes on
+// the fp32 score, never into a bf16 K.
 //
 // Rounding follows _flash_fwd_kernel: q * scale in fp32 rounded back to
 // bf16; p rounded to bf16 for the PV product while l adds the fp32 p, p
@@ -56,6 +64,22 @@
 // heads of one KV head side by side so that their K/V meet in L2. Every
 // output has one writer and every sum a fixed order: two runs give the same
 // bits.
+//
+// K9 (kQuant) kept the WMMA body above until it moved here; at GPT-2's
+// prefill it ran 5.3x K1. Its int8 tiles are half the bytes of K1's, but
+// the tensor cores take bf16, so they are widened on the way: a three-stage
+// cp.async ring of raw tiles (64 keys of int8 K and V, 4 KB each at D 64, 8
+// KB at D 128, and their 64 + 64 fp32 scales), and one widened bf16 K slot
+// and one V slot in the swizzled layout. A thread widens exactly the 16-byte
+// chunks it copied (its own cp.async.wait_group makes them visible to it, no
+// barrier), int8 to bf16 exactly (widen_i8x4), into the slot whose product
+// has finished: V of tile j while S_j = Q K_j^T runs, K of tile j + 1 while
+// O += P_j V_j runs, so each widening hides under a product. Two barriers a
+// tile publish the widened slot to the tensor cores (after
+// fence.proxy.async) and free the other. Keys past kv_len are zero-filled,
+// values and scales alike, so a V row past the valid keys is 0 and a scale
+// there is never read. 97.5 KB a block at D 128 (q 16, K and V slots 16
+// each, the raw ring 3 x 16.5): two blocks an SM, as K1; 49.5 KB at D 64.
 #pragma once
 
 #include "cp_async.cuh"
@@ -69,6 +93,7 @@ namespace flash {
 using bf16 = __nv_bfloat16;
 using gemm::at_sw128;
 using gemm::cp_async16;
+using gemm::cp_async4;
 using gemm::cp_commit;
 using gemm::cp_wait;
 using gemm::fence_proxy_async;
@@ -97,10 +122,12 @@ template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
 
 struct FwdArgs {
   const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* k;  // bf16, or int8 for kQuant
+  const void* v;
   bf16* out;
   float* lse;
+  const float* ks;  // kQuant: the K and V scales [B, Skv, Hkv]; else null
+  const float* vs;
   const int* kv_len_arr;  // [B], or null for kv_len_scalar
   int kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal;
   float scale;
@@ -108,14 +135,20 @@ struct FwdArgs {
 };
 
 // The q tile, then the K ring and the V ring; every tile 8 or 16 KB, so each
-// starts 1 KB aligned.
-template <int D>
+// starts 1 KB aligned. kQuant: one widened K slot and one V slot, then the
+// raw ring: a raw tile is the int8 K rows, the int8 V rows (64 x D bytes
+// each), then the 64 K scales and the 64 V scales.
+template <int D, bool kQuant = false>
 struct FwdSmem {
   static constexpr size_t kTile = size_t(BT) * D * 2;
+  static constexpr int kSlots = kQuant ? 1 : kStages;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = kTile;
-  static constexpr size_t kV = kK + kStages * kTile;
-  static constexpr size_t kBytes = kV + kStages * kTile;
+  static constexpr size_t kV = kK + kSlots * kTile;
+  static constexpr size_t kRaw = kV + kSlots * kTile;
+  static constexpr size_t kRawScales = size_t(2) * BT * D;
+  static constexpr size_t kRawTile = kRawScales + 2 * BT * sizeof(float);
+  static constexpr size_t kBytes = kRaw + (kQuant ? kStages * kRawTile : 0);
 };
 
 // The scaled q tile of rows [q_start, q_start + 64) of head h: q * scale in
@@ -164,12 +197,92 @@ __device__ __forceinline__ void load_kv(const FwdArgs& a, bf16* sK, bf16* sV, in
       const int t = j * BT + r;
       const bool ok = t < kvl;
       const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 8;
-      cp_async16(at_sw128(k_t, r, cc * 8), a.k + off, ok);
-      cp_async16(at_sw128(v_t, r, cc * 8), a.v + off, ok);
+      cp_async16(at_sw128(k_t, r, cc * 8), static_cast<const bf16*>(a.k) + off, ok);
+      cp_async16(at_sw128(v_t, r, cc * 8), static_cast<const bf16*>(a.v) + off, ok);
     }
   }
   cp_commit();
 }
+
+// kQuant: start the copies of raw tile j (the int8 K and V rows of keys 64j
+// .. 64j + 63 of KV head hk, and their scales) into raw slot j % kStages as
+// one commit group; keys at or past kvl are zero-filled, values and scales.
+// Thread t copies the 16-byte chunks t + 128 i of the K and of the V rows
+// (widen_raw widens the same ones) and the K scale (t < 64) or the V scale
+// of key t % 64. Every thread commits, copies or not.
+template <int D>
+__device__ __forceinline__ void load_raw(const FwdArgs& a, unsigned char* raw, int j, int n_tiles,
+                                         int b, int hk, int kvl) {
+  using S = FwdSmem<D, true>;
+  constexpr int CPR = D / 16;  // 16-byte chunks of an int8 row
+  if (j < n_tiles) {
+    unsigned char* t_ = raw + (j % kStages) * S::kRawTile;
+    const size_t kv_row = static_cast<size_t>(a.Hkv) * D;
+    const size_t base = static_cast<size_t>(b) * a.Skv * kv_row + static_cast<size_t>(hk) * D;
+#pragma unroll
+    for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
+      const int c = threadIdx.x + i * kWgThreads;
+      const int r = c / CPR, cc = c % CPR;
+      const int t = j * BT + r;
+      const bool ok = t < kvl;
+      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 16;
+      cp_async16(t_ + c * 16, static_cast<const int8_t*>(a.k) + off, ok);
+      cp_async16(t_ + BT * D + c * 16, static_cast<const int8_t*>(a.v) + off, ok);
+    }
+    const int t = j * BT + threadIdx.x % BT;
+    const bool ok = t < kvl;
+    const size_t si = ok ? (static_cast<size_t>(b) * a.Skv + t) * a.Hkv + hk : 0;
+    cp_async4(t_ + S::kRawScales + threadIdx.x * 4, (threadIdx.x < BT ? a.ks : a.vs) + si, ok);
+  }
+  cp_commit();
+}
+
+// Four int8 values (one 32-bit word, element e in byte e) widened exactly to
+// four bf16 (two words, element 0 in the low half): each byte, offset to
+// unsigned, becomes the low mantissa of 2^23 and the fp32 subtraction
+// removes the offset; an integer of 8 bits is its own bf16, the float's top
+// half.
+__device__ __forceinline__ uint2 widen_i8x4(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + e)) -
+                           8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// kQuant: widen this thread's chunks of the int8 rows at `rows` (64 x D
+// bytes of a raw tile) into the swizzled bf16 tile `dst`: chunk c of row r
+// (columns 16c .. 16c + 15) becomes the 8-column chunks 2c and 2c + 1. At
+// D 128 the threads of a row's second half store their chunks in the other
+// order, so the eight stores of a quarter warp fall on eight bank groups.
+template <int D>
+__device__ __forceinline__ void widen_raw(const unsigned char* rows, bf16* dst) {
+  constexpr int CPR = D / 16;
+#pragma unroll
+  for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
+    const int c = threadIdx.x + i * kWgThreads;
+    const int r = c / CPR, cc = c % CPR;
+    const uint4 raw = *reinterpret_cast<const uint4*>(rows + c * 16);
+    const uint2 w0 = widen_i8x4(raw.x), w1 = widen_i8x4(raw.y);
+    const uint2 w2 = widen_i8x4(raw.z), w3 = widen_i8x4(raw.w);
+    const uint4 lo = make_uint4(w0.x, w0.y, w1.x, w1.y), hi = make_uint4(w2.x, w2.y, w3.x, w3.y);
+    const bool swap = (cc & 4) != 0;
+    *reinterpret_cast<uint4*>(at_sw128(dst, r, 16 * cc + (swap ? 8 : 0))) = swap ? hi : lo;
+    *reinterpret_cast<uint4*>(at_sw128(dst, r, 16 * cc + (swap ? 0 : 8))) = swap ? lo : hi;
+  }
+}
+
+// kQuant's view of tile j in fwd_tile: its raw slot (the V rows to widen
+// while S runs, the scales), the raw slot of tile j + 1 (its K rows to widen
+// while O += P V runs; null past the last tile) and the widened slots.
+struct QuantTile {
+  const unsigned char* raw;
+  const unsigned char* next;
+  bf16* k;
+  bf16* v;
+};
 
 // A warpgroup's state of 64 q rows: this thread holds rows g and g + 8 of
 // its warp's 16 (g = lane / 4), and in each 8-column n-tile the columns
@@ -182,11 +295,14 @@ struct FwdRows {
 
 // One K/V tile for the warpgroup's 64 rows: S = (q * scale) K^T (64 x 64, q
 // and K from shared memory), the online softmax on the accumulators, O += P V
-// with p repacked in registers and V MN-major from shared memory.
-template <int D, bool kDrop, bool kMasked>
+// with p repacked in registers and V MN-major from shared memory. kQuant
+// (qt): V of this tile is widened while S runs and K of the next while
+// O += P V runs; S takes the K scales, the PV operand p the V scales.
+template <int D, bool kDrop, bool kQuant, bool kMasked>
 __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const bf16* q_t,
                                          const bf16* k_t, const bf16* v_t, int kv0, int row_abs0,
-                                         int kvl, uint32_t seed) {
+                                         int kvl, uint32_t seed, const QuantTile& qt) {
+  using Sm = FwdSmem<D, kQuant>;
   const int t4 = threadIdx.x % 4;
   float s[BT / 8][4];
   wgmma_fence();
@@ -194,11 +310,25 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss_n64(s, kmajor(q_t, 0, 16 * kk), kmajor(k_t, 0, 16 * kk), kk > 0);
   wgmma_commit();
-  // the dropout keep bits, hashed while the product runs
+  // the dropout keep bits, or V's widening, while the product runs
   const uint32_t keep =
       kDrop ? keep_bits<BT / 8, true>(kv0 + 2 * t4, row_abs0, seed, a.drop.rate) : 0u;
+  if constexpr (kQuant) widen_raw<D>(qt.raw + BT * D, qt.v);
   wgmma_wait<0>();
   fence_regs(s);
+  // the K scales of this thread's columns 8n + 2 t4 + {0, 1}, on the fp32 score
+  const float* scales = nullptr;  // kQuant: the tile's K scales, then its V scales
+  if constexpr (kQuant) {
+    scales = reinterpret_cast<const float*>(qt.raw + Sm::kRawScales);
+#pragma unroll
+    for (int n = 0; n < BT / 8; ++n) {
+      const float2 k2 = *reinterpret_cast<const float2*>(scales + n * 8 + 2 * t4);
+      s[n][0] *= k2.x;
+      s[n][1] *= k2.y;
+      s[n][2] *= k2.x;
+      s[n][3] *= k2.y;
+    }
+  }
 
   // Online softmax, rows g (i = 0) and g + 8 (i = 1).
   float alpha[2];
@@ -232,12 +362,17 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
     float psum = 0.f;
 #pragma unroll
     for (int n = 0; n < BT / 8; ++n) {
+      float2 v2 = make_float2(1.f, 1.f);  // kQuant: the V scales of the pair's columns
+      if constexpr (kQuant)
+        v2 = *reinterpret_cast<const float2*>(scales + BT + n * 8 + 2 * t4);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float p = exp2f(fmaf(s[n][2 * i + e], kLog2e, -mb));  // exp(-inf) = 0
         psum += p;
         if constexpr (kDrop)
           s[n][2 * i + e] = (keep >> (4 * n + 2 * i + e)) & 1u ? p * a.drop.inv_keep : 0.f;
+        else if constexpr (kQuant)
+          s[n][2 * i + e] = p * (e ? v2.y : v2.x);
         else
           s[n][2 * i + e] = p;
       }
@@ -258,22 +393,40 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
   uint32_t pa[BT / 16][4];
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) repack(pa[kk], s, kk);
+  if constexpr (kQuant) {
+    // V's widened slot visible to the tensor cores; every warp past S, so
+    // the K slot is free
+    fence_proxy_async();
+    __syncthreads();
+  }
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs<D, 1>(st.o, pa[kk], mnmajor(v_t, 16 * kk), 1);
   wgmma_commit();
+  if constexpr (kQuant) {
+    if (qt.next != nullptr) {
+      cp_wait<kStages - 2>();  // this thread's copies of the next raw tile landed
+      widen_raw<D>(qt.next, qt.k);
+    }
+  }
   wgmma_wait<0>();  // the slot is refilled after the next tile's barrier
   fence_regs(st.o);
+  if constexpr (kQuant) {
+    // the next K visible to the tensor cores; the V slot and this raw slot free
+    fence_proxy_async();
+    __syncthreads();
+  }
 }
 
-template <int D, bool kDrop, bool kLse>
+template <int D, bool kDrop, bool kLse, bool kQuant>
 __global__ void __launch_bounds__(kWgThreads, kMinBlocks<D>)
 flash_fwd_kernel(const FwdArgs a) {
-  using S = FwdSmem<D>;
+  using S = FwdSmem<D, kQuant>;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + S::kQ);
   bf16* sK = reinterpret_cast<bf16*>(smem + S::kK);
   bf16* sV = reinterpret_cast<bf16*>(smem + S::kV);
+  unsigned char* raw = smem + S::kRaw;
 
   // Block -> (q tile, batch, head): heads fastest, the heaviest q tiles first.
   const int n_qt = (a.Sq + BT - 1) / BT;
@@ -298,8 +451,17 @@ flash_fwd_kernel(const FwdArgs a) {
   n_full = min(min(n_full, kvl / BT), n_tiles);
 
   load_q<D>(a, sQ, b, h, q_start);
-  load_kv<D>(a, sK, sV, 0, n_tiles, b, hk, kvl);
-  load_kv<D>(a, sK, sV, 1, n_tiles, b, hk, kvl);
+  if constexpr (kQuant) {
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) load_raw<D>(a, raw, j, n_tiles, b, hk, kvl);
+    cp_wait<kStages - 1>();
+    if (n_tiles > 0) widen_raw<D>(raw, sK);  // K of tile 0; V is widened under S_0
+    fence_proxy_async();
+    __syncthreads();  // q, K_0 and tile 0's scales visible to all
+  } else {
+    load_kv<D>(a, sK, sV, 0, n_tiles, b, hk, kvl);
+    load_kv<D>(a, sK, sV, 1, n_tiles, b, hk, kvl);
+  }
 
   FwdRows<D> st;
   zero(st.o);
@@ -309,18 +471,30 @@ flash_fwd_kernel(const FwdArgs a) {
 
   // Groups in flight at the top of tile j: tile j and tile j + 1 (and older,
   // complete ones). wait_group 1 leaves tile j + 1 pending.
+  // kQuant: the raw groups in flight at the top of tile j are tiles j + 1
+  // and j + 2; fwd_tile widens K_{j + 1} after wait_group 1, and raw tile
+  // j + 3 goes into tile j's slot once fwd_tile's last barrier has passed.
   for (int j = 0; j < n_tiles; ++j) {
-    cp_wait<1>();
-    fence_proxy_async();
-    // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
-    __syncthreads();
-    load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
-    const bf16* k_t = sK + (j % kStages) * BT * D;
-    const bf16* v_t = sV + (j % kStages) * BT * D;
+    const bf16* k_t = sK;
+    const bf16* v_t = sV;
+    QuantTile qt{};
+    if constexpr (kQuant) {
+      qt = QuantTile{raw + (j % kStages) * S::kRawTile,
+                     j + 1 < n_tiles ? raw + ((j + 1) % kStages) * S::kRawTile : nullptr, sK, sV};
+    } else {
+      cp_wait<1>();
+      fence_proxy_async();
+      // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
+      __syncthreads();
+      load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
+      k_t = sK + (j % kStages) * BT * D;
+      v_t = sV + (j % kStages) * BT * D;
+    }
     if (j < n_full)
-      fwd_tile<D, kDrop, false>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed);
+      fwd_tile<D, kDrop, kQuant, false>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed, qt);
     else
-      fwd_tile<D, kDrop, true>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed);
+      fwd_tile<D, kDrop, kQuant, true>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed, qt);
+    if constexpr (kQuant) load_raw<D>(a, raw, j + kStages, n_tiles, b, hk, kvl);
   }
   cp_wait<0>();
 
@@ -348,10 +522,10 @@ flash_fwd_kernel(const FwdArgs a) {
   }
 }
 
-template <int D, bool kDrop, bool kLse>
+template <int D, bool kDrop, bool kLse, bool kQuant = false>
 cudaError_t launch_fwd_d(const FwdArgs& a, cudaStream_t s) {
-  constexpr size_t smem = FwdSmem<D>::kBytes;
-  auto kernel = flash_fwd_kernel<D, kDrop, kLse>;
+  constexpr size_t smem = FwdSmem<D, kQuant>::kBytes;
+  auto kernel = flash_fwd_kernel<D, kDrop, kLse, kQuant>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -372,9 +546,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, f
                        int Hkv, int D, int q_offset, float scale, int causal, Dropout drop,
                        cudaStream_t s) {
   if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
-  const FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, kv_len,
-                  kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale, drop};
+  const FwdArgs a{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(out), lse, nullptr,
+                  nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale,
+                  drop};
   const bool dropping = drop.rate > 0.f;
   if (D == 64) {
     if (dropping) return launch_fwd_d<64, true, kLse>(a, s);
@@ -384,6 +558,21 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, f
     if (dropping) return launch_fwd_d<128, true, kLse>(a, s);
     return launch_fwd_d<128, false, kLse>(a, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// K9: k, v int8 [B, Skv, Hkv, D] with fp32 scales ks, vs [B, Skv, Hkv],
+// contiguous; otherwise as launch_fwd without dropout or lse.
+inline cudaError_t launch_fwd_kvq(const void* q, const void* k, const void* v, const float* ks,
+                                  const float* vs, void* out, const int* kv_len,
+                                  int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv,
+                                  int D, int q_offset, float scale, int causal, cudaStream_t s) {
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  const FwdArgs a{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(out), nullptr, ks, vs,
+                  kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale,
+                  Dropout{0u, 0.f, 1.f}};
+  if (D == 64) return launch_fwd_d<64, false, false, true>(a, s);
+  if (D == 128) return launch_fwd_d<128, false, false, true>(a, s);
   return cudaErrorInvalidValue;
 }
 

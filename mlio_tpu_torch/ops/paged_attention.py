@@ -9,10 +9,15 @@ physical block ``block_tables[b, s // bs]``.
 scatters in the JAX package; here they are PyTorch advanced indexing, which
 writes the pools in place. :func:`paged_attention` launches K7, CUDA C++ in
 ``mlio_tpu_torch/csrc/paged_attn.cu`` (replacing ``_paged_attn_kernel``),
-whose source note gives its H100 bound and design; on CPU tensors it runs
-:func:`paged_attention_plain`. INT8 pools (``init_kv_pools(quant="int8")``)
-carry per-(slot, head) fp32 scale pools ``[L, NB, bs, Hkv]``, written by
-:func:`reshape_and_cache_quant` and read by K7's int8 instances.
+whose source note gives its H100 bound and design: a thread-block cluster
+per (sequence, KV head) whose blocks each take a chunk of whole pages of the
+table (:func:`paged_split_plan`, from the shapes alone), read their chunk's
+table entries once, stream the pages' rows through a ring of shared memory
+and merge their softmax states in rank order; fp32 throughout, grouped heads
+included. On CPU tensors it runs :func:`paged_attention_plain`. INT8 pools
+(``init_kv_pools(quant="int8")``) carry per-(slot, head) fp32 scale pools
+``[L, NB, bs, Hkv]``, written by :func:`reshape_and_cache_quant` and read by
+K7's int8 instances.
 """
 from __future__ import annotations
 
@@ -23,11 +28,35 @@ import torch
 
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.decode_attention import MAX_SPLIT, TOKEN_STEP
 from mlio_tpu_torch.ops.quant import quantize_kv
 from mlio_tpu_torch.ops.reference import attention_reference
 
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (64, 128)
+# Blocks the split aims at: about one and a half for each of the H100's 132
+# SMs. At B 8 over tables of 8 blocks of 128 (NVIDIA H100 80GB HBM3, 700 W)
+# clusters of 8 ran slower than of 2-4, for GPT-2's 12 heads of 64 and
+# llama3-8b's 8 of 128; K3's target, 264, would give llama3-8b's heads 8.
+BLOCK_TARGET = 192
+# The most table entries a block's chunk may hold: they sit in its shared
+# memory beside the ring of tiles (64 KB).
+MAX_CHUNK_PAGES = 16384
+
+
+def paged_split_plan(B: int, Hkv: int, max_blocks: int, bs: int) -> tuple:
+    """(n_split, chunk): each (sequence, KV head) runs as a cluster of
+    n_split blocks, block r over the table's pages [r * chunk / bs,
+    (r + 1) * chunk / bs), so a chunk is a whole number of pages. From the
+    shapes alone: ``BLOCK_TARGET`` blocks over the B * Hkv clusters, at most
+    ``MAX_SPLIT`` a cluster, the table cut into chunks of equal whole pages
+    (the last may hold fewer) of at least ``TOKEN_STEP`` slots unless the
+    table is shorter, and no chunk wholly past the table."""
+    pages = max(max_blocks, 1)
+    least = min(pages, -(-TOKEN_STEP // bs))
+    want = min(MAX_SPLIT, -(-BLOCK_TARGET // max(1, B * Hkv)))
+    per = max(least, -(-pages // want))
+    return -(-pages // per), per * bs
 
 
 def init_kv_pools(num_layers: int, num_blocks: int, num_kv_heads: int, block_size: int,
@@ -150,7 +179,7 @@ def _entry():
     fn = lib.mlio_paged_attn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p]
         fn.restype = i
     return lib, fn
 
@@ -208,13 +237,19 @@ def paged_attention(
             raise ValueError(f"paged_attention: {name} must be contiguous int32")
     _build.require_contiguous_aligned("paged_attention", q=q, k_pool=k_pool, v_pool=v_pool,
                                       k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    max_blocks = block_tables.shape[1]
+    n_split, chunk = paged_split_plan(B, Hkv, max_blocks, bs)
+    if chunk // bs > MAX_CHUNK_PAGES:
+        raise ValueError(f"paged_attention: a block's chunk of {chunk // bs} table entries "
+                         f"exceeds {MAX_CHUNK_PAGES} (max_blocks {max_blocks} over at most "
+                         f"{MAX_SPLIT} blocks); use larger blocks")
     out = torch.empty_like(q)
     lib, fn = _entry()
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _build.ptr(k_scale_pool), _build.ptr(v_scale_pool), block_tables.data_ptr(),
-                 context_lens.data_ptr(), out.data_ptr(), B, block_tables.shape[1], NB, bs,
-                 Hkv, G, D, layer, D ** -0.5 if scale is None else scale,
+                 context_lens.data_ptr(), out.data_ptr(), B, max_blocks, NB, bs, Hkv, G, D,
+                 layer, D ** -0.5 if scale is None else scale, n_split, chunk // bs,
                  _build.stream_handle(dev))
     _build.check(lib, err, "paged_attention")
     paged_attention.launches += 1

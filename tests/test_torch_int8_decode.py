@@ -83,12 +83,18 @@ def _model(name, weights=None):
     return _models[key]
 
 
-# (Hq, Hkv, Sq, Skv, q_offset, kv_len): one kv block of the JAX kernel (Skv
-# <= 512), so both sides round p * v_scale against the same row max
+# (Hq, Hkv, Sq, Skv, q_offset, kv_len, D): one kv block of the JAX kernel
+# (Skv <= 512), so both sides round p * v_scale against the same row max and
+# the plain version holds at 1e-5 (fp32, summation order only). The last two
+# span several of K9's 64-key tiles at head dim 128 and four query heads a
+# KV head, kv_len ending mid-tile (130 = 2 x 64 + 2; 200 = 3 x 64 + 8 and 137
+# = 2 x 64 + 9 behind a q_offset, a chunked prefill's second chunk).
 FLASH_CASES = {
-    "prefill_mha": (4, 4, 24, 64, 0, 24),
-    "gqa2_offset_ragged": (8, 4, 9, 128, 37, [46, 40]),
-    "mqa_decode_row": (4, 1, 1, 96, 60, [61, 17]),
+    "prefill_mha": (4, 4, 24, 64, 0, 24, 64),
+    "gqa2_offset_ragged": (8, 4, 9, 128, 37, [46, 40], 64),
+    "mqa_decode_row": (4, 1, 1, 96, 60, [61, 17], 64),
+    "gqa4_d128_tiles_mid_tile": (8, 2, 130, 256, 0, 130, 128),
+    "gqa4_d128_offset_mid_tile": (16, 4, 100, 384, 100, [200, 137], 128),
 }
 
 
@@ -98,9 +104,9 @@ def test_flash_attention_int8_matches_jax(case):
     references against each other, both at 1e-5; the kernel's bf16
     rounding of q and p against the dense fp32 reference at the JAX test's
     2e-2."""
-    hq, hkv, sq, skv, qo, kvl = FLASH_CASES[case]
+    hq, hkv, sq, skv, qo, kvl, D = FLASH_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
-    B, D = 2, 64
+    B = 2
     q = rng.standard_normal((B, sq, hq, D)).astype(np.float32)
     kq, ks = _quant_kv(rng, B, skv, hkv, D)
     vq, vs = _quant_kv(rng, B, skv, hkv, D)
