@@ -99,17 +99,18 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(10)
     n, skv, hq, hkv, d = cs.LC_PROMPT, cs.LC_CACHE, 32, 8, 128
     q, k, v = cs.attention_inputs(gen, 1, n, skv, hq, hkv, d)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     outs, ms = {}, {name: [] for name in sources}
     calls = {}
     for name, path in libs.items():
         fn = ctypes.CDLL(str(path)).mlio_flash_stream
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P]
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, LL, LL, LL, P]
         out = torch.empty_like(q)
 
         def call(i, fn=fn, out=out, name=name):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, n, 1,
-                     n, skv, hq, hkv, d, 0, d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+                     n, skv, hq, hkv, d, 0, d ** -0.5, 1, *out.stride()[:3],
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"ab_k10: {name} failed with CUDA error {err}")
 

@@ -2,7 +2,7 @@
 the quick start's and the 32K prefill and llama3-8b's training step, timed on
 one card from one checkout of this repository: one JSON line.
 
-    python3 ab_k13.py [--tree DIR] [--label NAME] [--only attention]
+    python3 ab_k13.py [--tree DIR] [--label NAME] [--only attention|masks]
 
 DIR (default: the directory of this script) is the checkout whose
 ``chip_smoke.py`` and ``mlio_tpu_torch`` are imported and whose kernels are
@@ -41,7 +41,14 @@ llama3-8b's heads (B 8, 32/8 heads of 128), and its output's hash; and
 ``perop_engine``: the engine's per-op decode (GPT-2 small, B 8,
 engine_bench's first 8 prompts, 64 new tokens, 8 steps a dispatch): its
 generated tok/s by the host clock and K7's device ms a launch from a
-torch.profiler trace of the same run. Then ``runner``: the device ms of a
+torch.profiler trace of the same run; and the masked calls, which
+``--only masks`` runs alone (building only K1's source): K1 with chip_smoke's
+key mask (left padding) at GPT-2 small's prefill heads (D 64) and at
+llama3-8b's (B 8 x 704, D 128), with its prefix-LM mask at GPT-2 small's
+prefill, with its per-head mask at llama3-8b's training attention, and K9
+with a key mask and the lse at generate_moe's shape, each beside the same
+call without its mask, and ``mask_sha256``, a hash of their outputs on
+seeded inputs (skipped in a checkout whose K1 takes no mask). Then ``runner``: the device ms of a
 forward of each runner configuration (``chip_smoke.runner_phase``: GPT-2
 small, 8 x 704 tokens, its logits held against the plain path),
 ``quick_start_prefill_ms``: the device ms of the README quick start's
@@ -64,7 +71,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default=None)
-    ap.add_argument("--only", choices=("all", "attention"), default="all")
+    ap.add_argument("--only", choices=("all", "attention", "masks"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_k13: no CUDA device is available", file=sys.stderr)
@@ -88,7 +95,8 @@ def main() -> int:
         raise RuntimeError(f"ab_k13: imported the port from {_build.CSRC}, not from {tree}")
     attention_sources = ("flash_fwd", "fused_norm", "decode_attn", "paged_attn")
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
-               build_s=_build.build_all(attention_sources if args.only == "attention" else (
+               build_s=_build.build_all(("flash_fwd",) if args.only == "masks" else
+                                        attention_sources if args.only == "attention" else (
                    "flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp", "quant_matmul",
                    "fused_norm", "flash_stream", "decode_attn", "paged_attn")))
     dev = torch.device("cuda", 0)
@@ -99,8 +107,8 @@ def main() -> int:
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
-    if args.only == "attention":
-        attention_part(cs, out, dev, gen, rn)
+    if args.only != "all":
+        (masks_part if args.only == "masks" else attention_part)(cs, out, dev, gen, rn)
         print(json.dumps(out), flush=True)
         return 0
 
@@ -336,6 +344,61 @@ def attention_part(cs, out, dev, gen, rn):
     del kp, vp
     torch.cuda.empty_cache()
     out["perop_engine"] = perop_engine(cs, dev)
+    masks_part(cs, out, dev, gen, rn)
+
+
+def masks_part(cs, out, dev, gen, rn):
+    """K1's and K9's masked calls at chip_smoke's masks shapes, each beside
+    the same call without its mask, on inputs from their own seed, and the
+    hash of their outputs."""
+    import inspect
+
+    from mlio_tpu_torch.ops import flash_attention as fa
+
+    if "mask" not in inspect.signature(fa.flash_attention).parameters:
+        out["masks"] = "this checkout's K1 takes no mask"
+        return
+    ms = out["ms"]
+    mgen = torch.Generator(device=dev).manual_seed(18)
+    outs = []
+
+    def timed(key, call, reps):
+        outs.append(call(0))
+        ms[key] = cs.time_ms(call, reps)[0]
+
+    for key, shape in (("gpt2", cs.MASK_PREFIX), ("llama3_8b", cs.MASK_KEY)):
+        b, s, hq, hkv, d = shape
+        q, k, v = cs.attention_inputs(mgen, b, s, s, hq, hkv, d)
+        pad = cs.left_pad_mask(mgen, b, s, cs.MASK_PAD)[0]
+        timed(f"k1_key_mask_{key}", lambda i: fa.flash_attention(q, k, v, mask=pad), 30)
+        ms[f"k1_unmasked_{key}"] = cs.time_ms(lambda i: fa.flash_attention(q, k, v), 30)[0]
+        if key == "gpt2":  # the prefix-LM mask (not causal)
+            pre = torch.randint(1, s, (b,), generator=mgen, device=dev)
+            i_ = torch.arange(s, device=dev)
+            m = ((i_[None, None] < pre[:, None, None]) | (i_[None, None] <= i_[None, :, None]))
+            m = m.to(torch.int8)
+            timed("k1_prefix_lm_gpt2", lambda i: fa.flash_attention(q, k, v, mask=m,
+                                                                    causal=False), 30)
+            ms["k1_unmasked_noncausal_gpt2"] = cs.time_ms(
+                lambda i: fa.flash_attention(q, k, v, causal=False), 30)[0]
+        del q, k, v
+    b, s, hq, hkv, d = cs.MASK_PER_HEAD
+    q, k, v = cs.attention_inputs(mgen, b, s, s, hq, hkv, d)
+    m = cs.holes_mask(mgen, (b, hq, s, s))
+    timed("k1_per_head_mask_llama3_8b", lambda i: fa.flash_attention(q, k, v, mask=m), 20)
+    ms["k1_unmasked_llama3_8b_2k"] = cs.time_ms(lambda i: fa.flash_attention(q, k, v), 20)[0]
+    del q, k, v, m
+    b, s, hq, hkv, d = cs.MASK_KEY
+    q = cs.attention_inputs(mgen, b, s, s, hq, hkv, d)[0]
+    kq, ks = cs.int8_kv(mgen, (b, 1024, hkv, d), dev)
+    vq, vs = cs.int8_kv(mgen, (b, 1024, hkv, d), dev)
+    pad = cs.left_pad_mask(mgen, b, 1024, cs.MASK_PAD)[0]
+    kw = dict(kv_len=s, k_scale=ks, v_scale=vs)
+    timed("k9_key_mask_lse_moe", lambda i: fa.flash_attention(q, kq, vq, mask=pad,
+                                                              return_stats=True, **kw)[0], 20)
+    ms["k9_unmasked_moe"] = cs.time_ms(lambda i: fa.flash_attention(q, kq, vq, **kw), 20)[0]
+    out["mask_sha256"] = sha(torch.cat([o.flatten() for o in outs]))
+    torch.cuda.empty_cache()
 
 
 def perop_engine(cs, dev):

@@ -193,6 +193,31 @@ phase's failure is caught:
    bits twice; timed (and its TFLOP/s) beside the plain version, SDPA's
    flash forward and the bound, and against K1 at 8K, 16K and 32K keys. K1's new lse instance
    (kv_len, q_offset) against its plain version.
+13b. masks: K1 with user masks (``flash_attention(..., mask=)``): key masks
+   (left padding of 0..200 tokens a row; random holes, key 0 kept) at
+   llama3-8b's attention heads (B 8 x 704, 32/8 heads of 128, causal) and
+   at GPT-2 small's prefill heads (D 64, left padding), a key and a 3-D mask
+   at an odd Skv (B 2 x 703, llama3-8b's heads, holes, causal: K1's
+   byte-by-byte reads at D 128), a
+   3-D prefix-LM mask at GPT-2 small's prefill (not causal) and a 4-D
+   per-head mask at llama3-8b's training attention (B 1 x 2,048; the lse
+   too); K9 with a key mask and the lse at generate_moe's shape (8 x 704
+   over a 1,024-slot INT8 cache; a full mask must raise); K1's lse under
+   dropout 0.1 at llama3-8b's training attention (the same bits twice, as
+   K13a's forward). Each against its plain version (o within K1's limit and
+   each row within 2e-2 of its RMS, the lse within 1e-4 with -inf where a
+   row sees no key), each failing a control (one key of a row that sees it
+   alone flipped; the dropout seed one off), each through an entry point a
+   user calls with the launch counters zeroed around it; the key-mask, K9
+   and dropout rows the same bits with q, K/V and out in the bhsd layout;
+   timed beside the plain version, SDPA with the boolean mask (over K/V
+   dequantized to bf16 for K9; SDPA's flash forward with dropout for the
+   last) and the bound. Then K1 with a key mask at Mistral's 32K prefill
+   call (K1, no K10; its first, a middle and its last 64-row q block against
+   the plain version of those rows) and ring attention's chunk_step_flash
+   there: 8,192-key chunks (K1's lse, later chunks at negative relative
+   offsets) and 16,384-key chunks (K10's lse) merged and held against one
+   K10 call, failing with the last chunk left out.
 14. long_context: the long-context slice's path, Mistral-7B-Instruct-v0.2
    (``spec_from_hf_config`` of its published config's values) at full
    width and depth, random bf16 weights from the seed, B 1, a 32,704-token
@@ -200,7 +225,10 @@ phase's failure is caught:
    with ``Impl(attention="flash", norm="fused")``: launch counters (K10 32
    and no K1 in the prefill; the decode on the route "auto" names), the
    prefill (median of 3 by CUDA events, idle share, K10's share and its ms
-   a layer from a torch.profiler trace), a decode step at context 32,704, peak memory.
+   a layer from a torch.profiler trace), a decode step at context 32,704, peak memory;
+   then the same generate with ``Impl(attention="ring", norm="fused")``:
+   the same launches (K10 32 in its prefill), the same prefill logits and
+   64 tokens bit for bit (its single-device fold is the flash route's call).
    First its prefill gate at 2 layers and the full context: the kernel
    path's logits at 79 positions as far from an fp32 path as the bf16 plain
    path, within 5 %, two controls (K10 with the causal frontier one key
@@ -4684,6 +4712,544 @@ def k1_lse_row(fa, dev, seed):
         bound_ms=b_ms, bound_by=b_by)
 
 
+# The masks slice: K1 with a user mask (key or full), K9 with a key mask and
+# the lse, K1's lse under dropout, the bhsd layouts, and ring attention's
+# chunk merge at Mistral's 32K. Shapes: (B, S, Hq, Hkv, D).
+MASK_KEY = (8, PROMPT, 32, 8, 128)        # llama3-8b's attention heads at the prefill's 8 x 704
+MASK_PREFIX = (8, PROMPT, 12, 12, 64)     # GPT-2 small's prefill
+MASK_PER_HEAD = (1, 2048, 32, 8, 128)     # llama3-8b's training attention
+MASK_ODD = (2, 703, 32, 8, 128)  # llama3-8b's heads at an odd Skv: K1 reads the mask byte by byte
+MASK_PAD, MASK_KEEP = 200, 0.8  # left padding of 0..200 tokens a row; the holes' keep rate
+MASK_BLOCK = 64                 # the 32K call's q blocks held against the plain version
+RING_CHUNKS = (8192, 16384)     # chunk_step_flash's chunks at 32K: K1's route, then K10's
+MASK_ROWS = ("flash_attention_key_mask", "flash_attention_full_mask",
+             "flash_attention_kvq_mask_lse", "flash_attention_lse_dropout")
+# The masked instances round as K1 and K9 do (the mask only sets scores to
+# -inf): K1's limits, each query row within 2e-2 of its own RMS (K1's
+# ROW_REL_RMS), the lse within 1e-4 (fp32 throughout) and -inf exactly where
+# a row sees no key. At 32K keys (``_32k``) |o| falls to about 0.009, under
+# the elementwise limit, so the row check carries it: a 64-key tile read
+# stale moves a row there by about sqrt(128 / 32768) = 0.06 of its RMS.
+# Ring attention's merged output (``ring_merge``) is held against one K10
+# call, not a plain version: each chunk's o is rounded to bf16 before the
+# merge, and K10 rounds p against its own running max, so the two differ by
+# about twice a kernel's own row error (K10 read 3.0e-3 against its plain
+# version on the card); K1's limits hold them, and leaving the last chunk
+# out moves the rows past it by far more. Its lse, fp32 throughout: 1e-4.
+TOL.update({name: TOL["flash_attention"] for name in MASK_ROWS})
+TOL.update({f"{name}_lse": (1e-4, 0.0) for name in MASK_ROWS + ("ring_merge",)})
+TOL.update({"flash_attention_key_mask_32k": TOL["flash_attention"],
+            "ring_merge": TOL["flash_attention"]})
+ROW_REL_RMS.update({name: 2e-2 for name in MASK_ROWS + ("flash_attention_key_mask_32k",
+                                                        "ring_merge")})
+
+
+def check_lse(name, got, want):
+    """An lse held against the plain version's: -inf exactly where it has
+    -inf (a row that sees no key), the rest within name's tolerance."""
+    if not torch.equal(got.isneginf(), want.isneginf()):
+        raise AssertionError(f"{name}: the rows with no key differ from the plain version's")
+    fin = ~want.isneginf()
+    return check_close(name, got[fin], want[fin]) if fin.any() else 0.0
+
+
+def left_pad_mask(gen, B, S, max_pad):
+    """tests/test_flash_attention.py's _left_pad_mask: row b masks its
+    first pads[b] keys, pads drawn from 0..max_pad. Returns (int8 [B, S],
+    pads)."""
+    pads = torch.randint(0, max_pad + 1, (B,), generator=gen, device=gen.device)
+    return (torch.arange(S, device=gen.device)[None] >= pads[:, None]).to(torch.int8), pads
+
+
+def holes_mask(gen, shape, keep=MASK_KEEP):
+    """A random mask keeping each entry with probability ``keep``, key 0
+    kept (every causal row sees a key)."""
+    m = (torch.rand(shape, generator=gen, device=gen.device) < keep).to(torch.int8)
+    m[..., 0] = 1
+    return m
+
+
+def flipped(m, index):
+    """m with the entry at ``index`` flipped (kept <-> masked)."""
+    m = m.clone()
+    m[index] = 1 - m[index]
+    return m
+
+
+def to_bhsd(*ts):
+    """[B, S, H, ...] tensors relaid as [B, H, S, ...] (contiguous)."""
+    return [t.transpose(1, 2).contiguous() for t in ts]
+
+
+def mask_bound(B, Sq, kvl, Hq, Hkv, D, causal, q_offset=0, mask=None, mask_heads=1, lse=False,
+               kv_bytes=2, scale_bytes=0):
+    """(bound_ms, bound_by, pairs): q and out in bf16, the kv_len valid K/V
+    rows (kv_bytes an element, with their scales), the lse and the mask's
+    bytes the function needs over the probe's rate; 4 x Hq x D operations a
+    (query, key) pair the kernel visits (causal_pairs) over the bf16
+    tensor-core peak. The mask's bytes: a "key" mask's of the keys some row
+    sees (below kv_len, and under causal below q_offset + Sq); a "full"
+    mask's (mask_heads of them a sequence) of the pairs alone, so that a
+    causal mask's entries above the diagonal are not counted."""
+    pairs = B * causal_pairs(Sq, kvl, causal, q_offset)
+    if mask == "key":
+        mask_bytes = B * max(0, min(kvl, q_offset + Sq) if causal else kvl)
+    else:
+        mask_bytes = mask_heads * pairs if mask == "full" else 0
+    nbytes = (2 * 2 * B * Sq * Hq * D + 2 * B * kvl * Hkv * (D * kv_bytes + scale_bytes)
+              + mask_bytes + (4 * B * Hq * Sq if lse else 0))
+    b_ms, b_by = bound(nbytes, 4 * Hq * D * pairs, BF16_TENSOR_FLOPS)
+    return b_ms, b_by, pairs
+
+
+def sdpa_masked(q, k, v, valid, dropout=0.0):
+    """A call of F.scaled_dot_product_attention over q and K/V repeated to
+    the query heads, head-major, with the boolean attn_mask ``valid``
+    (True = attend), all made outside the timing."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    return lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                                    dropout_p=dropout)
+
+
+def library_ms(make, reps):
+    """(device ms, None) of the call ``make()`` builds, or (None, the
+    reason) where no such call fits the card."""
+    try:
+        return time_ms(make(), reps)[0], None
+    except RuntimeError as e:  # out of memory, or no SDPA kernel takes the call
+        torch.cuda.empty_cache()
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def path_launches(fa, call, want):
+    """Zero K1's, K9's and K10's counters, run ``call`` (one call through
+    an entry point a user calls), read them; they must equal ``want``."""
+    names = ("flash_attention", "flash_attention_kvq", "flash_attention_stream")
+    for n in names:
+        getattr(fa, n).launches = 0
+    out = call()
+    got = {n: getattr(fa, n).launches for n in names}
+    if got != dict({n: 0 for n in names}, **want):
+        raise AssertionError(f"masks: launches {got}, not {want}")
+    return out, got
+
+
+def mask_case(fa, name, q, k, v, m, flip, causal=True):
+    """One masked K1 call held against its plain version, and failing it
+    with the mask's entry at ``flip`` flipped (the key a row sees alone)."""
+    o_p = fa.flash_plain_lse(q, k, v, mask=m, causal=causal)[0]
+    o = fa.flash_attention(q, k, v, mask=m, causal=causal)
+    return dict(max_abs_err=check_close(name, o, o_p), row_rel_rms=row_rel_rms(o, o_p),
+                flipped_key_max_abs_err=must_fail_within(
+                    name, f"with the mask's entry {flip} flipped",
+                    fa.flash_attention(q, k, v, mask=flipped(m, flip), causal=causal), o_p))
+
+
+def odd_mask_cases(fa, gen, name, full):
+    """K1's byte-by-byte mask reads at D 128 (MASK_ODD: Skv odd, causal,
+    random holes with key 0 kept): a key mask, or with ``full`` a 3-D one;
+    row 0 sees key 0 alone, so flipping it must fail the check."""
+    B_, S, Hq, Hkv, D = MASK_ODD
+    q, k, v = attention_inputs(gen, B_, S, S, Hq, Hkv, D)
+    m = holes_mask(gen, (B_, S, S) if full else (B_, S))
+    return mask_case(fa, name, q, k, v, m, (0, 0, 0) if full else (0, 0))
+
+
+def key_mask_row(fa, dev, gen):
+    """K1 with key masks at MASK_KEY, causal: left padding of 0..MASK_PAD
+    tokens a row and random holes (MASK_KEEP, key 0 kept), each against its
+    plain version; failing it with the one key of a row's first kept
+    position flipped; the same bits with q, K/V and out in the bhsd layout;
+    through ops.attention (K1, no K10); timed beside its plain version and
+    SDPA with the boolean mask."""
+    from mlio_tpu_torch import ops
+    from mlio_tpu_torch.models import Impl
+
+    name = "flash_attention_key_mask"
+    B_, S, Hq, Hkv, D = MASK_KEY
+    q, k, v = attention_inputs(gen, B_, S, S, Hq, Hkv, D)
+    pad, pads = left_pad_mask(gen, B_, S, MASK_PAD)
+    checks = {}
+    for kind, m in (("left_pad", pad), ("holes", holes_mask(gen, (B_, S)))):
+        o = fa.flash_attention(q, k, v, mask=m)
+        o_p = fa.flash_plain_lse(q, k, v, mask=m)[0]
+        checks[kind] = dict(max_abs_err=check_close(name, o, o_p),
+                            row_rel_rms=row_rel_rms(o, o_p))
+    o = fa.flash_attention(q, k, v, mask=pad)
+    o_p = fa.flash_plain_lse(q, k, v, mask=pad)[0]
+    p0 = int(pads[0])  # row p0 of sequence 0 sees key p0 alone
+    checks["flipped_key_max_abs_err"] = must_fail_within(
+        name, f"with key {p0} of sequence 0 flipped", fa.flash_attention(
+            q, k, v, mask=flipped(pad, (0, p0))), o_p)
+    qb, kb, vb = to_bhsd(q, k, v)
+    ob = fa.flash_attention(qb, kb, vb, mask=pad, q_layout="bhsd", kv_layout="bhsd",
+                            out_layout="bhsd")
+    checks["bhsd_same_bits"] = bool(torch.equal(ob.transpose(1, 2), o))
+    if not checks["bhsd_same_bits"]:
+        raise AssertionError(f"{name}: the bhsd layouts gave other bits")
+    del qb, kb, vb, ob
+    # the other reads of a key mask: bytes at D 64 (GPT-2 small's prefill
+    # heads, left padding; row g + 8 takes row g's bits), and at D 128 where
+    # Skv is odd
+    B2, S2, Hq2, Hkv2, D2 = MASK_PREFIX
+    q2, k2, v2 = attention_inputs(gen, B2, S2, S2, Hq2, Hkv2, D2)
+    pad2, pads2 = left_pad_mask(gen, B2, S2, MASK_PAD)
+    checks["gpt2_d64_left_pad"] = mask_case(fa, name, q2, k2, v2, pad2, (0, int(pads2[0])))
+    del q2, k2, v2
+    checks["odd_skv_d128_holes"] = odd_mask_cases(fa, gen, name, full=False)
+    _, launches = path_launches(fa, lambda: ops.attention(
+        q, k, v, mask=pad, impl=Impl(attention="flash")), dict(flash_attention=1))
+    b_ms, b_by, pairs = mask_bound(B_, S, S, Hq, Hkv, D, True, mask="key")
+    valid = fa.valid_mask(B_, Hq, S, S, causal=True, q_offset=0, kv_len=None, mask=pad,
+                          device=dev)
+    lib, why = library_ms(lambda: sdpa_masked(q, k, v, valid), 20)
+    row = dict(
+        name=name, route="cuda",
+        source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kMasked tiles with the mask's "
+               "bits: mlio_flash_fwd)",
+        replaces="mlio_tpu/ops/flash_attention.py:37 (mask_kind 'key', :124-126; the wrapper "
+                 ":698-708)",
+        shape=f"q/k/v [{B_},{S},{Hq}|{Hkv},{D}] bf16, causal, key mask [{B_},{S}] int8 "
+              f"(left padding 0..{MASK_PAD})",
+        max_abs_err=checks["left_pad"]["max_abs_err"], atol=TOL[name][0], rtol=TOL[name][1],
+        row_rel_rms_limit=ROW_REL_RMS[name], checks=checks, launches=launches["flash_attention"],
+        launches_note="one ops.attention(mask=..., impl=Impl(attention='flash')) call, the "
+                      "counters zeroed around it",
+        **timings(lambda i: fa.flash_attention(q, k, v, mask=pad),
+                  lambda i: fa.flash_plain_lse(q, k, v, mask=pad), None, 20),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    row.update(library_ms=lib, library_note=why or "F.scaled_dot_product_attention with the "
+               "boolean mask (causal and the key mask), K/V repeated to the query heads outside "
+               "the timing",
+               unmasked_ms=time_ms(lambda i: fa.flash_attention(q, k, v), 20)[0])
+    return row
+
+
+def full_mask_row(fa, dev, gen):
+    """K1 with full masks: a 3-D prefix-LM mask at MASK_PREFIX (causal
+    False; sequence 0's prefix is one token, so its row 0 sees key 0 alone)
+    and a 4-D per-head random mask at MASK_PER_HEAD (causal, MASK_KEEP, key
+    0 kept); each against its plain version (the 4-D one's lse too), each
+    failing with the one key of a row flipped; through ops.attention; timed
+    beside the plain version and SDPA with the boolean mask."""
+    from mlio_tpu_torch import ops
+    from mlio_tpu_torch.models import Impl
+
+    name = "flash_attention_full_mask"
+    B_, S, Hq, Hkv, D = MASK_PREFIX
+    q, k, v = attention_inputs(gen, B_, S, S, Hq, Hkv, D)
+    pre = torch.randint(1, S, (B_,), generator=gen, device=dev)
+    pre[0] = 1
+    i = torch.arange(S, device=dev)
+    m = ((i[None, None, :] < pre[:, None, None]) | (i[None, None, :] <= i[None, :, None]))
+    m = m.to(torch.int8)  # [B, Sq, Skv]
+    o = fa.flash_attention(q, k, v, mask=m, causal=False)
+    o_p = fa.flash_plain_lse(q, k, v, mask=m, causal=False)[0]
+    checks = dict(prefix_lm=dict(max_abs_err=check_close(name, o, o_p),
+                                 row_rel_rms=row_rel_rms(o, o_p)))
+    checks["prefix_lm"]["flipped_key_max_abs_err"] = must_fail_within(
+        name, "with key 0 of sequence 0's row 0 flipped",
+        fa.flash_attention(q, k, v, mask=flipped(m, (0, 0, 0)), causal=False), o_p)
+    checks["odd_skv_d128_holes"] = odd_mask_cases(fa, gen, name, full=True)
+    _, launches = path_launches(fa, lambda: ops.attention(
+        q, k, v, mask=m, causal=False, impl=Impl(attention="flash")), dict(flash_attention=1))
+    b_ms, b_by, pairs = mask_bound(B_, S, S, Hq, Hkv, D, False, mask="full")
+    valid = m[:, None].bool()
+    lib, why = library_ms(lambda: sdpa_masked(q, k, v, valid), 20)
+    row = dict(
+        name=name, route="cuda",
+        source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kMasked tiles with the mask's "
+               "bits: mlio_flash_fwd)",
+        replaces="mlio_tpu/ops/flash_attention.py:37 (mask_kind 'full', :127-129; the wrapper "
+                 ":709-716)",
+        shape=f"q/k/v [{B_},{S},{Hq},{D}] bf16, not causal, prefix-LM mask [{B_},{S},{S}] int8",
+        max_abs_err=checks["prefix_lm"]["max_abs_err"], atol=TOL[name][0], rtol=TOL[name][1],
+        row_rel_rms_limit=ROW_REL_RMS[name], checks=checks, launches=launches["flash_attention"],
+        launches_note="one ops.attention(mask=..., causal=False, impl=Impl(attention='flash')) "
+                      "call, the counters zeroed around it",
+        **timings(lambda i: fa.flash_attention(q, k, v, mask=m, causal=False),
+                  lambda i: fa.flash_plain_lse(q, k, v, mask=m, causal=False)[0], None, 20),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    row.update(library_ms=lib, library_note=why or "F.scaled_dot_product_attention with the "
+               "boolean mask, K/V repeated to the query heads outside the timing",
+               unmasked_ms=time_ms(lambda i: fa.flash_attention(q, k, v, causal=False), 20)[0])
+    del q, k, v, m, valid, o, o_p
+
+    B_, S, Hq, Hkv, D = MASK_PER_HEAD
+    q, k, v = attention_inputs(gen, B_, S, S, Hq, Hkv, D)
+    m = holes_mask(gen, (B_, Hq, S, S))  # 134 MB of int8
+    o, lse = fa.flash_attention(q, k, v, mask=m, return_stats=True)
+    o_p, lse_p = fa.flash_plain_lse(q, k, v, mask=m)
+    per_head = dict(max_abs_err=check_close(name, o, o_p), row_rel_rms=row_rel_rms(o, o_p),
+                    lse_max_abs_err=check_lse(f"{name}_lse", lse, lse_p))
+    per_head["flipped_key_max_abs_err"] = must_fail_within(
+        name, f"with key 0 of head {Hq // 2}'s row 0 flipped",
+        fa.flash_attention(q, k, v, mask=flipped(m, (0, Hq // 2, 0, 0))), o_p)
+    _, pl = path_launches(fa, lambda: ops.attention(q, k, v, mask=m,
+                                                    impl=Impl(attention="flash")),
+                          dict(flash_attention=1))
+    b_ms, b_by, pairs = mask_bound(B_, S, S, Hq, Hkv, D, True, mask="full", mask_heads=Hq)
+    valid = m.bool() & torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    lib, why = library_ms(lambda: sdpa_masked(q, k, v, valid), 10)
+    per_head.update(
+        shape=f"q [{B_},{S},{Hq},{D}] k/v [{B_},{S},{Hkv},{D}] bf16, causal, per-head mask "
+              f"[{B_},{Hq},{S},{S}] int8 ({m.numel() / 1e6:.0f} MB), keep {MASK_KEEP}",
+        launches=pl["flash_attention"],
+        **timings(lambda i: fa.flash_attention(q, k, v, mask=m),
+                  lambda i: fa.flash_plain_lse(q, k, v, mask=m)[0], None, 10),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+    per_head.update(library_ms=lib, library_note=why or "F.scaled_dot_product_attention with "
+                    "the boolean mask (the per-head mask and causal), K/V repeated",
+                    unmasked_ms=time_ms(lambda i: fa.flash_attention(q, k, v), 10)[0])
+    row["llama3_8b_per_head"] = per_head
+    return row
+
+
+def mask_32k(fa, dev, gen):
+    """K1 with a key mask (random holes, MASK_KEEP, key 0 kept) at
+    Mistral's 32K prefill call (STREAM_CASES' first: B 1, 32,704 queries
+    over 32,768 slots, kv_len 32,704): ops.attention must launch K1 and no
+    K10; the first, a middle and the last MASK_BLOCK-row q blocks against
+    the plain version computed for those rows alone (q_offset at the
+    block); failing with key 0 flipped (row 0 sees it alone); timed beside
+    SDPA with the boolean mask. Returns (the entry, q, k, v)."""
+    from mlio_tpu_torch import ops
+    from mlio_tpu_torch.models import Impl
+
+    name = "flash_attention_key_mask_32k"
+    _, Bc, Sq, Skv, Hq, Hkv, D, causal, _, kvl = STREAM_CASES[0]
+    q, k, v = attention_inputs(gen, Bc, Sq, Skv, Hq, Hkv, D)
+    m = holes_mask(gen, (Bc, Skv))
+    o, launches = path_launches(fa, lambda: ops.attention(
+        q, k, v, kv_len=kvl, mask=m, impl=Impl(attention="flash")), dict(flash_attention=1))
+    blocks = {}
+    for start in (0, (Sq // 2 // MASK_BLOCK) * MASK_BLOCK, Sq - MASK_BLOCK):
+        rows = slice(start, start + MASK_BLOCK)
+        o_p = fa.flash_plain_lse(q[:, rows], k, v, q_offset=start, kv_len=kvl, mask=m)[0]
+        blocks[str(start)] = dict(max_abs_err=check_close(name, o[:, rows], o_p),
+                                  row_rel_rms=row_rel_rms(o[:, rows], o_p))
+        if start == 0:
+            blocks["flipped_key_0_max_abs_err"] = must_fail_within(
+                name, "with key 0 flipped", fa.flash_attention(
+                    q, k, v, kv_len=kvl, mask=flipped(m, (0, 0)))[:, rows], o_p)
+    b_ms, b_by, pairs = mask_bound(Bc, Sq, kvl, Hq, Hkv, D, True, mask="key")
+    ms = time_ms(lambda i: fa.flash_attention(q, k, v, kv_len=kvl, mask=m), 3, warmup=1)[0]
+    valid = fa.valid_mask(Bc, Hq, Sq, Skv, causal=True, q_offset=0, kv_len=kvl, mask=m,
+                          device=dev)
+    lib, why = library_ms(lambda: sdpa_masked(q, k, v, valid), 3)
+    del valid
+    torch.cuda.empty_cache()
+    entry = dict(
+        shape=f"q [{Bc},{Sq},{Hq},{D}] k/v [{Bc},{Skv},{Hkv},{D}] bf16, kv_len {kvl}, causal, "
+              f"key mask [{Bc},{Skv}] (Mistral-7B-Instruct-v0.2's prefill at 32K)",
+        launches=launches, blocks=blocks, atol=TOL[name][0], row_rel_rms_limit=ROW_REL_RMS[name],
+        ms=ms, plain_ms=None,
+        plain_note="the plain version at this size needs 137 GB of scores: its three q blocks "
+                   "are checked, not timed", bound_ms=b_ms, bound_by=b_by, pairs=pairs,
+        tflop_per_s=4 * Hq * D * pairs / (ms * 1e-3) / 1e12, library_ms=lib,
+        library_note=why or "F.scaled_dot_product_attention with the boolean [Sq, Skv] mask")
+    return entry, q, k, v
+
+
+def ring_step(fa, q, k, v):
+    """ring_attention.chunk_step_flash at Mistral's 32K call (mask_32k's q,
+    K and V, no mask): chunks of RING_CHUNKS keys merged, the first size on
+    K1's route (the later chunks at negative relative offsets, kv_len 0 past
+    the context), the second on K10's; each finalized result held against
+    one K10 call (o within K10's limits, each row by ROW_REL_RMS; the merged
+    lse within 1e-4), failing with the last chunk left out. Returns the
+    entry (with each size's launches)."""
+    from mlio_tpu_torch.ops import ring_attention as ra
+
+    _, Bc, Sq, Skv, Hq, Hkv, D, causal, _, kvl = STREAM_CASES[0]
+    want, want_lse = fa.flash_attention_stream(q, k, v, kv_len=kvl, return_stats=True)
+    out = {}
+    for C in RING_CHUNKS:
+        for n in ("flash_attention", "flash_attention_stream"):
+            getattr(fa, n).launches = 0
+        state = ra.init_stats(Bc, Hq, Sq, D, device=q.device)
+        for c0 in range(0, Skv, C):
+            before = state
+            state = ra.chunk_step_flash(q, k[:, c0:c0 + C], v[:, c0:c0 + C], *state,
+                                        scale=D ** -0.5, q_offset=0, k_offset=c0, causal=causal,
+                                        kv_len=kvl)
+        m, l, acc = state
+        got = ra.finalize(m, l, acc, q.dtype)
+        lse = (m + torch.log(torch.where(l == 0, 1.0, l)))[..., 0]
+        res = dict(launches=dict(flash_attention=fa.flash_attention.launches,
+                                 flash_attention_stream=fa.flash_attention_stream.launches),
+                   max_abs_err=check_close("ring_merge", got, want),
+                   row_rel_rms=row_rel_rms(got, want),
+                   lse_max_abs_err=check_lse("ring_merge_lse", lse, want_lse))
+        n = -(-Skv // C)
+        want_route = (dict(flash_attention=0, flash_attention_stream=n)
+                      if fa.stream_route(C, D, 2) else dict(flash_attention=n,
+                                                           flash_attention_stream=0))
+        if res["launches"] != want_route:
+            raise AssertionError(f"ring step C {C}: launches {res['launches']}, "
+                                 f"not {want_route}")
+        res["last_chunk_left_out_max_abs_err"] = must_fail_within(
+            "ring_merge", "with the last chunk left out", ra.finalize(*before, q.dtype), want)
+        out[str(C)] = res
+        del state, before, got, lse, m, l, acc
+        torch.cuda.empty_cache()
+    return out
+
+
+def lse_dropout_row(fa, fg, dev, gen):
+    """K1's lse instance under dropout (rate 0.1, DROP_SEED) at
+    MASK_PER_HEAD's llama3-8b training attention: o and the lse (l sums p
+    before the drop) against the plain version, the same bits twice, the
+    same bits as K13a's forward and in the bhsd layouts; failing with the
+    seed one off; through flash_attention(..., return_stats=True); timed
+    beside the plain version and aten._scaled_dot_product_flash_attention
+    with dropout 0.1 (o and logsumexp)."""
+    name = "flash_attention_lse_dropout"
+    B_, S, Hq, Hkv, D = MASK_PER_HEAD
+    q, k, v = attention_inputs(gen, B_, S, S, Hq, Hkv, D)
+    kw = dict(dropout_rate=0.1, dropout_seed=DROP_SEED, return_stats=True)
+    (o, lse), launches = path_launches(fa, lambda: fa.flash_attention(q, k, v, **kw),
+                                       dict(flash_attention=1))
+    o_p, lse_p = fa.flash_plain_lse(q, k, v, dropout_rate=0.1, dropout_seed=DROP_SEED)
+    checks = dict(row_rel_rms=row_rel_rms(o, o_p),
+                  lse_max_abs_err=check_lse(f"{name}_lse", lse, lse_p))
+    checks["same_bits_twice"] = same_bits_twice(
+        name, lambda: torch.cat([t.flatten().float()
+                                 for t in fa.flash_attention(q, k, v, **kw)]))
+    o13, lse13 = fg.flash_fwd_lse(q, k, v, dropout_rate=0.1, dropout_seed=DROP_SEED)
+    checks["k13a_same_bits"] = bool(torch.equal(o13, o) and torch.equal(lse13, lse))
+    qb, kb, vb = to_bhsd(q, k, v)
+    ob, lb = fa.flash_attention(qb, kb, vb, q_layout="bhsd", kv_layout="bhsd",
+                                out_layout="bhsd", **kw)
+    checks["bhsd_same_bits"] = bool(torch.equal(ob.transpose(1, 2), o) and torch.equal(lb, lse))
+    if not (checks["k13a_same_bits"] and checks["bhsd_same_bits"]):
+        raise AssertionError(f"{name}: other bits than K13a's or in the bhsd layouts {checks}")
+    del qb, kb, vb, ob, lb
+    checks["seed_one_off_max_abs_err"] = must_fail_within(
+        name, "against the plain version with the seed one off", o,
+        fa.flash_plain_lse(q, k, v, dropout_rate=0.1, dropout_seed=DROP_SEED + 1)[0])
+    b_ms, b_by, pairs = mask_bound(B_, S, S, Hq, Hkv, D, True, lse=True)
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() for t in (k, v))
+    lib, why = library_ms(lambda: lambda i: torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.1, True), 10)
+    return dict(
+        name=name, route="cuda",
+        source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kDrop and kLse: "
+               "mlio_flash_fwd)",
+        replaces="mlio_tpu/ops/flash_attention.py:37 (with_stats and dropout_rate > 0 "
+                 "together, :140-150, :166-172)",
+        shape=f"q [{B_},{S},{Hq},{D}] k/v [{B_},{S},{Hkv},{D}] bf16, causal, dropout 0.1",
+        max_abs_err=check_close(name, o, o_p), atol=TOL[name][0], rtol=TOL[name][1],
+        lse_atol=TOL[f"{name}_lse"][0], row_rel_rms_limit=ROW_REL_RMS[name], checks=checks,
+        launches=launches["flash_attention"],
+        launches_note="one flash_attention(..., dropout_rate=0.1, return_stats=True) call, the "
+                      "counters zeroed around it",
+        **timings(lambda i: fa.flash_attention(q, k, v, **kw),
+                  lambda i: fa.flash_plain_lse(q, k, v, dropout_rate=0.1,
+                                               dropout_seed=DROP_SEED), None, 10),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs) | dict(
+        library_ms=lib, library_note=why or "aten._scaled_dot_product_flash_attention with "
+        "dropout 0.1 (o and logsumexp; its own random bits), K/V repeated to the query heads",
+        without_lse_ms=time_ms(lambda i: fa.flash_attention(
+            q, k, v, dropout_rate=0.1, dropout_seed=DROP_SEED), 10)[0])
+
+
+def kvq_mask_lse_row(fa, dev, gen):
+    """K9 with a key mask (left padding 0..MASK_PAD) and the lse at
+    generate_moe's shape (KVQ_MOE: 8 x 704 queries over a 1024-slot INT8
+    cache, kv_len 704, 32/8 heads of 128): o and the lse against the plain
+    version; failing with the one key of sequence 0's first kept position
+    flipped; the same bits in the bhsd layouts (scales [B, Hkv, Skv]); a
+    full mask raises; through flash_attention(..., return_stats=True) (K9,
+    no K1); timed beside the plain version and SDPA over the K/V dequantized
+    to bf16 with the boolean mask."""
+    name = "flash_attention_kvq_mask_lse"
+    B_, Sq, Skv, Hq, Hkv, D = KVQ_MOE
+    q = torch.randn((B_, Sq, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    kq, ks = int8_kv(gen, (B_, Skv, Hkv, D), dev)
+    vq, vs = int8_kv(gen, (B_, Skv, Hkv, D), dev)
+    m, pads = left_pad_mask(gen, B_, Skv, MASK_PAD)
+    kw = dict(kv_len=Sq, mask=m, k_scale=ks, v_scale=vs)
+    (o, lse), launches = path_launches(fa, lambda: fa.flash_attention(
+        q, kq, vq, return_stats=True, **kw), dict(flash_attention_kvq=1))
+    o_p, lse_p = fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, kv_len=Sq, mask=m,
+                                              return_stats=True)
+    checks = dict(row_rel_rms=row_rel_rms(o, o_p),
+                  lse_max_abs_err=check_lse(f"{name}_lse", lse, lse_p))
+    p0 = int(pads[0])
+    checks["flipped_key_max_abs_err"] = must_fail_within(
+        name, f"with key {p0} of sequence 0 flipped",
+        fa.flash_attention(q, kq, vq, **dict(kw, mask=flipped(m, (0, p0)))), o_p)
+    qb, kb, vb, ksb, vsb = to_bhsd(q, kq, vq, ks, vs)
+    ob, lb = fa.flash_attention(qb, kb, vb, kv_len=Sq, mask=m, k_scale=ksb, v_scale=vsb,
+                                return_stats=True, q_layout="bhsd", kv_layout="bhsd",
+                                out_layout="bhsd")
+    checks["bhsd_same_bits"] = bool(torch.equal(ob.transpose(1, 2), o) and torch.equal(lb, lse))
+    if not checks["bhsd_same_bits"]:
+        raise AssertionError(f"{name}: the bhsd layouts gave other bits")
+    try:
+        fa.flash_attention(q, kq, vq, **dict(kw, mask=torch.ones(B_, Sq, Skv, device=dev)))
+    except NotImplementedError:
+        checks["full_mask_raises"] = True
+    else:
+        raise AssertionError(f"{name}: a full mask over an INT8 cache did not raise")
+    b_ms, b_by, pairs = mask_bound(B_, Sq, Sq, Hq, Hkv, D, True, mask="key", lse=True,
+                                   kv_bytes=1, scale_bytes=4)
+    kd, vd = dequant_bf16(kq, ks), dequant_bf16(vq, vs)
+    valid = fa.valid_mask(B_, Hq, Sq, Skv, causal=True, q_offset=0, kv_len=Sq, mask=m,
+                          device=dev)
+    lib, why = library_ms(lambda: sdpa_masked(q, kd, vd, valid), 20)
+    return dict(
+        name=name, route="cuda",
+        source="mlio_tpu_torch/csrc/flash_fwd.cu (flash_fwd.cuh, kQuant and kLse: "
+               "mlio_flash_fwd)",
+        replaces="mlio_tpu/ops/flash_attention.py:199 (mask_kind 'key', :271-273; with_stats, "
+                 ":297-301)",
+        shape=f"q [{B_},{Sq},{Hq},{D}] bf16, k/v [{B_},{Skv},{Hkv},{D}] int8 with fp32 scales, "
+              f"kv_len {Sq}, causal, key mask [{B_},{Skv}] (generate_moe's prefill heads)",
+        max_abs_err=check_close(name, o, o_p), atol=TOL[name][0], rtol=TOL[name][1],
+        lse_atol=TOL[f"{name}_lse"][0], row_rel_rms_limit=ROW_REL_RMS[name], checks=checks,
+        launches=launches["flash_attention_kvq"],
+        launches_note="one flash_attention(..., k_scale=, v_scale=, mask=, return_stats=True) "
+                      "call, the counters zeroed around it",
+        **timings(lambda i: fa.flash_attention(q, kq, vq, return_stats=True, **kw),
+                  lambda i: fa.flash_attention_kvq_plain(q, kq, vq, ks, vs, kv_len=Sq, mask=m,
+                                                         return_stats=True), None, 20),
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs) | dict(
+        library_ms=lib, library_note=why or "F.scaled_dot_product_attention over the K/V "
+        "dequantized to bf16 (a yardstick: the dequantize not timed) with the boolean mask",
+        unmasked_without_lse_ms=time_ms(lambda i: fa.flash_attention(
+            q, kq, vq, kv_len=Sq, k_scale=ks, v_scale=vs), 20)[0])
+
+
+def masks_phase(dev, seed, fa, fg):
+    """The masks slice's kernels (MASK_ROWS) on the card, then the 32K key
+    mask and the ring step. Returns the kernels line's rows; the 32K entry
+    and the ring step's launches ride on the key-mask row."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    rows = [key_mask_row(fa, dev, gen)]
+    torch.cuda.empty_cache()
+    rows.append(full_mask_row(fa, dev, gen))
+    torch.cuda.empty_cache()
+    rows.append(kvq_mask_lse_row(fa, dev, gen))
+    torch.cuda.empty_cache()
+    rows.append(lse_dropout_row(fa, fg, dev, gen))
+    torch.cuda.empty_cache()
+    entry, q, k, v = mask_32k(fa, dev, gen)
+    rows[0]["mistral_32k"] = entry
+    ring = ring_step(fa, q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit(dict(phase="masks", nvidia_smi=nvidia_smi(),
+              rows={r["name"]: {k: v for k, v in r.items() if k != "name"} for r in rows},
+              ring_step=ring))
+    return rows, ring
+
+
 def lc_positions():
     """The logits the prefill gate compares: positions 0-15 (rows that attend
     over few keys, where attention moves the logits most) and 64 spread over
@@ -4822,6 +5388,7 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
     ids = torch.from_numpy(np.random.default_rng(seed).integers(
         0, spec.vocab_size, (1, LC_PROMPT))).to(dev)
     impl = Impl(attention="flash", norm="fused")
+    ring_impl = Impl(attention="ring", norm="fused")
     gate = lc_gate(dev, seed, spec, ids, fa, norms, dt)
     emit(dict(phase="long_context_gate", **gate))
     if not (gate["passed"] and gate["control_rejected"] and gate["depth_control_rejected"]):
@@ -4859,6 +5426,18 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
     if out.shape != (1, LC_PROMPT + LC_NEW) or not torch.equal(out[:, :LC_PROMPT], ids) \
             or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
         raise AssertionError("long_context: wrong shape, prompt changed or token out of range")
+    # the ring route: its single-device fold makes the flash route's K10
+    # calls, so the same launches and the same tokens, bit for bit
+    for w in wrappers:
+        w.launches = 0
+    out_ring = generate(params, spec, ids, max_new_tokens=LC_NEW, impl=ring_impl,
+                        cache_len=LC_CACHE, device=dev)
+    ring = dict(launches={w.__name__: w.launches for w in wrappers},
+                tokens_same_bits=bool(torch.equal(out_ring, out)))
+    if ring["launches"] != want or not ring["tokens_same_bits"]:
+        raise AssertionError(f"long_context: the ring route {ring} against the flash route's "
+                             f"launches {want}")
+    del out_ring
 
     # the decode step by the two-length marginal (1 and LC_NEW new tokens)
     generate_s = {str(n): run(n)[1] for n in (1, LC_NEW)}
@@ -4877,7 +5456,16 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
             or not torch.isfinite(logits).all():
         raise AssertionError(f"long_context: prefill logits {logits.dtype} "
                              f"{tuple(logits.shape)} or not finite")
-    del logits
+    for w in wrappers:
+        w.launches = 0
+    with torch.inference_mode():
+        ring_logits = forward(params, spec, ids, impl=ring_impl, cache=dict(cache, pos=0))[0]
+    ring.update(prefill_launches={w.__name__: w.launches for w in wrappers if w.launches},
+                prefill_logits_same_bits=bool(torch.equal(ring_logits, logits)))
+    if ring["prefill_launches"] != dict(flash_attention_stream=L, fused_norm=2 * L + 1) \
+            or not ring["prefill_logits_same_bits"]:
+        raise AssertionError(f"long_context: the ring route's prefill {ring}")
+    del logits, ring_logits
     walls = []
     for _ in range(LC_TIMED):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4908,7 +5496,7 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
                                                 cache=dict(cache, pos=LC_PROMPT)), 3)[0]
     result = dict(phase="long_context", model=spec.name, config=MISTRAL_CONFIG, layers=L,
                   batch=1, prompt=LC_PROMPT, cache_len=LC_CACHE, new_tokens=LC_NEW,
-                  auto_route=picked, launches=launches, generate_s=generate_s,
+                  auto_route=picked, launches=launches, ring=ring, generate_s=generate_s,
                   prefill_ms=prefill_ms, prefill_ms_runs=walls,
                   prefill_tok_per_s=LC_PROMPT / (prefill_ms / 1e3),
                   prefill_traced_ms=traced_ms, prefill_device_busy_ms=busy,
@@ -5099,20 +5687,26 @@ def main() -> int:
                 raise AssertionError(f"{r['name']}: no launch on train_8b's path")
     # The long-context slice: K10 alone, then Mistral-7B-Instruct-v0.2 at 32K.
     stream_rows = flash_stream_phase(dev, args.seed, fa, fg)
+    # The masks slice: K1's and K9's masked and stats instances, the bhsd
+    # layouts and ring attention's chunk merge at 32K.
+    mask_rows, ring = masks_phase(dev, args.seed, fa, fg)
     long_launches = long_context_phase(dev, args.seed, fa, norms, dt,
                                        (fa.flash_attention, fa.flash_attention_stream,
                                         norms.fused_norm, da.decode_attention,
                                         dl.decode_layer_stack, dt.decode_layer_tiled))
     stream_rows[0]["launches"] = long_launches["flash_attention_stream"]
-    stream_rows[0]["lse"]["launches"] = 0
-    stream_rows[0]["lse"]["launches_note"] = ("no path of this run asks for the lse; "
-                                              "launched in flash_stream only")
-    stream_rows[1]["launches"] = 0
-    stream_rows[1]["launches_note"] = ("no path of this run asks for K1's lse; launched in "
-                                       "flash_stream only")
-    if not stream_rows[0]["launches"]:
-        raise AssertionError("flash_attention_stream: no launch on long_context's path")
-    rows += [tiled, tiled_moe, widen] + grad_rows + stream_rows + probe_rows
+    # the lse instances: ring attention's chunk merge at 32K (masks phase)
+    k10_ring = ring[str(RING_CHUNKS[1])]["launches"]["flash_attention_stream"]
+    k1_ring = ring[str(RING_CHUNKS[0])]["launches"]["flash_attention"]
+    stream_rows[0]["lse"]["launches"] = k10_ring
+    stream_rows[0]["lse"]["launches_note"] = (f"ring attention's chunk_step_flash over "
+                                              f"{RING_CHUNKS[1]}-key chunks at 32K")
+    stream_rows[1]["launches"] = k1_ring
+    stream_rows[1]["launches_note"] = (f"ring attention's chunk_step_flash over "
+                                       f"{RING_CHUNKS[0]}-key chunks at 32K")
+    if not (stream_rows[0]["launches"] and k10_ring and k1_ring):
+        raise AssertionError("flash_attention_stream or an lse instance: no launch on its path")
+    rows += [tiled, tiled_moe, widen] + grad_rows + stream_rows + mask_rows + probe_rows
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

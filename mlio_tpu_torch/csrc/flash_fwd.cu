@@ -1,13 +1,16 @@
-// K1: flash attention forward (prefill) for Hopper, with dropout and with the
-// log-sum-exp; and K9, the same function over an INT8 K/V cache.
+// K1: flash attention forward (prefill) for Hopper, with a user mask, with
+// dropout and with the log-sum-exp; and K9, the same function over an INT8
+// K/V cache, with a key mask and the log-sum-exp.
 //
 // K1 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (:37, its
-// pallas_call at :867): the path without a user mask, dropout (:140-150) and
-// the lse output (return_stats, :531-535) included. q [B, Sq, Hq, D], k/v
-// [B, Skv, Hkv, D] in the bshd layout, out [B, Sq, Hq, D]:
+// pallas_call at :867): the key and full user masks (mask_kind, :124-130),
+// dropout (:140-150) and the lse output (return_stats, :531-535), alone or
+// together, and the q, kv and out layouts (:541-548, :881-887). q
+// [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] (bshd, or bhsd by strides), out
+// [B, Sq, Hq, D]:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
-// over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
-// valid key gives 0.
+// over keys j < kv_len[b], when causal j <= i + q_offset, and where the mask
+// is nonzero. A row with no valid key gives 0 (and lse -inf).
 //
 // Bound, on the H100 SXM: at GPT-2 small's prefill (8 x 704 queries against
 // a 1024-slot cache holding 704 tokens, 12 heads of 64, causal) 6.1 GFLOP
@@ -20,8 +23,9 @@
 // (WMMA through shared memory) ran 5.3x SDPA at GPT-2's prefill.
 //
 // K9 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq (:199,
-// pallas_call :837): k/v int8 [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv]
-// per (token, head). It is the kQuant instance of the same kernel
+// pallas_call :837; its key mask :271-273 and with_stats :297-301): k/v
+// int8 [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv] per (token, head),
+// in either layout by strides. It is the kQuant instance of the same kernel
 // (flash_fwd.cuh): int8 tiles through a ring of raw tiles, widened exactly
 // to bf16 into the swizzled K and V slots under the products, the K scale
 // on the fp32 score and the V scale on p before its bf16 rounding, as the
@@ -30,46 +34,35 @@
 // bytes, by a little.
 #include "flash_fwd.cuh"
 
-// q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. kv_len
-// is a [B] int32 device array, or null to use kv_len_scalar for every
-// sequence. D in {64, 128}; Hq a multiple of Hkv. drop_rate > 0 takes the
-// dropout instance, with the seed drop_seed (an int32) and drop_inv_keep =
-// 1 / (1 - drop_rate).
-extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                              const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv,
-                              int Hq, int Hkv, int D, int q_offset, float scale, int causal,
-                              int drop_seed, float drop_rate, float drop_inv_keep,
-                              void* stream) {
+// K1 and K9, every instance. q [B, Sq, Hq, D] bf16; k, v [B, Skv, Hkv, D]
+// bf16, or int8 with fp32 scales k_scale, v_scale [B, Skv, Hkv] (K9; else
+// null); out [B, Sq, Hq, D] bf16; lse [B, Hq, Sq] fp32, or null for the
+// instances without it; kv_len a [B] int32 device array, or null to use
+// kv_len_scalar for every sequence; mask the user mask (nonzero = attend), or
+// null: [B, Skv] or [B, Hm, Sq, Skv] bytes. Every tensor may lie in either
+// layout: strides (a host array of 15) gives the batch, row and head strides
+// in elements of q, of k and v (the same), of the scales, of out and of the
+// mask (no row or head stride for a key mask, no head stride where Hm is 1).
+// The head dim is contiguous; q, k and v start 16-byte aligned and their
+// other strides are multiples of 16 bytes. D in {64, 128}; Hq a multiple of
+// Hkv. drop_rate > 0 takes the dropout instance (not over an INT8 cache),
+// with the seed drop_seed (an int32) and drop_inv_keep = 1 / (1 - drop_rate).
+extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, const float* k_scale,
+                              const float* v_scale, const unsigned char* mask, void* out,
+                              float* lse, const int* kv_len, const long long* strides,
+                              int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                              int q_offset, float scale, int causal, int drop_seed,
+                              float drop_rate, float drop_inv_keep, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const flash::Dropout drop{static_cast<uint32_t>(drop_seed), drop_rate, drop_inv_keep};
-  return flash::launch_fwd<false>(q, k, v, out, nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq,
-                                  Hkv, D, q_offset, scale, causal, drop,
-                                  static_cast<cudaStream_t>(stream));
-}
-
-// K9: as mlio_flash_fwd with k, v int8 [B, Skv, Hkv, D] and their fp32
-// scales k_scale, v_scale [B, Skv, Hkv], contiguous; no dropout.
-extern "C" int mlio_flash_fwd_kvq(const void* q, const void* k, const void* v,
-                                  const float* k_scale, const float* v_scale, void* out,
-                                  const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv,
-                                  int Hq, int Hkv, int D, int q_offset, float scale, int causal,
-                                  void* stream) {
-  if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash::launch_fwd_kvq(q, k, v, k_scale, v_scale, out, kv_len, kv_len_scalar, B, Sq, Skv,
-                               Hq, Hkv, D, q_offset, scale, causal,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// K1 with the log-sum-exp: as mlio_flash_fwd without dropout, and also
-// lse[b, h, i] = m + log(l) fp32 [B, Hq, Sq] (-inf for a row with no valid
-// key), the kLse instance K13a runs (flash_bwd.cu), here with kv_len and
-// q_offset: flash_attention(..., return_stats=True) on K1's route.
-extern "C" int mlio_flash_fwd_stats(const void* q, const void* k, const void* v, void* out,
-                                    float* lse, const int* kv_len, int kv_len_scalar, int B,
-                                    int Sq, int Skv, int Hq, int Hkv, int D, int q_offset,
-                                    float scale, int causal, void* stream) {
-  if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  return flash::launch_fwd<true>(q, k, v, out, lse, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
-                                 D, q_offset, scale, causal, flash::Dropout{0u, 0.f, 1.f},
-                                 static_cast<cudaStream_t>(stream));
+  using flash::Strides;
+  const long long* t = strides;
+  const flash::FwdArgs a{static_cast<const __nv_bfloat16*>(q), k, v,
+                         static_cast<__nv_bfloat16*>(out), lse, k_scale, v_scale, kv_len, mask,
+                         Strides{t[0], t[1], t[2]}, Strides{t[3], t[4], t[5]},
+                         Strides{t[6], t[7], t[8]}, Strides{t[9], t[10], t[11]},
+                         Strides{t[12], t[13], t[14]}, kv_len_scalar, B, Sq, Skv, Hq, Hkv,
+                         q_offset, causal, 0, scale,
+                         flash::Dropout{static_cast<uint32_t>(drop_seed), drop_rate,
+                                        drop_inv_keep}};
+  return flash::launch_fwd_args(a, D, static_cast<cudaStream_t>(stream));
 }

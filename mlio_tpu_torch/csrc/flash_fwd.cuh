@@ -1,21 +1,25 @@
 // The bf16 flash attention forward on Hopper's warpgroup products: K1
-// (flash_fwd.cu: mlio_flash_fwd, with dropout, and mlio_flash_fwd_stats),
-// K13a, its instance with the log-sum-exp (flash_bwd.cu: mlio_flash_fwd_lse),
-// and K9, its instance over an INT8 K/V cache (flash_fwd.cu:
-// mlio_flash_fwd_kvq). Also the tile helpers that K13b and K13c
-// (flash_bwd.cu) share with it.
+// (flash_fwd.cu: mlio_flash_fwd, with a user mask, dropout and the
+// log-sum-exp, alone or together), K13a, its instance with the log-sum-exp
+// (flash_bwd.cu: mlio_flash_fwd_lse), and K9, its instance over an INT8 K/V
+// cache (mlio_flash_fwd with scales; a key mask, the lse). Also the tile
+// helpers that K13b and K13c (flash_bwd.cu) share with it.
 //
 // Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel (:37, its
 // pallas_call at :867), mlio_tpu/ops/flash_attention_grad.py::
 // _fwd_lse_kernel (:49, pallas_call :285) and mlio_tpu/ops/
 // flash_attention.py::_flash_fwd_kernel_kvq (:199, pallas_call :837). q
-// [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] bf16 in the bshd layout, out
-// [B, Sq, Hq, D]:
+// [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] bf16, out [B, Sq, Hq, D], each read
+// or written by its (batch, row, head) strides (FwdArgs' Strides), so the
+// bshd and bhsd layouts take the same code and no relayout:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
-// over keys j < kv_len[b] and, when causal, j <= i + q_offset. A row with no
-// valid key gives 0 (and lse -inf). kLse also writes lse[b, h, i] = m +
-// log(l) fp32. kDrop: post-softmax dropout (dropout.cuh): the kept p are
-// scaled by 1 / (1 - rate) in the PV product only, and l keeps the true sum.
+// over keys j < kv_len[b], when causal j <= i + q_offset, and where the user
+// mask (if any) is nonzero. A row with no valid key gives 0 (and lse -inf):
+// a negative q_offset or a kv_len of 0 leaves a block no tile at all. kLse
+// also writes lse[b, h, i] = m + log(l) fp32. kDrop: post-softmax dropout
+// (dropout.cuh): the kept p are scaled by 1 / (1 - rate) in the PV product
+// only, and l keeps the true sum, so kLse's lse under dropout is the
+// undropped one (_flash_fwd_kernel :140-150).
 // kQuant (K9): k/v int8 with fp32 scales ks, vs [B, Skv, Hkv] per (token,
 // head): s = (q * scale) . k_int8 in fp32, times ks[j]; the PV product takes
 // p * vs[j] rounded to bf16 while l adds the unscaled p. The K scale goes on
@@ -55,8 +59,8 @@
 //   warpgroup owning 64 q rows, and two blocks (D 128) or three (D 64) share
 //   an SM, so one block's softmax runs while another's products fill the
 //   tensor cores.
-// - Interior tiles take no mask: the mask applies on the diagonal tile, at
-//   the kv_len tail, and nowhere else (K10's split). The kv loop stops at
+// - Interior tiles take no mask (without a user mask): the mask applies on
+//   the diagonal tile, at the kv_len tail, and nowhere else (K10's split). The kv loop stops at
 //   min(kv_len, first row + q_offset + 64), the TPU kernel's causal early
 //   exit; keys past kv_len are zero-filled by the copies, q
 //   rows past Sq are zero and not stored, so nothing is padded.
@@ -64,6 +68,24 @@
 // heads of one KV head side by side so that their K/V meet in L2. Every
 // output has one writer and every sum a fixed order: two runs give the same
 // bits.
+//
+// The user mask (_flash_fwd_kernel's mask_kind, :124-130): a key mask
+// [B, Skv] or a full one [B, Hm, Sq, Skv] of bytes, by strides (no row or
+// head stride where it has none), ANDed into the causal and kv_len tests.
+// Staging a tile of it in shared memory would cost K1 its second block an
+// SM at D 128 (two blocks fill 224 of the 227 KB), so each thread turns the
+// bytes of its own 32 elements into a 32-bit word (mask_bits' layout). Read
+// there, byte by byte while S's product runs, the mask costs more than the
+// masked softmax, so at D 128 the wide modes read a warp's bytes in full
+// 16-bit or 16-byte words one tile ahead, under the PV product, and spread
+// them by warp votes or quad shuffles (mask_word); at D 64 their registers
+// would cost the fourth block an SM, so it reads bytes (mask_bits). No byte
+// at or past Skv or past Sq is read. Under a mask every
+// tile takes the masked path (no interior shortcut: the TPU kernel's
+// full_limit = 0), whose -inf guards give a row that sees no key 0 and lse
+// -inf; the tile loop is built twice, with and without a mask, so that the
+// unmasked calls keep their registers. The mask is a runtime argument: one
+// set of instances serves calls with and without it.
 //
 // K9 (kQuant) kept the WMMA body above until it moved here; at GPT-2's
 // prefill it ran 5.3x K1. Its int8 tiles are half the bytes of K1's, but
@@ -87,6 +109,8 @@
 #include "wgmma.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -120,6 +144,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 // (PERF.md, Findings).
 template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
 
+// The element strides of a [B, S, H, D] tensor's batch, row (sequence
+// position) and head, in whatever layout it lies (bshd, or bhsd: [B, H, S,
+// D]); of a [B, S, H] scale array likewise. The head dim is contiguous.
+struct Strides {
+  long long b, s, h;
+};
+
 struct FwdArgs {
   const bf16* q;
   const void* k;  // bf16, or int8 for kQuant
@@ -129,7 +160,13 @@ struct FwdArgs {
   const float* ks;  // kQuant: the K and V scales [B, Skv, Hkv]; else null
   const float* vs;
   const int* kv_len_arr;  // [B], or null for kv_len_scalar
+  // The user mask (nonzero = attend), or null: a key mask [B, Skv] (no row
+  // or head stride) or a full mask [B, Hm, Sq, Skv] (no head stride where
+  // Hm is 1); its keys contiguous.
+  const unsigned char* mask;
+  Strides qs, kvs, ss, os, ms;  // q, k and v, the scales, out, the mask
   int kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal;
+  int mask_mode;  // MaskMode: how the mask's bytes are read (launch_fwd_args sets it)
   float scale;
   Dropout drop;
 };
@@ -156,7 +193,7 @@ struct FwdSmem {
 template <int D>
 __device__ __forceinline__ void load_q(const FwdArgs& a, bf16* sQ, int b, int h, int q_start) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
-  const size_t q_row = static_cast<size_t>(a.Hq) * D;
+  const bf16* head = a.q + b * a.qs.b + h * a.qs.h;
 #pragma unroll
   for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
     const int c = threadIdx.x + i * kWgThreads;
@@ -164,9 +201,7 @@ __device__ __forceinline__ void load_q(const FwdArgs& a, bf16* sQ, int b, int h,
     const int qr = q_start + r;
     float f[8];
     if (qr < a.Sq) {
-      load_vec(a.q + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D +
-                   cc * 8,
-               f);
+      load_vec(head + qr * a.qs.s + cc * 8, f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) f[e] *= a.scale;
     } else {
@@ -186,8 +221,7 @@ __device__ __forceinline__ void load_kv(const FwdArgs& a, bf16* sK, bf16* sV, in
                                         int b, int hk, int kvl) {
   constexpr int CPR = D / 8;
   if (j < n_tiles) {
-    const size_t kv_row = static_cast<size_t>(a.Hkv) * D;
-    const size_t base = static_cast<size_t>(b) * a.Skv * kv_row + static_cast<size_t>(hk) * D;
+    const long long base = b * a.kvs.b + hk * a.kvs.h;
     bf16* k_t = sK + (j % kStages) * BT * D;
     bf16* v_t = sV + (j % kStages) * BT * D;
 #pragma unroll
@@ -196,7 +230,7 @@ __device__ __forceinline__ void load_kv(const FwdArgs& a, bf16* sK, bf16* sV, in
       const int r = c / CPR, cc = c % CPR;
       const int t = j * BT + r;
       const bool ok = t < kvl;
-      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 8;
+      const long long off = base + (ok ? t * a.kvs.s : 0) + cc * 8;
       cp_async16(at_sw128(k_t, r, cc * 8), static_cast<const bf16*>(a.k) + off, ok);
       cp_async16(at_sw128(v_t, r, cc * 8), static_cast<const bf16*>(a.v) + off, ok);
     }
@@ -217,21 +251,20 @@ __device__ __forceinline__ void load_raw(const FwdArgs& a, unsigned char* raw, i
   constexpr int CPR = D / 16;  // 16-byte chunks of an int8 row
   if (j < n_tiles) {
     unsigned char* t_ = raw + (j % kStages) * S::kRawTile;
-    const size_t kv_row = static_cast<size_t>(a.Hkv) * D;
-    const size_t base = static_cast<size_t>(b) * a.Skv * kv_row + static_cast<size_t>(hk) * D;
+    const long long base = b * a.kvs.b + hk * a.kvs.h;
 #pragma unroll
     for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
       const int c = threadIdx.x + i * kWgThreads;
       const int r = c / CPR, cc = c % CPR;
       const int t = j * BT + r;
       const bool ok = t < kvl;
-      const size_t off = base + (ok ? static_cast<size_t>(t) * kv_row : 0) + cc * 16;
+      const long long off = base + (ok ? t * a.kvs.s : 0) + cc * 16;
       cp_async16(t_ + c * 16, static_cast<const int8_t*>(a.k) + off, ok);
       cp_async16(t_ + BT * D + c * 16, static_cast<const int8_t*>(a.v) + off, ok);
     }
     const int t = j * BT + threadIdx.x % BT;
     const bool ok = t < kvl;
-    const size_t si = ok ? (static_cast<size_t>(b) * a.Skv + t) * a.Hkv + hk : 0;
+    const long long si = ok ? b * a.ss.b + t * a.ss.s + hk * a.ss.h : 0;
     cp_async4(t_ + S::kRawScales + threadIdx.x * 4, (threadIdx.x < BT ? a.ks : a.vs) + si, ok);
   }
   cp_commit();
@@ -293,15 +326,139 @@ struct FwdRows {
   float m[2], l[2];   // running max, and this thread's part of the row sum
 };
 
+// How a tile's mask bytes are read. kMaskKey: the mask has no row stride (a
+// key mask), and its address, batch and head strides and Skv are even: lane
+// l of a warp reads the 16-bit word of columns 2l and 2l + 1, and two warp
+// votes spread the tile's 64 columns to every thread. kMaskFull: the
+// address, the strides and Skv are multiples of 16: thread t4 of a quad
+// reads 16 bytes of each of its two rows (columns 16 t4 .. 16 t4 + 15), and
+// four shuffles within the quad spread them. Both read a tile ahead
+// (kMaskAhead). Otherwise, and at D 64, each thread reads the bytes of its
+// own columns while S runs (mask_bits).
+enum MaskMode : int { kMaskBytes = 0, kMaskKey = 1, kMaskFull = 2 };
+
+// Whether the wide modes read a tile ahead. At D 64 their code took K1 from
+// 128 registers a thread (four blocks an SM) to over 150 (three), and its
+// unmasked calls with it: there every mask takes mask_bits.
+template <int D> constexpr bool kMaskAhead = D == 128;
+
+// The user mask as this thread reads it: its rows g and g + 8 of its warp's
+// 16 (null where a row lies past Sq, so that no byte past the mask is read;
+// one pointer for both rows under a key mask), and the row-independent base
+// of a key mask.
+struct MaskRows {
+  const unsigned char* key;
+  const unsigned char* r0;
+  const unsigned char* r1;
+};
+
+// The user mask's bits of this thread's elements of a tile, as keep_bits
+// lays them out: bit 4n + 2i + e for row g + 8i and column c0 + 8n + e (c0 =
+// the tile's first key + 2 (lane % 4)). A column at or past kvl gets 0 and
+// its byte is not read (kvl <= Skv).
+template <int NT>
+__device__ __forceinline__ uint32_t mask_bits(const MaskRows& mr, int c0, int kvl) {
+  static_assert(NT <= 8, "32 bits");
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const unsigned char* r = i ? mr.r1 : mr.r0;
+    if (i == 1 && r == mr.r0) {  // a key mask: row g + 8 sees row g's keys
+      bits |= (bits & 0x33333333u) << 2;
+      break;
+    }
+    if (r == nullptr) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = c0 + 8 * n;
+      if (col >= kvl) continue;
+      const uint32_t two =
+          (__ldg(r + col) != 0) | ((col + 1 < kvl && __ldg(r + col + 1) != 0) << 1);
+      bits |= two << (4 * n + 2 * i);
+    }
+  }
+  return bits;
+}
+
+// A tile's mask bytes in flight (the wide modes): kMaskKey the 16-bit word
+// in raw0.x, kMaskFull the 16 bytes of each row.
+struct MaskRaw {
+  uint4 raw0, raw1;
+};
+
+// Start reading the mask bytes of the tile at column c0 (kMaskKey,
+// kMaskFull). No byte at or past Skv is read: Skv is even (kMaskKey) or a
+// multiple of 16 (kMaskFull), so a word that starts below it ends below it.
+__device__ __forceinline__ MaskRaw mask_load(const FwdArgs& a, const MaskRows& mr, int c0) {
+  const int lane = threadIdx.x % 32;
+  MaskRaw m{make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+  if (a.mask_mode == kMaskKey) {
+    const int col = c0 + 2 * lane;
+    if (col < a.Skv) m.raw0.x = __ldg(reinterpret_cast<const unsigned short*>(mr.key + col));
+  } else {
+    const int col = c0 + 16 * (lane % 4);
+    if (col < a.Skv) {
+      if (mr.r0 != nullptr) m.raw0 = __ldg(reinterpret_cast<const uint4*>(mr.r0 + col));
+      if (mr.r1 != nullptr) m.raw1 = __ldg(reinterpret_cast<const uint4*>(mr.r1 + col));
+    }
+  }
+  return m;
+}
+
+// Bit b of the result: byte b of the 16 is nonzero. Each byte's 0 or 1
+// multiplied into bits 24-27 of its word (no two partial products meet
+// there, and none carries into them).
+__device__ __forceinline__ uint32_t kept16(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    bits |= (((__vcmpne4(w[k], 0u) & 0x01010101u) * 0x01020408u) >> 24) << (4 * k);
+  return bits;
+}
+
+// mask_bits' word from the bytes m of a wide mode (every lane of the warp
+// takes part). Columns at or past kvl may hold anything: the kv_len test
+// masks them.
+__device__ __forceinline__ uint32_t mask_word(const FwdArgs& a, const MaskRaw& m) {
+  const int lane = threadIdx.x % 32, t4 = lane % 4;
+  if (a.mask_mode == kMaskKey) {
+    // lane t4 + 4n holds columns 2 t4 + 8n + {0, 1}: bit t4 + 4n of each vote
+    const uint32_t v0 = __ballot_sync(0xffffffffu, (m.raw0.x & 0xffu) != 0);
+    const uint32_t v1 = __ballot_sync(0xffffffffu, (m.raw0.x & 0xff00u) != 0);
+    const uint32_t x = ((v0 >> t4) & 0x11111111u) | (((v1 >> t4) & 0x11111111u) << 1);
+    return x | (x << 2);  // row g + 8 sees row g's keys
+  }
+  // column 16 o + b of the quad's rows lies with thread o, as bit b (row g)
+  // and 16 + b (row g + 8) of its word
+  const uint32_t own = kept16(m.raw0) | (kept16(m.raw1) << 16);
+  uint32_t w[4];
+#pragma unroll
+  for (int o = 0; o < 4; ++o) w[o] = __shfl_sync(0xffffffffu, own, (lane & ~3) | o);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int n = 0; n < BT / 8; ++n) {
+    const uint32_t x = w[n >> 1] >> (8 * (n & 1) + 2 * t4);
+    bits |= ((x & 3u) << (4 * n)) | (((x >> 16) & 3u) << (4 * n + 2));
+  }
+  return bits;
+}
+
 // One K/V tile for the warpgroup's 64 rows: S = (q * scale) K^T (64 x 64, q
 // and K from shared memory), the online softmax on the accumulators, O += P V
 // with p repacked in registers and V MN-major from shared memory. kQuant
 // (qt): V of this tile is widened while S runs and K of the next while
 // O += P V runs; S takes the K scales, the PV operand p the V scales.
-template <int D, bool kDrop, bool kQuant, bool kMasked>
+// kMasked: the causal and kv_len tests. kUser (a user mask, every tile
+// kMasked): the mask's bits of this tile, while S runs. In a wide mode at D
+// 128 its bytes were read a tile earlier (m): those of the tile at column
+// next_c0 (none if negative) are started while O += P V runs, so that m
+// lives outside the softmax, where the registers are fullest.
+template <int D, bool kDrop, bool kQuant, bool kMasked, bool kUser>
 __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const bf16* q_t,
                                          const bf16* k_t, const bf16* v_t, int kv0, int row_abs0,
-                                         int kvl, uint32_t seed, const QuantTile& qt) {
+                                         int kvl, uint32_t seed, const QuantTile& qt,
+                                         const MaskRows& mr, MaskRaw& m, int next_c0) {
   using Sm = FwdSmem<D, kQuant>;
   const int t4 = threadIdx.x % 4;
   float s[BT / 8][4];
@@ -310,9 +467,17 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss_n64(s, kmajor(q_t, 0, 16 * kk), kmajor(k_t, 0, 16 * kk), kk > 0);
   wgmma_commit();
-  // the dropout keep bits, or V's widening, while the product runs
+  // the dropout keep bits, the user mask's bits, or V's widening, while the
+  // product runs
   const uint32_t keep =
       kDrop ? keep_bits<BT / 8, true>(kv0 + 2 * t4, row_abs0, seed, a.drop.rate) : 0u;
+  uint32_t user = ~0u;
+  if constexpr (kUser) {
+    if (kMaskAhead<D> && a.mask_mode >= kMaskKey)
+      user = mask_word(a, m);
+    else
+      user = mask_bits<BT / 8>(mr, kv0 + 2 * t4, kvl);
+  }
   if constexpr (kQuant) widen_raw<D>(qt.raw + BT * D, qt.v);
   wgmma_wait<0>();
   fence_regs(s);
@@ -341,7 +506,9 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = kv0 + n * 8 + 2 * t4 + e;
-          if (!(col < kvl && (!a.causal || row_abs >= col))) s[n][2 * i + e] = -INFINITY;
+          if (!(col < kvl && (!a.causal || row_abs >= col) &&
+                ((user >> (4 * n + 2 * i + e)) & 1u)))
+            s[n][2 * i + e] = -INFINITY;
         }
       }
     }
@@ -403,6 +570,9 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs<D, 1>(st.o, pa[kk], mnmajor(v_t, 16 * kk), 1);
   wgmma_commit();
+  if constexpr (kUser && kMaskAhead<D>) {
+    if (a.mask_mode >= kMaskKey && next_c0 >= 0) m = mask_load(a, mr, next_c0);
+  }
   if constexpr (kQuant) {
     if (qt.next != nullptr) {
       cp_wait<kStages - 2>();  // this thread's copies of the next raw tile landed
@@ -468,39 +638,59 @@ flash_fwd_kernel(const FwdArgs a) {
   st.m[0] = st.m[1] = -INFINITY;
   st.l[0] = st.l[1] = 0.f;
   const int row_abs0 = first_row + warp * 16 + g;
-
   // Groups in flight at the top of tile j: tile j and tile j + 1 (and older,
   // complete ones). wait_group 1 leaves tile j + 1 pending.
   // kQuant: the raw groups in flight at the top of tile j are tiles j + 1
   // and j + 2; fwd_tile widens K_{j + 1} after wait_group 1, and raw tile
   // j + 3 goes into tile j's slot once fwd_tile's last barrier has passed.
-  for (int j = 0; j < n_tiles; ++j) {
-    const bf16* k_t = sK;
-    const bf16* v_t = sV;
-    QuantTile qt{};
-    if constexpr (kQuant) {
-      qt = QuantTile{raw + (j % kStages) * S::kRawTile,
-                     j + 1 < n_tiles ? raw + ((j + 1) % kStages) * S::kRawTile : nullptr, sK, sV};
-    } else {
-      cp_wait<1>();
-      fence_proxy_async();
-      // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
-      __syncthreads();
-      load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
-      k_t = sK + (j % kStages) * BT * D;
-      v_t = sV + (j % kStages) * BT * D;
+  // The loop is built twice: with a user mask (every tile masked: no
+  // interior shortcut, the TPU kernel's full_limit = 0; its bytes read a
+  // tile ahead) and without, whose registers the mask's do not touch.
+  MaskRows mr{nullptr, nullptr, nullptr};
+  MaskRaw mraw{};
+  auto tiles = [&](auto user_tag) {
+    constexpr bool kUser = decltype(user_tag)::value;
+    for (int j = 0; j < n_tiles; ++j) {
+      const bf16* k_t = sK;
+      const bf16* v_t = sV;
+      QuantTile qt{};
+      if constexpr (kQuant) {
+        qt = QuantTile{raw + (j % kStages) * S::kRawTile,
+                       j + 1 < n_tiles ? raw + ((j + 1) % kStages) * S::kRawTile : nullptr, sK,
+                       sV};
+      } else {
+        cp_wait<1>();
+        fence_proxy_async();
+        // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
+        __syncthreads();
+        load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
+        k_t = sK + (j % kStages) * BT * D;
+        v_t = sV + (j % kStages) * BT * D;
+      }
+      const int next_c0 = j + 1 < n_tiles ? (j + 1) * BT : -1;
+      if (!kUser && j < n_full)
+        fwd_tile<D, kDrop, kQuant, false, false>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed,
+                                                 qt, mr, mraw, next_c0);
+      else
+        fwd_tile<D, kDrop, kQuant, true, kUser>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed,
+                                                qt, mr, mraw, next_c0);
+      if constexpr (kQuant) load_raw<D>(a, raw, j + kStages, n_tiles, b, hk, kvl);
     }
-    if (j < n_full)
-      fwd_tile<D, kDrop, kQuant, false>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed, qt);
-    else
-      fwd_tile<D, kDrop, kQuant, true>(a, st, sQ, k_t, v_t, j * BT, row_abs0, kvl, seed, qt);
-    if constexpr (kQuant) load_raw<D>(a, raw, j + kStages, n_tiles, b, hk, kvl);
+  };
+  if (a.mask != nullptr) {
+    const int qr0 = q_start + warp * 16 + g;
+    mr.key = a.mask + b * a.ms.b + h * a.ms.h;
+    mr.r0 = qr0 < a.Sq ? mr.key + qr0 * a.ms.s : nullptr;
+    mr.r1 = qr0 + 8 < a.Sq ? mr.key + (qr0 + 8) * a.ms.s : nullptr;
+    if (kMaskAhead<D> && a.mask_mode >= kMaskKey && n_tiles > 0) mraw = mask_load(a, mr, 0);
+    tiles(std::true_type{});
+  } else {
+    tiles(std::false_type{});
   }
   cp_wait<0>();
 
   // out = O / l, rounded to bf16, and lse = m + log(l); rows past Sq are not
   // stored.
-  const size_t q_row = static_cast<size_t>(a.Hq) * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = st.l[i];
@@ -509,8 +699,7 @@ flash_fwd_kernel(const FwdArgs a) {
     const int qr = q_start + warp * 16 + g + 8 * i;
     if (qr < a.Sq) {
       const float l_safe = (l == 0.f) ? 1.f : l;
-      bf16* orow =
-          a.out + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
+      bf16* orow = a.out + b * a.os.b + qr * a.os.s + h * a.os.h;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
@@ -536,19 +725,48 @@ cudaError_t launch_fwd_d(const FwdArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The instance for head dim D (64 or 128), with dropout where drop.rate > 0.
-// q, out [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D], contiguous bf16; kv_len a
-// [B] int32 device array, or null to use kv_len_scalar for every sequence;
-// lse [B, Hq, Sq] fp32 for kLse.
+// The instance for head dim D of the call a: kQuant where a.ks is set, kLse
+// where a.lse is, kDrop where a.drop.rate > 0 (not with kQuant).
+template <int D>
+cudaError_t launch_fwd_instance(const FwdArgs& a, cudaStream_t s) {
+  const bool lse = a.lse != nullptr, dropping = a.drop.rate > 0.f;
+  if (a.ks != nullptr) {
+    if (dropping) return cudaErrorInvalidValue;
+    return lse ? launch_fwd_d<D, false, true, true>(a, s)
+               : launch_fwd_d<D, false, false, true>(a, s);
+  }
+  if (dropping) return lse ? launch_fwd_d<D, true, true>(a, s) : launch_fwd_d<D, true, false>(a, s);
+  return lse ? launch_fwd_d<D, false, true>(a, s) : launch_fwd_d<D, false, false>(a, s);
+}
+
+// Any call of K1 or K9 (a's tensors by their strides), D 64 or 128.
+inline cudaError_t launch_fwd_args(FwdArgs a, int D, cudaStream_t s) {
+  if (a.Hkv <= 0 || a.Hq % a.Hkv || a.Skv < 0) return cudaErrorInvalidValue;
+  const long long at = reinterpret_cast<uintptr_t>(a.mask) | a.ms.b | a.ms.h | a.ms.s | a.Skv;
+  a.mask_mode = (at & 1) != 0    ? kMaskBytes
+                : a.ms.s == 0    ? kMaskKey
+                : (at & 15) == 0 ? kMaskFull
+                                 : kMaskBytes;
+  if (D == 64) return launch_fwd_instance<64>(a, s);
+  if (D == 128) return launch_fwd_instance<128>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+// K13a's call (flash_bwd.cu): q, out [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D],
+// contiguous bf16; kv_len a [B] int32 device array, or null to use
+// kv_len_scalar for every sequence; lse [B, Hq, Sq] fp32; no user mask. Only
+// the bf16 instances with the lse are built where it is called.
 template <bool kLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                        const int* kv_len, int kv_len_scalar, int B, int Sq, int Skv, int Hq,
                        int Hkv, int D, int q_offset, float scale, int causal, Dropout drop,
                        cudaStream_t s) {
   if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  const Strides qs{static_cast<long long>(Sq) * Hq * D, static_cast<long long>(Hq) * D, D};
+  const Strides kvs{static_cast<long long>(Skv) * Hkv * D, static_cast<long long>(Hkv) * D, D};
   const FwdArgs a{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(out), lse, nullptr,
-                  nullptr, kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale,
-                  drop};
+                  nullptr, kv_len, nullptr, qs, kvs, Strides{0, 0, 0}, qs, Strides{0, 0, 0},
+                  kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, 0, scale, drop};
   const bool dropping = drop.rate > 0.f;
   if (D == 64) {
     if (dropping) return launch_fwd_d<64, true, kLse>(a, s);
@@ -558,21 +776,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, f
     if (dropping) return launch_fwd_d<128, true, kLse>(a, s);
     return launch_fwd_d<128, false, kLse>(a, s);
   }
-  return cudaErrorInvalidValue;
-}
-
-// K9: k, v int8 [B, Skv, Hkv, D] with fp32 scales ks, vs [B, Skv, Hkv],
-// contiguous; otherwise as launch_fwd without dropout or lse.
-inline cudaError_t launch_fwd_kvq(const void* q, const void* k, const void* v, const float* ks,
-                                  const float* vs, void* out, const int* kv_len,
-                                  int kv_len_scalar, int B, int Sq, int Skv, int Hq, int Hkv,
-                                  int D, int q_offset, float scale, int causal, cudaStream_t s) {
-  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
-  const FwdArgs a{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(out), nullptr, ks, vs,
-                  kv_len, kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale,
-                  Dropout{0u, 0.f, 1.f}};
-  if (D == 64) return launch_fwd_d<64, false, false, true>(a, s);
-  if (D == 128) return launch_fwd_d<128, false, false, true>(a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,7 @@
 // Replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_stream_kernel (its
 // pallas_call at :657), the JAX package's forward once one head's K/V pass
 // its VMEM budget. q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] in the bshd layout,
-// out [B, Sq, Hq, D]:
+// out [B, Sq, Hq, D] in the bshd or the bhsd layout (out_layout, :690-696):
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] * scale) @ v[b, j, h/G]
 // over keys j < kv_len[b] and, when causal, j <= i + q_offset; a row with no
 // valid key gives 0. The kLse instance also writes lse[b, h, i] = m + log(l)
@@ -129,6 +129,7 @@ struct Args {
   const int* kv_len_arr;
   int kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset, causal;
   float scale;
+  long long out_b, out_s, out_h;  // out's batch, row and head strides (bshd or bhsd)
 };
 
 // q as [B * Sq, Hq * D] in [64 x 64] boxes; k and v as [B, Skv, Hkv * D] in
@@ -412,7 +413,6 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
 
   // out = O / l, rounded to bf16 (0 for a row with no valid key), and
   // lse = m + log(l); rows past Sq are not stored.
-  const size_t q_row = static_cast<size_t>(a.Hq) * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float lt = l[i];
@@ -421,8 +421,7 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
     const int qr = row0 + warp * 16 + g + 8 * i;
     if (qr < a.Sq) {
       const float l_safe = (lt == 0.f) ? 1.f : lt;
-      bf16* orow =
-          a.out + (static_cast<size_t>(b) * a.Sq + qr) * q_row + static_cast<size_t>(h) * D;
+      bf16* orow = a.out + b * a.out_b + qr * a.out_s + h * a.out_h;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
@@ -512,19 +511,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, c
 
 }  // namespace stream
 
-// q, out: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. lse is
-// an fp32 [B, Hq, Sq] output, or null for the instance without it. kv_len is
-// a [B] int32 device array, or null to use kv_len_scalar for every sequence.
-// D in {64, 128}; Hq a multiple of Hkv.
+// q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], all contiguous bf16. out: bf16
+// [B, Sq, Hq, D] in either layout, its batch, row and head strides (in
+// elements) out_b, out_s, out_h: bhsd ([B, Hq, Sq, D]) is the one ring
+// attention merges, head-major. lse is an fp32 [B, Hq, Sq] output, or null
+// for the instance without it. kv_len is a [B] int32 device array, or null
+// to use kv_len_scalar for every sequence. D in {64, 128}; Hq a multiple of
+// Hkv. A negative q_offset or a kv_len of 0 leaves a block no tile: its rows
+// give 0 and lse -inf.
 extern "C" int mlio_flash_stream(const void* q, const void* k, const void* v, void* out,
                                  float* lse, const int* kv_len, int kv_len_scalar, int B, int Sq,
                                  int Skv, int Hq, int Hkv, int D, int q_offset, float scale,
-                                 int causal, void* stream) {
+                                 int causal, long long out_b, long long out_s, long long out_h,
+                                 void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || Skv < 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const stream::Args a{static_cast<__nv_bfloat16*>(out), lse, kv_len, kv_len_scalar, B, Sq, Skv,
-                       Hq, Hkv, q_offset, causal, scale};
+                       Hq, Hkv, q_offset, causal, scale, out_b, out_s, out_h};
   if (D == 64) return stream::launch<64>(q, k, v, a, s);
   if (D == 128) return stream::launch<128>(q, k, v, a, s);
   return cudaErrorInvalidValue;

@@ -35,8 +35,12 @@ kernels without a backward (K2, K5, K11, K12, the decode kernels) raise
 under autograd, as the JAX package cannot differentiate them either
 (``runtime/train.py``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: ring
-attention.
+``Impl(attention="ring")`` attends through ``ops.attention``'s ring route
+(``ops/ring_attention.py``, chunks of ``ring_chunk`` keys): on the card its
+single-device fold is one ``flash_attention`` call, the flash route's own
+(K1, or K10 past its threshold), so a ring prefill gives the flash route's
+bits; on the CPU the fp32 chunk walk. As in the JAX package, every route
+but "dense" decodes a single token on the decode kernels (``decode_route``).
 """
 from __future__ import annotations
 
@@ -63,10 +67,10 @@ class Impl:
 
     ``block_q``, ``block_kv`` and ``interpret`` are the TPU kernels' tile
     and interpreter knobs; the CUDA kernels choose their own tiles and the
-    port ignores them. ``ring_chunk`` belongs to ring attention, not ported
-    yet. ``moe`` picks the MoE method ("ragged", "dense" or "dispatch",
-    ``ops/moe.py``) of the prefill and the scan decode, and
-    ``moe_capacity_factor`` the dispatch's capacity.
+    port ignores them. ``ring_chunk`` is ring attention's chunk of keys
+    (``ops/ring_attention.py``). ``moe`` picks the MoE method ("ragged",
+    "dense" or "dispatch", ``ops/moe.py``) of the prefill and the scan
+    decode, and ``moe_capacity_factor`` the dispatch's capacity.
     """
 
     attention: str = "dense"  # "dense" | "flash" | "ring"

@@ -2,8 +2,9 @@
 (``mlio_tpu/ops/__init__.py``).
 
 ``attention`` and ``norm`` route to the hand-written kernels (K1, K10 for
-long K/V, or K9 over an INT8 cache, and for a training-shaped call K1 or K10
-with K13 as its backward; K2) or to the dense references; ``mlp`` to the fused
+long K/V, or K9 over an INT8 cache; for a training-shaped call K1 or K10
+with K13 as its backward; ring attention's chunk walk, on the card one K1
+or K10 call; K2) or to the dense references; ``mlp`` to the fused
 MLP kernel (K11) or the dense reference, and with quantized weights to the
 dequant-fused matmul (K5) for each projection; ``fused_ln_qkv`` to the fused norm+QKV kernel (K12), or
 with quantized weights to a norm and K5 three times; ``moe_mlp`` to the
@@ -23,8 +24,9 @@ from mlio_tpu_torch.ops import ln_qkv as _ln_qkv
 from mlio_tpu_torch.ops import moe as _moe
 from mlio_tpu_torch.ops import norms as _norms
 from mlio_tpu_torch.ops import quant as _quant
+from mlio_tpu_torch.ops import ring_attention as _ring
 from mlio_tpu_torch.ops.flash_attention_grad import flash_attention_diff, flash_attention_vjp
-from mlio_tpu_torch.ops.quant import QTensor, dequantize
+from mlio_tpu_torch.ops.quant import QTensor, dequantize, dequantize_kv
 from mlio_tpu_torch.ops.reference import (
     activate,
     attention_reference,
@@ -34,35 +36,69 @@ from mlio_tpu_torch.ops.reference import (
 )
 
 
-def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, k_scale=None,
-              v_scale=None, impl=None, dropout_rate=0.0, dropout_seed=0, return_probs=False):
+def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, mask=None, bias=None,
+              k_scale=None, v_scale=None, impl=None, kv_layout="bshd", dropout_rate=0.0,
+              dropout_seed=0, return_probs=False):
     """Multi-head attention. q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → [B,Sq,Hq,D].
     With ``k_scale``/``v_scale`` [B,Skv,Hkv] k/v are an INT8 cache: K9 on
     the flash route, a dense fp32 dequantize on the dense one.
+    ``kv_layout="bhsd"``: k/v (and scales) arrive as [B,Hkv,Skv,D] and
+    [B,Hkv,Skv]. ``mask``: a user mask (nonzero = attend; the shapes of
+    ``reference.canonicalize_mask``). ``bias``: added to the scores (the
+    dense reference only).
 
-    A training-shaped flash call (no ``kv_len``, ``q_offset`` 0, no INT8
-    cache: the JAX package's condition) goes through
-    :func:`flash_attention_diff`: K1 forward (K10 for long K/V), K13
-    backward, so autograd flows through it; the cache paths take K1, K10 or
-    K9, which have no backward.
+    ``Impl(attention="flash")``: a training-shaped call (no mask, no
+    ``kv_len``, ``q_offset`` 0, no INT8 cache, the bshd layout: the JAX
+    package's condition) goes through :func:`flash_attention_diff`: K1
+    forward (K10 for long K/V), K13 backward, so autograd flows through it;
+    the rest take K1, K10 or K9, which have no backward.
+    ``Impl(attention="ring")``: :func:`~mlio_tpu_torch.ops.ring_attention.
+    chunked_ring_attention` with ``impl.ring_chunk``, an INT8 cache
+    dequantized to q's dtype first; dropout raises there, and a masked call
+    takes the dense reference, as in the JAX package.
     ``dropout_rate``/``dropout_seed``: position-hashed attention dropout
     (``ops/dropmask.py``), the same mask on every path. ``return_probs``
-    takes the dense reference and also returns the [B,Hq,Sq,Skv] softmax."""
+    takes the dense reference on every route and also returns the
+    [B,Hq,Sq,Skv] softmax.
+
+    Where the JAX package drops ``bias`` (its flash route, and its ring
+    route without a mask) the port raises ``ValueError``; where it returns
+    the ring's output alone for ``return_probs`` the port returns the dense
+    reference and the probabilities, as the docstring there promises."""
     kind = impl.attention if impl is not None else "dense"
+    if kind not in ("dense", "flash", "ring"):
+        raise ValueError(f"unknown attention implementation {kind!r}")
+    if not return_probs and bias is not None and (kind == "flash"
+                                                  or (kind == "ring" and mask is None)):
+        raise ValueError(f"attention: bias is not applied on the {kind} route (the JAX "
+                         "package drops it there); use Impl(attention='dense')")
     if kind == "flash" and not return_probs:
-        if kv_len is None and q_offset == 0 and k_scale is None:
+        if (mask is None and kv_len is None and q_offset == 0 and k_scale is None
+                and kv_layout == "bshd"):
             return flash_attention_diff(q, k, v, dropout_seed, causal=causal, scale=scale,
                                         dropout_rate=dropout_rate)
-        return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
-                                      q_offset=q_offset, kv_len=kv_len, k_scale=k_scale,
-                                      v_scale=v_scale, dropout_rate=dropout_rate,
-                                      dropout_seed=dropout_seed)
-    if kind not in ("dense", "flash"):
-        raise NotImplementedError(f"attention={kind!r} is not ported yet")
+        return _flash.flash_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                      kv_len=kv_len, mask=mask, k_scale=k_scale,
+                                      v_scale=v_scale, kv_layout=kv_layout,
+                                      dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    if kind == "ring" and mask is None and not return_probs:
+        if dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not plumbed through the ring chunk schedule; use the "
+                "flash or dense route for dropout")
+        if k_scale is not None:
+            k, v = dequantize_kv(k, k_scale, q.dtype), dequantize_kv(v, v_scale, q.dtype)
+        return _ring.chunked_ring_attention(q, k, v, causal=causal, scale=scale,
+                                            q_offset=q_offset, kv_len=kv_len,
+                                            chunk_size=impl.ring_chunk, kv_layout=kv_layout)
+    if kv_layout == "bhsd":  # the dense reference takes [B,Skv,Hkv,D]
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        if k_scale is not None:
+            k_scale, v_scale = k_scale.transpose(1, 2), v_scale.transpose(1, 2)
     return attention_reference(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale,
-                               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                               return_probs=return_probs)
+                               kv_len=kv_len, mask=mask, bias=bias, k_scale=k_scale,
+                               v_scale=v_scale, dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed, return_probs=return_probs)
 
 
 def linear(x, w, bias=None):

@@ -24,7 +24,18 @@ run the same kernel at a given shape; it is not a Hopper measurement, and
 
 ``return_stats=True`` also returns the rows' log-sum-exp of the scaled
 scores, fp32 [B, Hq, Sq] (-inf for a row with no valid key): K10's lse
-instance on its route, K1's (the ``kLse`` instance K13a shares) on K1's.
+instance on its route, K1's (the ``kLse`` instance K13a shares, with
+dropout too) on K1's, K9's over an INT8 cache.
+
+``mask``: a user mask (nonzero = attend; ``_flash_fwd_kernel``'s
+``mask_kind`` "key" [B, Skv] or "full" [B, 1|Hq, Sq, Skv], canonicalized by
+:func:`~mlio_tpu_torch.ops.reference.canonicalize_mask`). K1 (and K9, key
+masks only, as in the JAX package) read the mask's bytes of each tile while
+its S product runs and take every tile through the masked path; a masked
+call never goes to K10, whatever its length. ``q_layout``, ``kv_layout``
+and ``out_layout`` "bhsd" ([B, H, S, D], the scales [B, Hkv, Skv]) reach
+K1 and K9 as strides: nothing is relaid. K10 writes either output layout
+and relays a bhsd q or K/V (or any other strided view) once.
 
 K9 replaces ``_flash_fwd_kernel_kvq``: the same CUDA kernel instanced for
 an INT8 cache (int8 K/V, fp32 per-(token, head) scales), the dequant fused
@@ -41,10 +52,9 @@ kept probabilities scaled by 1/(1 - rate) in the PV product only, as in
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel or raise. The kernels take bf16 queries and head dims 64
-and 128; user masks are not ported yet and raise, as does ``return_stats``
-with dropout or an INT8 cache. The kernels have no backward: the wrappers
-raise when asked for a gradient (``_build.refuse_grad``); training goes
-through ``ops.attention``, whose training-shaped flash route is
+and 128. The kernels have no backward: the wrappers raise when asked for a
+gradient (``_build.refuse_grad``); training goes through ``ops.attention``,
+whose training-shaped flash route (no mask) is
 :func:`~mlio_tpu_torch.ops.flash_attention_grad.flash_attention_diff`.
 """
 from __future__ import annotations
@@ -56,9 +66,10 @@ import torch
 
 from mlio_tpu_torch.ops import _build
 from mlio_tpu_torch.ops.dropmask import dense_keep_mask
-from mlio_tpu_torch.ops.reference import attention_mask
+from mlio_tpu_torch.ops.reference import attention_mask, canonicalize_mask, user_mask
 
 _HEAD_DIMS = (64, 128)
+_LAYOUTS = ("bshd", "bhsd")
 # The JAX package's VMEM budget for one head's K and V (flash_attention's
 # ``kv_vmem_budget``), read at call time so that a test may move the route.
 KV_VMEM_BUDGET = 6 << 20
@@ -87,6 +98,23 @@ def stream_route(Skv: int, D: int, itemsize: int, *,
     return 2 * padded * lanes * itemsize > budget and padded > bkv
 
 
+def _dims(q: torch.Tensor, k: torch.Tensor, q_layout: str, kv_layout: str):
+    """(B, Sq, Hq, D, Skv, Hkv) of q and k in their layouts ("bshd", or
+    "bhsd": [B, H, S, D])."""
+    for name, layout in (("q_layout", q_layout), ("kv_layout", kv_layout)):
+        if layout not in _LAYOUTS:
+            raise ValueError(f"flash_attention: {name} must be one of {_LAYOUTS}, got {layout!r}")
+    B, Sq, Hq, D = as_bshd(q, q_layout).shape
+    _, Skv, Hkv, _ = as_bshd(k, kv_layout).shape
+    return B, Sq, Hq, D, Skv, Hkv
+
+
+def as_bshd(t, layout: str):
+    """A [B, S, H, D] view of a tensor in ``layout``; a scale [B, H, S] in
+    "bhsd" becomes a [B, S, H] view. None stays None. Nothing is copied."""
+    return t.transpose(1, 2) if t is not None and layout == "bhsd" else t
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -96,12 +124,16 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     q_offset: int = 0,
     kv_len: Union[None, int, torch.Tensor] = None,
+    mask=None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     dropout_seed=0,
     return_stats: bool = False,
     kv_vmem_budget: Optional[int] = None,
+    q_layout: str = "bshd",
+    kv_layout: str = "bshd",
+    out_layout: str = "bshd",
 ):
     """:func:`flash_attention`'s function in plain PyTorch, on the route it
     takes: K10's (:func:`flash_stream_plain`) where :func:`stream_route`
@@ -111,20 +143,24 @@ def flash_attention_plain(
     dtype before the PV product while the row sum uses fp32 p, and a row
     with no valid key gives 0. Under dropout the kept p are scaled by
     1/(1 - rate) before that rounding and the dropped ones are 0."""
+    lay = dict(q_layout=q_layout, kv_layout=kv_layout, out_layout=out_layout)
     if k_scale is not None:
         return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
-                                         q_offset=q_offset, kv_len=kv_len)
-    if dropout_rate == 0.0 and stream_route(k.shape[1], q.shape[3], k.element_size(),
-                                            kv_vmem_budget=kv_vmem_budget):
+                                         q_offset=q_offset, kv_len=kv_len, mask=mask,
+                                         return_stats=return_stats, **lay)
+    B, Sq, Hq, D, Skv, Hkv = _dims(q, k, q_layout, kv_layout)
+    if mask is None and dropout_rate == 0.0 and stream_route(Skv, D, k.element_size(),
+                                                             kv_vmem_budget=kv_vmem_budget):
         return flash_stream_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                  kv_len=kv_len, return_stats=return_stats)
+                                  kv_len=kv_len, return_stats=return_stats, **lay)
     o, lse = flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                             kv_len=kv_len, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                             kv_len=kv_len, mask=mask, dropout_rate=dropout_rate,
+                             dropout_seed=dropout_seed, **lay)
     return (o, lse) if return_stats else o
 
 
 def flash_stream_plain(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None,
-                       return_stats=False):
+                       return_stats=False, q_layout="bshd", kv_layout="bshd", out_layout="bshd"):
     """K10's function in plain PyTorch, over K/V streamed in blocks of
     :data:`STREAM_BLOCK_KV` keys, with ``_flash_fwd_stream_kernel``'s
     rounding: q * scale in fp32 rounded to q's dtype; the online (m, l, acc)
@@ -137,8 +173,9 @@ def flash_stream_plain(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=N
     the mask and the -inf guards change no value of an interior block, so
     every block is masked here. A block's scores are [B, Hq, rows, 64] for
     the rows that see one of its keys: no [B, Hq, Sq, Skv] tensor is
-    formed. Returns o [B, Sq, Hq, D] in q's dtype, and with
-    ``return_stats`` also lse fp32 [B, Hq, Sq]."""
+    formed. Returns o [B, Sq, Hq, D] in q's dtype (in ``out_layout``), and
+    with ``return_stats`` also lse fp32 [B, Hq, Sq]."""
+    q, k, v = as_bshd(q, q_layout), as_bshd(k, kv_layout), as_bshd(v, kv_layout)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -180,6 +217,7 @@ def flash_stream_plain(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=N
         m[..., r0:] = m_new
     l_safe = torch.where(l == 0, 1.0, l)
     o = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    o = as_bshd(o, out_layout)
     if not return_stats:
         return o
     lse = torch.where(l == 0, float("-inf"), torch.where(m.isneginf(), 0.0, m) + torch.log(l_safe))
@@ -198,18 +236,41 @@ def scaled_q_and_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return qs, kf, vf
 
 
-def flash_plain_lse(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None,
-                    dropout_rate=0.0, dropout_seed=0):
-    """:func:`flash_attention_plain` (bf16 K/V) and the rows' log-sum-exp of
-    the scaled scores, fp32 [B, Hq, Sq], -inf for a row with no valid key."""
+def valid_mask(B, Hq, Sq, Skv, *, causal, q_offset, kv_len, mask, device):
+    """The boolean mask (True = attend) of causality, ``kv_len`` and the
+    user mask together, broadcast against [B, Hq, Sq, Skv]; None when
+    nothing is masked. The plain versions apply it; it is also the
+    ``attn_mask`` a library call of the same function takes."""
+    valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                           device=device)
+    um = user_mask(mask, B, Hq, Sq, Skv, device)
+    if um is not None:
+        valid = um if valid is None else valid & um
+    return valid
+
+
+def _lse(m: torch.Tensor, l_safe: torch.Tensor) -> torch.Tensor:
+    """m + log(l) of the rows [..., 1], -inf for a row with no valid key."""
+    return torch.where(m.isneginf(), float("-inf"), m + torch.log(l_safe))[..., 0]
+
+
+def flash_plain_lse(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, mask=None,
+                    dropout_rate=0.0, dropout_seed=0, q_layout="bshd", kv_layout="bshd",
+                    out_layout="bshd"):
+    """:func:`flash_attention_plain` on K1's route (bf16 K/V) and the rows'
+    log-sum-exp of the scaled scores, fp32 [B, Hq, Sq], -inf for a row with
+    no valid key (the user mask included). Under dropout l sums p before
+    the drop, as ``_flash_fwd_kernel`` does, so the lse is the undropped
+    one."""
+    q, k, v = as_bshd(q, q_layout), as_bshd(k, kv_layout), as_bshd(v, kv_layout)
     B, Sq, Hq, D = q.shape
     Skv = k.shape[1]
     if scale is None:
         scale = D ** -0.5
     qs, kf, vf = scaled_q_and_kv(q, k, v, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
-    valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                           device=q.device)
+    valid = valid_mask(B, Hq, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len, mask=mask,
+                   device=q.device)
     if valid is not None:
         s = s.masked_fill(~valid, float("-inf"))
     m = s.amax(-1, keepdim=True)
@@ -221,8 +282,7 @@ def flash_plain_lse(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     l_safe = torch.where(l == 0, 1.0, l)
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf) / l_safe
-    lse = torch.where(m.isneginf(), float("-inf"), m + torch.log(l_safe))
-    return o.transpose(1, 2).to(q.dtype), lse[..., 0]
+    return as_bshd(o.transpose(1, 2).to(q.dtype), out_layout), _lse(m, l_safe)
 
 
 def dropout_args(rate: float, seed) -> tuple:
@@ -246,12 +306,21 @@ def flash_attention_kvq_plain(
     scale: Optional[float] = None,
     q_offset: int = 0,
     kv_len: Union[None, int, torch.Tensor] = None,
-) -> torch.Tensor:
+    mask=None,
+    return_stats: bool = False,
+    q_layout: str = "bshd",
+    kv_layout: str = "bshd",
+    out_layout: str = "bshd",
+):
     """K9's function in plain PyTorch, with ``_flash_fwd_kernel_kvq``'s
     rounding: ``q * scale`` rounded to bf16 (whatever q's dtype); the K
     scale on the fp32 score after the product; ``p * v_scale`` rounded to
     bf16 for the PV product while l sums the fp32 p. k/v int8
-    [B, Skv, Hkv, D], scales fp32 [B, Skv, Hkv]."""
+    [B, Skv, Hkv, D], scales fp32 [B, Skv, Hkv] (in "bhsd" [B, Hkv, Skv, D]
+    and [B, Hkv, Skv]). A key mask combines with the causal and ``kv_len``
+    masks; ``return_stats`` also gives the lse as :func:`flash_plain_lse`."""
+    q = as_bshd(q, q_layout)
+    k, v, k_scale, v_scale = (as_bshd(t, kv_layout) for t in (k, v, k_scale, v_scale))
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -264,35 +333,38 @@ def flash_attention_kvq_plain(
         kf, vf = kf.repeat_interleave(group, dim=2), vf.repeat_interleave(group, dim=2)
         ks, vs = ks.repeat_interleave(group, dim=2), vs.repeat_interleave(group, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf) * ks.permute(0, 2, 1)[:, :, None, :]
-    valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                           device=q.device)
+    valid = valid_mask(B, Hq, Sq, Skv, causal=causal, q_offset=q_offset, kv_len=kv_len, mask=mask,
+                   device=q.device)
     if valid is not None:
         s = s.masked_fill(~valid, float("-inf"))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(m.isneginf(), 0.0, m))
     l = p.sum(-1, keepdim=True)
     pv = (p * vs.permute(0, 2, 1)[:, :, None, :]).to(torch.bfloat16).float()
-    o = torch.einsum("bhqk,bkhd->bhqd", pv, vf)
-    o = o / torch.where(l == 0, 1.0, l)
-    return o.transpose(1, 2).to(q.dtype)
+    l_safe = torch.where(l == 0, 1.0, l)
+    o = torch.einsum("bhqk,bkhd->bhqd", pv, vf) / l_safe
+    o = as_bshd(o.transpose(1, 2).to(q.dtype), out_layout)
+    return (o, _lse(m, l_safe)) if return_stats else o
 
 
-# C entry points: (library, pointer arguments before the shared tail of
-# kv_len_scalar, B, Sq, Skv, Hq, Hkv, D, q_offset, scale, causal, whether
-# the dropout arguments follow).
-_ENTRIES = {"mlio_flash_fwd": ("flash_fwd", 5, True), "mlio_flash_fwd_kvq": ("flash_fwd", 7, False),
-            "mlio_flash_fwd_stats": ("flash_fwd", 6, False),
-            "mlio_flash_stream": ("flash_stream", 6, False)}
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C entry points: (library, argument types before the stream). mlio_flash_fwd
+# (K1 and K9, every instance): q, k, v, k_scale, v_scale, mask, out, lse,
+# kv_len, the host array of 15 strides; kv_len_scalar, B, Sq, Skv, Hq, Hkv,
+# D, q_offset; scale; causal; the dropout seed, rate and 1 / (1 - rate).
+# mlio_flash_stream (K10): q, k, v, out, lse, kv_len; kv_len_scalar .. causal
+# as above; out's batch, row and head strides.
+_ENTRIES = {"mlio_flash_fwd": ("flash_fwd", [_P] * 10 + [_I] * 8 + [_F, _I, _I, _F, _F]),
+            "mlio_flash_stream": ("flash_stream", [_P] * 6 + [_I] * 8 + [_F, _I] + [_LL] * 3)}
 
 
-def _entry(name="mlio_flash_fwd"):
-    source, pointers, drop = _ENTRIES[name]
+def _entry(name):
+    source, types = _ENTRIES[name]
     lib = _build.library(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * pointers + [i] * 8 + [f, i] + [i, f, f] * drop + [p]
-        fn.restype = i
+        fn.argtypes = types + [_P]
+        fn.restype = _I
     return lib, fn
 
 
@@ -315,6 +387,75 @@ def _kv_len_arg(what, kv_len, B, Skv, dev):
     return None, Skv if kv_len is None else int(kv_len)
 
 
+def strides(t: torch.Tensor, layout: str) -> tuple:
+    """The (batch, row, head) element strides of a [B, S, H, D] tensor, or
+    of a [B, S, H] scale, in ``layout`` ("bhsd": [B, H, S, D] and [B, H, S])."""
+    return ((t.stride(0), t.stride(2), t.stride(1)) if layout == "bhsd"
+            else (t.stride(0), t.stride(1), t.stride(2)))
+
+
+def _require_rows(what: str, align: int, **tensors) -> None:
+    """Each tensor's head dim contiguous, its other strides (of dims longer
+    than 1) multiples of ``align`` elements and its start 16-byte aligned:
+    the kernels copy a row's head dim in 16-byte chunks, whatever the
+    layout."""
+    for arg, t in tensors.items():
+        odd = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1 and st % align]
+        if t.stride(-1) != 1 or odd or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {arg} must have a contiguous head dim, its other strides "
+                             f"multiples of {align} elements and a 16-byte aligned start; got "
+                             f"strides {t.stride()}")
+
+
+def _mask_strides(kind: str, m: torch.Tensor) -> tuple:
+    """A canonical mask's (batch, row, head) strides: a key mask has no row
+    or head stride, a full mask of one head no head stride."""
+    if kind == "key":
+        return m.stride(0), 0, 0
+    return m.stride(0), m.stride(2), m.stride(1) if m.shape[1] > 1 else 0
+
+
+def _launch(what, q, k, v, k_scale, v_scale, kind, m, *, causal, scale, q_offset, kv_len, drop,
+            return_stats, q_layout, kv_layout, out_layout):
+    """K1 or K9 (k_scale given) on the card: the instance for the head dim,
+    dropout (drop's rate > 0), the lse (return_stats) and an INT8 cache,
+    with the user mask m ("key" or "full", canonical) where given. Every
+    tensor goes by its strides in its layout: nothing is copied or relaid."""
+    B, Sq, Hq, D, Skv, Hkv = _dims(q, k, q_layout, kv_layout)
+    quant = k_scale is not None
+    dev = _build.require_cuda(what, *(t for t in (q, k, v, k_scale, v_scale, m) if t is not None))
+    _build.require_bf16(what, q=q, **({} if quant else dict(k=k, v=v)))
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {_HEAD_DIMS}")
+    if k.stride() != v.stride() or (quant and k_scale.stride() != v_scale.stride()):
+        raise ValueError(f"{what}: k and v (and their scales) must have the same strides")
+    _require_rows(what, 8, q=q)
+    _require_rows(what, 16 if quant else 8, k=k, v=v)
+    if m is not None and Skv > 1 and m.stride(-1) != 1:
+        raise ValueError(f"{what}: the mask's key dim must be contiguous")
+    kv_arr, kv_scalar = _kv_len_arg(what, kv_len, B, Skv, dev)
+    out = torch.empty((B, Hq, Sq, D) if out_layout == "bhsd" else (B, Sq, Hq, D), dtype=q.dtype,
+                      device=dev)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) if return_stats else None
+    st = (ctypes.c_longlong * 15)(
+        *strides(q, q_layout), *strides(k, kv_layout),
+        *(strides(k_scale, kv_layout) if quant else (0, 0, 0)), *strides(out, out_layout),
+        *(_mask_strides(kind, m) if m is not None else (0, 0, 0)))
+    lib, fn = _entry("mlio_flash_fwd")
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scale),
+                 _build.ptr(v_scale), _build.ptr(m), out.data_ptr(), _build.ptr(lse),
+                 _build.ptr(kv_arr), ctypes.addressof(st), kv_scalar, B, Sq, Skv, Hq, Hkv, D,
+                 int(q_offset), D ** -0.5 if scale is None else scale, int(causal), *drop,
+                 _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    return (out, lse) if return_stats else out
+
+
+def _canonical(mask, B, Hq, Sq, Skv):
+    return canonicalize_mask(mask, B, Hq, Sq, Skv) if mask is not None else (None, None)
+
+
 def flash_attention_kvq(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -326,34 +467,35 @@ def flash_attention_kvq(
     scale: Optional[float] = None,
     q_offset: int = 0,
     kv_len: Union[None, int, torch.Tensor] = None,
-) -> torch.Tensor:
+    mask=None,
+    return_stats: bool = False,
+    q_layout: str = "bshd",
+    kv_layout: str = "bshd",
+    out_layout: str = "bshd",
+):
     """Attention over an INT8 cache (K9): q [B, Sq, Hq, D], k/v int8
     [B, Skv, Hkv, D] with fp32 ``k_scale``/``v_scale`` [B, Skv, Hkv] →
-    [B, Sq, Hq, D] in q's dtype; ``q_offset`` and ``kv_len`` as
-    :func:`flash_attention`."""
-    _check_shapes("flash_attention_kvq", q, k, v)
+    [B, Sq, Hq, D] in q's dtype; ``q_offset``, ``kv_len``, a key ``mask``,
+    ``return_stats`` and the layouts as :func:`flash_attention` (in "bhsd"
+    the scales are [B, Hkv, Skv]). A full mask raises, as in the JAX
+    package."""
+    B, Sq, Hq, D, Skv, Hkv = _dims(q, k, q_layout, kv_layout)
+    _check_shapes("flash_attention_kvq", as_bshd(q, q_layout), as_bshd(k, kv_layout),
+                  as_bshd(v, kv_layout))
     _build.check_kv_scales("flash_attention_kvq", k, v, k_scale, v_scale)
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    kind, m = _canonical(mask, B, Hq, Sq, Skv)
+    if kind == "full":
+        raise NotImplementedError("full [.., Sq, Skv] masks are not supported with an INT8 KV "
+                                  "cache; use a key/padding mask or a bf16 cache")
     _build.refuse_grad("flash_attention_kvq (K9)", q, k, v, k_scale, v_scale)
+    lay = dict(q_layout=q_layout, kv_layout=kv_layout, out_layout=out_layout)
     if q.device.type == "cpu":
         return flash_attention_kvq_plain(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
-                                         q_offset=q_offset, kv_len=kv_len)
-    dev = _build.require_cuda("flash_attention_kvq", q, k, v, k_scale, v_scale)
-    _build.require_bf16("flash_attention_kvq", q=q)
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_kvq: head dim {D} not in {_HEAD_DIMS}")
-    kv_arr, kv_scalar = _kv_len_arg("flash_attention_kvq", kv_len, B, Skv, dev)
-    _build.require_contiguous_aligned("flash_attention_kvq", q=q, k=k, v=v, k_scale=k_scale,
-                                      v_scale=v_scale)
-    out = torch.empty_like(q)
-    lib, fn = _entry("mlio_flash_fwd_kvq")
-    with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                 v_scale.data_ptr(), out.data_ptr(), _build.ptr(kv_arr), kv_scalar, B, Sq, Skv,
-                 Hq, Hkv, D, int(q_offset), D ** -0.5 if scale is None else scale, int(causal),
-                 _build.stream_handle(dev))
-    _build.check(lib, err, "flash_attention_kvq")
+                                         q_offset=q_offset, kv_len=kv_len, mask=m,
+                                         return_stats=return_stats, **lay)
+    out = _launch("flash_attention_kvq", q, k, v, k_scale, v_scale, kind, m, causal=causal,
+                  scale=scale, q_offset=q_offset, kv_len=kv_len, drop=dropout_args(0.0, 0),
+                  return_stats=return_stats, **lay)
     flash_attention_kvq.launches += 1
     return out
 
@@ -371,32 +513,46 @@ def flash_attention_stream(
     q_offset: int = 0,
     kv_len: Union[None, int, torch.Tensor] = None,
     return_stats: bool = False,
+    q_layout: str = "bshd",
+    kv_layout: str = "bshd",
+    out_layout: str = "bshd",
 ):
     """K10, the long-context forward: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D]
     → [B, Sq, Hq, D] in q's dtype, and with ``return_stats`` also the lse
-    fp32 [B, Hq, Sq]; ``q_offset`` and ``kv_len`` as :func:`flash_attention`,
-    which sends long K/V here (:func:`stream_route`)."""
-    _check_shapes("flash_attention_stream", q, k, v)
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    fp32 [B, Hq, Sq]; ``q_offset``, ``kv_len`` and the layouts as
+    :func:`flash_attention`, which sends long K/V here (:func:`stream_route`).
+    K10 writes ``out_layout`` itself; it reads q and K/V through TMA maps of
+    the bshd layout, so a "bhsd" q or K/V, or any other strided view, is
+    relaid (copied) once here."""
+    _dims(q, k, q_layout, kv_layout)
+    _check_shapes("flash_attention_stream", as_bshd(q, q_layout), as_bshd(k, kv_layout),
+                  as_bshd(v, kv_layout))
     _build.refuse_grad("flash_attention_stream (K10)", q, k, v,
                        hint="ops.attention without kv_len or q_offset, whose backward is K13")
     if q.device.type == "cpu":
         return flash_stream_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                  kv_len=kv_len, return_stats=return_stats)
+                                  kv_len=kv_len, return_stats=return_stats, q_layout=q_layout,
+                                  kv_layout=kv_layout, out_layout=out_layout)
+    q = as_bshd(q, q_layout)
+    k, v = as_bshd(k, kv_layout), as_bshd(v, kv_layout)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     dev = _build.require_cuda("flash_attention_stream", q, k, v)
     _build.require_bf16("flash_attention_stream", q=q, k=k, v=v)
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention_stream: head dim {D} not in {_HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kv_arr, kv_scalar = _kv_len_arg("flash_attention_stream", kv_len, B, Skv, dev)
     _build.require_contiguous_aligned("flash_attention_stream", q=q, k=k, v=v)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Hq, Sq, D) if out_layout == "bhsd" else (B, Sq, Hq, D), dtype=q.dtype,
+                      device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev) if return_stats else None
     lib, fn = _entry("mlio_flash_stream")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
                  _build.ptr(kv_arr), kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
-                 D ** -0.5 if scale is None else scale, int(causal), _build.stream_handle(dev))
+                 D ** -0.5 if scale is None else scale, int(causal), *strides(out, out_layout),
+                 _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention_stream")
     flash_attention_stream.launches += 1
     return (out, lse) if return_stats else out
@@ -421,74 +577,62 @@ def flash_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     kv_vmem_budget: Optional[int] = None,
+    q_layout: str = "bshd",
+    kv_layout: str = "bshd",
+    out_layout: str = "bshd",
 ):
-    """Attention forward in the bshd layout: q [B, Sq, Hq, D], k/v
-    [B, Skv, Hkv, D] → [B, Sq, Hq, D] in q's dtype.
+    """Attention forward: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] →
+    [B, Sq, Hq, D] in q's dtype.
 
-    ``q_offset``: absolute position of q[:, 0]. ``kv_len``: int or [B];
-    cache slots at or past it are masked out. With ``k_scale``/``v_scale``
-    [B, Skv, Hkv] (fp32) k/v are an INT8 cache and K9 runs
-    (:func:`flash_attention_kvq`). ``dropout_rate``/``dropout_seed``:
-    post-softmax dropout (the module's note). ``return_stats``: also return
-    the lse fp32 [B, Hq, Sq]. Long K/V go to K10
-    (:func:`flash_attention_stream`) by the JAX package's rule
-    (:func:`stream_route`, with ``kv_vmem_budget``, by default
-    :data:`KV_VMEM_BUDGET`); the rest to K1.
+    ``q_offset``: absolute position of q[:, 0] (negative puts the queries
+    before the keys). ``kv_len``: int or [B]; cache slots at or past it are
+    masked out. ``mask``: a user mask (nonzero = attend) of the shapes of
+    :func:`~mlio_tpu_torch.ops.reference.canonicalize_mask`, combined with
+    the causal and ``kv_len`` masks; on the card it lies on q's device. With
+    ``k_scale``/``v_scale`` [B, Skv, Hkv] (fp32) k/v are an INT8 cache and
+    K9 runs (:func:`flash_attention_kvq`; a full mask or dropout raises).
+    ``dropout_rate``/``dropout_seed``: post-softmax dropout (the module's
+    note). ``return_stats``: also return the lse fp32 [B, Hq, Sq].
+    ``q_layout``/``kv_layout``/``out_layout`` "bhsd": q, k/v (with their
+    scales [B, Hkv, Skv]) or the output in [B, H, S, D]; K1 and K9 read and
+    write them by their strides. Long K/V without a mask, an INT8 cache or
+    dropout go to K10 (:func:`flash_attention_stream`) by the JAX package's
+    rule (:func:`stream_route`, with ``kv_vmem_budget``, by default
+    :data:`KV_VMEM_BUDGET`); the rest to K1, at any length.
     """
+    lay = dict(q_layout=q_layout, kv_layout=kv_layout, out_layout=out_layout)
+    B, Sq, Hq, D, Skv, Hkv = _dims(q, k, q_layout, kv_layout)
+    if out_layout not in _LAYOUTS:
+        raise ValueError(f"flash_attention: out_layout must be one of {_LAYOUTS}, "
+                         f"got {out_layout!r}")
+    kind, m = _canonical(mask, B, Hq, Sq, Skv)
     if k_scale is not None or v_scale is not None:
-        if mask is not None and mask.ndim >= 3 and mask.shape[-2] > 1:
-            raise NotImplementedError(
-                "full [.., Sq, Skv] masks are not supported with an INT8 KV cache; use a "
-                "key/padding mask or a bf16 cache")
         if dropout_rate:
             raise NotImplementedError(
                 "attention dropout with an INT8 KV cache is not supported (dropout is a "
                 "training feature; quantized caches are serving)")
-    if mask is not None:
-        raise NotImplementedError("flash_attention: user masks are not ported yet")
-    if return_stats and (k_scale is not None or v_scale is not None or dropout_rate):
-        raise NotImplementedError(
-            "flash_attention: return_stats with an INT8 KV cache or dropout is not ported yet")
-    if k_scale is not None or v_scale is not None:
         return flash_attention_kvq(q, k, v, k_scale, v_scale, causal=causal, scale=scale,
-                                   q_offset=q_offset, kv_len=kv_len)
-    _check_shapes("flash_attention", q, k, v)
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if dropout_rate == 0.0 and stream_route(Skv, D, k.element_size(),
-                                            kv_vmem_budget=kv_vmem_budget):
+                                   q_offset=q_offset, kv_len=kv_len, mask=m,
+                                   return_stats=return_stats, **lay)
+    _check_shapes("flash_attention", as_bshd(q, q_layout), as_bshd(k, kv_layout),
+                  as_bshd(v, kv_layout))
+    if m is None and dropout_rate == 0.0 and stream_route(Skv, D, k.element_size(),
+                                                          kv_vmem_budget=kv_vmem_budget):
         return flash_attention_stream(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                      kv_len=kv_len, return_stats=return_stats)
+                                      kv_len=kv_len, return_stats=return_stats, **lay)
     drop = dropout_args(dropout_rate, dropout_seed)
     _build.refuse_grad("flash_attention (K1)", q, k, v,
-                       hint="ops.attention without kv_len or q_offset, whose backward is K13")
+                       hint="ops.attention without a mask, kv_len or q_offset, whose backward "
+                            "is K13")
     if q.device.type == "cpu":
         o, lse = flash_plain_lse(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                 kv_len=kv_len, dropout_rate=dropout_rate,
-                                 dropout_seed=dropout_seed)
+                                 kv_len=kv_len, mask=m, dropout_rate=dropout_rate,
+                                 dropout_seed=dropout_seed, **lay)
         return (o, lse) if return_stats else o
-    dev = _build.require_cuda("flash_attention", q, k, v)
-    _build.require_bf16("flash_attention", q=q, k=k, v=v)
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
-    kv_arr, kv_scalar = _kv_len_arg("flash_attention", kv_len, B, Skv, dev)
-    _build.require_contiguous_aligned("flash_attention", q=q, k=k, v=v)
-    out = torch.empty_like(q)
-    shape = (kv_scalar, B, Sq, Skv, Hq, Hkv, D, int(q_offset),
-             D ** -0.5 if scale is None else scale, int(causal))
-    with torch.cuda.device(dev):
-        if return_stats:  # K1's kLse instance, the one K13a runs
-            lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-            lib, fn = _entry("mlio_flash_fwd_stats")
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     _build.ptr(kv_arr), *shape, _build.stream_handle(dev))
-        else:
-            lib, fn = _entry()
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     _build.ptr(kv_arr), *shape, *drop, _build.stream_handle(dev))
-    _build.check(lib, err, "flash_attention")
+    out = _launch("flash_attention", q, k, v, None, None, kind, m, causal=causal, scale=scale,
+                  q_offset=q_offset, kv_len=kv_len, drop=drop, return_stats=return_stats, **lay)
     flash_attention.launches += 1
-    return (out, lse) if return_stats else out
+    return out
 
 
 flash_attention.launches = 0

@@ -34,6 +34,45 @@ def attention_mask(B: int, Sq: int, Skv: int, *, causal: bool, q_offset: int,
     return mask
 
 
+def canonicalize_mask(mask, B: int, Hq: int, Sq: int, Skv: int):
+    """A user attention mask (nonzero = attend) in canonical form, as
+    ``mlio_tpu/ops/flash_attention.py::canonicalize_mask`` gives it:
+
+      [B, Skv] or [B, 1, Skv]      a key (padding) mask → ("key", [B, Skv] int8)
+      [B, Sq, Skv]                 a per-query mask      → ("full", [B, 1, Sq, Skv] int8)
+      [B, 1 or Hq, Sq, Skv]        a per-head mask       → ("full", [B, Hm, Sq, Skv] int8)
+
+    Any other shape or rank raises ``ValueError``. An int8 mask comes back
+    as itself (a view), so canonicalizing twice copies nothing."""
+    m = torch.as_tensor(mask)
+    if m.ndim == 2:
+        if tuple(m.shape) != (B, Skv):
+            raise ValueError(f"2D mask must be [batch, kv_len]; got {tuple(m.shape)} for "
+                             f"B={B}, Skv={Skv}")
+        return "key", m.to(torch.int8)
+    if m.ndim == 3:
+        if m.shape[1] == 1 and tuple(m.shape) == (B, 1, Skv):
+            return "key", m[:, 0].to(torch.int8)
+        if tuple(m.shape) != (B, Sq, Skv):
+            raise ValueError(f"3D mask must be [B, Sq, Skv]; got {tuple(m.shape)}")
+        return "full", m[:, None].to(torch.int8)
+    if m.ndim == 4:
+        if m.shape[0] != B or m.shape[1] not in (1, Hq) or tuple(m.shape[2:]) != (Sq, Skv):
+            raise ValueError(f"4D mask must be [B, 1|Hq, Sq, Skv]; got {tuple(m.shape)}")
+        return "full", m.to(torch.int8)
+    raise ValueError(f"unsupported mask rank {m.ndim}")
+
+
+def user_mask(mask, B: int, Hq: int, Sq: int, Skv: int,
+              device: torch.device) -> Optional[torch.Tensor]:
+    """The user mask as a boolean [B, 1 or Hq, 1 or Sq, Skv] (True =
+    attend), or None without one."""
+    if mask is None:
+        return None
+    kind, m = canonicalize_mask(mask, B, Hq, Sq, Skv)
+    return (m[:, None, None, :] if kind == "key" else m).to(device) != 0
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -44,6 +83,7 @@ def attention_reference(
     q_offset: int = 0,
     kv_len=None,
     mask=None,
+    bias=None,
     k_scale=None,
     v_scale=None,
     dropout_rate: float = 0.0,
@@ -58,10 +98,11 @@ def attention_reference(
     post-softmax dropout over ``dropmask.dense_keep_mask`` (query rows at
     ``q_offset``), the kept probabilities scaled by 1/(1 - rate).
     ``return_probs`` also returns the [B, Hq, Sq, Skv] softmax (before
-    dropout). User masks are not ported yet and raise.
+    dropout). ``mask``: a user mask (nonzero = attend; the shapes of
+    :func:`canonicalize_mask`), combined with the causal and ``kv_len``
+    masks. ``bias``: added to the masked scores before the softmax
+    (broadcast against [B, Hq, Sq, Skv]).
     """
-    if mask is not None:
-        raise NotImplementedError("attention_reference: user masks are not ported yet")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -77,8 +118,13 @@ def attention_reference(
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
     valid = attention_mask(B, Sq, Skv, causal=causal, q_offset=q_offset,
                            kv_len=kv_len, device=q.device)
+    um = user_mask(mask, B, Hq, Sq, Skv, q.device)
+    if um is not None:
+        valid = um if valid is None else valid & um
     if valid is not None:
         scores = scores.masked_fill(~valid, float("-inf"))
+    if bias is not None:
+        scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(probs.isnan(), 0.0, probs)  # fully masked rows
     pv_probs = probs

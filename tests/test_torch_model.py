@@ -206,8 +206,6 @@ def test_unported_paths_raise():
     assert out.shape == (1, 4) and torch.equal(out[:, :2], ids)
     assert torch.equal(out, generate(params, spec, ids, max_new_tokens=2, device="cpu",
                                      cache_quant="int8", impl=impl, cache_len=128))
-    # MoE layers are ported (tests/test_torch_moe.py); ring attention is not
+    # MoE layers are ported (tests/test_torch_moe.py)
     mspec, mparams = load_model("moe-tiny", dtype=torch.float32, device="cpu")
     assert mparams["blocks"]["moe_up"].shape[:2] == (mspec.num_layers, mspec.num_experts)
-    with pytest.raises(NotImplementedError, match="ring"):
-        forward(params, spec, torch.zeros(1, 2, dtype=torch.long), impl=Impl(attention="ring"))

@@ -124,8 +124,12 @@ def test_decode_attention_empty_context_gives_zero():
 
 def test_unported_options_raise():
     q = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, mask=torch.ones(1, 4))
+    # user masks are ported (tests/test_torch_masks.py): an all-ones key mask
+    # changes nothing, and a mask of the wrong shape raises as in JAX
+    np.testing.assert_array_equal(flash_attention(q, q, q, mask=torch.ones(1, 4)).numpy(),
+                                  flash_attention(q, q, q).numpy())
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention(q, q, q, mask=torch.ones(1, 5))
     # return_stats is ported (K1's and K10's lse instances): (o, lse) as the
     # JAX function returns them
     rng = np.random.default_rng(4)
