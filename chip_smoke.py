@@ -235,6 +235,27 @@ phase's failure is caught:
    short; K10 with the V tile at key 16,384 stale) failing it; K10's last
    call of that prefill against its plain version, the stale-tile controls
    failing; and K6 against its plain version at that context.
+15. families: Gemma-7B (head dim 256) and Phi-2 (head dim 80). K1 at each
+   one's prefill (B 8 x 704 into a 1024-slot cache, causal; 16 heads of
+   256, 32 of 80), K3 at each one's decode (B 8, context 896, one query
+   head a KV head) and K6 at gemma-7b's full width (2 layers, bf16), each
+   against its plain version, failing a control (K/V keys 64-127 from a
+   stale slot; a context one token short; four KV heads' query groups left
+   out), the same bits twice (K3, K6), timed beside its plain version,
+   SDPA (K1, K3) and the bound, with its registers and spills; the card's
+   K6 plan at gemma-7b against the mirror. Then each model at full width
+   and depth from ``load_model(name, seed=...)``, bf16, B 8, a 704-token
+   prompt, a 1024-slot cache, 64 greedy tokens through ``generate``: the
+   prefill logits held against an fp32 plain path (RMS as generate_8b
+   holds it, max-abs within the plain path's plus FAMILY_MAX_SIGMAS of its
+   RMS error), a control with K1's output rounded to e4m3 failing;
+   gemma-7b on its route (K6: K1 28 in the prefill, K6 a step) and on
+   "scan" (K3 28 a step), phi-2 on its route, the scan (K1 32, K3 32 a
+   step); launch counters, step ms, tok/s, device ms, device-busy ms (a
+   profiler trace of one step), idle share, peak memory. Then each model's HF checkpoint at full width and one layer
+   (bf16 from the seed, config.json and safetensors written by this
+   script under build/families) through ``load_model(dir)`` on the card:
+   the spec and every parameter bit for bit; the directory deleted after.
 
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
@@ -384,6 +405,19 @@ LOGITS_ATOL = 0.1
 # against 0.041487 RMS; the kernel path with K9's output rounded to e4m3 lay
 # 0.684 and 0.0960 off, 2.3x, and fails.
 LOGITS_8B_OVER_PLAIN = 1.05
+# The families' prefills (gemma-7b, phi-2; families phase) take the same
+# RMS gate. Their max-abs is the extreme of 0.3-1.4 G errors, which for two
+# paths of equal RMS error sigma moves from path to path by about
+# sigma * pi / sqrt(6 * 2 ln N), 0.2 sigma at these N, and more where the
+# errors' tails are heavier than Gaussian: phi-2's first run on the card
+# (NVIDIA H100 80GB HBM3, 700 W) had the kernels' and the plain path's RMS
+# equal to 1e-5 relative while their max-abs stood at 0.0790 and 0.0695,
+# 1.14x. So the max-abs is held to the plain path's plus
+# FAMILY_MAX_SIGMAS of its RMS error: a fault local to a row, a head or a
+# tile moves its logits by the order of the logits' own spread (1.1 at
+# gemma-7b, about 50 sigma), far past it; a fault spread everywhere moves
+# the RMS. The control, K1's output rounded to e4m3, must fail the gate.
+FAMILY_MAX_SIGMAS = 2.0
 
 
 _START = time.perf_counter()
@@ -2687,12 +2721,13 @@ def tiled_check(dt, spec, blocks, x, kc, vc, pos, cos, sin, scales=None,
     return xp, (pk, pv, psk), errs
 
 
-def tiled_must_fail(dt, spec, blocks, x, kc, vc, at, pos, cos, sin, plain, what, scales=None):
+def tiled_must_fail(dt, spec, blocks, x, kc, vc, at, pos, cos, sin, plain, what, scales=None,
+                    x_must_fail=False):
     """K6 run wrongly (at slot ``at``, or over other ``scales``) has to fail
     the check against the plain run at ``pos`` (``plain``: its x_out and
     caches): x_out (the deep tolerance), or the slot written at layer 0
-    (values within K6's tolerance, ints within one step). Returns the two
-    max-abs errors."""
+    (values within K6's tolerance, ints within one step); with
+    ``x_must_fail``, x_out itself. Returns the two max-abs errors."""
     name = "decode_layer_tiled"
     sk = {} if scales is None else dict(k_scales=scales[0].clone(), v_scales=scales[1].clone())
     kk, kv = kc.clone(), vc.clone()
@@ -2706,7 +2741,7 @@ def tiled_must_fail(dt, spec, blocks, x, kc, vc, at, pos, cos, sin, plain, what,
         s_err = (got - want).abs().max().item()
         s_ok = s_err <= 1
     del kk, kv
-    if x_ok and s_ok:
+    if x_ok and (s_ok or x_must_fail):
         raise AssertionError(f"{name}: the check passes {what} (x_out {x_err}, layer 0's "
                              f"slot {s_err})")
     return dict(x_out=x_err, layer0_slot=s_err)
@@ -3080,11 +3115,11 @@ def fp32_prefill(spec, params, ids, impl, quant, dev):
 
 
 def logit_errors(got, want) -> dict:
-    """Max-abs and RMS of got - want (fp32, a batch row at a time), and the
-    values past LOGITS_ATOL."""
+    """Max-abs and RMS of got - want (fp32, a batch row at a time, on want's
+    device), and the values past LOGITS_ATOL."""
     mx, sq, over = 0.0, 0.0, 0
     for g, w in zip(got, want):
-        d = (g.float() - w.float()).abs()
+        d = (g.to(w.device).float() - w.float()).abs()
         mx = max(mx, d.max().item())
         sq += d.square().sum().item()
         over += int((d > LOGITS_ATOL).sum())
@@ -5515,6 +5550,588 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
 
 
 
+# ---------------------------------------------------------------------------
+# The families slice: Gemma-7B (head dim 256) and Phi-2 (head dim 80)
+# ---------------------------------------------------------------------------
+
+GEMMA, PHI = "gemma-7b", "phi-2"
+# Each family's decode route at B 8, bf16 (models.transformer.decode_route):
+# Gemma's 553 MB layers take K6; Phi-2's parallel residual takes the scan (K3)
+FAMILY_ROUTES = {GEMMA: "tiled", PHI: "scan"}
+FAMILY_K6_LAYERS = 2  # K6's row at gemma-7b's full width: two layers of its weights
+FAMILY_K3_LAYERS = 4  # K3's timed launches walk 4 layers' caches (no layer's K/V left in L2)
+FAMILY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "families")
+
+
+def family_attention_row(fa, gen, model):
+    """K1 at a family's prefill: q [8, 704, Hq, D] into a 1024-slot cache
+    holding 704 tokens, causal (gemma-7b: 16 heads of 256; phi-2: 32 of 80),
+    against its plain version (K1's limits, each row too), failing with the
+    keys and values 64-127 taken from 0-63 (a stale ring slot); timed beside
+    the plain version, SDPA over the same 704 keys and the bound."""
+    from mlio_tpu_torch.models import get_spec
+
+    spec = get_spec(model)
+    Hq, Hkv, D = spec.num_heads, spec.num_kv_heads, spec.head_size
+    q, k, v = attention_inputs(gen, B, PROMPT, CACHE, Hq, Hkv, D)
+    args = dict(causal=True, q_offset=0, kv_len=PROMPT)
+    want = fa.flash_attention_plain(q, k, v, **args)
+    o = fa.flash_attention(q, k, v, **args)
+    err = check_close("flash_attention", o, want)
+    rr = row_rel_rms(o, want)
+    stale = must_fail_within("flash_attention", "K/V keys 64-127 from a stale slot",
+                             fa.flash_attention(q, stale_tile(k, 64), stale_tile(v, 64), **args),
+                             want)
+    del o, want
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k[:, :PROMPT], v[:, :PROMPT]))
+    pairs = causal_pairs(PROMPT, PROMPT, True)
+    flops = 4 * B * Hq * D * pairs
+    b_ms, b_by = bound((2 * q.numel() + 2 * B * PROMPT * Hkv * D) * 2, flops, BF16_TENSOR_FLOPS)
+    row = dict(
+        name=f"flash_attention_d{D}", route="cuda", source="mlio_tpu_torch/csrc/flash_fwd.cu",
+        replaces="mlio_tpu/ops/flash_attention.py:37",
+        shape=f"{model}'s prefill: q [{B},{PROMPT},{Hq},{D}] k/v [{B},{CACHE},{Hkv},{D}] bf16, "
+              f"kv_len {PROMPT}, causal",
+        max_abs_err=err, atol=TOL["flash_attention"][0], rtol=TOL["flash_attention"][1],
+        row_rel_rms=rr, row_rel_rms_limit=ROW_REL_RMS["flash_attention"],
+        stale_kv_tile_max_abs_err=stale,
+        **timings(lambda i: fa.flash_attention(q, k, v, **args),
+                  lambda i: fa.flash_attention_plain(q, k, v, **args),
+                  lambda i: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), 30),
+        bound_ms=b_ms, bound_by=b_by, ptxas=kernel_instances("flash_fwd",
+                                                             rf"flash_fwd_kernelILi{D}E"))
+    row["tflop_per_s"] = flops / (row["ms"] * 1e-3) / 1e12
+    return row
+
+
+def family_decode_row(da, gen, model):
+    """K3 at a family's decode: q [8, Hq, D] over a [4, 8, 1024, Hkv, D]
+    cache at context 896 (phi-2: 32 heads of 80; gemma-7b's scan route: 16
+    of 256), one query head a KV head, against its plain version (K3's fp32
+    limit), failing with a context one token short, at the ragged contexts
+    too; the same bits twice; timed (walking the layers) beside the plain
+    version, SDPA over the same keys and the bound."""
+    from mlio_tpu_torch.models import get_spec
+
+    spec = get_spec(model)
+    Hq, Hkv, D, L = spec.num_heads, spec.num_kv_heads, spec.head_size, FAMILY_K3_LAYERS
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device).to(torch.bfloat16)
+
+    qd, kc, vc = r(B, Hq, D), r(L, B, CACHE, Hkv, D), r(L, B, CACHE, Hkv, D)
+    ctx = torch.full((B,), DECODE_CTX, dtype=torch.int32, device=gen.device)
+    want = da.decode_attention_plain(qd, kc, vc, ctx, layer=1)
+    err = check_close("decode_attention", da.decode_attention(qd, kc, vc, ctx, layer=1), want)
+    short = must_fail_within("decode_attention", "a context one token short",
+                             da.decode_attention(qd, kc, vc, ctx - 1, layer=1), want)
+    ragged = torch.tensor(RAGGED, dtype=torch.int32, device=gen.device)
+    ragged_err = check_close("decode_attention", da.decode_attention(qd, kc, vc, ragged, layer=2),
+                             da.decode_attention_plain(qd, kc, vc, ragged, layer=2))
+    nbytes = (2 * qd.numel() + 2 * B * DECODE_CTX * Hkv * D) * 2
+    b_ms, b_by = bound(nbytes, 4 * B * Hq * DECODE_CTX * D, FP32_FLOPS)
+    q4 = qd[:, :, None, :]
+    n_split, chunk = da.split_plan(B, Hkv, CACHE)
+    row = dict(
+        name=f"decode_attention_d{D}", route="cuda", source="mlio_tpu_torch/csrc/decode_attn.cu",
+        replaces="mlio_tpu/ops/decode_attention.py:50",
+        shape=f"{model}'s decode: q [{B},{Hq},{D}] cache [{L},{B},{CACHE},{Hkv},{D}] bf16, "
+              f"ctx {DECODE_CTX}",
+        max_abs_err=err, atol=TOL["decode_attention"][0], rtol=TOL["decode_attention"][1],
+        ctx_minus_1_max_abs_err=short, ragged_max_abs_err=ragged_err,
+        same_bits_twice=same_bits_twice("decode_attention",
+                                        lambda: da.decode_attention(qd, kc, vc, ctx, layer=1)),
+        **timings(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L),
+                  lambda i: da.decode_attention_plain(qd, kc, vc, ctx, layer=i % L),
+                  lambda i: F.scaled_dot_product_attention(
+                      q4, kc[i % L, :, :DECODE_CTX].transpose(1, 2),
+                      vc[i % L, :, :DECODE_CTX].transpose(1, 2)), 200),
+        bound_ms=b_ms, bound_by=b_by, n_split=n_split, chunk=chunk,
+        ptxas=kernel_instances("decode_attn", rf"decode_kernel.*Li{D}ELi1E"))
+    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    return row
+
+
+# K6's row plants keys along each step's query so that attention peaks:
+# the slots pos-1, pos-2 and pos-3 score this far above the logsumexp of the
+# other slots' scores, and take about 0.66, 0.24 and 0.09 of each head's
+# weight (peaked_keys).
+FAMILY_PEAK_OVER = (4.0, 3.0, 2.0)
+
+
+def peaked_keys(dt, spec, blocks, x, kc, vc, pos, cos, sin):
+    """A copy of the K cache in which attention peaks: at every layer, KV
+    head (one query head each) and batch row, the keys at slots pos-1, pos-2
+    and pos-3 lie along this step's query, their scores FAMILY_PEAK_OVER
+    above the logsumexp of the scores of slots 0..pos-4. Random keys alone
+    spread the weight near-evenly over the context, and each head's output
+    is then near V's mean, too small for x_out to show a head's attention
+    gone wrong or a slot left out. Each layer's query is computed as the
+    plain version computes it (the RMSNorm, Wq and the rotate-half RoPE in
+    fp32) from the layer's input, which the plain version gives by running
+    the layers before it over the planted cache."""
+    L, H, D = spec.num_layers, spec.num_kv_heads, spec.head_size
+    if spec.num_heads != H or spec.norm != "rmsnorm":
+        raise ValueError("peaked_keys plants keys for one query head a KV head, after an RMSNorm")
+    scale = D ** -0.5
+    cs, sn = (t.to(x.dtype).float()[0] for t in (cos, sin))
+    R = cs.shape[-1]
+    kc = kc.clone()
+    xl = x
+    for layer in range(L):
+        x32 = xl.float()
+        h = (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + spec.norm_eps)
+             * blocks["ln1_scale"][layer].float()).to(x.dtype)
+        q = (h.float() @ blocks["wq"][layer].float()).reshape(-1, H, D)
+        qr = q[..., :R]
+        q = torch.cat([qr * cs + torch.cat([-qr[..., R // 2:], qr[..., :R // 2]], -1) * sn,
+                       q[..., R:]], -1)
+        planted = len(FAMILY_PEAK_OVER)
+        scores = scale * torch.einsum("bhd,bthd->bht", q, kc[layer, :, :pos - planted].float())
+        lse = torch.logsumexp(scores, -1, keepdim=True)  # [B, H, 1]
+        for i, over in enumerate(FAMILY_PEAK_OVER):
+            want = lse + over  # scale * q . k = want
+            kc[layer, :, pos - 1 - i] = (q * want / (scale * q.square().sum(-1, keepdim=True))
+                                         ).to(kc.dtype)
+        one = {k: None if v is None else v[layer:layer + 1] for k, v in blocks.items()}
+        xl = dt.decode_layer_tiled_plain(xl, one, kc[layer:layer + 1].clone(),
+                                         vc[layer:layer + 1].clone(), pos, cos, sin,
+                                         spec=dataclasses.replace(spec, num_layers=1))
+    return kc
+
+
+def family_tiled_row(dt, dev, seed):
+    """K6 at gemma-7b's full width (3072 hidden, 24576 intermediate, GeGLU,
+    16 heads of 256), two layers of random bf16 weights from the seed, B 8,
+    context 896 in a 1024-slot bf16 cache whose keys make attention peak on
+    the last three slots (peaked_keys): against its plain version (x_out
+    and every written slot, K6's limit), its x_out failing the deep check
+    with a context one token short and with one KV head's query group left
+    out of attention; the same bits twice; the card's GEMV plan against the
+    mirror; device ms beside the plain version's, the bound and the phase
+    durations."""
+    from mlio_tpu_torch.models import get_spec, init_params, rope_cos_sin
+
+    spec = dataclasses.replace(get_spec(GEMMA), num_layers=FAMILY_K6_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    params = init_params(spec, gen, dtype=torch.bfloat16, device=dev)
+    blocks = params["blocks"]
+    for key in ("ln1_scale", "ln2_scale"):  # norm weights off 1
+        blocks[key].copy_((1 + 0.1 * torch.randn(blocks[key].shape, generator=gen,
+                                                  device=dev)).to(torch.bfloat16))
+    pos = DECODE_CTX - 1
+    shape = (spec.num_layers, B, CACHE, spec.num_kv_heads, spec.head_size)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((B, spec.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(torch.arange(pos, pos + 1, device=dev), spec.rope_dim,
+                            spec.rope_theta)
+    kc = peaked_keys(dt, spec, blocks, x, kc, vc, pos, cos, sin)
+    x_plain, pcaches, errs = tiled_check(dt, spec, blocks, x, kc, vc, pos, cos, sin)
+    row = dict(errors=errs, max_abs_err=errs["x_out"], ctx_minus_1_max_abs_err=tiled_must_fail(
+        dt, spec, blocks, x, kc, vc, pos - 1, pos, cos, sin, (x_plain, pcaches),
+        "a context one token short", x_must_fail=True),
+        head_group_out_max_abs_err=tiled_x_must_fail(dt, spec, blocks, x, kc, vc, pos, cos, sin,
+                                                     x_plain))
+    del pcaches
+    twice = [dt.decode_layer_tiled(x, blocks, kc.clone(), vc.clone(), pos, cos, sin, spec=spec)
+             for _ in range(2)]
+    if not torch.equal(*twice):
+        raise AssertionError("decode_layer_tiled_d256: two runs give different bits")
+    del twice
+    plan = {}
+    for phase in dt.GEMV_PHASES:
+        nb, card = dt.card_items(spec, None, B, phase)
+        if card != [tuple(i) for i in dt.item_plan(spec, None, nb=nb)[phase]["items"]]:
+            raise AssertionError(f"decode_layer_tiled_d256: the card's plan of {phase} differs "
+                                 "from item_plan's")
+        plan[phase] = len(card)
+    tk, tv = kc.clone(), vc.clone()
+    b_ms, b_by = stack_bound(spec, params, B, B * DECODE_CTX, head=False)
+    row.update(
+        name="decode_layer_tiled_d256", route="cuda",
+        source="mlio_tpu_torch/csrc/decode_tiled_d256.cu",
+        replaces="mlio_tpu/ops/decode_tiled.py:362", atol=TOL["decode_layer_tiled"][0],
+        rtol=TOL["decode_layer_tiled"][1], repeat_bitwise_equal=True,
+        card_plan=dict(plan_matches_mirror=True, blocks=nb, items=plan),
+        shape=f"{GEMMA} at full width, {spec.num_layers} layers, bf16 weights and cache "
+              f"[{spec.num_layers},{B},{CACHE},{spec.num_kv_heads},{spec.head_size}], "
+              f"ctx {DECODE_CTX}, no head",
+        tiling=list(dt.choose_tiling(spec, B)),
+        **timings(lambda i: dt.decode_layer_tiled(x, blocks, tk, tv, pos, cos, sin, spec=spec),
+                  lambda i: dt.decode_layer_tiled_plain(x, blocks, tk, tv, pos, cos, sin,
+                                                        spec=spec), None, 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_note="no single PyTorch call computes a decode step",
+        ptxas=kernel_instances("decode_tiled_d256", r"tiled_kernel"))
+    stamps = torch.zeros(dt.phase_stamps(spec), dtype=torch.int64, device=dev)
+    dt.decode_layer_tiled(x, blocks, tk, tv, pos, cos, sin, spec=spec, phase_times=stamps)
+    row["phase_us"] = tiled_phase_us(dt, spec, stamps, gemv_phase_bytes(spec, blocks))
+    del params, blocks, kc, vc, tk, tv
+    torch.cuda.empty_cache()
+    return row
+
+
+def family_launches(spec, route, steps):
+    """The launch counts of a family's generate of ``steps`` decode steps:
+    the prefill's K1 a layer and K2 a norm (one a layer under a shared
+    LayerNorm, two otherwise, and the final one); then K6 and the head's K2
+    a step ("tiled"), or K3 a layer and every norm a step ("scan")."""
+    L = spec.num_layers
+    norms = (1 if spec.shared_ln else 2) * L + 1
+    want = dict(flash_attention=L, fused_norm=norms, decode_attention=0,
+                decode_layer_stack=0, decode_layer_tiled=0)
+    if route == "tiled":
+        want["decode_layer_tiled"] = steps
+        want["fused_norm"] += steps
+    else:
+        want["decode_attention"] = L * steps
+        want["fused_norm"] += norms * steps
+    return want
+
+
+def family_generate(dev, seed, model, wrappers, fa, norms, da, qm, dt):
+    """A family's path at full width and depth: ``load_model(model,
+    seed=seed)`` in bf16, B 8, a 704-token prompt, a 1024-slot cache,
+    greedy, Impl(attention="flash", norm="fused"). The prefill logits held
+    against an fp32 plain path: their RMS error within LOGITS_8B_OVER_PLAIN
+    of the bf16 plain path's, their max-abs within the plain path's plus
+    FAMILY_MAX_SIGMAS of its RMS error; the kernel path with K1's output
+    rounded to e4m3 must fail that gate. Then, on the
+    route decode_route picks (and for gemma-7b also on "scan", K3's path),
+    the first decode step's logits (the prefill's greedy token) under the
+    same gate: the kernels' step from the kernels' prefill cache, the plain
+    path's from its own, the fp32 path's the last row of its prefill over
+    the prompt and that token; the step with its decode kernel's output
+    (K6's x_out, or K3's attention) rounded to e4m3 must fail it. Then
+    the launch counters around a 64-token generate, the decode step by the
+    two-length marginal (64 against 320 new tokens), tok/s, a step's device
+    ms (CUDA events) and device-busy ms (a torch.profiler trace), and the
+    idle share. Returns (launch counts by route, result)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlio_tpu_torch.models import Impl, forward, load_model
+    from mlio_tpu_torch.models.transformer import decode_route
+    from mlio_tpu_torch.runtime import generate, init_cache
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec, params = load_model(model, dtype=torch.bfloat16, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, spec.vocab_size, (B, PROMPT))).to(dev)
+    base = Impl(attention="flash", norm="fused")
+    picked = decode_route(spec, base, params["blocks"], B, smax=CACHE)
+    if picked != FAMILY_ROUTES[model]:
+        raise AssertionError(f"{model}: decode route {picked}, not {FAMILY_ROUTES[model]}")
+
+    routes = (picked, "scan") if picked == "tiled" else (picked,)
+    impls = {r: dataclasses.replace(base, decode_stack="auto" if r == picked else r)
+             for r in routes}
+
+    def prefill(impl=base):
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            return forward(params, spec, ids, impl=impl, cache=cache)
+
+    def step(route, cache, tok):  # the first decode step's logits [B, V]
+        with torch.inference_mode():
+            return forward(params, spec, tok, impl=impls[route], cache=dict(cache))[0][:, -1]
+
+    def e4m3(kernel):  # 3 mantissa bits where bf16 keeps 7
+        def rounded(*args, **kwargs):
+            return kernel(*args, **kwargs).to(qm.FP8).to(torch.bfloat16)
+
+        rounded.launches = 0  # the wrapper counts on the module name it is patched under
+        return rounded
+
+    decode_kernel = {"tiled": (dt, "decode_layer_tiled"), "scan": (da, "decode_attention")}
+    logits, cache = prefill()
+    if logits.shape != (B, PROMPT, spec.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{model}: prefill logits shape {tuple(logits.shape)} or not finite")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    steps = {}
+    for route in routes:
+        module, name = decode_kernel[route]
+        steps[route] = dict(kernels=step(route, cache, tok))
+        with patched(module, name, e4m3(getattr(module, name))):
+            steps[route]["control"] = step(route, cache, tok)
+    del cache
+    logits = logits.cpu()  # room for the fp32 path beside the weights
+    with patched(fa, "flash_attention", e4m3(fa.flash_attention)):
+        logits_ctl = prefill()[0].cpu()
+    with plain_kernels(fa, norms, da, qm, dt):
+        logits_plain, cache = prefill()
+        for route in routes:
+            steps[route]["plain"] = step(route, cache, tok)
+        del cache
+        logits_plain = logits_plain.cpu()
+        ref = fp32_prefill(spec, params, torch.cat([ids, tok], 1), base, None, dev)
+        logits_ref, step_ref = ref[:, :PROMPT], ref[:, PROMPT]
+    errs = dict(kernels_vs_fp32=logit_errors(logits, logits_ref),
+                plain_vs_fp32=logit_errors(logits_plain, logits_ref),
+                k1_e4m3_control_vs_fp32=logit_errors(logits_ctl, logits_ref))
+    logits_std = logits_ref.float().std().item()
+    del ref, logits_ref, logits_ctl
+    errs["kernels_vs_plain"] = logit_errors(logits, logits_plain.to(dev))
+    del logits, logits_plain
+
+    def gate(errs, what, control):
+        plain = errs["plain_vs_fp32"]
+        limits = dict(max_abs=plain["max_abs"] + FAMILY_MAX_SIGMAS * plain["rms"],
+                      rms=LOGITS_8B_OVER_PLAIN * plain["rms"])
+
+        def passes(path):
+            return all(errs[path][stat] <= limit for stat, limit in limits.items())
+
+        if not passes("kernels_vs_fp32"):
+            raise AssertionError(f"{model}: the kernels' {what} logits lie farther from the fp32 "
+                                 f"path than the bf16 plain path's (limits {limits}): {errs}")
+        if passes(control):
+            raise AssertionError(f"{model}: the {what} gate passes {control}: {errs}")
+        return limits
+
+    limits = gate(errs, "prefill", "k1_e4m3_control_vs_fp32")
+    step_logits = {}
+    for route in routes:
+        got = steps.pop(route)
+        serrs = {f"{path}_vs_fp32": logit_errors(got[path], step_ref)
+                 for path in ("kernels", "plain", "control")}
+        serrs["kernels_vs_plain"] = logit_errors(got["kernels"], got["plain"])
+        control = serrs.pop("control_vs_fp32")
+        serrs[f"{decode_kernel[route][1]}_e4m3_control_vs_fp32"] = control
+        step_logits[route] = dict(errors=serrs, limits=gate(
+            serrs, f"{route} decode step", f"{decode_kernel[route][1]}_e4m3_control_vs_fp32"))
+    del step_ref, got
+    result = dict(phase="families_generate", model=model, layers=spec.num_layers,
+                  head_dim=spec.head_size, weights="bf16", batch=B, prompt=PROMPT,
+                  cache_len=CACHE, load_s=load_s, prefill_logits=errs, prefill_limits=limits,
+                  decode_step_logits=step_logits, fp32_logits_std=logits_std,
+                  auto_route=picked, routes={})
+    counts = {}
+    for route in routes:
+        impl = impls[route]
+
+        def run(new_tokens):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = generate(params, spec, ids, max_new_tokens=new_tokens, impl=impl,
+                           cache_len=CACHE, device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        run(4)  # warm-up
+        for w in wrappers:
+            w.launches = 0
+        out, t_short = run(SHORT)
+        launches = {w.__name__: w.launches for w in wrappers}
+        want = family_launches(spec, route, SHORT - 1)
+        want = {k: want.get(k, 0) for k in launches}
+        if launches != want:
+            raise AssertionError(f"{model} {route}: launch counts {launches} != expected {want}")
+        if out.shape != (B, PROMPT + SHORT) or not torch.equal(out[:, :PROMPT], ids) \
+                or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
+            raise AssertionError(f"{model} {route}: wrong shape, prompt changed or token out "
+                                 "of range")
+        _, t_long = run(LONG)
+        step_s = (t_long - t_short) / (LONG - SHORT)
+        cache = prefill(impl)[1]
+        tok = out[:, PROMPT:PROMPT + 1]
+        with torch.inference_mode():
+            def step():  # one forward, rewriting the same cache slot each call
+                return forward(params, spec, tok, impl=impl, cache=dict(cache))[0]
+
+            # by CUDA events: an upper bound where a step's launches overflow
+            # the launch queue (the scan: hundreds a step), as dispatch_times says
+            step_dev_ms = time_ms(lambda i: step(), 3)[0]
+            # After the earlier phases' traces, one trace of a K6 step came
+            # back empty on the card, where a fresh process traces it whole:
+            # an empty trace is taken again.
+            for attempt in range(1, 4):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    step()
+                    torch.cuda.synchronize()
+                step_busy_ms = busy_ms(prof.events())
+                if step_busy_ms:
+                    break
+            else:
+                raise AssertionError(f"{model} {route}: three traces of a step saw no device time")
+        del cache
+        result["routes"][route] = dict(
+            launches=launches, generate_s={str(SHORT): t_short, str(LONG): t_long},
+            decode_step_ms=step_s * 1e3, decode_tok_per_s=B / step_s,
+            decode_step_device_ms=step_dev_ms, decode_step_busy_ms=step_busy_ms,
+            busy_trace_attempts=attempt,
+            decode_idle_share=1 - step_busy_ms / (step_s * 1e3))
+        counts[route] = launches
+    result["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    emit(result)
+    return counts, result
+
+
+def write_safetensors(path, tensors) -> None:
+    """The safetensors layout, written without the ``safetensors`` package:
+    an 8-byte little-endian header length, a JSON header of each tensor's
+    dtype, shape and byte offsets (padded with spaces to 8 bytes), the raw
+    little-endian bytes in the header's order."""
+    from mlio_tpu_torch.models.loader import SAFETENSORS_DTYPES
+
+    names = {dt: n for n, dt in SAFETENSORS_DTYPES.items()}
+    header, off = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = dict(dtype=names[t.dtype], shape=list(t.shape), data_offsets=[off, off + n])
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+
+
+def hf_checkpoint(spec, gen):
+    """A family's HF checkpoint at the spec's shapes: (config.json's dict,
+    its state dict in HF's names and [out, in] layout, bf16 from the seed)."""
+    H, L, I = spec.hidden_size, spec.num_layers, spec.intermediate_size
+
+    def r(*shape):
+        return (0.02 * torch.randn(*shape, generator=gen, device=gen.device)).to(torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": r(spec.vocab_size, H)}
+    if spec.activation == "geglu":  # Gemma
+        cfg = dict(model_type="gemma", vocab_size=spec.vocab_size, hidden_size=H,
+                   num_hidden_layers=L, num_attention_heads=spec.num_heads,
+                   num_key_value_heads=spec.num_kv_heads, head_dim=spec.head_size,
+                   intermediate_size=I, max_position_embeddings=spec.max_seq_len,
+                   rms_norm_eps=spec.norm_eps, rope_theta=spec.rope_theta)
+        for i in range(L):
+            p = f"model.layers.{i}."
+            sd.update({p + "input_layernorm.weight": r(H),
+                       p + "post_attention_layernorm.weight": r(H),
+                       p + "self_attn.q_proj.weight": r(spec.q_dim, H),
+                       p + "self_attn.k_proj.weight": r(spec.kv_dim, H),
+                       p + "self_attn.v_proj.weight": r(spec.kv_dim, H),
+                       p + "self_attn.o_proj.weight": r(H, spec.q_dim),
+                       p + "mlp.gate_proj.weight": r(I, H), p + "mlp.up_proj.weight": r(I, H),
+                       p + "mlp.down_proj.weight": r(H, I)})
+        sd["model.norm.weight"] = r(H)
+        return cfg, sd
+    cfg = dict(model_type="phi", vocab_size=spec.vocab_size, hidden_size=H, num_hidden_layers=L,
+               num_attention_heads=spec.num_heads, num_key_value_heads=spec.num_kv_heads,
+               intermediate_size=I, max_position_embeddings=spec.max_seq_len,
+               layer_norm_eps=spec.norm_eps, rope_theta=spec.rope_theta,
+               partial_rotary_factor=spec.rope_fraction)
+    for i in range(L):
+        p = f"model.layers.{i}."
+        for name, shape in (("input_layernorm", (H,)), ("self_attn.q_proj", (spec.q_dim, H)),
+                            ("self_attn.k_proj", (spec.kv_dim, H)),
+                            ("self_attn.v_proj", (spec.kv_dim, H)),
+                            ("self_attn.dense", (H, spec.q_dim)), ("mlp.fc1", (I, H)),
+                            ("mlp.fc2", (H, I))):
+            sd[p + name + ".weight"] = r(*shape)
+            sd[p + name + ".bias"] = r(shape[0])
+    sd.update({"model.final_layernorm.weight": r(H), "model.final_layernorm.bias": r(H),
+               "lm_head.weight": r(spec.vocab_size, H), "lm_head.bias": r(spec.vocab_size)})
+    return cfg, sd
+
+
+def checkpoint_roundtrip(dev, seed):
+    """For gemma-7b and phi-2 at full width and one layer: an HF checkpoint
+    from the seed (hf_checkpoint) written as config.json and safetensors
+    (write_safetensors) into a directory under build/ whose path names no
+    family (HF's cache lays a checkpoint out as ``snapshots/<sha>``), then
+    ``load_model(dir)`` on the card: the spec field for field the preset's
+    (one layer, the directory's name), every parameter bit for bit the
+    in-memory state dict's conversion by the family's own converter, the
+    embedding and layer 0's first projection bit for bit the HF tensors
+    themselves. The directory is deleted after."""
+    import shutil
+
+    from mlio_tpu_torch.models import get_spec, load_model
+    from mlio_tpu_torch.models import loader
+
+    out = {}
+    for i, (model, converter) in enumerate(((GEMMA, loader.convert_gemma),
+                                            (PHI, loader.convert_phi))):
+        preset = dataclasses.replace(get_spec(model), num_layers=1, name=f"3f2a9c{i}")
+        gen = torch.Generator(device=dev).manual_seed(seed + 23)
+        cfg, sd = hf_checkpoint(preset, gen)
+        path = os.path.join(FAMILY_DIR, "snapshots", preset.name)
+        os.makedirs(path, exist_ok=True)
+        try:
+            t0 = time.perf_counter()
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(cfg, f)
+            write_safetensors(os.path.join(path, "model.safetensors"), sd)
+            nbytes = os.path.getsize(os.path.join(path, "model.safetensors"))
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            spec, params = load_model(path, dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(os.path.dirname(path))
+        if dataclasses.asdict(spec) != dataclasses.asdict(preset):
+            raise AssertionError(f"{model}: the checkpoint's spec {spec} is not the preset's")
+        want = converter(sd, spec, dtype=torch.bfloat16, device=dev)
+        n, stack = 0, [("", params, want)]
+        while stack:
+            k, g, w = stack.pop()
+            if isinstance(w, dict):
+                if set(g) != set(w):
+                    raise AssertionError(f"{model}: parameter keys differ at {k!r}")
+                stack += [(f"{k}.{c}", g[c], w[c]) for c in w]
+            elif (g is None) != (w is None) or (w is not None and (
+                    g.dtype != w.dtype or not torch.equal(g, w))):
+                raise AssertionError(f"{model}: parameter {k} differs from the state dict's "
+                                     "conversion")
+            else:
+                n += w is not None
+        p = "model.layers.0.self_attn.q_proj.weight"
+        if not (torch.equal(params["tok_embed"], sd["model.embed_tokens.weight"])
+                and torch.equal(params["blocks"]["wq"][0], sd[p].T)):
+            raise AssertionError(f"{model}: the loaded embedding or wq is not the checkpoint's")
+        out[model] = dict(safetensors_bytes=nbytes, tensors=len(sd), parameters=n,
+                          write_s=write_s, load_s=load_s, bitwise_equal=True)
+        del sd, params, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(dev, seed, fa, norms, da, dl, dt, qm):
+    """The families slice: K1 at gemma-7b's and phi-2's prefill, K3 at their
+    decode, K6 at gemma-7b's width; then each model at full width and depth
+    through generate (gemma-7b on K6 and on the scan, phi-2 on the scan);
+    then the checkpoint directory round trip. Returns the kernel rows with
+    their launches on these paths."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = [family_attention_row(fa, gen, GEMMA), family_attention_row(fa, gen, PHI),
+            family_decode_row(da, gen, PHI), family_decode_row(da, gen, GEMMA),
+            family_tiled_row(dt, dev, seed)]
+    emit(dict(phase="families_kernels", checked=[r["name"] for r in rows]))
+    wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack,
+                dt.decode_layer_tiled)
+    gemma, _ = family_generate(dev, seed, GEMMA, wrappers, fa, norms, da, qm, dt)
+    phi, _ = family_generate(dev, seed, PHI, wrappers, fa, norms, da, qm, dt)
+    by_name = {r["name"]: r for r in rows}
+    by_name["flash_attention_d256"]["launches"] = gemma["tiled"]["flash_attention"]
+    by_name["flash_attention_d80"]["launches"] = phi["scan"]["flash_attention"]
+    by_name["decode_attention_d80"]["launches"] = phi["scan"]["decode_attention"]
+    by_name["decode_attention_d256"]["launches"] = gemma["scan"]["decode_attention"]
+    by_name["decode_attention_d256"]["launches_note"] = "gemma-7b's decode_stack='scan' route"
+    by_name["decode_layer_tiled_d256"]["launches"] = gemma["tiled"]["decode_layer_tiled"]
+    for r in rows:
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}: no launch on the path that runs it")
+    emit(dict(phase="families_checkpoints", **checkpoint_roundtrip(dev, seed)))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5706,7 +6323,11 @@ def main() -> int:
                                        f"{RING_CHUNKS[0]}-key chunks at 32K")
     if not (stream_rows[0]["launches"] and k10_ring and k1_ring):
         raise AssertionError("flash_attention_stream or an lse instance: no launch on its path")
-    rows += [tiled, tiled_moe, widen] + grad_rows + stream_rows + mask_rows + probe_rows
+    # The families slice: Gemma-7B (head dim 256) and Phi-2 (80) through K1,
+    # K3 and K6's new instances, and their checkpoint directories.
+    family_rows = families_phase(dev, args.seed, fa, norms, da, dl, dt, qm)
+    rows += ([tiled, tiled_moe, widen] + grad_rows + stream_rows + mask_rows + family_rows
+             + probe_rows)
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

@@ -40,7 +40,8 @@ struct ContiguousRows {
 
 // q, out: [B, Hkv * G, D] bf16; k_cache, v_cache: [L, B, Smax, Hkv, D] bf16,
 // or int8 with fp32 k_scale, v_scale [L, B, Smax, Hkv] (null for bf16);
-// ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}. Each
+// ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}; or G 1
+// over a bf16 cache at D 80 or 256. Each
 // (sequence, kv head) takes a cluster of n_split blocks (1 to 8), each
 // block `chunk` slots (a multiple of kTokenStep, 128) from rank * chunk;
 // n_split * chunk must cover Smax.
@@ -49,7 +50,8 @@ extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* 
                                 void* out, int B, int Smax, int Hkv, int G, int D, int layer,
                                 float scale, int n_split, int chunk, void* stream) {
   if (B == 0 || Hkv == 0) return 0;
-  if (n_split < 1 || n_split > decode_attn::kMaxSplit || (D != 64 && D != 128) || chunk <= 0 ||
+  if (n_split < 1 || n_split > decode_attn::kMaxSplit ||
+      (D != 64 && D != 128 && D != 80 && D != 256) || chunk <= 0 ||
       chunk % decode_attn::kTokenStep || static_cast<long long>(n_split) * chunk < Smax)
     return cudaErrorInvalidValue;
   const ContiguousRows rows{B, Smax, Hkv, D, layer, n_split, chunk};

@@ -18,7 +18,14 @@
 // warp reads 32 * 16 contiguous-per-token bytes per step, and each step
 // keeps kUnroll tokens of K and V in flight (32 KB a block). Softmax is
 // online in fp32, one running (max, sum, acc) per lane group, merged across
-// groups by shuffles and across warps in shared memory.
+// groups by shuffles and across warps in shared memory. A token's lanes are
+// a power of two that divides the warp: at D 80 (Phi-2) a row's 10 chunks
+// take 16 lanes, 6 of them idle (no load, zero in the dot's shuffle sum), so
+// a warp step reads 2 rows of 160 bytes where 32 busy lanes would read 3.2:
+// 62.5 % of the lanes load, and each load instruction moves 320 bytes
+// instead of 512. 5-element (10-byte) lanes would keep every lane busy but
+// split each row into unaligned 2-byte loads. At D 256 a row takes the
+// whole warp, one token a warp step.
 //
 // The tensor-core pass (G > 1, grouped_mma_pass): both products on
 // mma.sync, the heads as the rows of 16-row tiles, 16-slot tiles a warp, the
@@ -72,8 +79,9 @@ constexpr int kUnroll = 4;
 constexpr int kMaxSplit = 8;
 constexpr int kTile = 16;      // the tensor-core pass's tokens a warp step
 // The slots a block step covers, and the split's chunk granule: the fp32
-// pass's 8 warps x 32 / (D / 8) tokens x kUnroll (128 at D 64, 64 at D 128)
-// and the tensor-core pass's 8 warps x kTile, both dividing 128.
+// pass's 8 warps x tokens a warp step x kUnroll (128 at D 64, 64 at D 80 and
+// 128, 32 at D 256; asserted in decode_kernel) and the tensor-core pass's 8
+// warps x kTile, both dividing 128.
 constexpr int kTokenStep = 128;
 // Block steps ahead whose K/V rows the tensor-core pass asks L2 to fetch
 // while it computes the current one (Mistral's decode: 57 us against 67
@@ -326,12 +334,15 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
               const int* __restrict__ ctx, T* __restrict__ out, Rows rows, int Hkv,
               float scale) {
   constexpr int V = 8;                // elements a lane holds of a row
-  constexpr int LPT = D / V;          // lanes per token row
+  constexpr int CH = D / V;           // 16-byte chunks of a token row
+  constexpr int LPT = CH <= 8 ? 8 : CH <= 16 ? 16 : 32;  // lanes per token row
+  constexpr bool kIdle = CH < LPT;    // lanes past the row's chunks (D 80)
   constexpr int TPI = 32 / LPT;       // tokens per warp step
   constexpr int STEP = kWarps * TPI;  // tokens per block step
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   static_assert(Vec16<T>::N == V, "q is a 16-bit type");
-  static_assert(LPT <= 32 && 32 % LPT == 0, "head_dim must fit one warp");
+  static_assert(CH * V == D && CH <= 32, "head_dim must fit one warp");
+  static_assert(kTokenStep % (STEP * kUnroll) == 0, "a split chunk holds whole block steps");
 
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
@@ -358,10 +369,16 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
     grouped_mma_pass<TC, D, G>(q + (static_cast<size_t>(b) * Hq + hk * G) * D, kc, vc, ks, vs,
                                rows, b, hk, scale, t_begin, n, sm_m, sm_l, sm_acc);
   } else {
+    const bool busy = !kIdle || sub < CH;  // an idle lane's q, K and V are 0
     float qf[G][V];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      load_vec(q + (static_cast<size_t>(b) * Hq + hk * G + g) * D + sub * V, qf[g]);
+      if (busy) {
+        load_vec(q + (static_cast<size_t>(b) * Hq + hk * G + g) * D + sub * V, qf[g]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) qf[g][i] = 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < V; ++i) qf[g][i] *= scale;
     }
@@ -385,7 +402,7 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * STEP + grp;
         ksc[u] = vsc[u] = 1.f;
-        if (t < n) {
+        if (t < n && busy) {
           const size_t off = rows.offset(b, hk, t);
           kraw[u] = *reinterpret_cast<const Raw8<TC>*>(kp + off);
           vraw[u] = *reinterpret_cast<const Raw8<TC>*>(vp + off);
@@ -445,7 +462,7 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
         for (int o = LPT; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
         acc[g][i] = a;
       }
-      if (grp == 0) {
+      if (grp == 0 && busy) {
 #pragma unroll
         for (int i = 0; i < V; ++i) sm_acc[warp][g][sub * V + i] = acc[g][i];
         if (sub == 0) {
@@ -513,6 +530,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   MLIO_DECODE_ATTN_CASE(64, 4) MLIO_DECODE_ATTN_CASE(64, 8)
   MLIO_DECODE_ATTN_CASE(128, 1) MLIO_DECODE_ATTN_CASE(128, 2)
   MLIO_DECODE_ATTN_CASE(128, 4) MLIO_DECODE_ATTN_CASE(128, 8)
+  // Phi-2's and Gemma's head dims: the fp32 pass over a bf16 cache only
+  if constexpr (!std::is_same<TC, int8_t>::value) {
+    MLIO_DECODE_ATTN_CASE(80, 1) MLIO_DECODE_ATTN_CASE(256, 1)
+  }
 #undef MLIO_DECODE_ATTN_CASE
   return cudaErrorInvalidValue;
 }

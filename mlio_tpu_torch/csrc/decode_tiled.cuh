@@ -90,15 +90,21 @@
 // Measured (chip_smoke.py, ab_k6.py; NVIDIA H100 80GB HBM3): PERF.md §5-6.
 //
 // Limits: bf16 activations; B <= 32; H <= 8192; head dim 64 or 128 and 1-4
-// or 5-8 query heads a KV head (template instances); E <= 16 experts; H and
-// I multiples of 16 (16-byte weight rows for the tensor maps). The wrapper
-// raises on anything else.
+// or 5-8 query heads a KV head (template instances), or head dim 256 with 1-4
+// query heads a KV head over bf16 weights and a bf16 cache (Gemma); E <= 16
+// experts; H and I multiples of 16 (16-byte weight rows for the tensor
+// maps). The wrapper raises on anything else. At D 256 a row of K or V is
+// 512 bytes: the attention phase's lanes are the whole warp, one slot a warp
+// step, and a ring slot holds kTok = 16 slots' K and V rows, exactly its 16
+// KB; its buffers are sized for 4 query heads (kAttnBuf).
 //
 // Sources. This header holds the kernel; decode_tiled_bf16.cu,
 // decode_tiled_int8.cu and decode_tiled_fp8.cu each define
 // MLIO_TILED_FMT (the weights' format: 0 bf16, 1 int8, 2 fp8 e4m3) and
 // include it, so that the three libraries build in parallel, each with its
-// format's GEMV instances only.
+// format's GEMV instances only; decode_tiled_d256.cu also defines
+// MLIO_TILED_D256 and builds the one head-dim-256 instance, so that it
+// lengthens no other source's build.
 #pragma once
 
 #ifndef MLIO_TILED_FMT
@@ -129,9 +135,15 @@ constexpr int kMaxB = 32;
 constexpr int kMaxE = 16;              // experts: the router's register array
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kAttnBufBytes = 49152;   // attention's q, k, v and merge buffers after its ring
-static_assert(((2 * kMaxG + 2) * 128 + 2 * kWarps * kMaxG + kWarps * kMaxG * 128 + 2 * 128) * 4 <=
-                  kAttnBufBytes,
-              "attention's buffers at head dim 128");
+// Attention's buffers for head dim D and GM query heads a KV head (its
+// register arrays' size): q, k, v raw [GM + 2][D], the scaled q [GM][D],
+// the warps' (max, sum) [kWarps][GM] and outputs [kWarps][GM][D], an INT8
+// cache's k, v [2][D]. 43.5 KB at D 128 with 8 heads; 44.3 KB at D 256 with
+// 4, where 8 would take 86.5 KB: D 256 is built for G <= 4 alone.
+template <int D, int GM>
+constexpr int kAttnBuf = ((2 * GM + 2) * D + 2 * kWarps * GM + kWarps * GM * D + 2 * D) * 4;
+static_assert(kAttnBuf<128, kMaxG> <= kAttnBufBytes, "attention's buffers at D 128");
+static_assert(kAttnBuf<256, 4> <= kAttnBufBytes, "attention's buffers at D 256");
 // The GEMV phases' shared memory, over the attention ring and its buffers:
 // ring slots of 32 KB of weights (a unit, by TMA) followed by the unit's
 // activations (raw rows by cp.async, their bf16 form, and the norm's scale
@@ -1034,12 +1046,13 @@ __device__ __noinline__ void attention_phase(const TiledParams& p, int layer,
   constexpr int kRow = D * static_cast<int>(sizeof(E));  // bytes of a K or V row
   constexpr int kTok = STEP * 2;                          // cache slots a ring slot
   static_assert(kTok * (2 * kRow + (kQ ? 8 : 0)) <= kStageBytes, "a ring slot's K/V");
-  float* s_raw = reinterpret_cast<float*>(ring + kRingBytes);  // [kMaxG + 2][D]: q, k, v
-  float* s_q = s_raw + (kMaxG + 2) * D;            // [kMaxG][D]
-  float* sm_m = s_q + kMaxG * D;                   // [kWarps][kMaxG]
-  float* sm_l = sm_m + kWarps * kMaxG;             // [kWarps][kMaxG]
-  float* sm_acc = sm_l + kWarps * kMaxG;           // [kWarps][kMaxG][D]
-  float* s_kv = sm_acc + kWarps * kMaxG * D;       // [2][D]: the INT8 cache's k, v
+  static_assert(kAttnBuf<D, GM> <= kAttnBufBytes, "attention's buffers");
+  float* s_raw = reinterpret_cast<float*>(ring + kRingBytes);  // [GM + 2][D]: q, k, v
+  float* s_q = s_raw + (GM + 2) * D;               // [GM][D]
+  float* sm_m = s_q + GM * D;                      // [kWarps][GM]
+  float* sm_l = sm_m + kWarps * GM;                // [kWarps][GM]
+  float* sm_acc = sm_l + kWarps * GM;              // [kWarps][GM][D]
+  float* s_kv = sm_acc + kWarps * GM * D;          // [2][D]: the INT8 cache's k, v
   E* const kc = static_cast<E*>(p.k_cache);
   E* const vc = static_cast<E*>(p.v_cache);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1080,9 +1093,11 @@ __device__ __noinline__ void attention_phase(const TiledParams& p, int layer,
         else if constexpr (kQ) s_kv[(r - G) * D + d] = val;
         else (r == G ? kc : vc)[slot + d] = from_f32<bf16>(val);
       }
-      if (kQ && cur) {
-        __syncthreads();
-        quantize_slot<D>(p, s_kv, slot);
+      if constexpr (kQ) {
+        if (cur) {
+          __syncthreads();
+          quantize_slot<D>(p, s_kv, slot);
+        }
       }
       if (cur) __threadfence();  // the slot just written, before the ring reads it
       __syncthreads();  // the slot just written is visible to the whole block
@@ -1164,10 +1179,10 @@ __device__ __noinline__ void attention_phase(const TiledParams& p, int layer,
         }
         if (grp == 0) {
 #pragma unroll
-          for (int i = 0; i < V; ++i) sm_acc[(warp * kMaxG + g) * D + sub * V + i] = acc[g][i];
+          for (int i = 0; i < V; ++i) sm_acc[(warp * GM + g) * D + sub * V + i] = acc[g][i];
           if (sub == 0) {
-            sm_m[warp * kMaxG + g] = mw;
-            sm_l[warp * kMaxG + g] = lw;
+            sm_m[warp * GM + g] = mw;
+            sm_l[warp * GM + g] = lw;
           }
         }
       }
@@ -1180,13 +1195,13 @@ __device__ __noinline__ void attention_phase(const TiledParams& p, int layer,
         const int g = e / D, d = e - g * D;
         float mx = -INFINITY;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * kMaxG + g]);
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * GM + g]);
         float lt = 0.f, o = 0.f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) {
-          const float f = (sm_m[w * kMaxG + g] == -INFINITY) ? 0.f : expf(sm_m[w * kMaxG + g] - mx);
-          lt += sm_l[w * kMaxG + g] * f;
-          o += sm_acc[(w * kMaxG + g) * D + d] * f;
+          const float f = (sm_m[w * GM + g] == -INFINITY) ? 0.f : expf(sm_m[w * GM + g] - mx);
+          lt += sm_l[w * GM + g] * f;
+          o += sm_acc[(w * GM + g) * D + d] * f;
         }
         if (S == 1) {
           __stcg(dst + e, round_to<bf16>(o / (lt == 0.f ? 1.f : lt)));
@@ -1314,11 +1329,19 @@ const void* pick_g(int G) {
                 : reinterpret_cast<const void*>(tiled_kernel<D, kQ, kMaxG>);
 }
 
+#ifdef MLIO_TILED_D256
+// decode_tiled_d256.cu: Gemma's head dim alone, bf16 weights and cache, G <= 4
+const void* pick(int D, bool q, int G) {
+  return D == 256 && !q && G <= 4 ? reinterpret_cast<const void*>(tiled_kernel<256, false, 4>)
+                                  : nullptr;
+}
+#else
 const void* pick(int D, bool q, int G) {
   if (D == 64) return q ? pick_g<64, true>(G) : pick_g<64, false>(G);
   if (D == 128) return q ? pick_g<128, true>(G) : pick_g<128, false>(G);
   return nullptr;
 }
+#endif
 
 }  // namespace
 

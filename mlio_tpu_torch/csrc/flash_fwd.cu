@@ -44,9 +44,10 @@
 // in elements of q, of k and v (the same), of the scales, of out and of the
 // mask (no row or head stride for a key mask, no head stride where Hm is 1).
 // The head dim is contiguous; q, k and v start 16-byte aligned and their
-// other strides are multiples of 16 bytes. D in {64, 128}; Hq a multiple of
-// Hkv. drop_rate > 0 takes the dropout instance (not over an INT8 cache),
-// with the seed drop_seed (an int32) and drop_inv_keep = 1 / (1 - drop_rate).
+// other strides are multiples of 16 bytes. D in {64, 128}, or 80 and 256
+// without k_scale, lse, dropout or mask; Hq a multiple of Hkv. drop_rate > 0
+// takes the dropout instance (not over an INT8 cache), with the seed
+// drop_seed (an int32) and drop_inv_keep = 1 / (1 - drop_rate).
 extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, const float* k_scale,
                               const float* v_scale, const unsigned char* mask, void* out,
                               float* lse, const int* kv_len, const long long* strides,

@@ -64,6 +64,10 @@
 //   min(kv_len, first row + q_offset + 64), the TPU kernel's causal early
 //   exit; keys past kv_len are zero-filled by the copies, q
 //   rows past Sq are zero and not stored, so nothing is padded.
+// Head dims 80 (Phi-2) and 256 (Gemma) take the causal/kv_len instance
+// alone (no user mask, dropout, lse or INT8 cache): D 80's tiles are padded to
+// 128 columns (kPadD), D 256's are four 64-column panels (32 KB a tile, one
+// block an SM) and its PV product is two n128 products.
 // The heaviest q tiles (the last, under causality) start first, the query
 // heads of one KV head side by side so that their K/V meet in L2. Every
 // output has one writer and every sum a fixed order: two runs give the same
@@ -141,8 +145,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Blocks an SM, by head dim; a block is one warpgroup. Two warpgroups a
 // block sharing one K/V ring (half the K/V traffic) measured no faster at
 // llama3-8b's attention and slower at GPT-2's prefill and with dropout
+// (PERF.md, Findings). At D 256 a block's q tile and three-stage K/V ring
+// take 224 of the SM's 227 KB: one block an SM, and 255 registers a thread
+// for its 64 x 256 fp32 O (128 a thread) beside S's 32.
+template <int D> constexpr int kMinBlocks = D == 64 ? 3 : D == 256 ? 1 : 2;
+
+// The width of a head's tiles in shared memory and of O in registers. Head
+// dim 80 (Phi-2) is a 160-byte row, which the 128-byte swizzle's 64-column
+// panels do not divide: its tiles are laid out 128 columns wide, and only
+// the first 80 are copied. S = Q K^T takes the 5 k-steps of the real
+// columns (no padded column is read); O += P V is one n128 product over V's
+// whole tile, whose columns 80-127 are zeroed once at the kernel's start
+// (the copies never write them), so O's padded columns stay 0 and are never
+// stored. The PV product does 128 / 80 = 1.6x the work, S none extra: 1.3x
+// the tensor-core work of an unpadded kernel. The 64-byte swizzle at a
+// 96-column pad would cost 1.2x on PV, but needs another descriptor layout
 // (PERF.md, Findings).
-template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
+template <int D> constexpr int kPadD = D == 80 ? 128 : D;
 
 // The element strides of a [B, S, H, D] tensor's batch, row (sequence
 // position) and head, in whatever layout it lies (bshd, or bhsd: [B, H, S,
@@ -177,7 +196,7 @@ struct FwdArgs {
 // each), then the 64 K scales and the 64 V scales.
 template <int D, bool kQuant = false>
 struct FwdSmem {
-  static constexpr size_t kTile = size_t(BT) * D * 2;
+  static constexpr size_t kTile = size_t(BT) * kPadD<D> * 2;
   static constexpr int kSlots = kQuant ? 1 : kStages;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = kTile;
@@ -222,8 +241,8 @@ __device__ __forceinline__ void load_kv(const FwdArgs& a, bf16* sK, bf16* sV, in
   constexpr int CPR = D / 8;
   if (j < n_tiles) {
     const long long base = b * a.kvs.b + hk * a.kvs.h;
-    bf16* k_t = sK + (j % kStages) * BT * D;
-    bf16* v_t = sV + (j % kStages) * BT * D;
+    bf16* k_t = sK + (j % kStages) * BT * kPadD<D>;
+    bf16* v_t = sV + (j % kStages) * BT * kPadD<D>;
 #pragma unroll
     for (int i = 0; i < BT * CPR / kWgThreads; ++i) {
       const int c = threadIdx.x + i * kWgThreads;
@@ -322,7 +341,7 @@ struct QuantTile {
 // 2 * (lane % 4) and + 1 (wgmma.cuh's layout).
 template <int D>
 struct FwdRows {
-  float o[D / 8][4];  // output accumulator: [n-tile of 8 dims][row g: 0, 1; row g+8: 2, 3]
+  float o[kPadD<D> / 8][4];  // output accumulator: [n-tile of 8 dims][row g: 0, 1; row g+8: 2, 3]
   float m[2], l[2];   // running max, and this thread's part of the row sum
 };
 
@@ -444,6 +463,24 @@ __device__ __forceinline__ uint32_t mask_word(const FwdArgs& a, const MaskRaw& m
   return bits;
 }
 
+// O += P V for the 16 keys kk of a tile: one product over V's whole padded
+// width, or at D 256 two n128 products over panels 0-1 and 2-3 of V's tile
+// (16 KB apart), each into its half of O.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[kPadD<D> / 8][4], const uint32_t (&pa)[4],
+                                           const bf16* v_t, int kk) {
+  constexpr int DP = kPadD<D>;
+  if constexpr (DP <= 128) {
+    wgmma_rs<DP, 1>(o, pa, mnmajor(v_t, 16 * kk), 1);
+  } else {
+#pragma unroll
+    for (int h = 0; h < DP / 128; ++h)
+      wgmma_rs<128, 1>(*reinterpret_cast<float(*)[16][4]>(&o[16 * h]), pa,
+                       mnmajor(reinterpret_cast<const unsigned char*>(v_t) + h * 16384, 16 * kk),
+                       1);
+  }
+}
+
 // One K/V tile for the warpgroup's 64 rows: S = (q * scale) K^T (64 x 64, q
 // and K from shared memory), the online softmax on the accumulators, O += P V
 // with p repacked in registers and V MN-major from shared memory. kQuant
@@ -548,7 +585,7 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
     st.m[i] = m_new;
   }
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < kPadD<D> / 8; ++n) {
     st.o[n][0] *= alpha[0];
     st.o[n][1] *= alpha[0];
     st.o[n][2] *= alpha[1];
@@ -568,7 +605,7 @@ __device__ __forceinline__ void fwd_tile(const FwdArgs& a, FwdRows<D>& st, const
   }
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) wgmma_rs<D, 1>(st.o, pa[kk], mnmajor(v_t, 16 * kk), 1);
+  for (int kk = 0; kk < BT / 16; ++kk) pv_product<D>(st.o, pa[kk], v_t, kk);
   wgmma_commit();
   if constexpr (kUser && kMaskAhead<D>) {
     if (a.mask_mode >= kMaskKey && next_c0 >= 0) m = mask_load(a, mr, next_c0);
@@ -621,6 +658,16 @@ flash_fwd_kernel(const FwdArgs a) {
   n_full = min(min(n_full, kvl / BT), n_tiles);
 
   load_q<D>(a, sQ, b, h, q_start);
+  if constexpr (kPadD<D> != D) {
+    // V's padded columns [D, kPadD), zero once: the copies never write them,
+    // and the PV product reads them (fenced with the first tile's copies)
+    constexpr int PC = (kPadD<D> - D) / 8;
+    for (int c = threadIdx.x; c < kStages * BT * PC; c += kWgThreads) {
+      const int slot = c / (BT * PC), r = c / PC % BT, cc = D / 8 + c % PC;
+      *reinterpret_cast<uint4*>(at_sw128(sV + slot * BT * kPadD<D>, r, cc * 8)) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
   if constexpr (kQuant) {
 #pragma unroll
     for (int j = 0; j < kStages; ++j) load_raw<D>(a, raw, j, n_tiles, b, hk, kvl);
@@ -664,8 +711,8 @@ flash_fwd_kernel(const FwdArgs a) {
         // tile j (and the q tile) visible to all; every warp is done with slot (j + 2) % 3
         __syncthreads();
         load_kv<D>(a, sK, sV, j + 2, n_tiles, b, hk, kvl);
-        k_t = sK + (j % kStages) * BT * D;
-        v_t = sV + (j % kStages) * BT * D;
+        k_t = sK + (j % kStages) * BT * kPadD<D>;
+        v_t = sV + (j % kStages) * BT * kPadD<D>;
       }
       const int next_c0 = j + 1 < n_tiles ? (j + 1) * BT : -1;
       if (!kUser && j < n_full)
@@ -677,13 +724,19 @@ flash_fwd_kernel(const FwdArgs a) {
       if constexpr (kQuant) load_raw<D>(a, raw, j + kStages, n_tiles, b, hk, kvl);
     }
   };
-  if (a.mask != nullptr) {
-    const int qr0 = q_start + warp * 16 + g;
-    mr.key = a.mask + b * a.ms.b + h * a.ms.h;
-    mr.r0 = qr0 < a.Sq ? mr.key + qr0 * a.ms.s : nullptr;
-    mr.r1 = qr0 + 8 < a.Sq ? mr.key + (qr0 + 8) * a.ms.s : nullptr;
-    if (kMaskAhead<D> && a.mask_mode >= kMaskKey && n_tiles > 0) mraw = mask_load(a, mr, 0);
-    tiles(std::true_type{});
+  // The user mask's loop is built at D 64 and 128 only: D 80 and 256 take
+  // no mask (launch_fwd_args).
+  if constexpr (D == 64 || D == 128) {
+    if (a.mask != nullptr) {
+      const int qr0 = q_start + warp * 16 + g;
+      mr.key = a.mask + b * a.ms.b + h * a.ms.h;
+      mr.r0 = qr0 < a.Sq ? mr.key + qr0 * a.ms.s : nullptr;
+      mr.r1 = qr0 + 8 < a.Sq ? mr.key + (qr0 + 8) * a.ms.s : nullptr;
+      if (kMaskAhead<D> && a.mask_mode >= kMaskKey && n_tiles > 0) mraw = mask_load(a, mr, 0);
+      tiles(std::true_type{});
+    } else {
+      tiles(std::false_type{});
+    }
   } else {
     tiles(std::false_type{});
   }
@@ -739,7 +792,9 @@ cudaError_t launch_fwd_instance(const FwdArgs& a, cudaStream_t s) {
   return lse ? launch_fwd_d<D, false, true>(a, s) : launch_fwd_d<D, false, false>(a, s);
 }
 
-// Any call of K1 or K9 (a's tensors by their strides), D 64 or 128.
+// Any call of K1 or K9 (a's tensors by their strides): D 64 or 128, or K1's
+// instance without a user mask, dropout, lse or INT8 cache at D 80 (Phi-2)
+// or 256 (Gemma), the only one built there.
 inline cudaError_t launch_fwd_args(FwdArgs a, int D, cudaStream_t s) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv || a.Skv < 0) return cudaErrorInvalidValue;
   const long long at = reinterpret_cast<uintptr_t>(a.mask) | a.ms.b | a.ms.h | a.ms.s | a.Skv;
@@ -749,7 +804,10 @@ inline cudaError_t launch_fwd_args(FwdArgs a, int D, cudaStream_t s) {
                                  : kMaskBytes;
   if (D == 64) return launch_fwd_instance<64>(a, s);
   if (D == 128) return launch_fwd_instance<128>(a, s);
-  return cudaErrorInvalidValue;
+  if (D != 80 && D != 256) return cudaErrorInvalidValue;
+  if (a.ks != nullptr || a.lse != nullptr || a.drop.rate > 0.f || a.mask != nullptr)
+    return cudaErrorInvalidValue;
+  return D == 80 ? launch_fwd_d<80, false, false>(a, s) : launch_fwd_d<256, false, false>(a, s);
 }
 
 // K13a's call (flash_bwd.cu): q, out [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D],

@@ -457,7 +457,7 @@ def decode_route(spec: ModelSpec, impl: Impl, blocks, B: int, cache_quant: bool 
                                          smax=smax, on_card=on_card)
     if mode == "tiled":
         if not tiled:
-            limit = _stack.route_limit(spec, B, on_card, _tiled.kernel_limit, _tiled.MAX_BATCH)
+            limit = _tiled.tiled_route_limit(spec, B, on_card, cache_quant, blocks)
             raise ValueError(
                 f"decode_stack='tiled': K6 does not run {spec.name} at batch {B} with these "
                 "weights and this cache (" + (limit or "parallel residual, activation, int4 "

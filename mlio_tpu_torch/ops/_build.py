@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "decode_layer_kv8",
            "paged_attn", "paged_stack",
            "quant_matmul", "fused_mlp", "ln_matmul", "decode_tiled_bf16", "decode_tiled_int8",
-           "decode_tiled_fp8", "dma_bench", "fp8_convert", "flash_bwd", "flash_stream")
+           "decode_tiled_fp8", "decode_tiled_d256", "dma_bench", "fp8_convert", "flash_bwd",
+           "flash_stream")
 # -Xptxas -v only reports each kernel's registers, stack and spills (kept in
 # BUILD_LOGS, summarised by ptxas_summary); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -19,7 +19,8 @@ as ``_decode_kernel``'s ``kv_quant`` path does.
 
 On CPU tensors :func:`decode_attention` runs :func:`decode_attention_plain`;
 on CUDA tensors it launches the kernel or raises: q must be bf16, the cache
-bf16 or int8.
+bf16 or int8. Head dims 80 (Phi-2) and 256 (Gemma) run the fp32 pass alone:
+one query head a KV head over a bf16 cache (:data:`FP32_ONLY_HEAD_DIMS`).
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ from typing import Optional
 import torch
 
 from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops.flash_attention import head_dim_error
 
 _GROUPS = (1, 2, 4, 8)
 _HEAD_DIMS = (64, 128)
+FP32_ONLY_HEAD_DIMS = (80, 256)  # G 1 over a bf16 cache only (ROADMAP.md A4, A5)
 # The kernel's split (csrc/decode_attn.cuh): a chunk is a multiple of the
 # slots a block step covers, and a cluster holds at most 8 blocks.
 TOKEN_STEP, MAX_SPLIT = 128, 8
@@ -152,9 +155,11 @@ def decode_attention(
     _build.require_bf16("decode_attention", q=q,
                         **({} if quant else dict(k_cache=k_cache, v_cache=v_cache)))
     G = Hq // Hkv
-    if G not in _GROUPS or D not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention: group {G} not in {_GROUPS} or head dim "
-                         f"{D} not in {_HEAD_DIMS}")
+    if G not in _GROUPS:
+        raise ValueError(f"decode_attention: group {G} not in {_GROUPS}")
+    if D not in _HEAD_DIMS and (D not in FP32_ONLY_HEAD_DIMS or G > 1 or quant):
+        raise head_dim_error("decode_attention", D, "with one query head a KV head over a "
+                             "bf16 cache" if D in FP32_ONLY_HEAD_DIMS else "")
     if context_lens.dtype != torch.int32 or not context_lens.is_contiguous():
         raise ValueError("decode_attention: context_lens must be contiguous int32")
     _build.require_contiguous_aligned("decode_attention", q=q, k_cache=k_cache,

@@ -821,7 +821,8 @@ def kernel_limit(spec, B: int) -> Optional[str]:
     G, D, I = spec.num_heads // spec.num_kv_heads, spec.head_size, spec.intermediate_size
     H = spec.hidden_size
     if G not in _GROUPS or D not in _HEAD_DIMS:
-        return f"group {G} not in {_GROUPS} or head dim {D} not in {_HEAD_DIMS}"
+        return (f"group {G} not in {_GROUPS} or head dim {D} not in {_HEAD_DIMS} (other head dims "
+                "are not built: ROADMAP.md A4)")
     if not 1 <= B <= MAX_BATCH or H > MAX_HIDDEN or H % 8 or I % 8:
         return (f"batch {B} must be 1..{MAX_BATCH}, hidden {H} at most {MAX_HIDDEN}, "
                 "hidden and intermediate multiples of 8")

@@ -4,7 +4,9 @@ large dense or sparse-MoE model in one launch, no head epilogue.
 Replaces ``mlio_tpu/ops/decode_tiled.py::_tiled_kernel`` (entry
 ``decode_layer_tiled``). The kernel is CUDA C++ in
 ``mlio_tpu_torch/csrc/decode_tiled.cuh``, built once per weight format
-(``decode_tiled_{bf16,int8,fp8}.cu``): one persistent cooperative launch a
+(``decode_tiled_{bf16,int8,fp8}.cu``), and once more for head dim 256 with
+bf16 weights and cache and at most 4 query heads a KV head (Gemma,
+``decode_tiled_d256.cu``): one persistent cooperative launch a
 step whose phases, a layer at a time, are the QKV projections, attention by
 (sequence, head group, context split) with the cache write, the
 out-projection into the fp32 residual, up (and gate) with the activation,
@@ -54,6 +56,8 @@ MAX_HIDDEN = 8192
 MAX_GROUP = 8      # query heads a KV head: the attention item's register arrays
 MAX_EXPERTS = 16   # the router's register array (the kernel's kMaxE)
 _HEAD_DIMS = (64, 128)
+# Gemma's head dim: its own source, one instance (bf16 weights and cache, G <= 4)
+D256, D256_MAX_GROUP = 256, 4
 _WIDTH_ALIGN = 16  # hidden and intermediate widths: 16-byte int8 weight rows (TMA strides)
 # Hopper's budgets that the tiling is chosen from (hopper-kernels guide §1).
 SMS = 132
@@ -150,22 +154,39 @@ def _weight_itemsize(blocks) -> Optional[int]:
     return w.element_size()
 
 
-def kernel_limit(spec, B: int) -> Optional[str]:
-    """The first limit of the CUDA instances that (spec, B) breaks, or None."""
+def kernel_limit(spec, B: int, cache_quant: bool = False,
+                 weight_itemsize: int = 2) -> Optional[str]:
+    """The first limit of the CUDA instances that (spec, B) breaks, or None;
+    with the cache's quantization and the weights' bytes an element, which
+    the head-dim-256 instance limits."""
     G, D = spec.num_heads // spec.num_kv_heads, spec.head_size
     H, I = spec.hidden_size, spec.intermediate_size
     if not 1 <= B <= MAX_BATCH:
         return f"batch {B} must be 1..{MAX_BATCH}"
     if not 1 <= G <= MAX_GROUP or spec.num_heads % spec.num_kv_heads:
         return f"query heads per KV head {G} must be 1..{MAX_GROUP}"
-    if D not in _HEAD_DIMS:
-        return f"head dim {D} not in {_HEAD_DIMS}"
+    if D == D256:
+        if G > D256_MAX_GROUP or cache_quant or weight_itemsize != 2:
+            return (f"head dim {D} runs with at most {D256_MAX_GROUP} query heads a KV head, "
+                    "bf16 weights and a bf16 cache (other instances are not built: ROADMAP.md "
+                    "A4)")
+    elif D not in _HEAD_DIMS:
+        return f"head dim {D} not in {_HEAD_DIMS + (D256,)} (ROADMAP.md A4)"
     if H > MAX_HIDDEN or H % _WIDTH_ALIGN or I % _WIDTH_ALIGN:
         return (f"hidden {H} at most {MAX_HIDDEN}, hidden and intermediate "
                 f"multiples of {_WIDTH_ALIGN}")
     if spec.num_experts > MAX_EXPERTS:
         return f"{spec.num_experts} experts, at most {MAX_EXPERTS}"
     return None
+
+
+def tiled_route_limit(spec, B: int, on_card: bool, cache_quant: bool = False,
+                      blocks=None) -> Optional[str]:
+    """``decode_layer.route_limit`` with K6's :func:`kernel_limit` for this
+    cache and these weights: the limit the tiled route refuses on, or None."""
+    isz = _weight_itemsize(blocks) or 2
+    return route_limit(spec, B, on_card, lambda s, b: kernel_limit(s, b, cache_quant, isz),
+                       MAX_BATCH)
 
 
 def supports_decode_tiled(spec, B: int = 8, cache_quant: bool = False, blocks=None,
@@ -192,7 +213,7 @@ def supports_decode_tiled(spec, B: int = 8, cache_quant: bool = False, blocks=No
             return False
         if isinstance(mu, QTensor) and mu.fmt != wq.fmt:
             return False
-    if route_limit(spec, B, on_card, kernel_limit, MAX_BATCH) is not None:
+    if tiled_route_limit(spec, B, on_card, cache_quant, blocks) is not None:
         return False
     return choose_tiling(spec, B) is not None
 
@@ -514,10 +535,10 @@ class _Params(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _FLOATS])
 
 
-def _entry(fmt: Optional[str]):
-    """K6's library for the weights' format
-    (``csrc/decode_tiled_{bf16,int8,fp8}.cu``), its entry points typed."""
-    lib = _build.library(f"decode_tiled_{fmt or 'bf16'}")
+def _entry(fmt: Optional[str], D: int = 128):
+    """K6's library for the weights' format and head dim
+    (``csrc/decode_tiled_{bf16,int8,fp8,d256}.cu``), its entry points typed."""
+    lib = _build.library("decode_tiled_d256" if D == D256 else f"decode_tiled_{fmt or 'bf16'}")
     if lib.mlio_decode_tiled_plan.argtypes is None:
         pp, i, vp = ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p
         for fn, args in ((lib.mlio_decode_tiled_plan,
@@ -534,7 +555,7 @@ def card_items(spec, fmt: Optional[str], B: int, phase: str, npicked: int = 1):
     """The card's own plan of one GEMV phase (``mlio_decode_tiled_items`` at
     the blocks the plan function sizes the launch for): a list of ``(block,
     tile, first unit, end unit)``, for holding :func:`item_plan` against."""
-    lib = _entry(fmt)
+    lib = _entry(fmt, spec.head_size)
     prm = _Params(B=B, H=spec.hidden_size, Hq=spec.num_heads, Hkv=spec.num_kv_heads,
                   D=spec.head_size, I=spec.intermediate_size, L=spec.num_layers, Smax=128,
                   pos=0, activation=_ACTIVATIONS.index(spec.activation), wfmt=_FMTS[fmt], ka=1,
@@ -688,7 +709,7 @@ def decode_layer_tiled(
         tensors.update(caches)
     dev = _build.require_cuda("decode_layer_tiled", *[t for t in (
         *tensors.values(), *quant_t.values(), *caches.values()) if t is not None])
-    limit = kernel_limit(spec, B)
+    limit = kernel_limit(spec, B, quant, 1 if fmt else 2)
     if limit is not None:
         raise ValueError(f"decode_layer_tiled: {limit}")
     _build.require_bf16("decode_layer_tiled", **tensors)
@@ -732,7 +753,7 @@ def decode_layer_tiled(
         rmsnorm=int(spec.norm == "rmsnorm"), activation=_ACTIVATIONS.index(spec.activation),
         wfmt=_FMTS[fmt], ka=tiling.ka, eps=spec.norm_eps,
         scale=D ** -0.5 if scale is None else scale)
-    lib = _entry(fmt)
+    lib = _entry(fmt, D)
     work_floats, sync_ints = ctypes.c_longlong(), ctypes.c_int()
     weights = [quant_t.get(n, tensors.get(n)) for n in _WEIGHTS]
     # the tensor maps (built once per set of weight tensors): keyed by the

@@ -52,7 +52,9 @@ kept probabilities scaled by 1/(1 - rate) in the PV product only, as in
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel or raise. The kernels take bf16 queries and head dims 64
-and 128. The kernels have no backward: the wrappers raise when asked for a
+and 128; K1 also takes head dims 80 (Phi-2) and 256 (Gemma), without a
+user mask, dropout or the lse (:data:`K1_ONLY_HEAD_DIMS`), which K9, K10
+and K13 do not (``ROADMAP.md`` A4). The kernels have no backward: the wrappers raise when asked for a
 gradient (``_build.refuse_grad``); training goes through ``ops.attention``,
 whose training-shaped flash route (no mask) is
 :func:`~mlio_tpu_torch.ops.flash_attention_grad.flash_attention_diff`.
@@ -69,11 +71,39 @@ from mlio_tpu_torch.ops.dropmask import dense_keep_mask
 from mlio_tpu_torch.ops.reference import attention_mask, canonicalize_mask, user_mask
 
 _HEAD_DIMS = (64, 128)
+# Head dims of K1's instance without a user mask, dropout, lse or INT8 cache
+# alone: the prefill of Phi-2 (80) and Gemma (256). K9, K10 and K13 refuse
+# them.
+K1_ONLY_HEAD_DIMS = (80, 256)
 _LAYOUTS = ("bshd", "bhsd")
 # The JAX package's VMEM budget for one head's K and V (flash_attention's
 # ``kv_vmem_budget``), read at call time so that a test may move the route.
 KV_VMEM_BUDGET = 6 << 20
 STREAM_BLOCK_KV = 128  # K10's K/V tile: the block of keys its plain version steps by
+
+
+def head_dim_error(what: str, D: int, runs: str = "") -> ValueError:
+    """The error of a kernel call at a head dim its instances do not take;
+    ``runs`` names what the head dim's own instance does take, where it has
+    one."""
+    if runs:
+        return ValueError(f"{what}: head dim {D} runs {runs} only (the rest is not built: "
+                          "ROADMAP.md A4)")
+    return ValueError(f"{what}: head dim {D} not in {_HEAD_DIMS} (other head dims are not "
+                      "built: ROADMAP.md A4)")
+
+
+def k1_instance_error(what: str, D: int, *, quant: bool, lse: bool, dropout: bool,
+                      mask: bool) -> Optional[ValueError]:
+    """The error of a K1 or K9 call (``quant``: over an INT8 cache) at head
+    dim ``D`` with these options where no instance is built, else None."""
+    if D in _HEAD_DIMS:
+        return None
+    if D not in K1_ONLY_HEAD_DIMS or quant:
+        return head_dim_error(what, D)
+    if lse or dropout or mask:
+        return head_dim_error(what, D, "without a user mask, the lse or dropout")
+    return None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -425,8 +455,10 @@ def _launch(what, q, k, v, k_scale, v_scale, kind, m, *, causal, scale, q_offset
     quant = k_scale is not None
     dev = _build.require_cuda(what, *(t for t in (q, k, v, k_scale, v_scale, m) if t is not None))
     _build.require_bf16(what, q=q, **({} if quant else dict(k=k, v=v)))
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} not in {_HEAD_DIMS}")
+    err = k1_instance_error(what, D, quant=quant, lse=return_stats, dropout=drop[1] > 0.0,
+                            mask=m is not None)
+    if err is not None:
+        raise err
     if k.stride() != v.stride() or (quant and k_scale.stride() != v_scale.stride()):
         raise ValueError(f"{what}: k and v (and their scales) must have the same strides")
     _require_rows(what, 8, q=q)
@@ -540,7 +572,7 @@ def flash_attention_stream(
     dev = _build.require_cuda("flash_attention_stream", q, k, v)
     _build.require_bf16("flash_attention_stream", q=q, k=k, v=v)
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_stream: head dim {D} not in {_HEAD_DIMS}")
+        raise head_dim_error("flash_attention_stream", D)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kv_arr, kv_scalar = _kv_len_arg("flash_attention_stream", kv_len, B, Skv, dev)
     _build.require_contiguous_aligned("flash_attention_stream", q=q, k=k, v=v)

@@ -139,7 +139,7 @@ def _check(what, q, k, v, *more):
     dev = _build.require_cuda(what, q, k, v, *more)
     _build.require_bf16(what, q=q, k=k, v=v)
     if q.shape[-1] not in _flash._HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[-1]} not in {_flash._HEAD_DIMS}")
+        raise _flash.head_dim_error(what, q.shape[-1])
     return dev
 
 

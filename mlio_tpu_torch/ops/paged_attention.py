@@ -231,7 +231,7 @@ def paged_attention(
     G = Hq // Hkv
     if G not in _GROUPS or D not in _HEAD_DIMS:
         raise ValueError(f"paged_attention: group {G} not in {_GROUPS} or head dim {D} "
-                         f"not in {_HEAD_DIMS}")
+                         f"not in {_HEAD_DIMS} (other head dims are not built: ROADMAP.md A4)")
     for name, t in (("block_tables", block_tables), ("context_lens", context_lens)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous int32")

@@ -3,14 +3,18 @@
 
 Run from the repository root with one card visible:
 
-    python3 profile_torch.py [--seed N] [--out DIR]
+    python3 profile_torch.py [--seed N] [--out DIR] [--model NAME]
 
 Traces chip_smoke.py's workload (its ``workload``: GPT-2 small in bf16 with
 random weights from the seed, batch 8, 704-token prompt, 1024-slot cache,
 the per-op decode Impl): one prefill, then 8 decode steps; then one decode
 dispatch of the serving engine (chip_smoke.py's engine geometry: 8 slots,
 256 blocks of 128, the first 8 of its prompts just prefilled) through each
-decode backend, 8 per-op steps and 16 K8 steps. Each region runs on its own
+decode backend, 8 per-op steps and 16 K8 steps. ``--model`` traces another
+preset instead (chip_smoke.py's families phase: random bf16 weights from
+the seed, the same batch, prompt and cache, ``Impl(attention="flash",
+norm="fused")``): its prefill and 8 decode steps on the route
+``decode_route`` picks, no engine. Each region runs on its own
 after a warm-up. Prints one JSON line per region with its
 wall ms (host clock around work ending in ``torch.cuda.synchronize()``), the
 device-busy ms (the union of the kernels' intervals in the trace), the idle
@@ -64,18 +68,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--model", default="gpt2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from mlio_tpu_torch.models import forward
+    from mlio_tpu_torch.models import Impl, forward, load_model
     from mlio_tpu_torch.runtime import init_cache
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     dev = torch.device("cuda", 0)
     spec, params, ids, impl = workload(args.seed, dev)
+    if args.model != "gpt2":
+        del params
+        spec, params = load_model(args.model, dtype=torch.bfloat16, device=dev, seed=args.seed)
+        impl = Impl(attention="flash", norm="fused")
     print(json.dumps(dict(nvidia_smi=nvidia_smi(), torch=torch.__version__)))
 
     def prefill():
@@ -95,7 +104,7 @@ def main() -> int:
                 t = lg[:, -1].argmax(-1)[:, None]
 
         _region(f"decode_{STEPS}_steps", decode, args.out)
-        for stack, k in (("perop", STEPS), ("mega", 2 * STEPS)):
+        for stack, k in (() if args.model != "gpt2" else (("perop", STEPS), ("mega", 2 * STEPS))):
             _region(f"engine_{stack}_{k}_steps", engine_dispatch(spec, params, impl, stack, k),
                     args.out)
     return 0

@@ -7,7 +7,8 @@ The plan needs no card: every check here is on the mirror, which the card's
 own plan function (``mlio_decode_tiled_items``) is held against in
 chip_smoke.py. Shapes: llama3-8b and Mixtral-8x7B at full width, and the
 widths chip_smoke.py's ``tiled_variants`` runs (H 256-4096; I 528, 784, 1040,
-1200, 14336).
+1200, 14336), and Gemma-7B's (head dim 256: Q/K/V 4096 wide beside an H of
+3072; I 24576).
 """
 import dataclasses
 import random
@@ -54,7 +55,7 @@ def _plan(model, fmt, B):
 
 @pytest.mark.parametrize("B", [1, 8, 32])
 @pytest.mark.parametrize("fmt", ["bf16", "int8"])
-@pytest.mark.parametrize("model", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("model", ["llama3-8b", "mixtral-8x7b", "gemma-7b"])
 def test_plan_covers_every_unit_once(model, fmt, B):
     """Each phase's items cut [0, ntiles * nk) into runs, one a block in
     block order, each run split at tile edges: every (tile, k block) of
@@ -96,7 +97,7 @@ def test_unpicked_expert_gets_no_item(fmt):
 
 @pytest.mark.parametrize("B", [1, 8, 32])
 @pytest.mark.parametrize("fmt", ["bf16", "int8"])
-@pytest.mark.parametrize("model", ["llama3-8b", "mixtral-8x7b"])
+@pytest.mark.parametrize("model", ["llama3-8b", "mixtral-8x7b", "gemma-7b"])
 def test_plan_fills_every_sm(model, fmt, B):
     """Every GEMV phase has at least 132 items (segments) at llama3-8b's
     and Mixtral's widths, and every one of the 132 blocks streams units:
@@ -108,13 +109,14 @@ def test_plan_fills_every_sm(model, fmt, B):
 
 
 @pytest.mark.parametrize("fmt", ["bf16", "int8", "fp8"])
-@pytest.mark.parametrize("case", ["llama3-8b", "mixtral-8x7b", *_variant_specs()])
+@pytest.mark.parametrize("case", ["llama3-8b", "mixtral-8x7b", "gemma-7b", *_variant_specs()])
 def test_tile_rows_and_tma_strides(case, fmt):
     """A tile row is 256 bytes of each matrix (two 128-byte TMA boxes)
     wherever the matrix is that wide, only a matrix's last tile is
     narrower, and every matrix's row stride is a multiple of 16 bytes (what
     a tensor map takes) at every width tiled_variants runs."""
-    spec = get_spec(case) if case in ("llama3-8b", "mixtral-8x7b") else _variant_specs()[case]
+    spec = get_spec(case) if case in ("llama3-8b", "mixtral-8x7b", "gemma-7b") \
+        else _variant_specs()[case]
     isz = 2 if fmt == "bf16" else 1
     plan = dt.item_plan(spec, FORMATS[fmt], nb=SMS)
     for phase, p in plan.items():
@@ -160,8 +162,9 @@ def _arrivals(p, rng):
 
 @pytest.mark.parametrize("phase", list(dt.GEMV_PHASES))
 @pytest.mark.parametrize("model,fmt,experts", [("llama3-8b", None, None),
-                                               ("mixtral-8x7b", "int8", [0, 2, 3, 7])],
-                         ids=["llama3-8b-bf16", "mixtral-8x7b-int8"])
+                                               ("mixtral-8x7b", "int8", [0, 2, 3, 7]),
+                                               ("gemma-7b", None, None)],
+                         ids=["llama3-8b-bf16", "mixtral-8x7b-int8", "gemma-7b-bf16"])
 def test_sum_order_does_not_depend_on_arrival(model, fmt, experts, phase):
     """Whatever order the segments arrive in, each group's partials are
     summed in one order: its segments' slots (block + tile, unique in the
