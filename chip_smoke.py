@@ -256,6 +256,31 @@ phase's failure is caught:
    (bf16 from the seed, config.json and safetensors written by this
    script under build/families) through ``load_model(dir)`` on the card:
    the spec and every parameter bit for bit; the directory deleted after.
+16. speculative: speculative decoding at gpt2-medium's full width and
+   depth, bf16, B 1, a 512-token prompt (a 64-token motif tiled 8 times), a
+   1024-slot cache, 256 new tokens. First K1 at the verify windows (B 1, 16
+   heads, Sq 2, 7 and 25 at q_offset 700, D 64; Sq 7 at D 128) and K4 at B
+   1 at the draft model's 8 layers, each against its plain version with a
+   control that must fail (kv_len one short; a context one token short),
+   timed beside the plain version, SDPA with the boolean mask (K1) and the
+   bound; then every drafting mode's ids against ``greedy_generate``'s on
+   the fp32 plain route (``Impl()``) at B 1 and B 2, bit for bit. Then the
+   legs through ``Impl(attention="flash", norm="fused")``: vanilla
+   ``generate`` (K4), n-gram at gamma 6, the external stream (the n-gram
+   leg's output) at draft_accept 1.0 / 0.75 / 0.5 with gamma 24 / 6 / 4,
+   the draft model (the first 8 layers, gamma 4), self-speculation (gamma
+   4), and the induction model (hidden 2048, 12 layers, period 32) under
+   ``speculative_generate_auto`` against its vanilla generate: seconds,
+   rounds, tokens a round, the speedup, agreement with vanilla's ids, the
+   device-busy ms of a traced run and the idle share, the launches a round
+   (each held to what the leg's rounds must launch).
+17. engine_pipelined: the engine's pipelined loop at GPT-2 small, bf16,
+   engine_bench's workload on K8 at 8 and 128 steps a dispatch, each
+   through the sync loop, the pipelined loop and the pipelined loop with
+   the native scheduler: the same ids and scheduler stats; tok/s, wall s,
+   device-busy ms and idle share each. Then the pool-exhaustion geometry
+   (2 slots, 5 blocks of 8) on the per-op decode: the pipelined loops give
+   the sync loop's ids, with preemptions.
 
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
@@ -2582,7 +2607,7 @@ def engine_phase(dev, seed, wrappers, generate_tok_s, int8=False):
         with torch.inference_mode():
             eng._prefill_batch(list(eng.sched.admit()))
             eng.sched.plan_multi_step(k)
-            cur, tables, ctx = (eng._tensor(a) for a in
+            cur, tables, ctx = (eng._upload(a) for a in
                                 (eng.sched.cur, eng.sched.tables, eng.sched.ctx))
             if path == "mega":
                 chunk = lambda: engine_mod._decode_mega_steps(  # noqa: E731
@@ -3948,7 +3973,7 @@ def f1_phase(dev, seed, wrappers, fa, norms, da, qm, dt, pa):
         eng.submit(p_, 8)
     with torch.inference_mode():
         eng._prefill_batch(list(eng.sched.admit()))
-        cur, tables, ctx = (eng._tensor(a) for a in (eng.sched.cur, eng.sched.tables,
+        cur, tables, ctx = (eng._upload(a) for a in (eng.sched.cur, eng.sched.tables,
                                                       eng.sched.ctx))
         kp, vp = eng.k_pool.clone(), eng.v_pool.clone()
         lg = paged_forward.decode_paged(params, spec, cur, eng.k_pool, eng.v_pool, tables, ctx,
@@ -6132,6 +6157,415 @@ def families_phase(dev, seed, fa, norms, da, dl, dt, qm):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding and the pipelined engine loop
+# ---------------------------------------------------------------------------
+
+SPEC_MODEL = "gpt2-medium"   # bench_extra.py's spec_decode model: full width and depth
+SPEC_MOTIF, SPEC_REPEATS = 64, 8  # its prompt: a 64-token motif tiled 8 times
+SPEC_NEW, SPEC_CACHE = 256, 1024
+SPEC_DRAFT_LAYERS = 8        # the draft model: the target's first 8 layers
+SPEC_NGRAM_GAMMA, SPEC_DRAFT_GAMMA = 6, 4
+SPEC_STREAMS = ((1.0, 24), (0.75, 6), (0.5, 4))  # (draft_accept, gamma) of the external stream
+SPEC_GATE_NEW = 64           # new tokens of the fp32 exactness gate
+VERIFY_OFFSET = 700          # K1's verify windows: q_offset inside the legs' 512..800
+VERIFY_CASES = ((2, 64), (7, 64), (25, 64), (7, 128))  # (Sq, D): gamma 1, 6, 24; the induction model
+INDUCTION = dict(hidden=2048, layers=12, heads=16, vocab=16384, max_seq=1024)
+INDUCTION_PERIOD, INDUCTION_CHUNK = 32, 64
+
+
+def verify_attention_row(fa, dev, seed):
+    """K1 at the verify windows' shape: B 1, 16 heads, Sq query tokens at
+    q_offset VERIFY_OFFSET over a SPEC_CACHE-slot cache holding
+    VERIFY_OFFSET + Sq keys, causal; each case against its plain version
+    (K1's limits, each row too) and failing it with kv_len one short (the
+    window's last key is planted along its last query, so that attention
+    peaks there); timed beside its plain version, SDPA with the boolean mask
+    (SDPA has no causal q_offset) and the bound. The row's own numbers are
+    the n-gram leg's window (Sq 7, D 64)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, cases = 16, {}
+    for Sq, D in VERIFY_CASES:
+        q, k, v = attention_inputs(gen, 1, Sq, SPEC_CACHE, H, H, D)
+        kv_len = VERIFY_OFFSET + Sq
+        k[:, kv_len - 1] = q[:, Sq - 1] * 4
+        args = dict(causal=True, q_offset=VERIFY_OFFSET, kv_len=kv_len)
+        want = fa.flash_attention_plain(q, k, v, **args)
+        err = check_close("flash_attention", fa.flash_attention(q, k, v, **args), want)
+        short = must_fail_within("flash_attention", "kv_len one short",
+                                 fa.flash_attention(q, k, v, **dict(args, kv_len=kv_len - 1)),
+                                 want)
+        valid = (torch.arange(kv_len, device=dev)[None, :]
+                 <= VERIFY_OFFSET + torch.arange(Sq, device=dev)[:, None])
+        pairs = causal_pairs(Sq, kv_len, True, VERIFY_OFFSET)
+        flops = 4 * H * D * pairs
+        b_ms, b_by = bound((2 * q.numel() + 2 * kv_len * H * D) * 2, flops, BF16_TENSOR_FLOPS)
+        cases[f"sq{Sq}_d{D}"] = dict(
+            shape=f"q [1,{Sq},{H},{D}] k/v [1,{SPEC_CACHE},{H},{D}] bf16, q_offset "
+                  f"{VERIFY_OFFSET}, kv_len {kv_len}, causal",
+            max_abs_err=err, kv_len_minus_1_max_abs_err=short,
+            **timings(lambda i: fa.flash_attention(q, k, v, **args),
+                      lambda i: fa.flash_attention_plain(q, k, v, **args),
+                      sdpa_masked(q, k[:, :kv_len], v[:, :kv_len], valid), 100),
+            bound_ms=b_ms, bound_by=b_by)
+    top = cases["sq7_d64"]
+    return dict(
+        name="flash_attention_verify", route="cuda", source="mlio_tpu_torch/csrc/flash_fwd.cu",
+        replaces="mlio_tpu/ops/flash_attention.py:37", shape=top["shape"],
+        max_abs_err=top["max_abs_err"], atol=TOL["flash_attention"][0],
+        rtol=TOL["flash_attention"][1], row_rel_rms_limit=ROW_REL_RMS["flash_attention"],
+        ms=top["ms"], kernel_ms=top["kernel_ms"], call_ms=top["call_ms"],
+        plain_ms=top["plain_ms"], library_ms=top["library_ms"],
+        library_note="SDPA with the boolean mask over the kv_len keys",
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"], cases=cases)
+
+
+def k4_batch1_row(dl, dev, seed, dspec, dparams, pos):
+    """K4 at the draft model's step: B 1, gpt2-medium's widths and the draft's
+    SPEC_DRAFT_LAYERS layers, one step at ``pos`` over a SPEC_CACHE-slot
+    cache, no epilogue (the head runs after it, as in ``_decode_forward``),
+    x carrying its position; against its plain version (K4's limits, every
+    slot written) and failing it with the context one token short; timed
+    beside the plain version and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, kc, vc, _, _, kw = stack_inputs(dspec, dparams, 1, SPEC_CACHE, pos, 1, gen,
+                                       epilogue=False)
+    kw.pop("pos_embed")
+    x_plain, errs = stack_check(dl, dspec, dparams, x, kc, vc, pos, None, None, kw)
+    blocks = dparams["blocks"]
+    x_short, _ = dl.decode_layer_stack(x, blocks, kc.clone(), vc.clone(), pos - 1, **kw)
+    short = must_fail_within("decode_layer_stack", "a context one token short", x_short, x_plain)
+    b_ms, b_by = stack_bound(dspec, dparams, 1, pos + 1, head=False)
+    return dict(
+        name="decode_layer_stack_b1", route="cuda", source="mlio_tpu_torch/csrc/decode_layer.cu",
+        replaces="mlio_tpu/ops/decode_layer.py:136",
+        shape=f"{dspec.name} bf16 (gpt2-medium's widths, {dspec.num_layers} layers), x "
+              f"[1,{dspec.hidden_size}], cache [{dspec.num_layers},1,{SPEC_CACHE},"
+              f"{dspec.num_kv_heads},{dspec.head_size}], ctx {pos + 1}, no epilogue",
+        max_abs_err=errs["x_out"], errors=errs, atol=TOL["decode_layer_stack"][0],
+        rtol=TOL["decode_layer_stack"][1], ctx_minus_1_max_abs_err=short,
+        library_note="no single PyTorch call computes a decode step",
+        **timings(lambda i: dl.decode_layer_stack(x, blocks, kc, vc, pos, **kw),
+                  lambda i: dl.decode_layer_stack_plain(x, blocks, kc, vc, pos, **kw), None, 50),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def traced_busy_ms(run) -> float:
+    """Device-busy ms of one call of ``run`` in a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = busy_ms(prof.events())
+    if not busy:
+        raise AssertionError("the profiler saw no device time")
+    return busy
+
+
+def spec_leg(name, run, wrappers, vocab, vanilla_s=None, vanilla_new=None):
+    """One leg: ``run()`` -> (ids, stats: a dict, a list of chunks' or None),
+    timed once by the host clock with the launch counters zeroed around it,
+    then traced once for its device-busy ms. Returns (ids, stats, the leg's
+    report, its launches)."""
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    busy = traced_busy_ms(run)
+    new = out[:, -SPEC_NEW:]
+    if int(new.min()) < 0 or int(new.max()) >= vocab:
+        raise AssertionError(f"speculative {name}: a token out of range")
+    rep = dict(s=wall, device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3),
+               launches=launches)
+    if st is not None:
+        rounds = st["rounds"] if isinstance(st, dict) else sum(c["rounds"] for c in st)
+        rep.update(rounds=rounds, tokens_per_round=SPEC_NEW / rounds,
+                   ms_per_round=wall * 1e3 / rounds,
+                   idle_ms_per_round=(wall * 1e3 - busy) / rounds)
+        for w, n in launches.items():
+            rep[f"{w}_per_round"] = n / rounds
+    if vanilla_s is not None:
+        rep.update(speedup=vanilla_s / wall,
+                   agreement_with_vanilla=(new == vanilla_new).float().mean().item())
+    return out, st, rep, launches
+
+
+def speculative_exactness(dev, spec, params, dspec, dparams, ids):
+    """Every drafting mode's ids equal greedy_generate's on the fp32 plain
+    route (``Impl()``: dense attention, no kernel), at gpt2-medium's full
+    width and depth, B 1 and B 2 (the second row the motif rotated), for
+    SPEC_GATE_NEW new tokens; the external stream proposes greedy's own
+    continuation, corrupted at 0.5. Returns the rounds of each run."""
+    from mlio_tpu_torch.models import Impl
+    from mlio_tpu_torch.runtime import greedy_generate, speculative_generate
+
+    f32 = lambda p: {k: (f32(v) if isinstance(v, dict) else  # noqa: E731
+                         None if v is None else v.float()) for k, v in p.items()}
+    p32, d32 = f32(params), f32(dparams)
+    impl = Impl()
+    rounds = {}
+    for batch in (1, 2):
+        bids = torch.cat([ids, ids.roll(7, dims=1)])[:batch]
+        ref = greedy_generate(p32, spec, bids, max_new_tokens=SPEC_GATE_NEW, impl=impl, device=dev)
+        oracle = ref[:, bids.shape[1]:]
+        modes = {"ngram": dict(gamma=SPEC_NGRAM_GAMMA),
+                 "stream_1.0": dict(gamma=24, draft_tokens=oracle),
+                 "stream_0.5": dict(gamma=4, draft_tokens=oracle, draft_accept=0.5),
+                 "draft": dict(gamma=SPEC_DRAFT_GAMMA, draft_params=d32, draft_spec=dspec),
+                 "self": dict(gamma=SPEC_DRAFT_GAMMA, draft_params=p32, draft_spec=spec)}
+        for mode, kw in modes.items():
+            out, st = speculative_generate(p32, spec, bids, max_new_tokens=SPEC_GATE_NEW,
+                                           impl=impl, return_stats=True, device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(1),
+                                           **kw)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"speculative exactness: {mode} at B {batch} differs from "
+                                     f"greedy_generate on the fp32 plain route at "
+                                     f"{int((out != ref).sum())} positions")
+            rounds[f"{mode}_b{batch}"] = st["rounds"]
+    if rounds["stream_1.0_b1"] != -(-(SPEC_GATE_NEW - 1) // 25):
+        raise AssertionError(f"speculative exactness: perfect drafts took "
+                             f"{rounds['stream_1.0_b1']} rounds")
+    if rounds["self_b1"] != -(-(SPEC_GATE_NEW - 1) // (SPEC_DRAFT_GAMMA + 1)):
+        raise AssertionError(f"speculative exactness: self-speculation took {rounds['self_b1']} "
+                             "rounds: a draft was rejected")
+    del p32, d32
+    torch.cuda.empty_cache()
+    return rounds
+
+
+def speculative_phase(dev, seed, fa, norms, da, dl, dt):
+    """Speculative decoding at gpt2-medium's full width and depth, bf16,
+    random weights from the seed, B 1, a 512-token prompt (a 64-token motif
+    tiled 8 times), a 1024-slot cache, 256 new tokens: vanilla ``generate``
+    (K4's multi-step launch), n-gram drafting at gamma 6, the external
+    stream (the n-gram leg's own output) at draft_accept 1.0 / 0.75 / 0.5
+    with gamma 24 / 6 / 4, the draft model (the first 8 layers, gamma 4),
+    self-speculation (gamma 4), and the induction model (hidden 2048, 12
+    layers, 16 heads, 16,384 tokens, period 32) under
+    ``speculative_generate_auto`` beside its vanilla generate; each with
+    seconds, rounds, tokens a round, the speedup over vanilla, agreement
+    with vanilla's ids, the device-busy ms of a traced run and the idle
+    share, and the launches (each leg's counts are held to what its rounds
+    must launch). Gates: the fp32 exactness of every mode at B 1 and 2
+    (``speculative_exactness``), K1 at the verify shapes and K4 at B 1
+    against their plain versions with failing controls. Returns (the K1
+    and K4 rows, the launches by leg)."""
+    from mlio_tpu_torch.models import (Impl, induction_spec, load_model, make_induction_model,
+                                       periodic_prompt)
+    from mlio_tpu_torch.runtime import generate, speculative_generate
+    from mlio_tpu_torch.runtime.speculative import speculative_generate_auto
+
+    spec, params = load_model(SPEC_MODEL, dtype=torch.bfloat16, device=dev, seed=seed)
+    L, S = spec.num_layers, SPEC_MOTIF * SPEC_REPEATS
+    dspec = dataclasses.replace(spec, num_layers=SPEC_DRAFT_LAYERS,
+                                name=f"{SPEC_MODEL}-draft{SPEC_DRAFT_LAYERS}")
+    dparams = dict(params, blocks={k: (v[:SPEC_DRAFT_LAYERS] if v is not None else None)
+                                   for k, v in params["blocks"].items()})
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, spec.vocab_size, (1, SPEC_MOTIF), generator=gen,
+                        device=dev).repeat(1, SPEC_REPEATS)
+    k1_row = verify_attention_row(fa, dev, seed)
+    k4_row = k4_batch1_row(dl, dev, seed, dspec, dparams, VERIFY_OFFSET)
+    exact_rounds = speculative_exactness(dev, spec, params, dspec, dparams, ids)
+
+    impl = Impl(attention="flash", norm="fused")
+    wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack,
+                dt.decode_layer_tiled)
+    common = dict(impl=impl, cache_len=SPEC_CACHE, max_new_tokens=SPEC_NEW, return_stats=True,
+                  device=dev)
+
+    def spec_run(**kw):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return lambda: speculative_generate(params, spec, ids, generator=g, **common, **kw)
+
+    def vanilla():
+        return generate(params, spec, ids, max_new_tokens=SPEC_NEW, impl=impl,
+                        cache_len=SPEC_CACHE, device=dev), None
+
+    speculative_generate(params, spec, ids, gamma=SPEC_NGRAM_GAMMA, impl=impl,
+                         cache_len=SPEC_CACHE, max_new_tokens=16, device=dev)  # warm-up
+    vanilla()
+    van_ids, _, van, van_l = spec_leg("vanilla", vanilla, wrappers, spec.vocab_size)
+    want = {w.__name__: 0 for w in wrappers}
+    if van_l != dict(want, flash_attention=L, fused_norm=2 * L + 1, decode_layer_stack=1):
+        raise AssertionError(f"speculative vanilla: launches {van_l}")
+    legs, launches = {"vanilla": van}, {"vanilla": van_l}
+    van_new = van_ids[:, S:]
+
+    def leg(name, run, draft_layers=0):
+        out, _, rep, got = spec_leg(name, run, wrappers, spec.vocab_size, van["s"], van_new)
+        r = rep["rounds"]
+        # K1 a layer in the target's prefill, the draft's and each verify
+        # window; K2 a norm of each; K4 the draft steps (gamma a round, one
+        # more after a round that accepted every draft); no K3 or K6
+        k1 = L * (1 + r) + draft_layers
+        k2 = (2 * L + 1) * (1 + r) + (2 * draft_layers + 1 if draft_layers else 0)
+        ok = (got["flash_attention"] == k1 and got["decode_attention"] == 0
+              and got["decode_layer_tiled"] == 0)
+        if draft_layers:
+            g = SPEC_DRAFT_GAMMA
+            ok = ok and g * r <= got["decode_layer_stack"] <= (g + 1) * r
+            k2 += got["decode_layer_stack"]  # the draft's final norm after each K4 step
+        else:
+            ok = ok and got["decode_layer_stack"] == 0
+        if not ok or got["fused_norm"] != k2:
+            raise AssertionError(f"speculative {name}: launches {got} over {r} rounds "
+                                 f"(K1 {k1}, K2 {k2} expected)")
+        legs[name], launches[name] = rep, got
+        return out
+
+    ngram_ids = leg("ngram", spec_run(gamma=SPEC_NGRAM_GAMMA))
+    oracle = ngram_ids[:, S:]
+    for accept, gamma in SPEC_STREAMS:
+        out = leg(f"stream_{accept}", spec_run(gamma=gamma, draft_tokens=oracle,
+                                              draft_accept=accept))
+        legs[f"stream_{accept}"].update(gamma=gamma, agreement_with_ngram=(
+            out[:, S:] == oracle).float().mean().item())
+    leg("draft", spec_run(gamma=SPEC_DRAFT_GAMMA, draft_params=dparams, draft_spec=dspec),
+        SPEC_DRAFT_LAYERS)
+    leg("self", spec_run(gamma=SPEC_DRAFT_GAMMA, draft_params=params, draft_spec=spec), L)
+    del params, dparams
+    torch.cuda.empty_cache()
+
+    ispec = induction_spec(**INDUCTION)
+    iparams = make_induction_model(ispec, INDUCTION_PERIOD,
+                                   torch.Generator(device=dev).manual_seed(seed),
+                                   dtype=torch.bfloat16, device=dev)
+    iids = periodic_prompt(INDUCTION_PERIOD, 8, ispec.vocab_size,
+                           torch.Generator(device=dev).manual_seed(seed + 7), device=dev)
+    ivan = lambda: (generate(iparams, ispec, iids, max_new_tokens=SPEC_NEW,  # noqa: E731
+                             impl=impl, cache_len=SPEC_CACHE, device=dev), None)
+    ivan()
+    ivan_ids, _, ivan_rep, ivan_l = spec_leg("induction_vanilla", ivan, wrappers,
+                                             ispec.vocab_size)
+    iS, iL = iids.shape[1], ispec.num_layers
+    if ivan_l != dict(want, flash_attention=iL, fused_norm=2 * iL + 1, decode_layer_stack=1):
+        raise AssertionError(f"speculative induction vanilla: launches {ivan_l}")
+    period = iids[0, :INDUCTION_PERIOD].repeat(SPEC_NEW // INDUCTION_PERIOD + 1)[:SPEC_NEW]
+    ivan_rep["period_agreement"] = (ivan_ids[0, iS:] == period).float().mean().item()
+    auto = lambda: speculative_generate_auto(  # noqa: E731
+        iparams, ispec, iids, max_new_tokens=SPEC_NEW, chunk=INDUCTION_CHUNK, impl=impl,
+        return_stats=True, device=dev)
+    _, ichunks, irep, il = spec_leg("induction", auto, wrappers, ispec.vocab_size,
+                                    ivan_rep["s"], ivan_ids[:, iS:])
+    irep.update(vanilla=ivan_rep, gamma_trajectory=[c["gamma"] for c in ichunks],
+                tokens_per_round_by_chunk=[c["tokens_per_round"] for c in ichunks])
+    calls = len(ichunks) + irep["rounds"]  # each chunk's prefill, each verify window
+    if il != dict(want, flash_attention=iL * calls, fused_norm=(2 * iL + 1) * calls):
+        raise AssertionError(f"speculative induction: launches {il} over {calls} forwards")
+    legs["induction"], launches["induction"], launches["induction_vanilla"] = irep, il, ivan_l
+    del iparams
+    torch.cuda.empty_cache()
+
+    k1_row["launches"] = sum(launches[n]["flash_attention"] for n in launches if n not in
+                             ("vanilla", "induction_vanilla"))
+    k1_row["launches_note"] = ("K1 in the bf16 speculative legs (prefills and verify windows; "
+                               "the windows are 2..25 tokens)")
+    k4_row["launches"] = launches["draft"]["decode_layer_stack"]
+    k4_row["launches_note"] = "K4 in the draft-model leg's draft steps (B 1, 8 layers)"
+    if not (k1_row["launches"] and k4_row["launches"]):
+        raise AssertionError("speculative: K1 or K4 not launched on the legs")
+    emit(dict(phase="speculative", model=SPEC_MODEL, dtype="bf16", batch=1, prompt=S,
+              cache_len=SPEC_CACHE, new_tokens=SPEC_NEW, impl=repr(impl),
+              draft_layers=SPEC_DRAFT_LAYERS, induction=dict(INDUCTION, period=INDUCTION_PERIOD,
+                                                             chunk=INDUCTION_CHUNK),
+              exactness_fp32_rounds=exact_rounds, legs=legs,
+              k1_verify={k: {m: c[m] for m in ("max_abs_err", "kv_len_minus_1_max_abs_err",
+                                                "ms", "plain_ms", "library_ms", "bound_ms")}
+                         for k, c in k1_row["cases"].items()},
+              k4_b1=dict(max_abs_err=k4_row["max_abs_err"],
+                         ctx_minus_1_max_abs_err=k4_row["ctx_minus_1_max_abs_err"],
+                         ms=k4_row["ms"], bound_ms=k4_row["bound_ms"])))
+    return [k1_row, k4_row], launches
+
+
+POOL_EXHAUSTED = dict(max_batch=2, num_blocks=5, block_size=8)  # the geometry of the fault
+POOL_EXHAUSTED_PROMPTS = ([5, 9, 2, 7, 1, 3], [11, 3, 6, 1, 8, 4])
+
+
+def engine_pipelined_phase(dev, seed, wrappers):
+    """The engine's pipelined loop at GPT-2 small, bf16: engine_bench's
+    workload (24 prompts, 256 new tokens, 8 slots, K8) at steps_per_dispatch
+    8 and DISPATCH, each through the sync loop and the pipelined loop with
+    the Python scheduler and the pipelined loop with the native one (after
+    a warm-up wave of 8 prompts and 32 tokens); the three must give the same
+    ids and scheduler stats. Reported: generated tok/s, host wall s,
+    device-busy ms of a traced run, idle share, launches. Then the
+    pool-exhaustion geometry (2 slots, 5 blocks of 8, 16 new tokens) on the
+    per-op decode: the pipelined loops must give the sync loop's ids, with
+    preemptions."""
+    from mlio_tpu_torch.models import Impl, load_model
+    from mlio_tpu_torch.runtime import InferenceEngine
+
+    spec, params = load_model("gpt2", dtype=torch.bfloat16, device=dev, seed=seed)
+    prompts = engine_prompts(seed, spec.vocab_size)
+    impl = Impl(attention="flash", norm="fused")
+    runs = (("sync", False, "python"), ("pipelined", True, "python"),
+            ("pipelined_native", True, "native"))
+    results, k8 = {}, 0
+    for k in (8, DISPATCH):
+        setting, ids0, stats0 = {}, None, None
+        for name, pipeline, sched in runs:
+            eng = InferenceEngine(spec, params, max_batch=B, num_blocks=POOL_BLOCKS,
+                                  block_size=POOL_BS, impl=impl, steps_per_dispatch=k,
+                                  scheduler=sched, device=dev)
+            if eng.decode_stack != "mega" or eng.memory_stats()["scheduler"] != sched:
+                raise AssertionError(f"engine_pipelined: {eng.decode_stack}, "
+                                     f"{eng.memory_stats()['scheduler']}")
+            eng.run(prompts[:B], max_new_tokens=32, pipeline=pipeline)  # warm-up
+            for w in wrappers:
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng.run(prompts, max_new_tokens=ENGINE_NEW, pipeline=pipeline)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {w.__name__: w.launches for w in wrappers}
+            stats = {s: v for s, v in eng.memory_stats().items() if s != "scheduler"}
+            busy = traced_busy_ms(lambda: eng.run(prompts, max_new_tokens=ENGINE_NEW,
+                                                  pipeline=pipeline))
+            if [len(o) for o in outs] != [ENGINE_NEW] * N_PROMPTS or counts["paged_attention"] \
+                    or not counts["decode_paged_stack"]:
+                raise AssertionError(f"engine_pipelined {name} k {k}: outputs {len(outs)} or "
+                                     f"launches {counts}")
+            if ids0 is None:
+                ids0, stats0 = outs, stats
+            elif outs != ids0 or stats != stats0:
+                raise AssertionError(f"engine_pipelined {name} k {k}: ids or stats differ from "
+                                     f"the sync loop's ({stats} against {stats0})")
+            k8 += counts["decode_paged_stack"]
+            tok = N_PROMPTS * ENGINE_NEW
+            setting[name] = dict(scheduler=sched, pipeline=pipeline, wall_s=wall,
+                                 generated_tok_per_s=tok / wall, device_busy_ms=busy,
+                                 idle_share=1 - busy / (wall * 1e3), launches=counts,
+                                 stats=stats)
+            del eng
+        results[f"steps_{k}"] = setting
+    exhausted = {}
+    for name, pipeline, sched in runs:
+        eng = InferenceEngine(spec, params, decode_stack="perop", impl=impl, scheduler=sched,
+                              device=dev, **POOL_EXHAUSTED)
+        outs = eng.run(list(POOL_EXHAUSTED_PROMPTS), max_new_tokens=16, pipeline=pipeline)
+        st = eng.memory_stats()
+        if st["preempted"] == 0:
+            raise AssertionError(f"engine_pipelined pool_exhausted {name}: no preemption")
+        if exhausted and outs != exhausted["sync"]["ids"]:
+            raise AssertionError(f"engine_pipelined pool_exhausted {name}: {outs} against the "
+                                 f"sync loop's {exhausted['sync']['ids']}")
+        exhausted[name] = dict(ids=outs, preempted=st["preempted"], scheduler=st["scheduler"])
+    emit(dict(phase="engine_pipelined", model="gpt2", dtype="bf16", max_batch=B,
+              num_blocks=POOL_BLOCKS, block_size=POOL_BS, prompts=N_PROMPTS,
+              new_tokens=ENGINE_NEW, **results,
+              pool_exhausted=dict(geometry=POOL_EXHAUSTED, decode_stack="perop", **exhausted)))
+    return k8
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6326,8 +6760,17 @@ def main() -> int:
     # The families slice: Gemma-7B (head dim 256) and Phi-2 (80) through K1,
     # K3 and K6's new instances, and their checkpoint directories.
     family_rows = families_phase(dev, args.seed, fa, norms, da, dl, dt, qm)
+    # The speculative slice: gpt2-medium's drafting legs (K1 at the verify
+    # windows, K4 at B 1) and the induction model, then the engine's
+    # pipelined loop with both schedulers.
+    spec_rows, _ = speculative_phase(dev, args.seed, fa, norms, da, dl, dt)
+    by_name["decode_paged_stack"]["pipelined_launches"] = engine_pipelined_phase(
+        dev, args.seed, wrappers)
+    by_name["decode_paged_stack"]["pipelined_launches_note"] = (
+        "K8 in engine_pipelined's timed runs (sync, pipelined, pipelined native; steps a "
+        f"dispatch 8 and {DISPATCH})")
     rows += ([tiled, tiled_moe, widen] + grad_rows + stream_rows + mask_rows + family_rows
-             + probe_rows)
+             + spec_rows + probe_rows)
     for r in rows:  # every bound beside the one at the spec sheet's rate
         if r.get("bound_by") == "bytes":
             r["bound_ms_spec_sheet"] = r["bound_ms"] * HBM_BYTES_PER_S / SPEC_BYTES_PER_S

@@ -35,6 +35,11 @@ kernels without a backward (K2, K5, K11, K12, the decode kernels) raise
 under autograd, as the JAX package cannot differentiate them either
 (``runtime/train.py``).
 
+Speculative decoding (``runtime/speculative.py``) runs both forms: a
+verify window of gamma + 1 tokens is a cached forward (K1 at ``q_offset``
+over the whole cache, K2 with ``norm="fused"``), a draft step a
+single-token decode on ``decode_route``'s route (K4 at B <= 8).
+
 ``Impl(attention="ring")`` attends through ``ops.attention``'s ring route
 (``ops/ring_attention.py``, chunks of ``ring_chunk`` keys): on the card its
 single-device fold is one ``flash_attention`` call, the flash route's own

@@ -12,7 +12,8 @@ from mlio_tpu_torch.runtime.quantization import (
     quantize_params,
     quantized_size_bytes,
 )
-from mlio_tpu_torch.runtime.sampling import SamplingMethod, sample
+from mlio_tpu_torch.runtime.sampling import SamplingMethod, probabilities, sample
+from mlio_tpu_torch.runtime.speculative import speculative_generate, speculative_generate_auto
 from mlio_tpu_torch.runtime.train import next_token_loss, sgd_step, trainable
 
 __all__ = [
@@ -30,7 +31,10 @@ __all__ = [
     "quantize_params",
     "quantized_size_bytes",
     "SamplingMethod",
+    "probabilities",
     "sample",
+    "speculative_generate",
+    "speculative_generate_auto",
     "next_token_loss",
     "sgd_step",
     "trainable",

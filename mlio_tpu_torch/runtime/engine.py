@@ -14,14 +14,27 @@ Split of responsibilities, as in the JAX package:
   tokens, contexts and tables stay on the device; the chunk's tokens are
   fetched once, after it.
 * host: admission, incremental block allocation, preemption by recompute,
-  prefix caching and finish checks in ``runtime/scheduler.py``.
+  prefix caching and finish checks in a scheduler (``runtime/scheduler.py``:
+  the native C++ one where it builds, its Python twin otherwise).
 
-Divergences from the JAX engine: ``run`` always takes the synchronous
-``step`` loop (``pipeline=True`` raises until the pipelined loop is ported;
-for every geometry where the pool is not exhausted the JAX package
-documents the same greedy outputs for both loops); the native scheduler is
-not ported; both backends keep ``[L, NB, bs, Hkv, D]`` pools
-(``kv_combined`` is always False); sampling draws from a
+Two loops: the synchronous ``step`` loop, and the pipelined loop
+(``_run_pipelined``), which plans and launches chunk N+1 from chunk N's
+device-resident last tokens before chunk N's tokens reach the host. On
+CUDA a ``.cpu()`` of chunk N's tokens after chunk N+1 is queued would wait
+for chunk N+1 as well; so each chunk's tokens are copied to pinned host
+memory without blocking right after its launches, an event is recorded
+behind the copy, and the commit waits on that event alone. Every launch
+and copy stays on the current stream: a chunk still in flight may write to
+blocks that a lagged commit has freed, and their reuse is launched after
+it in stream order (the JAX loop's argument, which rests on device-queue
+order). Where the pool is short of even one step's blocks
+(``plan_multi_step`` returns -1) the pipelined loop commits the chunk in
+flight and takes one synchronous step, whose commit preempts; the JAX
+package's pipelined loop dispatches that chunk past the pool and its
+tokens go wrong.
+
+Divergences from the JAX engine: both backends keep ``[L, NB, bs, Hkv, D]``
+pools (``kv_combined`` is always False); sampling draws from a
 ``torch.Generator`` on the engine's device, once per sampled step.
 """
 from __future__ import annotations
@@ -106,6 +119,27 @@ def _decode_multi_steps(params, cur, k_pool, v_pool, tables, ctx, generator, *, 
         toks.append(cur)
         ctx = ctx + 1
     return torch.stack(toks)
+
+
+class _Fetch:
+    """A device tensor's copy to the host, started when made and waited on
+    alone: on CUDA into pinned memory without blocking, with an event
+    recorded behind the copy; on the CPU a copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t.clone()
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 class _ManagerView:
@@ -205,19 +239,32 @@ class InferenceEngine:
         self.requests[rid] = Request(rid, prompt, max_new_tokens, eos_token)
         return rid
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), device=self.device)
+    def _upload(self, a, dtype=np.int32) -> torch.Tensor:
+        """A copy of a host array on the device, taken now (the scheduler's
+        arrays change under later plans, the native ones in place); on CUDA
+        through pinned memory without blocking, so that the host does not
+        wait for the work queued before it."""
+        t = torch.from_numpy(np.array(a, dtype=dtype))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _prefill_batch(self, admitted: List[tuple]) -> None:
+    def _prefill_batch(self, admitted: List[tuple], defer: bool = False) -> List[tuple]:
         """Batched ragged prefill: the admissions sharing a length bucket run
         as ONE padded prefill call, the batch padded to a power of two. Pad
         rows have all-scratch tables, so their writes land in the scratch
         block, and their samples are dropped. The group's tokens are fetched
-        once, after its sample."""
+        once, after its sample.
+
+        ``defer=True`` (the pipelined loop) leaves the sampled tokens on the
+        device and returns ``(slots, fetch, device tokens)`` a group: the
+        scheduler advances ctx through ``commit_prefill_pending`` and gets
+        the values later through ``resolve_prefill``."""
         by_bucket: Dict[int, List[tuple]] = {}
         for slot, prompt, _num_cached in admitted:
             b = _bucket(len(prompt), self.prefill_buckets)
             by_bucket.setdefault(b, []).append((slot, prompt))
+        groups: List[tuple] = []
         for bucket, group in sorted(by_bucket.items()):
             pb = 1 << (len(group) - 1).bit_length()  # next power of two
             ids = np.zeros((pb, bucket), np.int64)
@@ -228,12 +275,19 @@ class InferenceEngine:
                 lens[i] = len(prompt)
                 tables[i] = self.sched.tables[slot]
             logits = paged_forward.prefill_paged(
-                self.params, self.spec, self._tensor(ids), self.k_pool, self.v_pool,
-                self._tensor(tables), self._tensor(lens),
+                self.params, self.spec, self._upload(ids, np.int64), self.k_pool, self.v_pool,
+                self._upload(tables), self._upload(lens),
                 torch.zeros((pb,), dtype=torch.int32, device=self.device), impl=self.impl)
-            toks = sample(logits, self.generator, self.method).cpu().numpy()
+            dev_toks = sample(logits, self.generator, self.method)
+            if defer:
+                for slot, _prompt in group:
+                    self.sched.commit_prefill_pending(slot)
+                groups.append(([s for s, _p in group], _Fetch(dev_toks), dev_toks))
+                continue
+            toks = dev_toks.cpu().numpy()
             for i, (slot, _prompt) in enumerate(group):
                 self.sched.commit_prefill(slot, int(toks[i]))
+        return groups
 
     def _drain_finished(self) -> None:
         while True:
@@ -261,43 +315,162 @@ class InferenceEngine:
         if admitted:
             self._prefill_batch(admitted)
         if self.sched.num_active:
-            k = 1
-            if self.steps_per_dispatch > 1:
-                k = max(1, self.sched.plan_multi_step(self.steps_per_dispatch))
-                k = 1 << (k.bit_length() - 1)  # a power of two, as the JAX engine
-            cur, tables, ctx = (self._tensor(a) for a in
-                                (self.sched.cur, self.sched.tables, self.sched.ctx))
-            if self.decode_stack == "mega":
-                toks = _decode_mega_steps(
-                    self.params, self._lm_w, cur, self.k_pool, self.v_pool, tables, ctx,
-                    self.generator, spec=self.spec, k=k, method=self.method,
-                    lm_vmajor=self._lm_vmajor)
-            else:
-                toks = _decode_multi_steps(
-                    self.params, cur, self.k_pool, self.v_pool, tables, ctx, self.generator,
-                    spec=self.spec, impl=self.impl, k=k, method=self.method)
-            self.sched.commit_tokens_multi(toks.cpu().numpy())
+            self._decode_sync()
         self._drain_finished()
+
+    def _decode_sync(self) -> int:
+        """One decode chunk from the committed state, its tokens committed
+        before it returns: the JAX sync loop's k (a power of two; 1 where
+        the plan could not cover more, the write at ctx - 1 being covered
+        by the last commit). Returns k."""
+        k = 1
+        if self.steps_per_dispatch > 1:
+            k = max(1, self.sched.plan_multi_step(self.steps_per_dispatch))
+            k = 1 << (k.bit_length() - 1)  # a power of two, as the JAX engine
+        toks = self._dispatch_chunk(k, self._upload(self.sched.cur), 0)
+        self.sched.commit_tokens_multi(toks.cpu().numpy())
+        return k
+
+    def _dispatch_chunk(self, k: int, cur: torch.Tensor, ctx_off: int) -> torch.Tensor:
+        """Launch ONE k-step decode chunk from tokens ``cur`` [B] int32 on the
+        device; returns its tokens [k, B] int32 on the device, unread.
+
+        ``ctx_off`` is the pipelined loop's count of positions dispatched but
+        not committed: the chunk decodes positions ctx + ctx_off onward,
+        whose blocks ``plan_multi_step(reserve=ctx_off)`` preallocated. The
+        tables and contexts are copied when the chunk is launched."""
+        tables = self._upload(self.sched.tables)
+        ctx = self._upload(np.asarray(self.sched.ctx, np.int32) + np.int32(ctx_off))
+        if self.decode_stack == "mega":
+            return _decode_mega_steps(
+                self.params, self._lm_w, cur, self.k_pool, self.v_pool, tables, ctx,
+                self.generator, spec=self.spec, k=k, method=self.method,
+                lm_vmajor=self._lm_vmajor)
+        return _decode_multi_steps(
+            self.params, cur, self.k_pool, self.v_pool, tables, ctx, self.generator,
+            spec=self.spec, impl=self.impl, k=k, method=self.method)
+
+    @torch.inference_mode()
+    def _run_pipelined(self) -> None:
+        """Drive every submitted request to completion with one chunk of
+        lookahead: chunk N+1 is planned (``plan_multi_step(reserve=k_N)``)
+        and launched from chunk N's last tokens on the device before chunk
+        N's tokens are committed, so the host's commit runs under the
+        device's next chunk. Commits lag one chunk (EOS and length
+        overshoot are trimmed at commit, as in the sync loop); admission and
+        prefill are sync points, so a slot's membership is known on the
+        host when a prompt enters. Where the pool cannot cover even one
+        step (plan -1), the chunk in flight is committed and one
+        synchronous step runs. Greedy outputs are the sync loop's."""
+        pend: Optional[tuple] = None  # (fetch of [k, B] tokens, device tokens, k)
+        rem: Dict[int, int] = {}      # slot -> tokens still to dispatch
+        deferred: List[tuple] = []    # (slots, fetch, device prefill tokens)
+
+        def flush():
+            nonlocal pend
+            if pend is not None:
+                fetch, pend = pend[0], None
+                self.sched.commit_tokens_multi(fetch.get())
+                self._drain_finished()
+
+        def resolve_prefills():
+            # the device-sampled prefill tokens, delivered after the first
+            # chunk behind them was launched
+            for slots, fetch, _ in deferred:
+                vals = fetch.get()
+                for i, slot in enumerate(slots):
+                    self.sched.resolve_prefill(slot, int(vals[i]))
+            deferred.clear()
+            self._drain_finished()
+
+        def active_slots():
+            return [s for s in range(self.max_batch) if self.sched.slot_req_id(s) >= 0]
+
+        guard = 0
+        while self.sched.num_queued or self.sched.num_active or pend is not None:
+            guard += 1
+            if guard > 100_000:
+                raise RuntimeError("engine did not converge")
+            if self.sched.num_queued and self.sched.num_active < self.max_batch:
+                resolve_prefills()
+                flush()  # finishes must be known on the host for admission
+            admitted = list(self.sched.admit())
+            if admitted:
+                flush()  # a prefill resets its slot's state on the host
+                deferred += self._prefill_batch(admitted, defer=True)
+                for slot, _prompt, _nc in admitted:
+                    rid = self.sched.slot_req_id(slot)
+                    if rid >= 0:
+                        rem[slot] = self.requests[rid].max_new_tokens - 1
+            if not self.sched.num_active:
+                resolve_prefills()
+                flush()
+                continue
+            active = active_slots()
+            # every active slot's budget already in flight: another chunk
+            # would be a pure-waste tail, so drain
+            if max((rem.get(s, 0) for s in active), default=0) <= 0:
+                resolve_prefills()
+                flush()
+                continue
+            k = self.sched.plan_multi_step(self.steps_per_dispatch,
+                                           reserve=pend[2] if pend else 0)
+            if k < 0:
+                # the pool is short of one step's blocks past the positions
+                # in flight: commit them, then one synchronous step
+                resolve_prefills()
+                flush()
+                active = active_slots()
+                if active:
+                    k = self._decode_sync()
+                    for s in active:
+                        rem[s] = rem.get(s, 0) - k
+                    self._drain_finished()
+                continue
+            if k == 0:
+                resolve_prefills()
+                flush()
+                continue
+            k = 1 << (k.bit_length() - 1)  # a power of two, as the JAX engine
+            if pend is not None:
+                cur = pend[1][-1]
+            else:
+                cur = self._upload(self.sched.cur)
+                # the prefill samples the host has not seen yet go into cur
+                # by slot; the pad rows' samples are left out here
+                for slots, _fetch, dev_toks in deferred:
+                    cur[self._upload(slots).long()] = dev_toks[:len(slots)].to(torch.int32)
+            toks = self._dispatch_chunk(k, cur, pend[2] if pend else 0)
+            for s in active:
+                rem[s] = rem.get(s, 0) - k
+            prev, pend = pend, (_Fetch(toks), toks, k)
+            # commit everything outstanding while the new chunk runs
+            resolve_prefills()
+            if prev is not None:
+                self.sched.commit_tokens_multi(prev[0].get())
+                self._drain_finished()
+        resolve_prefills()
+        flush()
 
     def run(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
             eos_token: Optional[int] = None, pipeline="auto") -> List[List[int]]:
         """Submit all prompts, run until completion, return outputs in order.
 
-        ``pipeline``: ``"auto"`` and False run the synchronous ``step`` loop;
-        True (the JAX engine's async one-chunk-lookahead loop) raises."""
-        if pipeline is True:
-            raise NotImplementedError(
-                "run(pipeline=True): the pipelined engine loop (_run_pipelined) is not "
-                "ported yet (ROADMAP queue 1, item 7: serving); 'auto' runs the sync loop")
-        if pipeline not in ("auto", False):
+        ``pipeline``: True runs the pipelined loop (``_run_pipelined``),
+        False the synchronous ``step`` loop, ``"auto"`` the pipelined loop
+        when ``steps_per_dispatch > 1``, as the JAX engine."""
+        if pipeline not in ("auto", False, True):
             raise ValueError(f"run: pipeline must be 'auto', False or True, got {pipeline!r}")
         ids = [self.submit(p, max_new_tokens, eos_token) for p in prompts]
-        guard = 0
-        while self.sched.num_queued or self.sched.num_active:
-            self.step()
-            guard += 1
-            if guard > 100_000:
-                raise RuntimeError("engine did not converge")
+        if pipeline is True or (pipeline == "auto" and self.steps_per_dispatch > 1):
+            self._run_pipelined()
+        else:
+            guard = 0
+            while self.sched.num_queued or self.sched.num_active:
+                self.step()
+                guard += 1
+                if guard > 100_000:
+                    raise RuntimeError("engine did not converge")
         by_id = {r.req_id: r.output for r in self.finished}
         return [by_id[i] for i in ids]
 

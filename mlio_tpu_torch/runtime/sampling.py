@@ -26,6 +26,18 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def probabilities(logits: torch.Tensor, method: SamplingMethod) -> torch.Tensor:
+    """The distribution ``sample`` draws from, as probs [B, V] (fp32).
+
+    Greedy collapses to a one-hot at the (first) argmax. Speculative
+    decoding's acceptance rule (``runtime/speculative.py``) takes these
+    post-filter distributions, not the raw softmax."""
+    if method.temperature == 0.0:
+        return torch.nn.functional.one_hot(logits.argmax(dim=-1),
+                                           logits.shape[-1]).to(torch.float32)
+    return torch.softmax(_filtered_logits(logits, method), dim=-1)
+
+
 def _filtered_logits(logits: torch.Tensor, method: SamplingMethod) -> torch.Tensor:
     """Temperature, then top-k, then top-p filtering (fp32); filtered-out
     entries are -inf."""

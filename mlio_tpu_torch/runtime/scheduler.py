@@ -3,9 +3,12 @@
 A copy of the JAX package's pure-Python scheduler, which is plain numpy:
 incremental block allocation, preempt-youngest-by-recompute, chained-hash
 prefix caching with cache-held refcounts and lazy FIFO eviction, and
-multi-step planning. The JAX package's native C++ twin
-(``mlio_tpu/native``, the same policy) is not ported: ``"native"`` raises,
-and ``"auto"`` takes this scheduler.
+multi-step planning. Its native C++ twin is ``mlio_tpu_torch/native`` (the
+same policy, held to this one step by step). One change from the JAX
+package's: :meth:`PyScheduler.plan_multi_step` returns -1 when even a
+one-step chunk's blocks cannot all be allocated, where the JAX package's
+returns 1 and its pipelined loop dispatches that chunk past an exhausted
+pool.
 """
 
 from __future__ import annotations
@@ -364,7 +367,12 @@ class PyScheduler:
 
         ``reserve``: extra uncommitted positions already dispatched to the
         device (the engine's pipelined mode plans chunk N+1 before chunk
-        N's tokens are fetched, so blocks must cover ctx + reserve + k)."""
+        N's tokens are fetched, so blocks must cover ctx + reserve + k).
+
+        Returns the chunk's k; 0 when no slot is active; -1 when even k = 1
+        could not be covered (the blocks it did allocate stay with their
+        slots): the caller must then not dispatch past the committed
+        positions, and takes a synchronous step, whose commit preempts."""
         active = [s for s in range(self.max_batch) if self.slots[s].active]
         if not active:
             return 0
@@ -390,8 +398,10 @@ class PyScheduler:
                     sl.blocks.append(b)
                 if not ok:
                     break
-            if ok or k == 1:
+            if ok:
                 return k
+            if k == 1:
+                return -1
             k = max(1, k // 2)
 
     def commit_tokens_multi(self, tokens_steps) -> int:
@@ -433,16 +443,19 @@ class PyScheduler:
 
 def make_scheduler(max_batch: int, num_blocks: int, block_size: int,
                    max_blocks_per_seq: int, prefix_caching: bool = True,
-                   backend: str = "auto") -> PyScheduler:
-    """The scheduler for ``backend``: ``"auto"`` and ``"python"`` give
-    :class:`PyScheduler`; ``"native"`` raises until the native scheduler
-    is ported (ROADMAP queue 1, item 7)."""
-    if backend == "native":
-        raise NotImplementedError(
-            "scheduler='native': the native C++ scheduler (mlio_tpu/native) is not "
-            "ported yet (ROADMAP queue 1, item 7: serving); 'auto' and 'python' give "
-            "PyScheduler, whose policy is the same")
-    if backend not in ("auto", "python"):
+                   backend: str = "auto"):
+    """The scheduler for ``backend``: ``"native"`` the C++ scheduler
+    (``mlio_tpu_torch.native``, built with the host's C++ compiler at first
+    use; raises with the compiler's message when it does not build),
+    ``"python"`` :class:`PyScheduler`, ``"auto"`` the native one where it
+    builds, else :class:`PyScheduler`. Each has a ``name``."""
+    if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown scheduler backend {backend!r}")
+    if backend != "python":
+        from mlio_tpu_torch import native
+
+        if backend == "native" or native.available():
+            return native.NativeScheduler(max_batch, num_blocks, block_size,
+                                          max_blocks_per_seq, prefix_caching)
     return PyScheduler(max_batch, num_blocks, block_size, max_blocks_per_seq,
                        prefix_caching)

@@ -123,7 +123,7 @@ def engine_dispatch(spec, params, impl, stack, k):
         eng.submit(prompt, 64)
     eng._prefill_batch(list(eng.sched.admit()))
     eng.sched.plan_multi_step(k)
-    cur, tables, ctx = (eng._tensor(a) for a in (eng.sched.cur, eng.sched.tables, eng.sched.ctx))
+    cur, tables, ctx = (eng._upload(a) for a in (eng.sched.cur, eng.sched.tables, eng.sched.ctx))
     if stack == "mega":
         return lambda: engine_mod._decode_mega_steps(
             params, eng._lm_w, cur, eng.k_pool, eng.v_pool, tables, ctx, eng.generator,

@@ -5,8 +5,11 @@ Both engines get the same weights (the JAX package's ``init_params`` through
 synchronous loop (``pipeline=False``) with its per-op decode, whose paged
 attention runs in interpret mode as the JAX tests run it; the JAX package's
 own tests hold its megakernel decode equal to that. The port runs both of
-its decode backends, "mega" (K8's plain version) and "perop" (K7's), and
-must give the same greedy token ids in every geometry.
+its decode backends, "mega" (K8's plain version) and "perop" (K7's), through
+its sync loop and its pipelined loop with either scheduler, and must give
+the same greedy token ids in every geometry. At ``pool_exhausted`` the JAX
+package's pipelined loop dispatches past the exhausted pool and its ids go
+wrong; the port's do not.
 """
 import dataclasses
 
@@ -19,6 +22,7 @@ import torch
 from mlio_tpu.models import PRESETS as JAX_PRESETS
 from mlio_tpu.models import init_params as jax_init_params
 from mlio_tpu.runtime.engine import InferenceEngine as JaxEngine
+from mlio_tpu_torch import native
 from mlio_tpu_torch.models import from_jax_params, get_spec, init_params
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.runtime import InferenceEngine, SamplingMethod, greedy_generate
@@ -65,26 +69,28 @@ def _eos(model):
     return _jax_run(model, "steps8")[0][0][2]
 
 
-def _jax_run(model, case):
+def _jax_run(model, case, pipeline=False):
     """The JAX engine's ids for a case (cached), its scheduler stats and its
-    free blocks after the run."""
-    key = (model[0].name, case)
+    free blocks after the run: its sync loop, or its pipelined loop with
+    its Python scheduler."""
+    key = (model[0].name, case, pipeline)
     if key not in _reference:
         kw, prompts, max_new, eos, _ = CASES[case]
         eng = JaxEngine(model[0], model[1], dtype=jnp.float32, decode_stack="perop",
-                        **{**GEOMETRY, **kw})
+                        **{**GEOMETRY, **kw, **({"scheduler": "python"} if pipeline else {})})
         out = eng.run(prompts, max_new_tokens=max_new,
-                      eos_token=_eos(model) if eos else None, pipeline=False)
+                      eos_token=_eos(model) if eos else None, pipeline=pipeline)
         _reference[key] = (out, {**eng.memory_stats(), "num_free": eng.manager.num_free})
     return _reference[key]
 
 
-def _port(model, case, backend, **extra):
+def _port(model, case, backend, pipeline=False, **extra):
     kw, prompts, max_new, eos, _ = CASES[case]
     eng = InferenceEngine(model[2], model[3], dtype=torch.float32, decode_stack=backend,
                           device="cpu", **{**GEOMETRY, **kw, **extra})
     assert eng.decode_stack == backend and not eng.kv_combined
-    out = eng.run(prompts, max_new_tokens=max_new, eos_token=_eos(model) if eos else None)
+    out = eng.run(prompts, max_new_tokens=max_new, eos_token=_eos(model) if eos else None,
+                  pipeline=pipeline)
     return out, eng
 
 
@@ -107,14 +113,31 @@ def test_engine_greedy_ids_match_jax(name, case, backend):
         assert stats["preempted"] > 0
 
 
-def test_pipelined_loop_raises():
-    spec = get_spec("gpt2-tiny")
-    params = init_params(spec, torch.Generator().manual_seed(0), device="cpu")
-    eng = InferenceEngine(spec, params, dtype=torch.float32, device="cpu", **GEOMETRY)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        eng.run(PROMPTS, max_new_tokens=4, pipeline=True)
-    assert eng.run(PROMPTS, max_new_tokens=4, pipeline="auto") == \
-        eng.run(PROMPTS, max_new_tokens=4, pipeline=False)
+SCHEDULERS = ["python", "native"]
+
+
+@pytest.mark.parametrize("scheduler", SCHEDULERS)
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("name,case", [(n, c) for c in CASES for n in CASES[c][4]])
+def test_pipelined_loop_matches_sync_and_jax(name, case, backend, scheduler):
+    """The pipelined loop gives the port's sync ids and the JAX sync loop's,
+    with either scheduler; at pool_exhausted the JAX pipelined loop does
+    not (it dispatches a chunk whose blocks were never allocated)."""
+    if scheduler == "native" and not native.available():
+        pytest.skip("no C++ compiler builds the native scheduler here")
+    model = _model(name)
+    want, jstats = _jax_run(model, case)
+    got, eng = _port(model, case, backend, pipeline=True, scheduler=scheduler)
+    assert got == want
+    assert _port(model, case, backend, scheduler=scheduler)[0] == want
+    stats = eng.memory_stats()
+    assert stats["scheduler"] == scheduler
+    assert stats["generated_tokens"] == jstats["generated_tokens"]
+    assert eng.num_active == 0 and eng.sched.num_queued == 0
+    if case == "pool_exhausted":
+        assert stats["preempted"] > 0
+        jax_pipelined = _jax_run(model, case, pipeline=True)[0]
+        assert jax_pipelined != want
 
 
 def test_sampling_same_through_both_backends():
@@ -143,11 +166,15 @@ def test_lifecycle():
     eng.run([[1, 2, 3]], max_new_tokens=4)
     assert eng.manager.num_free == free0 and eng.num_active == 0
     stats = eng.memory_stats()
-    assert stats["generated_tokens"] == 4 and stats["scheduler"] == "python"
+    assert stats["generated_tokens"] == 4
+    # "auto" takes the native scheduler where it builds
+    assert stats["scheduler"] == ("native" if native.available() else "python")
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(list(range(30)), max_new_tokens=8)
-    with pytest.raises(NotImplementedError, match="native"):
-        make_scheduler(2, 8, 16, 2, backend="native")
+    with pytest.raises(ValueError, match="unknown scheduler backend"):
+        make_scheduler(2, 8, 16, 2, backend="cuda")
+    with pytest.raises(ValueError, match="pipeline must be"):
+        eng.run([[1, 2]], pipeline="sometimes")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(spec, params)
