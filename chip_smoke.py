@@ -282,6 +282,43 @@ phase's failure is caught:
    (2 slots, 5 blocks of 8) on the per-op decode: the pipelined loops give
    the sync loop's ids, with preemptions.
 
+The W8A8 and profiling slice runs in three places: after the runner (7),
+7b. w8a8: GPT-2 small at the main path's workload with its weights
+   quantized to int8, calibrated on the prompt batch
+   (``calibrate_activation_scales``) and scaled
+   (``apply_activation_scales``). Each site's product (layer 0's wq, wo,
+   w_up, w_down at 5,632 and 8 rows; x seeded at a third of the site's
+   amax, so its tail clips): the card's int8 activations equal the CPU's,
+   ``w8a8_matmul`` (``torch._int_mm``) equals the float64 plain sums under
+   the same fp32 rescale bit for bit, and the plain path fed x quantized
+   at twice the scale must not (the control); device ms beside its bound
+   at int8's 1,979 TOPS and K14's rate, K5's and a bf16 matmul's. A
+   32-token greedy generate with the launch counters zeroed around it: K1
+   12, K2 25, ``w8a8_matmul`` 72 in the prefill, one K4 launch for the
+   decode; K4 from the W8A8 prefill's cache the same bits as with the same
+   int8 weights without act scales; the prefill logits within
+   W8A8_LOGITS_RMS of the plain W8A8 forward, and their RMS against the w8
+   and bf16 logits; the prefill's device ms in bf16, w8 and W8A8 beside
+   each bound (the products' FLOPs as ``ops/cost.py`` counts them).
+7c. profile: ``KernelProfiler.profile_function`` over one 32-token
+   generate of the workload: the table's K1 and K4 rows (12 and 1 calls),
+   K4's traced ms a step within PROFILE_STEP_TOL of generate's
+   ``decode_step_device_ms``; the device-busy union of a trace's profiler
+   events equal to its Chrome file's (``profiling.device_busy_ms``, which
+   every busy figure of this script uses); ``InferenceRunner.profile_model``
+   on the fused Impl: 3 wall times, peak memory equal to
+   ``torch.cuda.max_memory_allocated``, counted FLOPs within COST_TOL of
+   the dense ``Impl()``'s and not within it with K1's count left out; the
+   roofline analyzer at K14's rate on the K4 step.
+8b. w8a8_8b (after K6's row at llama3-8b, while its trees are alive): the
+   bf16 tree calibrated over B 8 x 704 and applied to the int8 tree; the
+   prefill's device ms in bf16, w8 and W8A8 beside each bound; 8 K6 steps
+   ("tiled") with W8A8 weights the same bits as with the int8 weights;
+   then ``transcode_fp8_to_int8`` of the fp8 tree: its seconds and peak
+   memory over the trees, layer 0 of every leaf equal to the CPU's
+   transcode bit for bit, 8 K6 steps within TRANSCODE_REL_RMS of the fp8
+   tree's logits (the same tokens fed to both).
+
 Then the ``{"kernels": [...]}`` summary line, nvidia-smi's line, and last
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor ``mlio_tpu``.
 """
@@ -2228,7 +2265,7 @@ PLAIN = {"flash_attention": "flash_attention_plain",
          "fused_norm_matmul": "fused_norm_matmul_plain", "quant_matmul": "quant_matmul_plain",
          "decode_layer_tiled": "decode_layer_tiled_plain", "flash_fwd_lse": "flash_fwd_lse_plain",
          "flash_bwd_dq": "flash_bwd_dq_plain", "flash_bwd_dkv": "flash_bwd_dkv_plain",
-         "flash_attention_stream": "flash_stream_plain"}
+         "flash_attention_stream": "flash_stream_plain", "w8a8_matmul": "w8a8_matmul_plain"}
 
 
 @contextlib.contextmanager
@@ -2259,7 +2296,8 @@ def workload(seed: int, dev):
 
 def generate_phase(dev, seed, fa, norms, da, dl, qm, decode_stack=None, int8=False, dt=None):
     """A 64-token greedy generate of the workload with launch counters, the
-    decode step by the two-length marginal and the device time of a step.
+    decode step by the two-length marginal and the device time of a step
+    (the phase's line, returned).
     The main path (decode_stack None) also checks the prefill logits and
     times the prefill; "scan" runs the per-layer decode through K3. With
     ``int8`` it is the README quick start: the weights through
@@ -2370,7 +2408,7 @@ def generate_phase(dev, seed, fa, norms, da, dl, qm, decode_stack=None, int8=Fal
                   decode_step_device_ms=step_dev_ms,
                   decode_idle_share=1 - step_dev_ms / (step_s * 1e3))
     emit(result)
-    return launches
+    return result
 
 
 def runner_expected(name, L):
@@ -2495,23 +2533,6 @@ def counted(module, name, count):
         setattr(module, name, real)
 
 
-def busy_ms(events) -> float:
-    """Union of the device kernels' intervals in a torch.profiler trace, ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3  # us -> ms
-
-
 def dispatch_times(run_chunk):
     """(device ms, device-busy ms, wall ms) of one decode dispatch. Device ms
     by CUDA events with the chunk queued behind a sleep kernel; it holds
@@ -2522,6 +2543,8 @@ def dispatch_times(run_chunk):
     fetch of its tokens, without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mlio_tpu_torch.profiling import device_busy_ms
+
     device_ms = time_ms(lambda i: run_chunk(), 2, warmup=1)[0]
     walls = []
     for _ in range(3):
@@ -2531,7 +2554,7 @@ def dispatch_times(run_chunk):
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_chunk().cpu()
-    busy = busy_ms(prof.events())
+    busy = device_busy_ms(prof.events())
     if not busy:
         raise AssertionError("engine: the profiler saw no device time in a dispatch")
     return device_ms, busy, min(walls)
@@ -4460,6 +4483,8 @@ def train_8b_phase(dev, seed, fa, fg, wrappers):
     "flash_attention_backward"."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mlio_tpu_torch.profiling import device_busy_ms
+
     from mlio_tpu_torch.models import Impl, get_spec, init_params
     from mlio_tpu_torch.runtime import next_token_loss, sgd_step, trainable
 
@@ -4500,7 +4525,7 @@ def train_8b_phase(dev, seed, fa, fg, wrappers):
                 torch.cuda.synchronize()
                 t3 = time.perf_counter()
             if s == TRAIN_STEPS - 1:
-                busy = busy_ms(prof.events())
+                busy = device_busy_ms(prof.events())
             value = loss.item()
             if not np.isfinite(value):
                 raise AssertionError(f"train_8b: step {s} loss {value}")
@@ -5439,6 +5464,8 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
     Returns the launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mlio_tpu_torch.profiling import device_busy_ms
+
     from mlio_tpu_torch.models import Impl, forward, init_params, spec_from_hf_config
     from mlio_tpu_torch.models.transformer import decode_route
     from mlio_tpu_torch.runtime import generate
@@ -5544,7 +5571,7 @@ def long_context_phase(dev, seed, fa, norms, dt, wrappers):
         torch.cuda.synchronize()
     traced_ms = start.elapsed_time(end)  # the traced prefill's own span
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_ms(events)
+    busy = device_busy_ms(events)
     k10_ms = sum(e.time_range.end - e.time_range.start for e in events
                  if "flash_stream" in e.name) / 1e3
     if not busy or not k10_ms:
@@ -5835,6 +5862,8 @@ def family_generate(dev, seed, model, wrappers, fa, norms, da, qm, dt):
     idle share. Returns (launch counts by route, result)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mlio_tpu_torch.profiling import device_busy_ms
+
     from mlio_tpu_torch.models import Impl, forward, load_model
     from mlio_tpu_torch.models.transformer import decode_route
     from mlio_tpu_torch.runtime import generate, init_cache
@@ -5977,7 +6006,7 @@ def family_generate(dev, seed, model, wrappers, fa, norms, da, qm, dt):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     step()
                     torch.cuda.synchronize()
-                step_busy_ms = busy_ms(prof.events())
+                step_busy_ms = device_busy_ms(prof.events())
                 if step_busy_ms:
                     break
             else:
@@ -6254,10 +6283,12 @@ def traced_busy_ms(run) -> float:
     """Device-busy ms of one call of ``run`` in a torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
+    from mlio_tpu_torch.profiling import device_busy_ms
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    busy = busy_ms(prof.events())
+    busy = device_busy_ms(prof.events())
     if not busy:
         raise AssertionError("the profiler saw no device time")
     return busy
@@ -6566,6 +6597,454 @@ def engine_pipelined_phase(dev, seed, wrappers):
     return k8
 
 
+# ---------------------------------------------------------------------------
+# The W8A8 and profiling slice: W8A8 serving at GPT-2 small and llama3-8b,
+# the fp8 -> int8 transcode, and the profiling package on the main path.
+
+INT8_TOPS = 1979e12  # NVIDIA H100 SXM data sheet: dense int8 tensor-core rate
+W8A8_NEW = 32        # new tokens of the W8A8 generate and of the profiled generate
+W8A8_SITE_WEIGHTS = {"attn_in": "wq", "attn_out_in": "wo", "mlp_in": "w_up",
+                     "mlp_down_in": "w_down"}  # each site's product checked (layer 0)
+W8A8_DECODE_STEPS = 8  # llama3-8b's K6 decode steps (W8A8 against w8; transcode against fp8)
+# The kernels' W8A8 prefill logits against the plain W8A8 forward (fp32
+# cast, RMS over every logit). The bf16 kernels lie 0.0051 RMS from their
+# plain path at GPT-2 small; W8A8 turns some of that bf16 noise into a whole
+# int8 step where an activation sits near a rounding boundary (0.0138 in
+# the first card run, NVIDIA H100 80GB HBM3, 700.00 W). The control, the
+# weight-only int8 model's logits against the same plain W8A8 forward
+# (0.025 there), must exceed the limit: W8A8 that silently fell back to
+# weight-only int8 fails.
+W8A8_LOGITS_RMS = 0.02
+# The transcoded tree's K6 logits against the fp8 tree's (RMS over the
+# fp8 logits' RMS, the same tokens fed to both): see transcode_leg.
+TRANSCODE_REL_RMS = 0.05
+K_SYMBOLS = {"flash_attention": "flash_fwd_kernel", "decode_layer_stack": "stack_kernel"}
+PROFILE_STEP_TOL = 0.10  # K4's traced ms a step against the main path's device ms a step
+COST_TOL = 0.01          # profile_model's FLOPs across Impls
+
+
+def rms(a, b) -> float:
+    return (a.float() - b.float()).square().mean().sqrt().item()
+
+
+def w8a8_bound(M, K, N):
+    """(bound ms, bound_by) of one W8A8 product: x (bf16) and the payload
+    and scales read once, the bf16 output written once; 2MKN int8 operations."""
+    return bound(M * K * 2 + K * N + 4 * N + M * N * 2, 2 * M * K * N, INT8_TOPS)
+
+
+def prefill_bound(params, spec, run):
+    """(bound ms, bound_by, counted FLOPs) of a prefill: the weights read
+    once, the cache and the logits written once; the products' FLOPs as
+    ops/cost.py counts them in one run, the W8A8 products at int8's rate and
+    the rest at bf16's."""
+    from mlio_tpu_torch.ops import cost
+
+    with cost.counting() as c:
+        run()
+    int8_flops = c.kernels.get("w8a8_matmul", [0.0])[0]
+    nbytes = (cost.tensor_bytes(params) + 2 * spec.num_layers * B * PROMPT * spec.kv_dim * 2
+              + B * PROMPT * spec.vocab_size * 2)
+    t_ops = int8_flops / INT8_TOPS + (c.flops - int8_flops) / BF16_TENSOR_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", c.flops
+
+
+def w8a8_products(dev, seed, spec, w, q8, qm):
+    """Each site's W8A8 product (layer 0) at the prefill's rows and at a
+    decode step's: the card's int8 activations equal to the CPU's, the
+    output equal bit for bit to the float64 plain sums under the same fp32
+    rescale, and the plain path fed x quantized at twice the act scale
+    unequal to it (the control). x is seeded normal at a third of the
+    site's calibrated amax, so its tail clips. Device ms of the product
+    beside its bound, K5's and a bf16 matmul's; at the prefill's rows also
+    its parts (the quantize, the payload's [N, K] copy, ``_int_mm``, the
+    rescale) and ``_int_mm`` over the payload as stored ([K, N])."""
+    from mlio_tpu_torch.ops.quant import QTensor, dequantize
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for site, name in W8A8_SITE_WEIGHTS.items():
+        wt, w8 = w["blocks"][name].select(0), q8["blocks"][name].select(0)
+        K, N = wt.q.shape
+        row = dict(weight=name, K=K, N=N)
+        for M in (B * PROMPT, DECODE_M):
+            x = (torch.randn(M, K, generator=gen, device=dev)
+                 * (wt.act_scale * 127 / 3)).to(torch.bfloat16)
+            x_q = qm.quantize_activations(x, wt.act_scale)
+            if not torch.equal(x_q.cpu(), qm.quantize_activations(x.cpu(), wt.act_scale.cpu())):
+                raise AssertionError(f"w8a8 {name} M={M}: the card's int8 activations differ "
+                                     "from the CPU's")
+            got = qm.w8a8_matmul(x, wt)
+            plain = qm.w8a8_rescale(qm.int8_sums_plain(x_q, wt.q), wt, x.dtype)
+            if not torch.equal(got, plain):
+                raise AssertionError(f"w8a8 {name} M={M}: _int_mm's output differs from the "
+                                     "float64 plain sums")
+            control = qm.w8a8_rescale(qm.int8_sums_plain(
+                qm.quantize_activations(x, 2 * wt.act_scale), wt.q), wt, x.dtype)
+            if torch.equal(got, control):
+                raise AssertionError(f"w8a8 {name} M={M}: the control (x at twice the act "
+                                     "scale) passed")
+            b_ms, b_by = w8a8_bound(M, K, N)
+            w16 = dequantize(QTensor(w8.q, w8.scale, "int8"), torch.bfloat16)
+            row[f"M{M}"] = dict(
+                ms=time_ms(lambda i: qm.w8a8_matmul(x, wt), 10)[0], bound_ms=b_ms, bound_by=b_by,
+                k5_ms=time_ms(lambda i: qm.quant_matmul(x, w8.q, w8.scale), 10)[0],
+                bf16_ms=time_ms(lambda i: x @ w16, 10)[0],
+                clipped_share=(x_q.abs() == 127).float().mean().item())
+            if M >= qm.INT_MM_MIN_ROWS:  # the product's parts, and _int_mm over the stored layout
+                qt = wt.q.t().contiguous().t()
+                sums = torch._int_mm(x_q, qt)
+                row[f"M{M}"].update(
+                    quantize_ms=time_ms(lambda i: qm.quantize_activations(x, wt.act_scale), 10)[0],
+                    copy_ms=time_ms(lambda i: wt.q.t().contiguous(), 10)[0],
+                    int_mm_ms=time_ms(lambda i: torch._int_mm(x_q, qt), 10)[0],
+                    rescale_ms=time_ms(lambda i: qm.w8a8_rescale(sums, wt, x.dtype), 10)[0],
+                    int_mm_stored_layout_ms=time_ms(lambda i: torch._int_mm(x_q, wt.q), 10)[0])
+        out[site] = row
+    return out
+
+
+def w8a8_phase(dev, seed, fa, norms, da, dl, qm):
+    """GPT-2 small at the main path's workload with W8A8 weights:
+    ``quantize_params(..., "int8")``, calibrated on the prompt batch
+    (``calibrate_activation_scales``) and scaled (``apply_activation_scales``).
+    Each site's product against its plain version (w8a8_products); a greedy
+    generate of W8A8_NEW tokens with the launch counters zeroed just before
+    and read just after: K1 and K2 in the prefill with every projection
+    through ``w8a8_matmul`` (``torch._int_mm``), the decode one K4 launch;
+    K4's launch from the W8A8 prefill's cache the same bits as the weight-
+    only int8 model's; the prefill logits within W8A8_LOGITS_RMS of the
+    plain W8A8 forward (every wrapper and the product on its plain version),
+    and their RMS against the w8 and bf16 logits; the prefill's device ms in
+    bf16, w8 (K5) and W8A8 beside each bound. Returns the launch counts."""
+    from mlio_tpu_torch.models import forward
+    from mlio_tpu_torch.runtime import (apply_activation_scales, calibrate_activation_scales,
+                                        generate, init_cache, quantize_params)
+
+    t0 = time.perf_counter()
+    spec, params, ids, impl = workload(seed, dev)
+    L = spec.num_layers
+    q8 = quantize_params(params, spec, "int8")
+    t_cal = time.perf_counter()
+    stats = calibrate_activation_scales(params, spec, ids)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t_cal
+    w = apply_activation_scales(q8, stats)
+    products = w8a8_products(dev, seed, spec, w, q8, qm)
+
+    def prefill(p):
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            return forward(p, spec, ids, impl=impl, cache=cache)
+
+    logits, cache = prefill(w)
+    if logits.shape != (B, PROMPT, spec.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"w8a8 prefill logits: shape {tuple(logits.shape)} or not finite")
+    with plain_kernels(fa, norms, qm):
+        plain = prefill(w)[0]
+        bf16_plain = prefill(params)[0]
+    w8_logits = prefill(q8)[0]
+    errs = dict(kernels_vs_plain=rms(logits, plain), w8_vs_plain=rms(w8_logits, plain),
+                vs_w8=rms(logits, w8_logits), vs_bf16=rms(logits, prefill(params)[0]),
+                bf16_kernels_vs_plain=rms(prefill(params)[0], bf16_plain))
+    del plain, bf16_plain, w8_logits
+    if not errs["kernels_vs_plain"] <= W8A8_LOGITS_RMS < errs["w8_vs_plain"]:
+        raise AssertionError(f"w8a8: the kernels' prefill logits lie {errs['kernels_vs_plain']} "
+                             f"RMS from the plain W8A8 forward's, the weight-only int8 "
+                             f"logits (the control) {errs['w8_vs_plain']}; the limit is "
+                             f"{W8A8_LOGITS_RMS}")
+    prefill_ms = {}
+    for name, p in (("bf16", params), ("w8", q8), ("w8a8", w)):
+        b_ms, b_by, flops = prefill_bound(p, spec, lambda: prefill(p))
+        prefill_ms[name] = dict(ms=time_ms(lambda i: prefill(p), 2)[0], bound_ms=b_ms,
+                                bound_by=b_by, counted_flops=flops)
+
+    # K4 from the W8A8 prefill's cache: the same bits with and without act_scale
+    tok = logits[:, -1].argmax(-1)
+    x = params["tok_embed"][tok]
+    kw = dict(spec=spec, head_norm=(params["final_scale"], params["final_bias"]),
+              lm_head=params["tok_embed"], pos_embed=params["pos_embed"], steps=W8A8_NEW - 1)
+    runs = []
+    with torch.inference_mode():
+        for p in (w, q8):
+            k, v = cache["k"].clone(), cache["v"].clone()
+            runs.append((*dl.decode_layer_stack(x, p["blocks"], k, v, PROMPT, **kw), k, v))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("w8a8: K4 with W8A8 weights differs from K4 with the same int8 "
+                             "weights without act_scale")
+    del runs, cache, logits
+
+    wrappers = (fa.flash_attention, fa.flash_attention_kvq, norms.fused_norm, qm.quant_matmul,
+                qm.w8a8_matmul, da.decode_attention, dl.decode_layer_stack)
+
+    def run():
+        return generate(w, spec, ids, max_new_tokens=W8A8_NEW, impl=impl, cache_len=CACHE,
+                        device=dev)
+
+    run()  # warm-up
+    for f in wrappers:
+        f.launches = 0
+    out = run()
+    launches = {f.__name__: f.launches for f in wrappers}
+    want = {f.__name__: 0 for f in wrappers}
+    want.update(flash_attention=L, fused_norm=2 * L + 1, w8a8_matmul=6 * L, decode_layer_stack=1)
+    if launches != want:
+        raise AssertionError(f"w8a8 generate: launch counts {launches} != expected {want}")
+    if out.shape != (B, PROMPT + W8A8_NEW) or not torch.equal(out[:, :PROMPT], ids) \
+            or int(out.min()) < 0 or int(out.max()) >= spec.vocab_size:
+        raise AssertionError("w8a8 generate: wrong shape, prompt changed or token out of range")
+    emit(dict(phase="w8a8", model="gpt2", batch=B, prompt=PROMPT, cache_len=CACHE,
+              new_tokens=W8A8_NEW, impl=repr(impl), calibrate_s=cal_s,
+              act_scales={site: (t / 127).tolist() for site, t in stats.items()},
+              products=products, launches=launches, prefill_logits_rms=errs,
+              logits_rms_limit=W8A8_LOGITS_RMS, prefill=prefill_ms,
+              k4_same_bits_as_w8=True, seconds=time.perf_counter() - t0))
+    return launches
+
+
+def decode_steps(params, spec, cache, tok, impl, steps, feed=None):
+    """``steps`` single-token decode steps from a clone of ``cache``, greedy
+    from ``tok`` [B] (or fed ``feed`` [steps, B]): (logits [steps, B, V],
+    the tokens fed)."""
+    from mlio_tpu_torch.models import forward
+
+    c = dict(cache, k=cache["k"].clone(), v=cache["v"].clone())
+    out, fed = [], []
+    with torch.inference_mode():
+        for s in range(steps):
+            t = tok if feed is None else feed[s]
+            fed.append(t)
+            lg, c = forward(params, spec, t[:, None], impl=impl, cache=c)
+            out.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1)
+    return torch.stack(out), torch.stack(fed)
+
+
+def transcode_leg(dev, spec, fp8, cache, tok, impl, dt):
+    """``transcode_fp8_to_int8`` of llama3-8b's fp8 tree on the card: its
+    seconds and its peak memory over the two trees; layer 0 of every leaf
+    equal, payload and scales bit for bit, to the same layer transcoded on
+    the CPU; W8A8_DECODE_STEPS K6 steps on the transcoded tree against the
+    fp8 tree's, the fp8 run's tokens fed to both, within TRANSCODE_REL_RMS
+    of the fp8 logits' RMS, where the transcoded tree with every scale 1.5x
+    (the control) must not be. The transcode requantizes each fp8 value onto
+    its channel's int8 grid (at most half a step, amax / 254, where e4m3
+    itself keeps 3 mantissa bits, about amax / 32 at the channel's top), so
+    the int8 tree is another rounding of the same weights, as close to the
+    fp8 tree as the two formats' own errors: a few per cent of the logits'
+    RMS through 32 layers. Returns the leg's line."""
+    from mlio_tpu_torch.ops import cost
+    from mlio_tpu_torch.ops.quant import QTensor
+    from mlio_tpu_torch.runtime import transcode_fp8_to_int8
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tc = transcode_fp8_to_int8(fp8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    new = [v for v in tc["blocks"].values() if isinstance(v, QTensor)]
+    out_bytes = cost.tensor_bytes(new)
+    peak_over = torch.cuda.max_memory_allocated(dev) - before - out_bytes
+    leaves = {k: v for k, v in fp8["blocks"].items() if isinstance(v, QTensor)}
+    t_cpu = time.perf_counter()
+    cpu = transcode_fp8_to_int8({"blocks": {k: QTensor(v.q[:1].cpu(), v.scale[:1].cpu(), "fp8")
+                                            for k, v in leaves.items()}})["blocks"]
+    for k in leaves:
+        if not (torch.equal(cpu[k].q, tc["blocks"][k].q[:1].cpu())
+                and torch.equal(cpu[k].scale, tc["blocks"][k].scale[:1].cpu())):
+            raise AssertionError(f"transcode: layer 0 of {k} differs from the CPU's transcode")
+    cpu_s = time.perf_counter() - t_cpu
+    launches = {}
+    dt.decode_layer_tiled.launches = 0
+    ref, fed = decode_steps(fp8, spec, cache, tok, impl, W8A8_DECODE_STEPS)
+    launches["fp8"], dt.decode_layer_tiled.launches = dt.decode_layer_tiled.launches, 0
+    got, _ = decode_steps(tc, spec, cache, tok, impl, W8A8_DECODE_STEPS, feed=fed)
+    launches["transcoded"] = dt.decode_layer_tiled.launches
+    # the control: the transcoded tree with every scale 1.5x must fail
+    off = dict(tc, blocks={k: QTensor(v.q, v.scale * 1.5, v.fmt) if isinstance(v, QTensor)
+                           else v for k, v in tc["blocks"].items()})
+    control = rms(decode_steps(off, spec, cache, tok, impl, W8A8_DECODE_STEPS, feed=fed)[0],
+                  ref) / ref.float().square().mean().sqrt().item()
+    del off
+    if launches != {"fp8": W8A8_DECODE_STEPS, "transcoded": W8A8_DECODE_STEPS}:
+        raise AssertionError(f"transcode: K6 launches {launches}, expected "
+                             f"{W8A8_DECODE_STEPS} a run")
+    rel = rms(got, ref) / ref.float().square().mean().sqrt().item()
+    if not (torch.isfinite(got).all() and rel <= TRANSCODE_REL_RMS < control):
+        raise AssertionError(f"transcode: K6 logits on the transcoded tree lie {rel} of the fp8 "
+                             f"logits' RMS from them, the control (scales 1.5x) {control}; "
+                             f"the limit is {TRANSCODE_REL_RMS}")
+    del tc
+    return dict(seconds=seconds, cpu_check_s=cpu_s, tree_bytes=out_bytes,
+                peak_bytes_over_trees=peak_over,
+                bytes_before=before, layer0_equal_to_cpu=sorted(leaves),
+                decode_rel_rms=rel, decode_rel_rms_limit=TRANSCODE_REL_RMS,
+                control_scales_1_5x_rel_rms=control,
+                decode_launches_k6=launches)
+
+
+def w8a8_8b_leg(dev, seed, spec, weights, fa, norms, qm, dt):
+    """llama3-8b (32 layers) while its bf16, int8 and fp8 trees are alive:
+    calibrated on the bf16 tree over the [B, PROMPT] prompt and applied to
+    the int8 tree; the prefill's device ms in bf16, w8 and W8A8 beside each
+    bound; W8A8_DECODE_STEPS K6 decode steps (decode_stack "tiled") with
+    W8A8 weights, the same bits as with the int8 weights; then the fp8 tree
+    transcoded to int8 (transcode_leg). Returns K6's launches by tree
+    (each run W8A8_DECODE_STEPS)."""
+    import dataclasses as dc
+
+    from mlio_tpu_torch.models import Impl, forward
+    from mlio_tpu_torch.runtime import (apply_activation_scales, calibrate_activation_scales,
+                                        init_cache)
+
+    t0 = time.perf_counter()
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, spec.vocab_size, (B, PROMPT))).to(dev)
+    impl = Impl(attention="flash", norm="fused")
+    stats = calibrate_activation_scales(weights["bf16"], spec, ids)
+    w = apply_activation_scales(weights["int8"], stats)
+
+    def prefill(p):
+        cache = init_cache(spec, B, CACHE, dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            return forward(p, spec, ids, impl=impl, cache=cache)
+
+    prefill_ms = {}
+    for name, p in (("bf16", weights["bf16"]), ("w8", weights["int8"]), ("w8a8", w)):
+        b_ms, b_by, flops = prefill_bound(p, spec, lambda: prefill(p))
+        prefill_ms[name] = dict(ms=time_ms(lambda i: prefill(p), 2)[0], bound_ms=b_ms,
+                                bound_by=b_by, counted_flops=flops)
+    logits, cache = prefill(weights["int8"])
+    tok = logits[:, -1].argmax(-1)
+    del logits
+    tiled = dc.replace(impl, decode_stack="tiled")
+    k6 = {}
+    dt.decode_layer_tiled.launches = 0
+    a, fed = decode_steps(w, spec, cache, tok, tiled, W8A8_DECODE_STEPS)
+    k6["w8a8"], dt.decode_layer_tiled.launches = dt.decode_layer_tiled.launches, 0
+    b, _ = decode_steps(weights["int8"], spec, cache, tok, tiled, W8A8_DECODE_STEPS, feed=fed)
+    k6["w8"] = dt.decode_layer_tiled.launches
+    if k6 != {"w8a8": W8A8_DECODE_STEPS, "w8": W8A8_DECODE_STEPS} or not torch.equal(a, b):
+        raise AssertionError(f"w8a8_8b: K6's steps with W8A8 weights (launches {k6}) differ "
+                             "from the int8 weights'")
+    del a, b, w
+    transcode = transcode_leg(dev, spec, weights["fp8"], cache, tok, tiled, dt)
+    del cache
+    torch.cuda.empty_cache()
+    emit(dict(phase="w8a8_8b", model=spec.name, layers=spec.num_layers, batch=B, prompt=PROMPT,
+              cache_len=CACHE, prefill=prefill_ms, decode_steps=W8A8_DECODE_STEPS,
+              decode_launches_k6=k6, decode_same_bits_as_w8=True, transcode=transcode,
+              seconds=time.perf_counter() - t0))
+    return dict(k6, **transcode["decode_launches_k6"])
+
+
+def profile_phase(dev, seed, main_step_ms, fa, dl):
+    """The profiling package on GPT-2 small (the main path's workload):
+    ``KernelProfiler.profile_function`` over one generate of W8A8_NEW tokens
+    (prefill and W8A8_NEW - 1 steps in one K4 launch): the table names K1's
+    and K4's symbols, and K4's traced ms over its steps lies within
+    PROFILE_STEP_TOL of the main path's ``decode_step_device_ms``; the
+    device-busy union of a trace's profiler events equals that of its
+    exported Chrome trace; ``InferenceRunner.profile_model`` (the runner's
+    fused Impl: K1, K11, K2) gives three wall times, memory whose peak is
+    ``torch.cuda.max_memory_allocated``, and counted FLOPs within COST_TOL of
+    the dense ``Impl()``'s, while leaving K1's count out must miss by more
+    (the control); ``BottleneckAnalyzer`` at K14's measured rate on the K4
+    step (its weights and cache bytes, decode_work). Returns K4's launches
+    in the profiled generate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlio_tpu_torch.models import Impl
+    from mlio_tpu_torch.ops.decode_layer import decode_work
+    from mlio_tpu_torch.profiling import (BottleneckAnalyzer, KernelProfiler, device_busy_ms,
+                                          parse_trace)
+    from mlio_tpu_torch.runtime import InferenceRunner, generate
+
+    t0 = time.perf_counter()
+    spec, params, ids, impl = workload(seed, dev)
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
+    steps = W8A8_NEW - 1
+
+    def gen(p, i):
+        return generate(p, spec, i, max_new_tokens=W8A8_NEW, impl=impl, cache_len=CACHE,
+                        device=dev)
+
+    # After the earlier phases' traces, the card's trace of a generate has
+    # come back short of one K1 launch (11 of 12 in a full run, whole in a
+    # fresh process; the families phase saw an empty one): a trace short of
+    # the launches its call made is taken again.
+    want, short = {"flash_attention": spec.num_layers, "decode_layer_stack": 1}, []
+    for attempt in range(1, 4):
+        dl.decode_layer_stack.launches = fa.flash_attention.launches = 0
+        res = KernelProfiler(warmup=1, steps=1, trace_dir=trace_dir).profile_function(
+            gen, params, ids)
+        launches = dict(flash_attention=fa.flash_attention.launches,
+                        decode_layer_stack=dl.decode_layer_stack.launches)
+        if res is None:
+            raise AssertionError("profile: the trace of a generate holds no op")
+        rows = {k: res.table.find(sym) for k, sym in K_SYMBOLS.items()}
+        counts = {k: sum(o.count for o in r) for k, r in rows.items()}
+        if counts == want:
+            break
+        short.append(counts)
+    else:
+        raise AssertionError(f"profile: three traces' K1/K4 rows {short}, expected {want} "
+                             f"(symbols {K_SYMBOLS})")
+    k4_step_ms = sum(o.total_us for o in rows["decode_layer_stack"]) / 1e3 / steps
+    if abs(k4_step_ms / main_step_ms - 1) > PROFILE_STEP_TOL:
+        raise AssertionError(f"profile: K4's traced {k4_step_ms} ms a step against the main "
+                             f"path's {main_step_ms} device ms")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gen(params, ids)
+        torch.cuda.synchronize()
+    path = os.path.join(trace_dir, "busy.pt.trace.json")
+    prof.export_chrome_trace(path)
+    busy_events, busy_trace = device_busy_ms(prof.events()), device_busy_ms(parse_trace(path))
+    if not busy_events or abs(busy_trace - busy_events) > 1e-3 * busy_events:
+        raise AssertionError(f"profile: device-busy ms {busy_events} from the profiler's events, "
+                             f"{busy_trace} from its Chrome trace")
+
+    fused = InferenceRunner(spec, params, precision="bf16")
+    res_f = fused.profile_model(ids)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res_d = InferenceRunner(spec, params, precision="bf16", impl=Impl()).profile_model(ids)
+    if len(res_f.wall_times_s) != 3 or res_f.memory["after"]["peak_bytes_in_use"] != peak:
+        raise AssertionError(f"profile_model: {len(res_f.wall_times_s)} wall times, peak "
+                             f"{res_f.memory['after']['peak_bytes_in_use']} != {peak}")
+    f, d = res_f.cost["flops"], res_d.cost["flops"]
+    without_k1 = f - res_f.cost.get("flops flash_attention", 0.0)
+    if not abs(f - d) <= COST_TOL * d or abs(without_k1 - d) <= COST_TOL * d:
+        raise AssertionError(f"profile_model: fused {f} against dense {d} FLOPs (without K1's "
+                             f"count {without_k1})")
+
+    ana = BottleneckAnalyzer(hbm_gbps=HBM_BYTES_PER_S / 1e9)
+    x = params["tok_embed"][ids[:, 0]]
+    k_cache = torch.empty((spec.num_layers, B, CACHE, spec.num_kv_heads, spec.head_size),
+                          dtype=torch.bfloat16, device="meta")
+    flops, nbytes = decode_work(x, params["blocks"], k_cache, PROMPT + steps // 2, spec,
+                                lm_head=params["tok_embed"])
+    report = ana.analyze(wall_time_s=k4_step_ms / 1e3, flops=flops, bytes_accessed=nbytes)
+    emit(dict(phase="profile", model="gpt2", batch=B, prompt=PROMPT, new_tokens=W8A8_NEW,
+              table_top=[dict(name=o.name[:90], count=o.count, total_us=o.total_us, pct=o.pct)
+                         for o in res.top(8)],
+              wall_ms=res.wall_time_s * 1e3, op_time_fraction=res.op_time_fraction(),
+              k4_traced_step_ms=k4_step_ms, main_path_step_device_ms=main_step_ms,
+              busy_ms_events=busy_events, busy_ms_trace=busy_trace, launches=launches,
+              trace_attempts=attempt, short_traces=short,
+              profile_model=dict(fused=res_f.summary(), dense=res_d.summary(),
+                                 fused_flops=f, dense_flops=d, fused_without_k1=without_k1,
+                                 kernels={k: v for k, v in res_f.cost.items()
+                                          if k not in ("flops", "bytes accessed")}),
+              k4_step=dict(flops=flops, bytes=nbytes, hbm_bytes_per_s=HBM_BYTES_PER_S,
+                           report=json.loads(report.to_json()),
+                           primary=report.primary.kind.value if report.primary else None),
+              seconds=time.perf_counter() - t0))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6604,11 +7083,13 @@ def main() -> int:
     variant_phase(rng, dev, args.seed, fa, norms, da, dl, pa, dps, fm, lq, qm, dt)
     stack = stack_phase(dev, args.seed, dl, dps)
     emit(dict(phase="stack", **{k: v for k, v in stack.items() if k != "ptxas"}))
-    launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm)
-    scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, decode_stack="scan")
-    int8_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, int8=True)
+    main_path = generate_phase(dev, args.seed, fa, norms, da, dl, qm)
+    launches = main_path["launches"]
+    scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm,
+                                   decode_stack="scan")["launches"]
+    int8_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm, int8=True)["launches"]
     int8_scan_launches = generate_phase(dev, args.seed, fa, norms, da, dl, qm,
-                                        decode_stack="scan", int8=True)
+                                        decode_stack="scan", int8=True)["launches"]
     generate_phase(dev, args.seed, fa, norms, da, dl, qm, decode_stack="tiled", dt=dt)
     wrappers = (fa.flash_attention, norms.fused_norm, da.decode_attention, dl.decode_layer_stack,
                 pa.paged_attention, dps.decode_paged_stack)
@@ -6620,12 +7101,18 @@ def main() -> int:
         raise AssertionError("engine_int8: K7 launched on the K8 path")
     ran = runner_phase(dev, args.seed, wrappers + (fm.fused_mlp, lq.fused_norm_matmul,
                                                    qm.quant_matmul), (fa, norms, da, fm, lq, qm))
+    # The W8A8 and profiling slice at GPT-2 small: W8A8 serving, then the
+    # profiling package over the main path.
+    w8a8_launches = w8a8_phase(dev, args.seed, fa, norms, da, dl, qm)
+    profiled = profile_phase(dev, args.seed, main_path["decode_step_device_ms"], fa, dl)
     # The tiled slice: K6 at llama3-8b's full width and depth, then its path.
     torch.cuda.empty_cache()
     spec8, weights8 = llama_weights(dev, args.seed)
     tiled = tiled_row(dt, dl, dev, args.seed, spec8, weights8)
     tiled.update(card_plan=tiled_plan_check(dt), ptxas=k6_instances())
     emit(dict(phase="tiled", **tiled))
+    # llama3-8b's W8A8 prefill and K6 steps, and the fp8 tree's transcode
+    w8a8_k6 = w8a8_8b_leg(dev, args.seed, spec8, weights8, fa, norms, qm, dt)
     del weights8["fp8"]  # no later phase runs fp8 weights
     torch.cuda.empty_cache()
     ran8 = generate_8b_phase(dev, args.seed, spec8, weights8,
@@ -6683,6 +7170,11 @@ def main() -> int:
                              cluster_launch=stack["cluster_launch"])
     by_name["decode_layer_stack"]["int8"]["gpt2_w8kv8"]["same_bits"] = \
         stack["decode_layer_stack_w8kv8"]
+    # K4 and K1 on the W8A8 generate and in the profiled generate
+    by_name["decode_layer_stack"].update(w8a8_launches=w8a8_launches["decode_layer_stack"],
+                                         profiled_launches=profiled["decode_layer_stack"])
+    by_name["flash_attention"].update(w8a8_launches=w8a8_launches["flash_attention"],
+                                      profiled_launches=profiled["flash_attention"])
     for entry, count in ((by_name["decode_layer_stack"]["int8"]["gpt2_w8kv8"],
                           int8_launches["decode_layer_stack"]),
                          (by_name["decode_attention"]["int8"],
@@ -6706,9 +7198,13 @@ def main() -> int:
     tiled["launches"] = ran8[("bf16", "tiled")]["decode_layer_tiled"]
     tiled["variants"]["w8kv8"]["launches"] = ran8[("int8", "tiled")]["decode_layer_tiled"]
     tiled["f1_batch16_launches"] = f1["decode_layer_tiled"]
+    # int8 weights over a bf16 cache: w8a8_8b's W8A8, int8 and transcoded
+    # trees; fp8 weights: its fp8 tree
+    tiled["variants"]["w8"]["launches"] = w8a8_k6["w8a8"] + w8a8_k6["w8"] + w8a8_k6["transcoded"]
+    tiled["variants"]["fp8"]["launches"] = w8a8_k6["fp8"]
+    tiled["w8a8_launches"] = w8a8_k6["w8a8"]
     for v in ("w8", "fp8"):
-        tiled["variants"][v]["launches"] = 0
-        tiled["variants"][v]["launches_note"] = "no path of this run decodes with these weights"
+        tiled["variants"][v]["launches_note"] = "w8a8_8b's decode steps (llama3-8b, B 8)"
     if not tiled["launches"] or not tiled["variants"]["w8kv8"]["launches"]:
         raise AssertionError("decode_layer_tiled: no launch on generate_8b's tiled route")
     # K6's MoE instances: generate_moe's tiled route (Mixtral, int8 weights,

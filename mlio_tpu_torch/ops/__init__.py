@@ -102,7 +102,8 @@ def attention(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None, mask
 
 
 def linear(x, w, bias=None):
-    """x @ w (+ bias); w may be a QTensor (K5 for int8 and int4)."""
+    """x @ w (+ bias); w may be a QTensor (K5 for int8 and int4; W8A8, an
+    int8 QTensor with ``act_scale``, through ``quant.w8a8_matmul``)."""
     return _quant.linear(x, w, bias)
 
 

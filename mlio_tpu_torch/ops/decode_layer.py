@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
 from mlio_tpu_torch.ops.reference import activate
 
@@ -796,14 +796,14 @@ def cluster_probe(name: str, spec, cluster: int) -> dict:
 
 def check_weights(what: str, kernel: str, blocks, spec) -> None:
     """Raise unless ``kernel`` (K4 or K8) runs ``spec`` with these weights:
-    floating tensors, or int8 QTensors for the projections."""
+    floating tensors, or int8 QTensors for the projections (W8A8 ones
+    included: the kernels ignore ``act_scale`` and decode with weight-only
+    int8, as the JAX megakernels do)."""
     for name, w in blocks.items():
         if isinstance(w, QTensor):
             if w.fmt != "int8" or name not in _QSCALES:
                 raise ValueError(f"{what}: {kernel} takes int8 projection weights only, got "
                                  f"{w.fmt} {name!r} (int4 and fp8 take the scan decode)")
-            if w.act_scale is not None:
-                raise NotImplementedError(f"{what}: W8A8 weights (act_scale) are not ported yet")
         elif w is not None and (not isinstance(w, torch.Tensor) or not w.is_floating_point()):
             raise ValueError(f"{what}: weight {name!r} must be a floating tensor or an int8 "
                              "QTensor")
@@ -919,6 +919,40 @@ def base_params(spec, B: int, H: int, L: int, V: int, lm_vmajor: bool, scale, ro
                 embed_scale=1.0 if spec.embed_scale is None else spec.embed_scale)
 
 
+def decode_work(x, blocks, k_cache, pos, spec, steps=1, lm_head=None, kv8=False):
+    """(FLOPs, bytes) of ``steps`` decode steps of every layer for the
+    profiler's count (``ops/cost.py``): each step's products (every
+    projection, the head's when given, the attention over the step's
+    context of ``pos + s + 1`` slots a row) and bytes (every weight and the
+    head read once a step, the K/V of the context's slots, one byte an
+    element and an fp32 scale a row of a head for an INT8 cache, x in and
+    out). An MoE model's expert stacks count their top-k share."""
+    B, H, L = x.shape[0], spec.hidden_size, spec.num_layers
+    share = spec.num_experts_per_tok / spec.num_experts if spec.num_experts else 1.0
+    mats = wbytes = 0.0
+    for name, w in blocks.items():
+        if w is None:
+            continue
+        part = share if name.startswith("moe_") else 1.0
+        q = w.q if isinstance(w, QTensor) else w
+        mats += part * (q.numel() if q.ndim >= 3 else 0)
+        wbytes += part * cost.tensor_bytes(w)
+    head = 0 if lm_head is None else lm_head.numel()
+    Hkv, D = k_cache.shape[-2:]
+    kv_row = Hkv * (D * k_cache.element_size() + (4 if kv8 else 0))
+    slots = B * (steps * (pos + 1) + steps * (steps - 1) // 2)  # the steps' contexts, summed
+    flops = steps * 2 * B * (mats + head) + 4 * spec.num_heads * D * slots * L
+    nbytes = (steps * (wbytes + cost.tensor_bytes(lm_head)) + 2 * L * slots * kv_row
+              + 2 * steps * B * H * x.element_size())
+    return flops, nbytes
+
+
+def stack_work(x, blocks, k_cache, v_cache, pos, cos=None, sin=None, *, spec, k_scales=None,
+               lm_head=None, steps=1, **_):
+    return decode_work(x, blocks, k_cache, pos, spec, steps, lm_head, k_scales is not None)
+
+
+@cost.counts(stack_work)
 def decode_layer_stack(
     x: torch.Tensor,
     blocks,

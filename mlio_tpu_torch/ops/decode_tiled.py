@@ -43,9 +43,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 from mlio_tpu_torch.ops.decode_layer import (_ACTIVATIONS, _attend_plain, _norm32, _rope,
-                                             route_limit)
+                                             decode_work, route_limit)
 from mlio_tpu_torch.ops.moe import topk_mask
 from mlio_tpu_torch.ops.quant import QTensor, dequantize_kv, quantize_kv
 from mlio_tpu_torch.ops.reference import activate
@@ -581,7 +581,9 @@ def _weight_names(spec):
 
 def _weight_format(blocks, spec) -> Optional[str]:
     """The one storage format of the projection weights: None (floating
-    tensors), "int8" or "fp8" QTensors. Raises on anything else."""
+    tensors), "int8" or "fp8" QTensors (a W8A8 weight's ``act_scale`` is
+    ignored: K6 decodes it with weight-only int8, as the JAX kernel does).
+    Raises on anything else."""
     gated = spec.activation in ("swiglu", "geglu")
     fmts = set()
     for name in _weight_names(spec):
@@ -594,9 +596,6 @@ def _weight_format(blocks, spec) -> Optional[str]:
         if isinstance(w, QTensor):
             if w.fmt not in _PAYLOAD:
                 raise ValueError(f"decode_layer_tiled: K6 takes int8 or fp8 weights, got {w.fmt}")
-            if w.act_scale is not None:
-                raise NotImplementedError("decode_layer_tiled: W8A8 weights (act_scale) are "
-                                          "not ported yet")
             fmts.add(w.fmt)
         elif isinstance(w, torch.Tensor) and w.is_floating_point():
             fmts.add(None)
@@ -608,6 +607,13 @@ def _weight_format(blocks, spec) -> Optional[str]:
     return fmts.pop()
 
 
+def tiled_work(x, blocks, k_cache, v_cache, pos, cos=None, sin=None, *, spec, k_scales=None,
+               **_):
+    """(FLOPs, bytes) of one step, no head (``decode_layer.decode_work``)."""
+    return decode_work(x, blocks, k_cache, pos, spec, kv8=k_scales is not None)
+
+
+@cost.counts(tiled_work)
 def decode_layer_tiled(
     x: torch.Tensor,
     blocks,

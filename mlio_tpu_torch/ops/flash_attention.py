@@ -66,7 +66,7 @@ from typing import Optional, Union
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 from mlio_tpu_torch.ops.dropmask import dense_keep_mask
 from mlio_tpu_torch.ops.reference import attention_mask, canonicalize_mask, user_mask
 
@@ -488,6 +488,18 @@ def _canonical(mask, B, Hq, Sq, Skv):
     return canonicalize_mask(mask, B, Hq, Sq, Skv) if mask is not None else (None, None)
 
 
+def attention_work(q, k, v, k_scale=None, v_scale=None, *, mask=None, return_stats=False,
+                   q_layout="bshd", kv_layout="bshd", **_):
+    """(FLOPs, bytes) of an attention call for the profiler's count
+    (``ops/cost.py``): the two products over every (query, key) pair, as the
+    dense reference computes them; q, k, v, their scales and the mask read
+    once, the output (and the lse) written once."""
+    B, Sq, Hq, D, Skv, _ = _dims(q, k, q_layout, kv_layout)
+    nbytes = cost.tensor_bytes(q, k, v, k_scale, v_scale, mask) + q.numel() * q.element_size()
+    return 4 * B * Hq * Sq * Skv * D, nbytes + (4 * B * Hq * Sq if return_stats else 0)
+
+
+@cost.counts(attention_work)
 def flash_attention_kvq(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -535,6 +547,7 @@ def flash_attention_kvq(
 flash_attention_kvq.launches = 0
 
 
+@cost.counts(attention_work)
 def flash_attention_stream(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -593,6 +606,7 @@ def flash_attention_stream(
 flash_attention_stream.launches = 0
 
 
+@cost.counts(attention_work)
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,

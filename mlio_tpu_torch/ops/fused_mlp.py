@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 
 ACTIVATIONS = ("gelu_new", "gelu_tanh", "gelu", "relu", "swiglu", "geglu")
 _GATED = ("swiglu", "geglu")
@@ -103,6 +103,17 @@ def _entry():
 _BLOCK_M, BLOCK_I, _BLOCK_H = 128, 256, 256
 
 
+def mlp_work(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=None, **_):
+    """(FLOPs, bytes) for the profiler's count (``ops/cost.py``): the up
+    (and gate) and down products; x, the weights and biases read once, the
+    output written once."""
+    M, (H, I) = x.numel() // x.shape[-1], w_up.shape
+    flops = 2 * M * H * I * (3 if w_gate is not None else 2)
+    return flops, (cost.tensor_bytes(x, w_up, w_down, b_up, b_down, w_gate, b_gate)
+                   + x.numel() * x.element_size())
+
+
+@cost.counts(mlp_work)
 def fused_mlp(x, w_up, w_down, *, b_up=None, b_down=None, w_gate=None, b_gate=None,
               activation: str = "gelu_new") -> torch.Tensor:
     """Fused MLP. x [..., H], w_up (and w_gate) [H, I], w_down [I, H] →

@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 
 
 def _normalize(x, scale, bias, kind, eps):
@@ -76,6 +76,15 @@ def _entry():
     return lib, fn
 
 
+def norm_matmul_work(x, w, scale, bias=None, *, parts=(), **_):
+    """(FLOPs, bytes) for the profiler's count (``ops/cost.py``): norm(x) @ W;
+    x, W (or its parts), scale and bias read once, the output written once."""
+    ws = [w] if w is not None else list(parts)
+    M, H, N = x.numel() // x.shape[-1], x.shape[-1], sum(t.shape[1] for t in ws)
+    return 2 * M * H * N, cost.tensor_bytes(x, ws, scale, bias) + M * N * x.element_size()
+
+
+@cost.counts(norm_matmul_work)
 def fused_norm_matmul(x, w, scale, bias=None, *, kind: str = "layernorm",
                       eps: float = 1e-5, parts: Sequence[torch.Tensor] = ()):
     """norm(x) @ W in one kernel. x [..., H], W [H, N] (``w``, or the

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 
 _MAX_H = 16384  # the kernel keeps up to 64 fp32 values per thread, 256 threads per row
 
@@ -63,6 +63,14 @@ def _entry():
     return lib, fn
 
 
+def norm_work(x, scale, bias=None, *, residual=None, **_):
+    """(FLOPs, bytes) for the profiler's count (``ops/cost.py``): no
+    products; x, the residual, scale and bias read once, the output written
+    once."""
+    return 0, cost.tensor_bytes(x, scale, bias, residual) + x.numel() * x.element_size()
+
+
+@cost.counts(norm_work)
 def fused_norm(
     x: torch.Tensor,
     scale: torch.Tensor,

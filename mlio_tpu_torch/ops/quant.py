@@ -17,8 +17,16 @@ matrix on its own, as the JAX package's ``vmap`` does.
 
 The JAX package leaves M <= 32 to an XLA dot, a split measured on the TPU;
 the port runs K5 for every M. fp8 stays a plain dequantise-then-matmul, as
-the JAX package leaves it to XLA. The W8A8 path (``act_scale``) is not
-ported yet and raises.
+the JAX package leaves it to XLA.
+
+W8A8 (a QTensor with ``act_scale``, from
+``runtime.quantization.apply_activation_scales``): :func:`w8a8_matmul`
+quantizes x with the calibrated static scale and multiplies int8 by int8
+into int32 sums, rescaled by ``act_scale * scale``, as the JAX package's
+``w8a8_matmul``. The JAX package leaves that product to XLA (a plain
+``dot_general``, no Pallas kernel), so on the card ``torch._int_mm``
+(cuBLASLt's int8 GEMM) computes it; on the CPU the float64 sums of
+:func:`int8_sums_plain`, which are exact.
 
 On CPU tensors :func:`quant_matmul` runs :func:`quant_matmul_plain`; on
 CUDA tensors it launches the kernel or raises.
@@ -30,7 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from mlio_tpu_torch.ops import _build
+from mlio_tpu_torch.ops import _build, cost
 
 FP8 = torch.float8_e4m3fn
 
@@ -39,8 +47,9 @@ class QTensor(NamedTuple):
     """Quantized weight: payload ``q`` [..., K, N] (int8), [..., K/2, N]
     (int4 packed as halves) or [..., K, N] (``torch.float8_e4m3fn``) and
     fp32 ``scale`` [..., N] (per output channel) or, for int4, [..., K/g, N]
-    (per group of g input rows). ``act_scale`` marks the W8A8 path, which
-    is not ported yet."""
+    (per group of g input rows). ``act_scale`` (fp32: [L] for a stack of L
+    layers, one value for one layer's weight) marks an int8 weight whose
+    activations are quantized with that static scale (W8A8)."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -65,11 +74,24 @@ class QTensor(NamedTuple):
 # Quantizers
 # ---------------------------------------------------------------------------
 
+def divided(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d rounded once on every device. PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, which can land one ulp
+    from the quotient the CPU (and the JAX package, eagerly) computes; a
+    0-d tensor divisor is divided."""
+    return t / t.new_tensor(d)
+
+
+def _scales(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Per-channel scales amax / qmax, 1 where a channel is all zero."""
+    return torch.where(amax == 0, torch.ones_like(amax), divided(amax, qmax))
+
+
 def quantize_int8(w: torch.Tensor) -> QTensor:
     """Symmetric per-output-channel INT8. w [..., K, N] → QTensor."""
     wf = w.float()
     amax = wf.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    scale = _scales(amax, 127.0)
     q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127).to(torch.int8)
     return QTensor(q, scale, "int8")
 
@@ -106,12 +128,12 @@ def quantize_int4(w: torch.Tensor, group_size: Optional[int] = 128) -> QTensor:
     g = int4_group_size(K, group_size) if group_size else None
     if g is None:
         amax = wf.abs().amax(dim=-2)
-        scale = torch.where(amax == 0, torch.ones_like(amax), amax / 7.0)
+        scale = _scales(amax, 7.0)
         q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -7, 7)
     else:
         wg = wf.reshape(*wf.shape[:-2], K // g, g, N)
         amax = wg.abs().amax(dim=-2)
-        scale = torch.where(amax == 0, torch.ones_like(amax), amax / 7.0)
+        scale = _scales(amax, 7.0)
         q = torch.clamp(torch.round(wg / scale.unsqueeze(-2)), -7, 7).reshape(wf.shape)
     return QTensor(_pack_halves(q.to(torch.int8)), scale, "int4")
 
@@ -136,7 +158,7 @@ def quantize_fp8(w: torch.Tensor) -> QTensor:
     the JAX package."""
     wf = w.float()
     amax = wf.abs().amax(dim=-2)
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 448.0)
+    scale = _scales(amax, 448.0)
     ws = wf / scale.unsqueeze(-2)
     ws = torch.where(ws.abs() < 2.0 ** -6, torch.zeros_like(ws), ws)
     return QTensor(ws.to(FP8), scale, "fp8")
@@ -226,6 +248,14 @@ def _entry():
     return lib, fn
 
 
+def qm_work(x, q, scale, *, fmt="int8", **_):
+    """(FLOPs, bytes) for the profiler's count (``ops/cost.py``): the
+    product; x, the payload and scales read once, the output written once."""
+    M, K, N = x.numel() // x.shape[-1], x.shape[-1], q.shape[-1]
+    return 2 * M * K * N, cost.tensor_bytes(x, q, scale) + M * N * x.element_size()
+
+
+@cost.counts(qm_work)
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
                  fmt: str = "int8") -> torch.Tensor:
     """x [..., K] @ dequant(q, scale) [K, N] → [..., N] in x's dtype."""
@@ -256,17 +286,102 @@ quant_matmul.launches = 0
 # Linear dispatch (dense or quantized)
 # ---------------------------------------------------------------------------
 
+def quantize_activations(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
+    """W8A8's activation quantizer, in the JAX package's order: x in fp32
+    over the static ``act_scale``, rounded half to even, clipped to ±127,
+    int8."""
+    s = act_scale.float()
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def int8_sums_plain(x_q: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The int8 x int8 product's sums, x_q [M, K] @ q [K, N], in float64:
+    exact, since |sum| <= 127^2 K < 2^53, so the card's int32 sums can be
+    held against them bit for bit. Returns float64 [M, N]."""
+    return x_q.double() @ q.double()
+
+
+def w8a8_rescale(sums: torch.Tensor, w: QTensor, dtype) -> torch.Tensor:
+    """The sums (int32, or float64 holding integers) in fp32 times
+    ``act_scale * scale`` (that product in fp32 first, as the JAX package
+    multiplies), cast to ``dtype``. int32 sums widen to fp32 inside the
+    product (type promotion: one pass); float64 ones are rounded to fp32
+    first, the same fp32 value."""
+    if sums.is_floating_point():
+        sums = sums.float()
+    return (sums * (w.act_scale.float() * w.scale.float())).to(dtype)
+
+
+def _check_w8a8(x, w):
+    if w.fmt != "int8" or w.act_scale is None or w.q.ndim != 2:
+        raise ValueError("w8a8_matmul: w must be a 2-D int8 QTensor with act_scale")
+    if w.act_scale.numel() != 1:
+        raise ValueError(f"w8a8_matmul: act_scale must hold one value (one layer's), got "
+                         f"{tuple(w.act_scale.shape)}")
+    if x.shape[-1] != w.q.shape[0]:
+        raise ValueError(f"w8a8_matmul: x's last axis {x.shape[-1]} does not match "
+                         f"q {tuple(w.q.shape)}")
+
+
+def w8a8_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """:func:`w8a8_matmul` with the sums of :func:`int8_sums_plain`."""
+    _check_w8a8(x, w)
+    K, N = w.q.shape
+    x_q = quantize_activations(x.reshape(-1, K), w.act_scale)
+    return w8a8_rescale(int8_sums_plain(x_q, w.q), w, x.dtype).reshape(*x.shape[:-1], N)
+
+
+INT_MM_MIN_ROWS = 17  # torch._int_mm takes more than 16 rows
+
+
+def w8a8_work(x, w, **_):
+    """(FLOPs, bytes) for the profiler's count (``ops/cost.py``): the int8
+    product; x, the payload and scales read once, the output written once."""
+    M, (K, N) = x.numel() // x.shape[-1], w.q.shape
+    return 2 * M * K * N, cost.tensor_bytes(x, w) + M * N * x.element_size()
+
+
+@cost.counts(w8a8_work)
+def w8a8_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Static-scale W8A8, x [..., K] @ w → [..., N] in x's dtype: x
+    quantized by :func:`quantize_activations`, int8 x int8 summed in int32,
+    rescaled by :func:`w8a8_rescale`. On the card the product is
+    ``torch._int_mm`` over the payload's [N, K] copy (cuBLASLt's int8 kernels
+    run several times faster with the weight operand column-major than over
+    the [K, N] payload as it is stored, which K4, K5 and K6 read), with the
+    rows of a call of 16 rows or fewer padded with zeros to
+    ``INT_MM_MIN_ROWS``; K and N must be multiples of 8. On the CPU the
+    float64 sums of :func:`int8_sums_plain`."""
+    _check_w8a8(x, w)
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, w)
+    dev = _build.require_cuda("w8a8_matmul", x, w.q, w.scale, w.act_scale)
+    K, N = w.q.shape
+    if K % 8 or N % 8:
+        raise ValueError(f"w8a8_matmul: torch._int_mm takes K and N multiples of 8, got "
+                         f"K={K}, N={N}")
+    x_q = quantize_activations(x.reshape(-1, K), w.act_scale)
+    M = x_q.shape[0]
+    if M < INT_MM_MIN_ROWS:
+        x_q = torch.cat([x_q, x_q.new_zeros(INT_MM_MIN_ROWS - M, K)])
+    with torch.cuda.device(dev):
+        sums = torch._int_mm(x_q, w.q.t().contiguous().t())[:M]
+    w8a8_matmul.launches += 1
+    return w8a8_rescale(sums, w, x.dtype).reshape(*x.shape[:-1], N)
+
+
+w8a8_matmul.launches = 0
+
+
 def linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
-    """x @ w (+ bias) where w is a tensor or a QTensor: int8 and int4 take
-    K5, fp8 a plain dequantise-then-matmul in x's dtype. The bias is added
-    in x's dtype after the product."""
+    """x @ w (+ bias) where w is a tensor or a QTensor: an int8 QTensor
+    with ``act_scale`` takes :func:`w8a8_matmul`, int8 and int4 take K5,
+    fp8 a plain dequantise-then-matmul in x's dtype. The bias is added in
+    x's dtype after the product."""
     if isinstance(w, QTensor):
-        if w.act_scale is not None:
-            raise NotImplementedError(
-                "QTensor.act_scale (W8A8: calibrate_activation_scales, "
-                "apply_activation_scales, w8a8_matmul) is not ported yet; see ROADMAP.md, "
-                "queue 1, item 4")
-        if w.fmt == "fp8":
+        if w.act_scale is not None and w.fmt == "int8":
+            out = w8a8_matmul(x, w)
+        elif w.fmt == "fp8":
             out = x @ dequantize(w, x.dtype)
         else:
             out = quant_matmul(x, w.q, w.scale, fmt=w.fmt)

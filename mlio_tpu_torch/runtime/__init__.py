@@ -8,9 +8,12 @@ from mlio_tpu_torch.runtime.inference import (
     create_inference_runner,
 )
 from mlio_tpu_torch.runtime.quantization import (
+    apply_activation_scales,
+    calibrate_activation_scales,
     fuse_projections,
     quantize_params,
     quantized_size_bytes,
+    transcode_fp8_to_int8,
 )
 from mlio_tpu_torch.runtime.sampling import SamplingMethod, probabilities, sample
 from mlio_tpu_torch.runtime.speculative import speculative_generate, speculative_generate_auto
@@ -27,9 +30,12 @@ __all__ = [
     "TransformerInferenceRunner",
     "benchmark_optimization_impact",
     "create_inference_runner",
+    "apply_activation_scales",
+    "calibrate_activation_scales",
     "fuse_projections",
     "quantize_params",
     "quantized_size_bytes",
+    "transcode_fp8_to_int8",
     "SamplingMethod",
     "probabilities",
     "sample",

@@ -13,10 +13,10 @@ the dequant-fused matmul (K5) in every projection.
 :func:`benchmark_optimization_impact` runs the JAX package's seven default
 configurations.
 
-Not ported yet, and raising ``NotImplementedError``: ``profile_model``
-(ROADMAP.md, queue 1, item 11: ``profiling/``) and the diffusion runner
-(``create_inference_runner(model_type="diffusion")``, item 11:
-``runtime/diffusion.py``).
+``profile_model`` profiles the runner's forward (``profiling/``). Not
+ported yet, and raising ``NotImplementedError``: the diffusion runner
+(``create_inference_runner(model_type="diffusion")``, ROADMAP.md, queue 1,
+item 11: ``runtime/diffusion.py``).
 """
 from __future__ import annotations
 
@@ -130,9 +130,14 @@ class InferenceRunner:
                         cache_quant=self.kv_quant, device=self.device, **kw)
 
     def profile_model(self, input_ids, **kw):
-        raise NotImplementedError(
-            "InferenceRunner.profile_model needs the profiling package, not ported yet; see "
-            "ROADMAP.md, queue 1, item 11 (profiling/)")
+        """One warm-up and three timed cache-free forwards of the runner's
+        model and ``impl`` through ``ProfilerWrapper.profile_model``: wall
+        times, the counted cost and the device memory stats."""
+        from mlio_tpu_torch.profiling import ProfilerConfig, ProfilerWrapper
+
+        prof = ProfilerWrapper(ProfilerConfig(warmup_steps=1, active_steps=3))
+        return prof.profile_model(self.params, self.spec,
+                                  torch.as_tensor(input_ids, device=self.device), impl=self.impl)
 
     def quantization_stats(self) -> Dict[str, Any]:
         return {"precision": self.precision,

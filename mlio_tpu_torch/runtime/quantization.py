@@ -18,11 +18,16 @@ never widened; :func:`streamed_quantized_init` draws each bf16 stack of
 it before the next, equal to ``quantize_params(init_params(...))`` with the
 same generator state.
 
-Not ported yet (ROADMAP.md, queue 1): ``transcode_fp8_to_int8`` and the W8A8
-calibration (``calibrate_activation_scales``, ``apply_activation_scales``).
+W8A8: :func:`calibrate_activation_scales` takes each layer's activation
+amax at the inputs of the quantizable products in one forward, and
+:func:`apply_activation_scales` attaches ``act_scale = amax / 127`` to the
+int8 weights of each site (``_W8A8_SITES``), so that ``ops.linear`` takes
+``w8a8_matmul``. :func:`transcode_fp8_to_int8` requantizes fp8 weights to
+per-output-channel int8, one matrix at a time.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Sequence, Union
 
 import torch
@@ -30,7 +35,8 @@ import torch
 from mlio_tpu_torch.device import resolve_device
 from mlio_tpu_torch.models.spec import ModelSpec
 from mlio_tpu_torch.models.utils import get_model_size
-from mlio_tpu_torch.ops.quant import FP8, QTensor, quantize
+from mlio_tpu_torch.ops.quant import (FP8, QTensor, dequantize, divided, quantize,
+                                      quantize_int8)
 
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
 # MoE expert stacks carry an expert axis: [L, E, K, N]
@@ -92,15 +98,31 @@ def quantize_params(
     return out
 
 
+def _same_act_scale(ws: Sequence[QTensor]):
+    """The one ``act_scale`` of the parts (None when none has one); raises
+    when they differ, since one product quantizes x once."""
+    first = ws[0].act_scale
+    for w in ws[1:]:
+        a = w.act_scale
+        if (a is None) != (first is None) or (a is not None and not torch.equal(a, first)):
+            raise ValueError("fuse_projections: the parts' W8A8 act_scales differ (the fused "
+                             "product quantizes its input once)")
+    return first
+
+
 def _concat_weights(ws: Sequence[Any]) -> Any:
     """Concatenate weights (tensors, or QTensors of one format) along the
-    output axis, scales with them."""
+    output axis, scales with them. W8A8 parts keep their ``act_scale``,
+    which must be the same for all of them (one site feeds wq, wk and wv,
+    and w_up and w_gate). The JAX package drops it here, which turns a W8A8
+    model back into weight-only int8."""
     ws = [w for w in ws if w is not None]
     if isinstance(ws[0], QTensor):
         if not all(isinstance(w, QTensor) and w.fmt == ws[0].fmt for w in ws):
             raise ValueError("fuse_projections: weights of mixed formats")
         return QTensor(torch.cat([w.q for w in ws], dim=-1),
-                       torch.cat([w.scale for w in ws], dim=-1), ws[0].fmt)
+                       torch.cat([w.scale for w in ws], dim=-1), ws[0].fmt,
+                       _same_act_scale(ws))
     return torch.cat(ws, dim=-1)
 
 
@@ -119,6 +141,136 @@ def fuse_projections(params: Dict[str, Any], spec: ModelSpec) -> Dict[str, Any]:
         blocks["b_upgate"] = (torch.cat([b_up, b_gate], dim=-1)
                               if b_up is not None and b_gate is not None else None)
     return {**params, "blocks": blocks}
+
+
+def _transcode(t: QTensor) -> QTensor:
+    """An fp8 QTensor requantized to per-output-channel int8, one [K, N]
+    matrix (one layer, one expert) at a time into preallocated outputs: the
+    fp32 dequantization of one matrix is the widest temporary."""
+    q = torch.empty(t.q.shape, dtype=torch.int8, device=t.q.device)
+    scale = torch.empty(t.scale.shape, dtype=torch.float32, device=t.q.device)
+    for idx in itertools.product(*map(range, t.q.shape[:-2])):
+        m = quantize_int8(dequantize(QTensor(t.q[idx], t.scale[idx], "fp8"), torch.float32))
+        q[idx], scale[idx] = m.q, m.scale
+    return QTensor(q, scale, "int8")
+
+
+def transcode_fp8_to_int8(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Every fp8 QTensor of the blocks (expert stacks included) and an fp8
+    lm_head requantized to per-output-channel int8: the quantizer of
+    ``quantize_params(..., "int8")`` applied to the fp32 dequantization, as
+    in the JAX package. The same bytes an element, and the decode kernels'
+    int8 paths; the other leaves are shared with ``params``. One matrix is
+    widened at a time, so no whole fp32 stack is ever materialised."""
+    def tc(leaf):
+        return _transcode(leaf) if isinstance(leaf, QTensor) and leaf.fmt == "fp8" else leaf
+
+    out = dict(params)
+    out["blocks"] = {k: tc(v) for k, v in params["blocks"].items()}
+    out["lm_head"] = tc(params.get("lm_head"))
+    return out
+
+
+# site -> the weights that consume that activation
+_W8A8_SITES = {
+    "attn_in": ("wq", "wk", "wv"),
+    "attn_out_in": ("wo",),
+    "mlp_in": ("w_up", "w_gate"),
+    "mlp_down_in": ("w_down",),
+}
+
+
+def _calibration_batch(params, spec: ModelSpec, ids: torch.Tensor):
+    """The four sites' amax a layer ([L] fp32 each) over one [B, S] batch."""
+    from mlio_tpu_torch import ops
+    from mlio_tpu_torch.models.transformer import (Impl, _layers, _qkv_proj, _split_heads,
+                                                   apply_rope, rope_cos_sin)
+    from mlio_tpu_torch.ops.fused_mlp import activate
+
+    impl = Impl()
+    B, S = ids.shape
+    x = params["tok_embed"][ids]
+    if spec.positional == "learned":
+        x = x + params["pos_embed"][:S][None].to(x.dtype)
+        cos = sin = None
+    else:
+        cos, sin = rope_cos_sin(torch.arange(S, device=ids.device)[None], spec.rope_dim,
+                                spec.rope_theta)
+
+    def amax(t):
+        return t.float().abs().max()
+
+    def norm(x, scale, bias):
+        return ops.norm(x, scale, bias, kind=spec.norm, eps=spec.norm_eps, impl=impl)
+
+    stats = []
+    for bp in _layers(params["blocks"]):
+        h1 = norm(x, bp["ln1_scale"], bp["ln1_bias"])
+        q, k, v = _qkv_proj(h1, x, bp, spec, impl)
+        q = _split_heads(q, spec.num_heads)
+        k = _split_heads(k, spec.num_kv_heads)
+        v = _split_heads(v, spec.num_kv_heads)
+        if cos is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        attn = ops.attention(q, k, v, causal=True, impl=impl).reshape(B, S, spec.q_dim)
+        x = x + ops.linear(attn, bp["wo"], bp["bo"])
+        h2 = norm(x, bp["ln2_scale"], bp["ln2_bias"])
+        u = ops.linear(h2, bp["w_up"], bp["b_up"])
+        g = ops.linear(h2, bp["w_gate"], bp["b_gate"]) if bp.get("w_gate") is not None else None
+        act = activate(u, g, spec.activation)
+        x = x + ops.linear(act.to(x.dtype), bp["w_down"], bp["b_down"])
+        stats.append(torch.stack([amax(h1), amax(attn), amax(h2), amax(act)]))
+    return torch.stack(stats, dim=1)  # [4 sites, L]
+
+
+def calibrate_activation_scales(params, spec: ModelSpec, sample_ids, *,
+                                num_batches: int = 1) -> Dict[str, torch.Tensor]:
+    """Each layer's activation amax at the inputs of the quantizable
+    products, in one forward a batch (the JAX package's calibration):
+
+      attn_in      -> wq/wk/wv input (post-ln1)
+      attn_out_in  -> wo input (attention output)
+      mlp_in       -> w_up/w_gate input (post-ln2)
+      mlp_down_in  -> w_down input (post-activation, fp32)
+
+    Returns {site: [num_layers] fp32 amax} on the parameters' device.
+    ``sample_ids`` is [B, S] or [num_batches, B, S]; the stats take the max
+    over batches. The walk is the JAX package's: the dense ``Impl()``, the
+    sequential residual of the dense-path models W8A8 serves, no embedding
+    scale. ``num_batches`` is the JAX signature's and unused there too."""
+    dev = params["tok_embed"].device
+    ids = torch.as_tensor(sample_ids, device=dev)
+    if ids.ndim == 2:
+        ids = ids[None]
+    acc = None
+    with torch.inference_mode():
+        for b in range(ids.shape[0]):
+            stats = _calibration_batch(params, spec, ids[b])
+            acc = stats if acc is None else torch.maximum(acc, stats)
+    return dict(zip(_W8A8_SITES, acc.clone().unbind(0)))
+
+
+def apply_activation_scales(params: Dict[str, Any], act_stats: Dict[str, torch.Tensor], *,
+                            margin: float = 1.0) -> Dict[str, Any]:
+    """Attach static activation scales to the int8 weights → W8A8: each
+    projection of a site gets ``act_scale = site_amax / 127 * margin`` ([L];
+    1 where the amax is 0), so that ``ops.linear`` takes
+    ``ops.quant.w8a8_matmul``. Other formats and missing sites stay as they
+    are. The decode megakernels (K4, K6, K8) ignore ``act_scale`` and decode
+    with weight-only int8, as the JAX package's do."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for site, names in _W8A8_SITES.items():
+        if site not in act_stats:
+            continue
+        sc = divided(act_stats[site].float(), 127.0) * margin
+        sc = torch.where(sc == 0, torch.ones_like(sc), sc)
+        for name in names:
+            w = blocks.get(name)
+            if isinstance(w, QTensor) and w.fmt == "int8":
+                blocks[name] = QTensor(w.q, w.scale, w.fmt, sc.to(w.q.device))
+    out["blocks"] = blocks
+    return out
 
 
 def quantized_size_bytes(params) -> int:

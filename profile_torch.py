@@ -32,7 +32,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import B, CACHE, busy_ms, nvidia_smi, workload
+from chip_smoke import B, CACHE, nvidia_smi, workload
+from mlio_tpu_torch.profiling import device_busy_ms
 
 STEPS = 8  # decode steps traced
 
@@ -46,7 +47,7 @@ def _region(name, fn, out_dir, top=12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    busy = busy_ms(events)
+    busy = device_busy_ms(events)
     kernels = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:

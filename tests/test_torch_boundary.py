@@ -19,7 +19,7 @@ PORT_FILES = sorted((ROOT / "mlio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smo
                                                                  ROOT / "ab_k10.py",
                                                                  ROOT / "ab_k6.py"]
 NEVER = ("jax", "jaxlib", "mlio_tpu")      # nowhere in the port
-LAZY = ("transformers", "safetensors", "triton")  # only inside functions
+LAZY = ("transformers", "safetensors", "triton", "matplotlib")  # only inside functions
 
 
 def _imports(tree):

@@ -132,8 +132,8 @@ def test_runner_defaults_and_generate(llama):
                                 impl=JaxImpl(**impl)).generate(jnp.asarray(ids),
                                                                max_new_tokens=5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="profiling"):
-        r.profile_model(ids)
+    prof = r.profile_model(ids)  # one warm-up, three timed forwards, the counted cost
+    assert len(prof.wall_times_s) == 3 and prof.cost["flops"] > 0
     # an INT8 KV cache (K9 in prefill, K3's int8 instances in the scan decode)
     got = InferenceRunner(spec, params, precision="fp32", kv_quant="int8",
                           impl=Impl(**impl)).generate(ids, max_new_tokens=3)

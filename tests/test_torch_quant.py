@@ -137,8 +137,12 @@ def test_linear_dispatch_matches_jax(fmt):
 
 def test_linear_refuses_w8a8_and_kernel_refuses_bad_groups():
     t = tq.quantize_int8(torch.randn(16, 8))
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        tq.linear(torch.randn(2, 16), tq.QTensor(t.q, t.scale, "int8", torch.ones(())))
+    x = torch.randn(2, 16)
+    w = tq.QTensor(t.q, t.scale, "int8", torch.ones(()))
+    # an act_scale routes linear to W8A8; a stack's [L] act_scale is refused
+    torch.testing.assert_close(tq.linear(x, w), tq.w8a8_matmul_plain(x, w), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="act_scale"):
+        tq.linear(x, tq.QTensor(t.q, t.scale, "int8", torch.ones(3)))
     t4 = tq.quantize_int4(torch.randn(64, 8), group_size=None)
     with pytest.raises(ValueError, match="groups"):
         tq.quant_matmul(torch.randn(2, 64), t4.q, torch.ones(8, 8), fmt="int4")
