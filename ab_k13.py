@@ -34,7 +34,11 @@ cache), at chip_smoke's ``KVQ_LLAMA`` (2 x 1024 into 2048, 32/8 heads of
 of 128); K3 and SDPA at GPT-2 small's decode (B 8, ctx 896) and Mistral's
 at 32K (B 1, ctx 32,704), and ``k3_sha256``, a hash of K3's outputs of its
 fp32 pass, its grouped (tensor-core) pass and its int8 instances on seeded
-inputs, equal across two checkouts exactly where K3 gives the same bits; K7
+inputs, equal across two checkouts exactly where K3 gives the same bits;
+K1 and SDPA at gemma-7b's (D 256) and phi-2's (D 80) prefill and at 8 x 704
+with GPT-2's and llama3-8b's heads, K3 and SDPA at phi-2's (D 80) and
+gemma-7b's (D 256) decode, and the hashes ``k1_d64_d80_d128_sha256`` and
+``k3_d256_sha256`` of the instances those rows hold unchanged; K7
 at the engine's pools (GPT-2 small, 256 blocks of 128, permuted tables of
 8) at the ragged contexts, at context 896, with INT8 pools, and with
 llama3-8b's heads (B 8, 32/8 heads of 128), and its output's hash; and
@@ -93,12 +97,15 @@ def main() -> int:
 
     if not os.path.samefile(_build.CSRC.parents[1], tree):
         raise RuntimeError(f"ab_k13: imported the port from {_build.CSRC}, not from {tree}")
-    attention_sources = ("flash_fwd", "fused_norm", "decode_attn", "paged_attn")
+    # K1 at head dim 256 has its own source in newer checkouts
+    attention_sources = tuple(n for n in ("flash_fwd", "flash_fwd_d256", "fused_norm",
+                                          "decode_attn", "paged_attn") if n in _build.SOURCES)
+    sources = {"masks": ("flash_fwd",), "attention": attention_sources}.get(
+        args.only, tuple(dict.fromkeys(("flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp",
+                                        "quant_matmul", "fused_norm", "flash_stream") +
+                                       attention_sources)))
     out = dict(tree=tree, label=args.label or os.path.basename(tree), nvidia_smi=cs.nvidia_smi(),
-               build_s=_build.build_all(("flash_fwd",) if args.only == "masks" else
-                                        attention_sources if args.only == "attention" else (
-                   "flash_fwd", "flash_bwd", "ln_matmul", "fused_mlp", "quant_matmul",
-                   "fused_norm", "flash_stream", "decode_attn", "paged_attn")))
+               build_s=_build.build_all(sources))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
     reps = 30
@@ -315,6 +322,7 @@ def attention_part(cs, out, dev, gen, rn):
         outs.append(da.decode_attention(qd, kq, vq, ctx, layer=1, k_scales=ks, v_scales=vs))
         del kc, vc, kq, vq
     out["k3_sha256"] = sha(torch.cat([o.flatten() for o in outs]))
+    head_dim_part(cs, out, dev)
 
     # K7 at the engine's pools (GPT-2 small, 256 blocks of 128, permuted
     # tables of 8 blocks), the 12 layers in turn: the ragged contexts, 896,
@@ -345,6 +353,52 @@ def attention_part(cs, out, dev, gen, rn):
     torch.cuda.empty_cache()
     out["perop_engine"] = perop_engine(cs, dev)
     masks_part(cs, out, dev, gen, rn)
+
+
+def head_dim_part(cs, out, dev):
+    """K1 and K3 at the families' head dims beside SDPA, and the output
+    hashes of the instances whose code must not change. K1 at 8 x 704
+    queries into a 1024-slot cache holding 704 tokens, causal: gemma-7b's
+    prefill (16 heads of 256), phi-2's (32 of 80), GPT-2 small's (12 of 64)
+    and llama3-8b's heads (32/8 of 128); ``k1_d64_d80_d128_sha256`` hashes
+    the last three outputs. K3 at B 8, context 896 of 1024 slots, 4 layers
+    in turn: phi-2's decode (32 heads of 80) and gemma-7b's (16 of 256);
+    ``k3_d256_sha256`` hashes gemma-7b's output at seeded ragged contexts."""
+    from mlio_tpu_torch.ops import decode_attention as da
+    from mlio_tpu_torch.ops import flash_attention as fa
+
+    ms = out["ms"]
+    hgen = torch.Generator(device=dev).manual_seed(19)
+    kept = []
+    for key, (hq, hkv, d) in (("k1_d256_gemma", (16, 16, 256)), ("k1_d80_phi2", (32, 32, 80)),
+                              ("k1_d64_gpt2", (12, 12, 64)), ("k1_d128_llama", (32, 8, 128))):
+        q, k, v = cs.attention_inputs(hgen, cs.B, cs.PROMPT, cs.CACHE, hq, hkv, d)
+        if d != 256:
+            kept.append(fa.flash_attention(q, k, v, kv_len=cs.PROMPT))
+        qt = q.transpose(1, 2)
+        kx, vx = (t[:, :cs.PROMPT].transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                  .contiguous() for t in (k, v))
+        ms[key] = cs.time_ms(lambda i: fa.flash_attention(q, k, v, kv_len=cs.PROMPT), 30)[0]
+        ms[key + "_sdpa"] = cs.time_ms(
+            lambda i: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True), 30)[0]
+        del q, k, v, kx, vx
+    out["k1_d64_d80_d128_sha256"] = sha(torch.cat([o.flatten() for o in kept]))
+    L = 4
+    for key, (h, d) in (("k3_d80_phi2", (32, 80)), ("k3_d256_gemma", (16, 256))):
+        qd = torch.randn((cs.B, h, d), generator=hgen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((L, cs.B, cs.CACHE, h, d), generator=hgen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        ctx = torch.full((cs.B,), cs.DECODE_CTX, dtype=torch.int32, device=dev)
+        ms[key] = cs.time_ms(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L), 200)[0]
+        ms[key + "_sdpa"] = cs.time_ms(lambda i: F.scaled_dot_product_attention(
+            qd[:, :, None], kc[i % L, :, :cs.DECODE_CTX].transpose(1, 2),
+            vc[i % L, :, :cs.DECODE_CTX].transpose(1, 2)), 200)[0]
+        if d == 256:
+            ragged = torch.randint(0, cs.CACHE + 1, (cs.B,), generator=hgen,
+                                   device=dev).to(torch.int32)
+            out["k3_d256_sha256"] = sha(da.decode_attention(qd, kc, vc, ragged, layer=1))
+        del qd, kc, vc
+    torch.cuda.empty_cache()
 
 
 def masks_part(cs, out, dev, gen, rn):

@@ -5615,12 +5615,44 @@ FAMILY_K3_LAYERS = 4  # K3's timed launches walk 4 layers' caches (no layer's K/
 FAMILY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "families")
 
 
+def second_consumer_rows(q, rows=64):
+    """q ([B, S, H, D]) with rows 64-127 of each 128-row tile (the second
+    consumer's of K1 at head dim 256) taken from rows 0-63."""
+    q = q.clone()
+    for t in range(0, q.shape[1], 2 * rows):
+        n = min(rows, q.shape[1] - t - rows)
+        if n > 0:
+            q[:, t + rows:t + rows + n] = q[:, t:t + n]
+    return q
+
+
+def nan_past(t, lens, dim=1):
+    """A copy of a cache ([B, S, ...], or [L, B, S, ...] with dim 2) with
+    NaN in every slot of sequence b at or past lens[b]."""
+    t = t.clone()
+    for b, n in enumerate(lens):
+        if dim == 1:
+            t[b, n:] = float("nan")
+        else:
+            t[:, b, n:] = float("nan")
+    return t
+
+
+# K1's instance at each family head dim: its source and mangled name (D 256
+# has a source of its own)
+FAMILY_K1 = {256: ("flash_fwd_d256", r"flash_fwd_d256_kernel"),
+             80: ("flash_fwd", r"flash_fwd_kernelILi80E")}
+
+
 def family_attention_row(fa, gen, model):
     """K1 at a family's prefill: q [8, 704, Hq, D] into a 1024-slot cache
     holding 704 tokens, causal (gemma-7b: 16 heads of 256; phi-2: 32 of 80),
     against its plain version (K1's limits, each row too), failing with the
-    keys and values 64-127 taken from 0-63 (a stale ring slot); timed beside
-    the plain version, SDPA over the same 704 keys and the bound."""
+    keys and values 64-127 taken from 0-63 (a stale ring slot) and with q
+    rows 64-127 of each 128-row tile taken from rows 0-63 (the second
+    consumer's at D 256); the same bits twice, and over a cache with NaN in
+    every slot past kv_len; timed beside the plain version, SDPA over the
+    same 704 keys and the bound."""
     from mlio_tpu_torch.models import get_spec
 
     spec = get_spec(model)
@@ -5634,35 +5666,45 @@ def family_attention_row(fa, gen, model):
     stale = must_fail_within("flash_attention", "K/V keys 64-127 from a stale slot",
                              fa.flash_attention(q, stale_tile(k, 64), stale_tile(v, 64), **args),
                              want)
-    del o, want
+    second = must_fail_within("flash_attention",
+                              "q rows 64-127 of each 128-row tile from rows 0-63",
+                              fa.flash_attention(second_consumer_rows(q), k, v, **args), want)
+    twice = same_bits_twice("flash_attention", lambda: fa.flash_attention(q, k, v, **args))
+    kn, vn = (nan_past(t, [PROMPT] * B) for t in (k, v))
+    if not torch.equal(fa.flash_attention(q, kn, vn, **args), o):
+        raise AssertionError(f"flash_attention_d{D}: NaN past kv_len changed the output's bits")
+    del o, want, kn, vn
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k[:, :PROMPT], v[:, :PROMPT]))
     pairs = causal_pairs(PROMPT, PROMPT, True)
     flops = 4 * B * Hq * D * pairs
     b_ms, b_by = bound((2 * q.numel() + 2 * B * PROMPT * Hkv * D) * 2, flops, BF16_TENSOR_FLOPS)
+    source, pattern = FAMILY_K1[D]
     row = dict(
-        name=f"flash_attention_d{D}", route="cuda", source="mlio_tpu_torch/csrc/flash_fwd.cu",
+        name=f"flash_attention_d{D}", route="cuda", source=f"mlio_tpu_torch/csrc/{source}.cu",
         replaces="mlio_tpu/ops/flash_attention.py:37",
         shape=f"{model}'s prefill: q [{B},{PROMPT},{Hq},{D}] k/v [{B},{CACHE},{Hkv},{D}] bf16, "
               f"kv_len {PROMPT}, causal",
         max_abs_err=err, atol=TOL["flash_attention"][0], rtol=TOL["flash_attention"][1],
         row_rel_rms=rr, row_rel_rms_limit=ROW_REL_RMS["flash_attention"],
-        stale_kv_tile_max_abs_err=stale,
+        stale_kv_tile_max_abs_err=stale, second_consumer_rows_max_abs_err=second,
+        same_bits_twice=twice, nan_past_kv_len_same_bits=True,
         **timings(lambda i: fa.flash_attention(q, k, v, **args),
                   lambda i: fa.flash_attention_plain(q, k, v, **args),
                   lambda i: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True), 30),
-        bound_ms=b_ms, bound_by=b_by, ptxas=kernel_instances("flash_fwd",
-                                                             rf"flash_fwd_kernelILi{D}E"))
+        bound_ms=b_ms, bound_by=b_by, ptxas=kernel_instances(source, pattern))
     row["tflop_per_s"] = flops / (row["ms"] * 1e-3) / 1e12
     return row
 
 
 def family_decode_row(da, gen, model):
     """K3 at a family's decode: q [8, Hq, D] over a [4, 8, 1024, Hkv, D]
-    cache at context 896 (phi-2: 32 heads of 80; gemma-7b's scan route: 16
-    of 256), one query head a KV head, against its plain version (K3's fp32
-    limit), failing with a context one token short, at the ragged contexts
-    too; the same bits twice; timed (walking the layers) beside the plain
-    version, SDPA over the same keys and the bound."""
+    cache at context 896 (phi-2: 32 heads of 80, the TMA pass; gemma-7b's
+    scan route: 16 of 256), one query head a KV head, against its plain
+    version (K3's fp32 limit), failing with a context one token short, at
+    the ragged contexts too; the same bits twice, and over a cache with NaN
+    in every slot past each context (896 and the ragged ones); timed
+    (walking the layers) beside the plain version, SDPA over the same keys
+    and the bound."""
     from mlio_tpu_torch.models import get_spec
 
     spec = get_spec(model)
@@ -5678,8 +5720,16 @@ def family_decode_row(da, gen, model):
     short = must_fail_within("decode_attention", "a context one token short",
                              da.decode_attention(qd, kc, vc, ctx - 1, layer=1), want)
     ragged = torch.tensor(RAGGED, dtype=torch.int32, device=gen.device)
-    ragged_err = check_close("decode_attention", da.decode_attention(qd, kc, vc, ragged, layer=2),
+    ragged_out = da.decode_attention(qd, kc, vc, ragged, layer=2)
+    ragged_err = check_close("decode_attention", ragged_out,
                              da.decode_attention_plain(qd, kc, vc, ragged, layer=2))
+    for lens, c, lay, clean in (([DECODE_CTX] * B, ctx, 1, None), (RAGGED, ragged, 2, ragged_out)):
+        kn, vn = (nan_past(t, lens, dim=2) for t in (kc, vc))
+        clean = da.decode_attention(qd, kc, vc, c, layer=lay) if clean is None else clean
+        if not torch.equal(da.decode_attention(qd, kn, vn, c, layer=lay), clean):
+            raise AssertionError(f"decode_attention_d{D}: NaN past the context changed the "
+                                 "output's bits")
+        del kn, vn
     nbytes = (2 * qd.numel() + 2 * B * DECODE_CTX * Hkv * D) * 2
     b_ms, b_by = bound(nbytes, 4 * B * Hq * DECODE_CTX * D, FP32_FLOPS)
     q4 = qd[:, :, None, :]
@@ -5691,6 +5741,7 @@ def family_decode_row(da, gen, model):
               f"ctx {DECODE_CTX}",
         max_abs_err=err, atol=TOL["decode_attention"][0], rtol=TOL["decode_attention"][1],
         ctx_minus_1_max_abs_err=short, ragged_max_abs_err=ragged_err,
+        nan_past_context_same_bits=True,
         same_bits_twice=same_bits_twice("decode_attention",
                                         lambda: da.decode_attention(qd, kc, vc, ctx, layer=1)),
         **timings(lambda i: da.decode_attention(qd, kc, vc, ctx, layer=i % L),
@@ -5699,7 +5750,8 @@ def family_decode_row(da, gen, model):
                       q4, kc[i % L, :, :DECODE_CTX].transpose(1, 2),
                       vc[i % L, :, :DECODE_CTX].transpose(1, 2)), 200),
         bound_ms=b_ms, bound_by=b_by, n_split=n_split, chunk=chunk,
-        ptxas=kernel_instances("decode_attn", rf"decode_kernel.*Li{D}ELi1E"))
+        ptxas=kernel_instances("decode_attn", rf"decode_tma_kernel.*Li{D}E" if D in
+                               da.TMA_HEAD_DIMS else rf"decode_kernel.*Li{D}ELi1E"))
     row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
     return row
 

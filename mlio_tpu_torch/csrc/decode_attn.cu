@@ -38,17 +38,36 @@ struct ContiguousRows {
 
 }  // namespace
 
+// The caches' tensor maps for the TMA pass (D 80), into out (a
+// CacheMaps, sizeof 256 bytes): geo (a host array of 11) gives the dims
+// [D, Hkv, Smax, L * B], the byte strides of dims 1-3 and the box
+// (ops/decode_attention.py::cache_map, which checks TMA's rules). Built
+// once per cache, not per launch.
+extern "C" int mlio_decode_attn_maps(const void* k_cache, const void* v_cache,
+                                     const long long* geo, void* out) {
+  auto* maps = static_cast<decode_attn::CacheMaps*>(out);
+  cudaError_t err =
+      tma::map_4d(&maps->k, k_cache, geo, geo + 4, geo + 7, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = tma::map_4d(&maps->v, v_cache, geo, geo + 4, geo + 7, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return err;
+}
+
+extern "C" int mlio_decode_attn_maps_bytes() { return sizeof(decode_attn::CacheMaps); }
+
 // q, out: [B, Hkv * G, D] bf16; k_cache, v_cache: [L, B, Smax, Hkv, D] bf16,
 // or int8 with fp32 k_scale, v_scale [L, B, Smax, Hkv] (null for bf16);
 // ctx: [B] int32 on the device. G in {1, 2, 4, 8}, D in {64, 128}; or G 1
-// over a bf16 cache at D 80 or 256. Each
+// over a bf16 cache at D 80 or 256. maps: the caches' maps
+// (mlio_decode_attn_maps) at D 80, else null. Each
 // (sequence, kv head) takes a cluster of n_split blocks (1 to 8), each
 // block `chunk` slots (a multiple of kTokenStep, 128) from rank * chunk;
 // n_split * chunk must cover Smax.
 extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* v_cache,
                                 const float* k_scale, const float* v_scale, const int* ctx,
                                 void* out, int B, int Smax, int Hkv, int G, int D, int layer,
-                                float scale, int n_split, int chunk, void* stream) {
+                                float scale, int n_split, int chunk, const void* maps,
+                                void* stream) {
   if (B == 0 || Hkv == 0) return 0;
   if (n_split < 1 || n_split > decode_attn::kMaxSplit ||
       (D != 64 && D != 128 && D != 80 && D != 256) || chunk <= 0 ||
@@ -57,5 +76,6 @@ extern "C" int mlio_decode_attn(const void* q, const void* k_cache, const void* 
   const ContiguousRows rows{B, Smax, Hkv, D, layer, n_split, chunk};
   return decode_attn::launch<__nv_bfloat16>(q, k_cache, v_cache, k_scale, v_scale, ctx, out, B,
                                             Hkv, G, D, rows, scale,
+                                            static_cast<const decode_attn::CacheMaps*>(maps),
                                             static_cast<cudaStream_t>(stream));
 }

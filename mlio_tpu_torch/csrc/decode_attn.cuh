@@ -14,18 +14,30 @@
 // ~295 flops per byte (SXM data sheet). Every valid K/V byte is read once,
 // with 16-byte loads, and the G query heads of a group share each K/V row.
 //
-// The fp32 pass (G == 1): D / 8 lanes (bf16) cover one token's row, so a
-// warp reads 32 * 16 contiguous-per-token bytes per step, and each step
-// keeps kUnroll tokens of K and V in flight (32 KB a block). Softmax is
-// online in fp32, one running (max, sum, acc) per lane group, merged across
-// groups by shuffles and across warps in shared memory. A token's lanes are
-// a power of two that divides the warp: at D 80 (Phi-2) a row's 10 chunks
-// take 16 lanes, 6 of them idle (no load, zero in the dot's shuffle sum), so
-// a warp step reads 2 rows of 160 bytes where 32 busy lanes would read 3.2:
-// 62.5 % of the lanes load, and each load instruction moves 320 bytes
-// instead of 512. 5-element (10-byte) lanes would keep every lane busy but
-// split each row into unaligned 2-byte loads. At D 256 a row takes the
-// whole warp, one token a warp step.
+// The fp32 pass (G == 1) at D 64, 128 and 256: D / 8 lanes (bf16) cover
+// one token's row, so a warp reads 32 * 16 contiguous-per-token bytes per
+// step, and each step keeps kUnroll tokens of K and V in flight (32 KB a
+// block). Softmax is online in fp32, one running (max, sum, acc) per lane
+// group, merged across groups by shuffles and across warps in shared
+// memory. At D 256 a row takes the whole warp, one token a warp step.
+//
+// The fp32 pass at D 80 (Phi-2; decode_tma_kernel) is fed by TMA, because
+// a 160-byte row's ten 16-byte chunks fit no power-of-two lane group: read
+// by lanes it kept 16 lanes a token with 6 idle, 62.5 % of the lanes
+// loading and 320 bytes a load instruction, 1.24 TB/s at phi-2's decode
+// (0.05949 ms, 1.82x SDPA; PERF.md). Here one producer thread asks the TMA
+// for 32-token stages of K and V (5 KB each) into a three-stage ring, 30 KB
+// in flight a block, whatever the lanes do; once a stage lands, each of
+// the eight consumer warps takes four of its tokens, eight lanes a token
+// and ten dims (five bf16 pairs) a lane: every lane busy. The rows stay
+// packed at 160 bytes (the TMA lands a box densely); word e of lane l's
+// pairs is word 5 l + e of its warp's four rows, and 5 is odd, so the
+// warp's 32 loads of a word fall on 32 banks with no pad. Four stages ran
+// no faster than three, six slower (three blocks an SM: phi-2's split
+// leaves half its 512 blocks idle in the cluster merge, and all must be
+// resident). At phi-2's decode it runs 0.0324 ms against the idle-lane
+// pass's 0.0592 (ab_k13.py, NVIDIA H100 80GB HBM3, 700 W), 2.27 TB/s, its
+// bound 0.0227 ms (73.4 MB of K/V at K14's rate); SDPA 0.0313.
 //
 // The tensor-core pass (G > 1, grouped_mma_pass): both products on
 // mma.sync, the heads as the rows of 16-row tiles, 16-slot tiles a warp, the
@@ -61,7 +73,7 @@
 // bytes a slot, the bound halves.
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "tma.cuh"
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -79,10 +91,19 @@ constexpr int kUnroll = 4;
 constexpr int kMaxSplit = 8;
 constexpr int kTile = 16;      // the tensor-core pass's tokens a warp step
 // The slots a block step covers, and the split's chunk granule: the fp32
-// pass's 8 warps x tokens a warp step x kUnroll (128 at D 64, 64 at D 80 and
-// 128, 32 at D 256; asserted in decode_kernel) and the tensor-core pass's 8
-// warps x kTile, both dividing 128.
+// pass's 8 warps x tokens a warp step x kUnroll (128 at D 64, 64 at D 128,
+// 32 at D 256; asserted in decode_kernel), the TMA pass's stage
+// (kRingTokens, 32 at D 80; asserted in decode_tma_kernel) and the
+// tensor-core pass's 8 warps x kTile, all dividing 128.
 constexpr int kTokenStep = 128;
+// The TMA pass (D 80): tokens of K and of V a ring stage, and the stages.
+constexpr int kRingTokens = 32;
+constexpr int kRingStages = 3;
+constexpr int kTmaThreads = kThreads + 32;  // the consumer warps and a producer warp
+// The TMA pass's ring in bytes: each stage's K rows and V rows.
+// (and 1 KB, to align its start).
+template <int D>
+constexpr size_t kRingBytes = size_t(kRingStages) * 2 * kRingTokens * D * 2 + 1024;
 // Block steps ahead whose K/V rows the tensor-core pass asks L2 to fetch
 // while it computes the current one (Mistral's decode: 57 us against 67
 // without; two steps ahead no better; the fp32 pass ran slower with it).
@@ -322,6 +343,68 @@ __device__ __forceinline__ void cluster_merge(const float* blk_m, const float* b
   }
 }
 
+// Merge the lane groups of LPT lanes of a warp, each with its running (m,
+// l) and its N values of acc (dims sub * N .. sub * N + N - 1 of its row,
+// sub = lane % LPT): after the xor steps over the group bits every group
+// holds the warp's (max, sum, acc), and group 0 leaves them in the warp's
+// row of shared memory.
+template <int LPT, int N>
+__device__ __forceinline__ void merge_groups(float m, float l, float (&acc)[N], float& sm_m,
+                                             float& sm_l, float* sm_acc) {
+  const int lane = threadIdx.x % 32, grp = lane / LPT, sub = lane % LPT;
+  float mw = m;
+#pragma unroll
+  for (int o = LPT; o < 32; o <<= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+  const float f = (m == -INFINITY) ? 0.f : expf(m - mw);
+  float lw = l * f;
+#pragma unroll
+  for (int o = LPT; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float a = acc[i] * f;
+#pragma unroll
+    for (int o = LPT; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    acc[i] = a;
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) sm_acc[sub * N + i] = acc[i];
+    if (sub == 0) {
+      sm_m = mw;
+      sm_l = lw;
+    }
+  }
+}
+
+// Merge the warps: the block's (max, sum, acc) of each (g, d), left in
+// shared memory for its cluster (blk_acc[e] written by thread e %
+// kBlockThreads, blk_m[g] and blk_l[g] by the thread of e = g * D, as
+// cluster_merge reads them).
+template <int G, int D, int kBlockThreads>
+__device__ __forceinline__ void merge_warps(const float (&sm_m)[kWarps][G],
+                                            const float (&sm_l)[kWarps][G],
+                                            const float (&sm_acc)[kWarps][G][D], float* blk_m,
+                                            float* blk_l, float* blk_acc) {
+  for (int e = threadIdx.x; e < G * D; e += kBlockThreads) {
+    const int g = e / D, d = e % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    float lt = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = (sm_m[w][g] == -INFINITY) ? 0.f : expf(sm_m[w][g] - mx);
+      lt += sm_l[w][g] * f;
+      o += sm_acc[w][g][d] * f;
+    }
+    blk_acc[e] = o;
+    if (d == 0) {
+      blk_m[g] = mx;
+      blk_l[g] = lt;
+    }
+  }
+}
+
 // Rows policy: count(b, ctx) is the number of valid slots of sequence b;
 // offset(b, hk, t) the element offset of slot t's row of kv head hk;
 // n_split and chunk: the block is rank blockIdx.x % n_split of its cluster
@@ -334,14 +417,12 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
               const int* __restrict__ ctx, T* __restrict__ out, Rows rows, int Hkv,
               float scale) {
   constexpr int V = 8;                // elements a lane holds of a row
-  constexpr int CH = D / V;           // 16-byte chunks of a token row
-  constexpr int LPT = CH <= 8 ? 8 : CH <= 16 ? 16 : 32;  // lanes per token row
-  constexpr bool kIdle = CH < LPT;    // lanes past the row's chunks (D 80)
+  constexpr int LPT = D / V;          // lanes per token row: its 16-byte chunks
   constexpr int TPI = 32 / LPT;       // tokens per warp step
   constexpr int STEP = kWarps * TPI;  // tokens per block step
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   static_assert(Vec16<T>::N == V, "q is a 16-bit type");
-  static_assert(CH * V == D && CH <= 32, "head_dim must fit one warp");
+  static_assert(LPT * V == D && 32 % LPT == 0, "a token row takes a power-of-two lane group");
   static_assert(kTokenStep % (STEP * kUnroll) == 0, "a split chunk holds whole block steps");
 
   __shared__ float sm_m[kWarps][G];
@@ -369,16 +450,10 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
     grouped_mma_pass<TC, D, G>(q + (static_cast<size_t>(b) * Hq + hk * G) * D, kc, vc, ks, vs,
                                rows, b, hk, scale, t_begin, n, sm_m, sm_l, sm_acc);
   } else {
-    const bool busy = !kIdle || sub < CH;  // an idle lane's q, K and V are 0
     float qf[G][V];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      if (busy) {
-        load_vec(q + (static_cast<size_t>(b) * Hq + hk * G + g) * D + sub * V, qf[g]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) qf[g][i] = 0.f;
-      }
+      load_vec(q + (static_cast<size_t>(b) * Hq + hk * G + g) * D + sub * V, qf[g]);
 #pragma unroll
       for (int i = 0; i < V; ++i) qf[g][i] *= scale;
     }
@@ -402,7 +477,7 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * STEP + grp;
         ksc[u] = vsc[u] = 1.f;
-        if (t < n && busy) {
+        if (t < n) {
           const size_t off = rows.offset(b, hk, t);
           kraw[u] = *reinterpret_cast<const Raw8<TC>*>(kp + off);
           vraw[u] = *reinterpret_cast<const Raw8<TC>*>(vp + off);
@@ -444,59 +519,146 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
       }
     }
 
-    // Merge the TPI lane groups of this warp: after the xor steps over the
-    // group bits every group holds the warp's (max, sum, acc).
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mw = m[g];
-#pragma unroll
-      for (int o = LPT; o < 32; o <<= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
-      const float f = (m[g] == -INFINITY) ? 0.f : expf(m[g] - mw);
-      float lw = l[g] * f;
-#pragma unroll
-      for (int o = LPT; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float a = acc[g][i] * f;
-#pragma unroll
-        for (int o = LPT; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-        acc[g][i] = a;
-      }
-      if (grp == 0 && busy) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) sm_acc[warp][g][sub * V + i] = acc[g][i];
-        if (sub == 0) {
-          sm_m[warp][g] = mw;
-          sm_l[warp][g] = lw;
-        }
-      }
-    }
+    for (int g = 0; g < G; ++g)
+      merge_groups<LPT>(m[g], l[g], acc[g], sm_m[warp][g], sm_l[warp][g], sm_acc[warp][g]);
   }
   __syncthreads();
 
-  // Merge the warps: the block's (max, sum, acc) of each (g, d), left in
-  // shared memory for its cluster.
   __shared__ float blk_m[G], blk_l[G], blk_acc[G * D];
-  for (int e = threadIdx.x; e < G * D; e += kThreads) {
-    const int g = e / D, d = e % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lt = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = (sm_m[w][g] == -INFINITY) ? 0.f : expf(sm_m[w][g] - mx);
-      lt += sm_l[w][g] * f;
-      o += sm_acc[w][g][d] * f;
-    }
-    blk_acc[e] = o;
-    if (d == 0) {
-      blk_m[g] = mx;
-      blk_l[g] = lt;
-    }
-  }
+  merge_warps<G, D, kThreads>(sm_m, sm_l, sm_acc, blk_m, blk_l, blk_acc);
   cluster_merge<T, G, D, kThreads>(blk_m, blk_l, blk_acc, rank, rows.n_split,
                                    out + (static_cast<size_t>(b) * Hq + hk * G) * D);
+}
+
+// The K and V caches as 4-D maps [D, Hkv, Smax, L * B] (the wrapper's
+// ops/decode_attention.py::cache_map), in boxes of kRingTokens rows of one
+// (layer, sequence, KV head): a box lands its rows packed, 2 D bytes apart;
+// rows past Smax read as zeros.
+struct CacheMaps {
+  CUtensorMap k, v;
+};
+
+// The fp32 pass at D 80 (one query head a KV head, a bf16 cache), fed by
+// TMA: warp kWarps is the producer (its lane 0 asks for the block's stages
+// of K and V through a kRingStages ring, each stage once the consumer warps
+// have released it), warps 0 .. kWarps - 1 the consumers (each takes tokens
+// 4 w .. 4 w + 3 of every stage, eight lanes a token, W bf16 pairs a lane).
+// A stage's slots at or past n land too (stale, NaN, or zeros past Smax):
+// their scores and V rows reach neither m, l nor acc. rows.count, n_split
+// and chunk as decode_kernel's, and the same merges: every block of the
+// cluster ends in cluster_merge, a chunk wholly past n included.
+template <typename T, int D, class Rows>
+__global__ void __launch_bounds__(kTmaThreads, 4)
+decode_tma_kernel(const T* __restrict__ q, const int* __restrict__ ctx, T* __restrict__ out,
+                  Rows rows, int Hkv, float scale, const __grid_constant__ CacheMaps maps) {
+  constexpr int LPT = 8;                // lanes a token
+  constexpr int W = D / (2 * LPT);      // bf16 pairs (4-byte words) a lane: 5 at D 80
+  constexpr int TPW = 32 / LPT;         // tokens a warp step
+  constexpr int kRowWords = D / 2;      // words a token row
+  constexpr int kStageWords = kRingTokens * kRowWords;
+  static_assert(Vec16<T>::N == 8 && D == 2 * W * LPT, "a bf16 row of 8 lane groups");
+  static_assert(kRingTokens == kWarps * TPW, "a stage is one warp step of each consumer warp");
+  static_assert(kTokenStep % kRingTokens == 0, "a split chunk holds whole stages");
+
+  // the ring (dynamic shared memory, placed after the static arrays: its
+  // start rounded up to 1 KB): stage s's K rows, then its V rows
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const uint32_t pad = (1024 - (gemm::smem_addr(dyn) & 1023)) & 1023;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(dyn + pad);
+  __shared__ uint64_t full[kRingStages], empty[kRingStages];
+  __shared__ float sm_m[kWarps][1], sm_l[kWarps][1], sm_acc[kWarps][1][D];
+  __shared__ float blk_m[1], blk_l[1], blk_acc[D];
+
+  cluster_arrive();  // cluster_merge's first barrier phase
+  const unsigned pair = blockIdx.x / rows.n_split;
+  const int rank = blockIdx.x % rows.n_split;
+  const int b = pair / Hkv;
+  const int hk = pair % Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // this block's slots [t_begin, n), in stages of kRingTokens from t_begin
+  const int t_begin = rank * rows.chunk;
+  const int n = min(rows.count(b, ctx), t_begin + rows.chunk);
+  const int n_stages = n > t_begin ? (n - t_begin + kRingTokens - 1) / kRingTokens : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      tma::bar_init(&full[i]);
+      tma::bar_init(&empty[i], kWarps);
+    }
+    tma::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    if (lane == 0) {
+      const int z = rows.layer * rows.B + b;
+      for (int i = 0; i < n_stages; ++i) {
+        const int st = i % kRingStages;
+        if (i >= kRingStages) tma::bar_wait_bounded(&empty[st], ((i / kRingStages) + 1) & 1);
+        tma::bar_expect(&full[st], 2 * kStageWords * 4);
+        const int t0 = t_begin + i * kRingTokens;
+        tma::load_4d(ring + 2 * st * kStageWords, &maps.k, 0, hk, t0, z, &full[st]);
+        tma::load_4d(ring + (2 * st + 1) * kStageWords, &maps.v, 0, hk, t0, z, &full[st]);
+      }
+    }
+  } else {
+    const int grp = lane / LPT;  // this lane's token of the warp's four
+    const int sub = lane % LPT;  // its dims [2 W sub, 2 W sub + 2 W)
+    const int r = warp * TPW + grp;  // the token's row in a stage
+    float qf[2 * W];
+    const uint32_t* qw =
+        reinterpret_cast<const uint32_t*>(q + (static_cast<size_t>(b) * Hkv + hk) * D) + sub * W;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const uint32_t x = qw[e];
+      qf[2 * e] = __uint_as_float(x << 16) * scale;
+      qf[2 * e + 1] = __uint_as_float(x & 0xffff0000u) * scale;
+    }
+    float m = -INFINITY, l = 0.f, acc[2 * W];
+#pragma unroll
+    for (int i = 0; i < 2 * W; ++i) acc[i] = 0.f;
+
+    for (int i = 0; i < n_stages; ++i) {
+      const int st = i % kRingStages;
+      tma::bar_wait_bounded(&full[st], (i / kRingStages) & 1);
+      const uint32_t* kr = ring + 2 * st * kStageWords + r * kRowWords + sub * W;
+      uint32_t kw[W], vw[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        kw[e] = kr[e];
+        vw[e] = kr[kStageWords + e];
+      }
+      __syncwarp();
+      if (lane == 0) tma::bar_arrive(&empty[st]);  // the warp's reads done: the slot is free
+      float sc = 0.f;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        sc += qf[2 * e] * __uint_as_float(kw[e] << 16);
+        sc += qf[2 * e + 1] * __uint_as_float(kw[e] & 0xffff0000u);
+      }
+#pragma unroll
+      for (int o = LPT / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
+      if (t_begin + i * kRingTokens + r < n) {
+        const float m_new = fmaxf(m, sc);
+        const float alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
+        const float p = expf(sc - m_new);
+        l = l * alpha + p;
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          acc[2 * e] = acc[2 * e] * alpha + p * __uint_as_float(vw[e] << 16);
+          acc[2 * e + 1] = acc[2 * e + 1] * alpha + p * __uint_as_float(vw[e] & 0xffff0000u);
+        }
+        m = m_new;
+      }
+    }
+    merge_groups<LPT>(m, l, acc, sm_m[warp][0], sm_l[warp][0], sm_acc[warp][0]);
+  }
+  __syncthreads();
+
+  merge_warps<1, D, kTmaThreads>(sm_m, sm_l, sm_acc, blk_m, blk_l, blk_acc);
+  cluster_merge<T, 1, D, kTmaThreads>(blk_m, blk_l, blk_acc, rank, rows.n_split,
+                                      out + (static_cast<size_t>(b) * Hkv + hk) * D);
 }
 
 // The instance picked by (D, G): one launch of B * Hkv clusters of n_split
@@ -504,7 +666,7 @@ decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __re
 template <typename T, typename TC, class Rows>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* ks,
                       const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
-                      const Rows& rows, float scale, cudaStream_t s) {
+                      const Rows& rows, float scale, const CacheMaps* maps, cudaStream_t s) {
   const T* qp = static_cast<const T*>(q);
   const TC* kp = static_cast<const TC*>(k);
   const TC* vp = static_cast<const TC*>(v);
@@ -530,23 +692,37 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   MLIO_DECODE_ATTN_CASE(64, 4) MLIO_DECODE_ATTN_CASE(64, 8)
   MLIO_DECODE_ATTN_CASE(128, 1) MLIO_DECODE_ATTN_CASE(128, 2)
   MLIO_DECODE_ATTN_CASE(128, 4) MLIO_DECODE_ATTN_CASE(128, 8)
-  // Phi-2's and Gemma's head dims: the fp32 pass over a bf16 cache only
+  // Phi-2's and Gemma's head dims: the fp32 pass over a bf16 cache only,
+  // at D 80 fed by TMA through the cache's maps
   if constexpr (!std::is_same<TC, int8_t>::value) {
-    MLIO_DECODE_ATTN_CASE(80, 1) MLIO_DECODE_ATTN_CASE(256, 1)
+    MLIO_DECODE_ATTN_CASE(256, 1)
+    if (D == 80 && G == 1) {
+      if (maps == nullptr) return cudaErrorInvalidValue;
+      auto kernel = decode_tma_kernel<T, 80, Rows>;
+      cfg.blockDim = dim3(kTmaThreads);
+      cfg.dynamicSmemBytes = kRingBytes<80>;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(cfg.dynamicSmemBytes));
+      if (err == cudaSuccess)
+        err = cudaLaunchKernelEx(&cfg, kernel, qp, ctx, op, rows, Hkv, scale, *maps);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    }
   }
 #undef MLIO_DECODE_ATTN_CASE
   return cudaErrorInvalidValue;
 }
 
-// The bf16 cache's instances, or with scales (ks != null) the int8 cache's.
+// The bf16 cache's instances, or with scales (ks != null) the int8 cache's;
+// maps: the cache's (D 80), else null.
 template <typename T, class Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* ctx, void* out, int B, int Hkv, int G, int D,
-                   const Rows& rows, float scale, cudaStream_t s) {
+                   const Rows& rows, float scale, const CacheMaps* maps, cudaStream_t s) {
   if (ks != nullptr)
-    return launch_tc<T, int8_t, Rows>(q, k, v, ks, vs, ctx, out, B, Hkv, G, D, rows, scale, s);
+    return launch_tc<T, int8_t, Rows>(q, k, v, ks, vs, ctx, out, B, Hkv, G, D, rows, scale,
+                                      nullptr, s);
   return launch_tc<T, T, Rows>(q, k, v, nullptr, nullptr, ctx, out, B, Hkv, G, D, rows, scale,
-                               s);
+                               maps, s);
 }
 
 }  // namespace decode_attn

@@ -22,6 +22,9 @@
 // three-stage cp.async K/V ring, interior tiles unmasked. The earlier kernel
 // (WMMA through shared memory) ran 5.3x SDPA at GPT-2's prefill.
 //
+// At head dim 256 (Gemma) K1 is flash_fwd_d256.cu's kernel, on K10's
+// warp-specialised body; D 64, 80 and 128 are flash_fwd.cuh's.
+//
 // K9 replaces mlio_tpu/ops/flash_attention.py::_flash_fwd_kernel_kvq (:199,
 // pallas_call :837; its key mask :271-273 and with_stats :297-301): k/v
 // int8 [B, Skv, Hkv, D] with fp32 scales [B, Skv, Hkv] per (token, head),
@@ -44,8 +47,9 @@
 // in elements of q, of k and v (the same), of the scales, of out and of the
 // mask (no row or head stride for a key mask, no head stride where Hm is 1).
 // The head dim is contiguous; q, k and v start 16-byte aligned and their
-// other strides are multiples of 16 bytes. D in {64, 128}, or 80 and 256
-// without k_scale, lse, dropout or mask; Hq a multiple of Hkv. drop_rate > 0
+// other strides are multiples of 16 bytes. D in {64, 128}, or 80 without
+// k_scale, lse, dropout or mask (D 256: flash_fwd_d256.cu); Hq a multiple
+// of Hkv. drop_rate > 0
 // takes the dropout instance (not over an INT8 cache), with the seed
 // drop_seed (an int32) and drop_inv_keep = 1 / (1 - drop_rate).
 extern "C" int mlio_flash_fwd(const void* q, const void* k, const void* v, const float* k_scale,

@@ -64,10 +64,10 @@
 //   min(kv_len, first row + q_offset + 64), the TPU kernel's causal early
 //   exit; keys past kv_len are zero-filled by the copies, q
 //   rows past Sq are zero and not stored, so nothing is padded.
-// Head dims 80 (Phi-2) and 256 (Gemma) take the causal/kv_len instance
-// alone (no user mask, dropout, lse or INT8 cache): D 80's tiles are padded to
-// 128 columns (kPadD), D 256's are four 64-column panels (32 KB a tile, one
-// block an SM) and its PV product is two n128 products.
+// Head dim 80 (Phi-2) takes the causal/kv_len instance alone (no user
+// mask, dropout, lse or INT8 cache), its tiles padded to 128 columns
+// (kPadD). Head dim 256 (Gemma) has its own kernel, on K10's
+// warp-specialised body (flash_fwd_d256.cu).
 // The heaviest q tiles (the last, under causality) start first, the query
 // heads of one KV head side by side so that their K/V meet in L2. Every
 // output has one writer and every sum a fixed order: two runs give the same
@@ -145,10 +145,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Blocks an SM, by head dim; a block is one warpgroup. Two warpgroups a
 // block sharing one K/V ring (half the K/V traffic) measured no faster at
 // llama3-8b's attention and slower at GPT-2's prefill and with dropout
-// (PERF.md, Findings). At D 256 a block's q tile and three-stage K/V ring
-// take 224 of the SM's 227 KB: one block an SM, and 255 registers a thread
-// for its 64 x 256 fp32 O (128 a thread) beside S's 32.
-template <int D> constexpr int kMinBlocks = D == 64 ? 3 : D == 256 ? 1 : 2;
+// (PERF.md, Findings).
+template <int D> constexpr int kMinBlocks = D == 64 ? 3 : 2;
 
 // The width of a head's tiles in shared memory and of O in registers. Head
 // dim 80 (Phi-2) is a 160-byte row, which the 128-byte swizzle's 64-column
@@ -464,21 +462,11 @@ __device__ __forceinline__ uint32_t mask_word(const FwdArgs& a, const MaskRaw& m
 }
 
 // O += P V for the 16 keys kk of a tile: one product over V's whole padded
-// width, or at D 256 two n128 products over panels 0-1 and 2-3 of V's tile
-// (16 KB apart), each into its half of O.
+// width.
 template <int D>
 __device__ __forceinline__ void pv_product(float (&o)[kPadD<D> / 8][4], const uint32_t (&pa)[4],
                                            const bf16* v_t, int kk) {
-  constexpr int DP = kPadD<D>;
-  if constexpr (DP <= 128) {
-    wgmma_rs<DP, 1>(o, pa, mnmajor(v_t, 16 * kk), 1);
-  } else {
-#pragma unroll
-    for (int h = 0; h < DP / 128; ++h)
-      wgmma_rs<128, 1>(*reinterpret_cast<float(*)[16][4]>(&o[16 * h]), pa,
-                       mnmajor(reinterpret_cast<const unsigned char*>(v_t) + h * 16384, 16 * kk),
-                       1);
-  }
+  wgmma_rs<kPadD<D>, 1>(o, pa, mnmajor(v_t, 16 * kk), 1);
 }
 
 // One K/V tile for the warpgroup's 64 rows: S = (q * scale) K^T (64 x 64, q
@@ -724,8 +712,8 @@ flash_fwd_kernel(const FwdArgs a) {
       if constexpr (kQuant) load_raw<D>(a, raw, j + kStages, n_tiles, b, hk, kvl);
     }
   };
-  // The user mask's loop is built at D 64 and 128 only: D 80 and 256 take
-  // no mask (launch_fwd_args).
+  // The user mask's loop is built at D 64 and 128 only: D 80 takes no mask
+  // (launch_fwd_args).
   if constexpr (D == 64 || D == 128) {
     if (a.mask != nullptr) {
       const int qr0 = q_start + warp * 16 + g;
@@ -793,8 +781,8 @@ cudaError_t launch_fwd_instance(const FwdArgs& a, cudaStream_t s) {
 }
 
 // Any call of K1 or K9 (a's tensors by their strides): D 64 or 128, or K1's
-// instance without a user mask, dropout, lse or INT8 cache at D 80 (Phi-2)
-// or 256 (Gemma), the only one built there.
+// instance without a user mask, dropout, lse or INT8 cache at D 80
+// (Phi-2), the only one built there. D 256 is flash_fwd_d256.cu's.
 inline cudaError_t launch_fwd_args(FwdArgs a, int D, cudaStream_t s) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv || a.Skv < 0) return cudaErrorInvalidValue;
   const long long at = reinterpret_cast<uintptr_t>(a.mask) | a.ms.b | a.ms.h | a.ms.s | a.Skv;
@@ -804,10 +792,9 @@ inline cudaError_t launch_fwd_args(FwdArgs a, int D, cudaStream_t s) {
                                  : kMaskBytes;
   if (D == 64) return launch_fwd_instance<64>(a, s);
   if (D == 128) return launch_fwd_instance<128>(a, s);
-  if (D != 80 && D != 256) return cudaErrorInvalidValue;
-  if (a.ks != nullptr || a.lse != nullptr || a.drop.rate > 0.f || a.mask != nullptr)
+  if (D != 80 || a.ks != nullptr || a.lse != nullptr || a.drop.rate > 0.f || a.mask != nullptr)
     return cudaErrorInvalidValue;
-  return D == 80 ? launch_fwd_d<80, false, false>(a, s) : launch_fwd_d<256, false, false>(a, s);
+  return launch_fwd_d<80, false, false>(a, s);
 }
 
 // K13a's call (flash_bwd.cu): q, out [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D],

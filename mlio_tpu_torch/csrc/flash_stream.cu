@@ -20,7 +20,8 @@
 // on the SM's 16 MUFU lanes as the tile's two products on its tensor
 // cores), the loads and the barriers must stay out of their way.
 //
-// The design (FlashAttention-3's shape, written for this kernel):
+// The design (FlashAttention-3's shape, written for this kernel; its pieces
+// in flash_ws.cuh, shared with K1 at head dim 256, flash_fwd_d256.cu):
 // - One block per (q tile of 128 rows, query head, batch), the heaviest q
 //   tiles (the last, under causality) first and the query heads of one KV
 //   head side by side, so that their K/V meet in L2. Three warpgroups a
@@ -65,62 +66,39 @@
 // rounded to bf16 for the PV product while l adds the fp32 p, p taken
 // against the running max of the 128-key tiles seen; out = acc / l. exp is
 // taken as exp2 of the score times log2(e), a few fp32 ulps from exp.
-#include "tma.cuh"
-#include "wgmma.cuh"
-
-#include <math.h>
+#include "flash_ws.cuh"
 
 namespace stream {
 
 using bf16 = __nv_bfloat16;
-using gemm::fence_proxy_async;
 using gemm::fence_regs;
-using gemm::kmajor;
-using gemm::pack_bf16;
 using gemm::repack;
 using gemm::wgmma_commit;
-using gemm::wgmma_desc;
 using gemm::wgmma_fence;
 using gemm::wgmma_wait;
 using gemm::zero;
 using tma::bar_arrive;
 using tma::bar_wait_bounded;
+using ws::kThreads;
+using ws::kWg;
 
-constexpr int BQ = 128;            // q rows a block: two consumer warpgroups of 64
-constexpr int BKV = 128;           // keys a K/V tile
-constexpr int kWg = 128;           // threads a warpgroup
-constexpr int kThreads = 3 * kWg;  // the producer and two consumers
-constexpr int kConsumerWarps = 8;  // arrivals that release a K or V slot
-// setmaxnreg moves registers within the block: launched at 168 a thread
-// (65,536 / 384, rounded down to a multiple of 8), the producer gives up
-// 128 x (168 - 24) = 18,432, exactly what the consumers take to reach 240;
-// a producer left at 32 would give 1,024 too few, and the consumers' request
-// would wait forever.
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr size_t kSmemLimit = 232448;  // a block's shared memory on the H100
-constexpr float kLog2e = 1.4426950408889634f;
-
-// Named barriers (0 is __syncthreads): consumer w publishes its scaled Q
-// tile to its own four warps at kQReady + w.
-constexpr int kQReady = 1;
+constexpr int BQ = 128;   // q rows a block: two consumer warpgroups of 64
+constexpr int BKV = 128;  // keys a K/V tile
 
 template <int D>
 struct Smem {
   static constexpr size_t kQTile = size_t(64) * D * 2;    // one consumer's q rows
   static constexpr size_t kKvTile = size_t(BKV) * D * 2;  // one K or V tile
   static constexpr int kStages =
-      (kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile) < 4
-          ? static_cast<int>((kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile))
+      (ws::kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile) < 4
+          ? static_cast<int>((ws::kSmemLimit - 1024 - 2 * kQTile) / (2 * kKvTile))
           : 4;
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = 2 * kQTile;
   static constexpr size_t kV = kK + kStages * kKvTile;
   static constexpr size_t kBars = kV + kStages * kKvTile;
-  // full K, full V, empty K, empty V a stage; Q a consumer; the tail V tile
-  static constexpr int kNumBars = 4 * kStages + 3;
-  static constexpr size_t kBytes = kBars + kNumBars * 8;
-  static_assert(kStages >= 2 && kBytes <= kSmemLimit, "the ring must fit");
+  static constexpr size_t kBytes = kBars + ws::Bars<kStages>::kCount * 8;
+  static_assert(kStages >= 2 && kBytes <= ws::kSmemLimit, "the ring must fit");
 };
 
 struct Args {
@@ -138,119 +116,6 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-template <int S>
-struct Bars {
-  uint64_t* full_k;
-  uint64_t* full_v;
-  uint64_t* empty_k;
-  uint64_t* empty_v;
-  uint64_t* q;
-  uint64_t* tail;
-  __device__ explicit Bars(uint64_t* b)
-      : full_k(b), full_v(b + S), empty_k(b + 2 * S), empty_v(b + 3 * S), q(b + 4 * S),
-        tail(b + 4 * S + 2) {}
-};
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The registers of p (the A operand of an asynchronous PV product) kept
-// live, unchanged, up to here: the product reads them until its group is
-// waited for.
-template <int KK>
-__device__ __forceinline__ void fence_pa(uint32_t (&pa)[KK][4]) {
-#pragma unroll
-  for (int k = 0; k < KK; ++k)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[k][e])::"memory");
-}
-
-// A K tile (BKV rows as N, columns c0 .. c0 + 15 as K): each 64-column half
-// of the tile is BKV rows of 128 bytes, the second half BKV x 128 bytes on.
-__device__ __forceinline__ uint64_t k_desc(const bf16* k_t, int c0) {
-  return wgmma_desc(reinterpret_cast<const unsigned char*>(k_t) + (c0 >> 6) * (BKV * 128) +
-                        (c0 & 63) * 2,
-                    16, 1024);
-}
-// A V tile MN-major: keys [r0, r0 + 16) as K, every column as N; along N the
-// next 64 columns BKV x 128 bytes on.
-__device__ __forceinline__ uint64_t v_desc(const bf16* v_t, int r0) {
-  return wgmma_desc(reinterpret_cast<const unsigned char*>(v_t) + r0 * 128, BKV * 128, 1024);
-}
-
-// S[64 x BKV] = (q * scale) K^T: q (64 rows, K-major) and K from shared memory.
-template <int D, int NT>
-__device__ __forceinline__ void s_product(float (&s)[NT][4], const bf16* q_t, const bf16* k_t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (NT == 16)
-      gemm::wgmma_ss_n128<0>(s, kmajor(q_t, 0, 16 * kk), k_desc(k_t, 16 * kk), kk > 0);
-    else
-      gemm::wgmma_ss_n64(s, kmajor(q_t, 0, 16 * kk), k_desc(k_t, 16 * kk), kk > 0);
-  }
-}
-
-// O[64 x D] += P V: p from registers, V MN-major from shared memory.
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 8][4],
-                                           const uint32_t (&pa)[BKV / 16][4], const bf16* v_t) {
-#pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk) gemm::wgmma_rs<D, 1>(o, pa[kk], v_desc(v_t, 16 * kk), 1);
-}
-
-// The online softmax of one tile's scores, rows g (i = 0) and g + 8 (i = 1)
-// of this thread's warp: masked (the diagonal tile, the kv_len tail) or not;
-// s becomes p (fp32), m and l move on, alpha rescales O.
-__device__ __forceinline__ void softmax(float (&s)[BKV / 8][4], float (&m)[2], float (&l)[2],
-                                        float (&alpha)[2], bool masked, int kv0, int row_abs0,
-                                        int kvl, int causal) {
-  const int t4 = threadIdx.x % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (masked) {
-      const int row_abs = row_abs0 + 8 * i;
-#pragma unroll
-      for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = kv0 + n * 8 + 2 * t4 + e;
-          if (!(col < kvl && (!causal || row_abs >= col))) s[n][2 * i + e] = -INFINITY;
-        }
-      }
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m[i], mx);
-    const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
-    alpha[i] = (m[i] == -INFINITY) ? 0.f : exp2f((m[i] - m_safe) * kLog2e);
-    const float mb = m_safe * kLog2e;
-    float psum = 0.f;
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = exp2f(fmaf(s[n][2 * i + e], kLog2e, -mb));  // exp(-inf) = 0
-        s[n][2 * i + e] = p;
-        psum += p;
-      }
-    }
-    l[i] = l[i] * alpha[i] + psum;
-    m[i] = m_new;
-  }
-}
-
 // The producer warp: lane 0 asks for Q, then K(0), and for each tile j
 // K(j + 1) before V(j), the order the consumers need them in; each slot
 // once both consumers have released it. The last V tile, where it holds
@@ -258,7 +123,7 @@ __device__ __forceinline__ void softmax(float (&s)[BKV / 8][4], float (&m)[2], f
 // before it hands the tile over.
 template <int D>
 __device__ __forceinline__ void produce(const Maps& maps, bf16* sQ, bf16* sK, bf16* sV,
-                                        const Bars<Smem<D>::kStages>& bar, int b, int h, int hk,
+                                        const ws::Bars<Smem<D>::kStages>& bar, int b, int h, int hk,
                                         int q_row0, int n_tiles, int kvl) {
   using S = Smem<D>;
   constexpr int kS = S::kStages;
@@ -305,17 +170,7 @@ __device__ __forceinline__ void produce(const Maps& maps, bf16* sQ, bf16* sK, bf
     const int j = n_tiles - 1, slot = j % kS;
     if (lane == 0) load_v(j, bar.tail);
     bar_wait_bounded(bar.tail, 0);
-    // rows [kvl - j * BKV, BKV) of each half (0 < kvl - j * BKV < BKV): the
-    // swizzle moves chunks within a row only, so whole rows are zeroed in place
-    const int r0 = kvl - j * BKV, chunks = (BKV - r0) * 8;
-    unsigned char* v_t = reinterpret_cast<unsigned char*>(sV + slot * BKV * D);
-    for (int c = lane; c < chunks * kHalves; c += 32) {
-      const int half = c / chunks, rest = c % chunks;
-      *reinterpret_cast<uint4*>(v_t + half * BKV * 128 + (r0 + rest / 8) * 128 + (rest % 8) * 16) =
-          make_uint4(0, 0, 0, 0);
-    }
-    fence_proxy_async();
-    __syncwarp();
+    ws::zero_rows<D, BKV>(sV + slot * BKV * D, kvl - j * BKV);
     if (lane == 0) bar_arrive(&bar.full_v[slot]);
   }
 }
@@ -323,12 +178,12 @@ __device__ __forceinline__ void produce(const Maps& maps, bf16* sQ, bf16* sK, bf
 // A consumer warpgroup (w = 0, 1): q rows [q_start + 64w, q_start + 64w + 64).
 template <int D, bool kLse>
 __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK, const bf16* sV,
-                                        const Bars<Smem<D>::kStages>& bar, int w, int b, int h,
+                                        const ws::Bars<Smem<D>::kStages>& bar, int w, int b, int h,
                                         int q_start, int n_tiles, int kvl) {
   constexpr int kS = Smem<D>::kStages;
   const int tid = threadIdx.x % kWg;
   const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
+  const int g = lane / 4;
   const int row0 = q_start + 64 * w;
   const int first_row = row0 + a.q_offset;
   // Interior tiles: every key at or below this warpgroup's first row and inside kvl.
@@ -342,18 +197,7 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
   if (n_tiles > 0) {
     bf16* q_t = sQ + w * 64 * D;
     bar_wait_bounded(&bar.q[w], 0);
-    // q * scale in fp32, rounded to bf16, in place: element by element, so
-    // the swizzle does not matter.
-    for (int c = tid; c < 64 * D / 8; c += kWg) {
-      float f[8];
-      uint4* p = reinterpret_cast<uint4*>(q_t) + c;
-      unpack_vec<bf16>(*p, f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] *= a.scale;
-      store_vec(reinterpret_cast<bf16*>(p), f);
-    }
-    fence_proxy_async();
-    named_sync(kQReady + w, kWg);
+    ws::scale_q<D>(q_t, a.scale, w);
 
     float s[BKV / 8][4];
     uint32_t pa[BKV / 16][4];
@@ -362,12 +206,12 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
     // Tile 0: S(0) and its softmax.
     bar_wait_bounded(&bar.full_k[0], 0);
     wgmma_fence();
-    s_product<D>(s, q_t, sK);
+    ws::s_product<D, BKV>(s, q_t, sK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) bar_arrive(&bar.empty_k[0]);
-    softmax(s, m, l, alpha, 0 >= n_full, 0, row_abs0, kvl, a.causal);
+    ws::softmax<BKV>(s, m, l, alpha, 0 >= n_full, 0, row_abs0, kvl, a.causal);
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) repack(pa[kk], s, kk);
 
@@ -378,25 +222,19 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
       bar_wait_bounded(&bar.full_k[sk], (j / kS) & 1);
       bar_wait_bounded(&bar.full_v[sv], ((j - 1) / kS) & 1);
       wgmma_fence();
-      s_product<D>(s, q_t, sK + sk * BKV * D);
+      ws::s_product<D, BKV>(s, q_t, sK + sk * BKV * D);
       wgmma_commit();
-      pv_product<D>(o, pa, sV + sv * BKV * D);
+      ws::pv_product<D, BKV>(o, pa, sV + sv * BKV * D);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
       if (lane == 0) bar_arrive(&bar.empty_k[sk]);
-      softmax(s, m, l, alpha, j >= n_full, j * BKV, row_abs0, kvl, a.causal);
+      ws::softmax<BKV>(s, m, l, alpha, j >= n_full, j * BKV, row_abs0, kvl, a.causal);
       wgmma_wait<0>();
       fence_regs(o);
-      fence_pa(pa);
+      ws::fence_pa(pa);
       if (lane == 0) bar_arrive(&bar.empty_v[sv]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
+      ws::rescale(o, alpha);
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) repack(pa[kk], s, kk);
     }
@@ -405,32 +243,17 @@ __device__ __forceinline__ void consume(const Args& a, bf16* sQ, const bf16* sK,
     const int sv = (n_tiles - 1) % kS;
     bar_wait_bounded(&bar.full_v[sv], ((n_tiles - 1) / kS) & 1);
     wgmma_fence();
-    pv_product<D>(o, pa, sV + sv * BKV * D);
+    ws::pv_product<D, BKV>(o, pa, sV + sv * BKV * D);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
   }
 
-  // out = O / l, rounded to bf16 (0 for a row with no valid key), and
-  // lse = m + log(l); rows past Sq are not stored.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int qr = row0 + warp * 16 + g + 8 * i;
-    if (qr < a.Sq) {
-      const float l_safe = (lt == 0.f) ? 1.f : lt;
-      bf16* orow = a.out + b * a.out_b + qr * a.out_s + h * a.out_h;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-            pack_bf16(o[n][2 * i] / l_safe, o[n][2 * i + 1] / l_safe);
-      if (kLse && t4 == 0)
-        a.lse[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + qr] =
-            (lt == 0.f) ? -INFINITY : (m[i] == -INFINITY ? 0.f : m[i]) + logf(l_safe);
-    }
-  }
+  // out = O / l and lse = m + log(l); rows past Sq are not stored.
+  bf16* out_bh = a.out + b * a.out_b + h * a.out_h;
+  ws::store_rows<D>(o, m, l, row0, a.Sq,
+                    [&](int qr) { return out_bh + qr * a.out_s; },
+                    kLse ? a.lse + (static_cast<size_t>(b) * a.Hq + h) * a.Sq : nullptr);
 }
 
 template <int D, bool kLse>
@@ -442,7 +265,7 @@ flash_stream_kernel(const Args a, const __grid_constant__ Maps maps) {
   bf16* sQ = reinterpret_cast<bf16*>(smem + S::kQ);
   bf16* sK = reinterpret_cast<bf16*>(smem + S::kK);
   bf16* sV = reinterpret_cast<bf16*>(smem + S::kV);
-  const Bars<kS> bar(reinterpret_cast<uint64_t*>(smem + S::kBars));
+  const ws::Bars<kS> bar(reinterpret_cast<uint64_t*>(smem + S::kBars));
 
   // Block -> (q tile, batch, head): heads fastest, the heaviest q tiles first.
   const int n_qt = (a.Sq + BQ - 1) / BQ;
@@ -458,28 +281,17 @@ flash_stream_kernel(const Args a, const __grid_constant__ Maps maps) {
   if (a.causal) tokens = min(tokens, q_start + a.q_offset + BQ);
   const int n_tiles = tokens > 0 ? (tokens + BKV - 1) / BKV : 0;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kS; ++i) {
-      tma::bar_init(&bar.full_k[i]);
-      tma::bar_init(&bar.full_v[i]);
-      tma::bar_init(&bar.empty_k[i], kConsumerWarps);
-      tma::bar_init(&bar.empty_v[i], kConsumerWarps);
-    }
-    tma::bar_init(&bar.q[0]);
-    tma::bar_init(&bar.q[1]);
-    tma::bar_init(bar.tail);
-    tma::bar_init_fence();
-  }
+  if (threadIdx.x == 0) bar.init();
   __syncthreads();
 
   const int wg = threadIdx.x / kWg;
   if (wg == 0) {
-    setmaxnreg_dec<kProducerRegs>();
+    ws::setmaxnreg_dec<ws::kProducerRegs>();
     if (threadIdx.x < 32 && n_tiles > 0)
       produce<D>(maps, sQ, sK, sV, bar, b, h, hk, b * a.Sq + q_start, n_tiles, kvl);
     return;
   }
-  setmaxnreg_inc<kConsumerRegs>();
+  ws::setmaxnreg_inc<ws::kConsumerRegs>();
   consume<D, kLse>(a, sQ, sK, sV, bar, wg - 1, b, h, q_start, n_tiles, kvl);
 }
 

@@ -1,5 +1,7 @@
 // Hopper's Tensor Memory Accelerator for K12 (ln_matmul.cu), K5 and K11
-// (gemm_wgmma.cuh), K10 (flash_stream.cu) and K6's GEMVs (decode_tiled.cuh): 2-D and 3-D tile copies from
+// (gemm_wgmma.cuh), K10 (flash_stream.cu), K1 at head dim 256
+// (flash_fwd_d256.cu), K3 at head dim 80 (decode_attn.cuh) and K6's GEMVs
+// (decode_tiled.cuh): 2-D, 3-D and 4-D tile copies from
 // device memory into shared memory, bf16 tiles in wgmma.cuh's 128-byte
 // swizzled layout and byte tiles (K5's quantised weights) row by row, whose
 // completion a shared-memory barrier (mbarrier) counts in bytes. One thread asks for a whole tile; the hardware computes the
@@ -98,6 +100,18 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map, int c
       : "memory");
 }
 
+// The box of a 4-D map at coordinates (c0, c1, c2, c3), innermost first,
+// into dst, counted on bar.
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                        int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(gemm::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(gemm::smem_addr(bar))
+      : "memory");
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -174,6 +188,31 @@ inline cudaError_t map_2d_u8(CUtensorMap* map, const void* base, uint64_t rows, 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// A 4-D map of a bf16 tensor whose geometry the caller computed (the
+// wrappers' Python, which checks TMA's rules first): dims innermost first
+// (the first contiguous), the byte strides of dims 1-3 (multiples of 16,
+// the base 16-byte aligned) and the box. Zeros out of bounds; errors as
+// map_2d.
+inline cudaError_t map_4d(CUtensorMap* map, const void* base, const long long* dims,
+                          const long long* byte_strides, const long long* box,
+                          CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    if (i < 3) st[i] = static_cast<cuuint64_t>(byte_strides[i]);
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st, bx, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
 }

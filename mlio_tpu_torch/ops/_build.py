@@ -34,7 +34,7 @@ SOURCES = ("flash_fwd", "fused_norm", "decode_attn", "decode_layer", "decode_lay
            "paged_attn", "paged_stack",
            "quant_matmul", "fused_mlp", "ln_matmul", "decode_tiled_bf16", "decode_tiled_int8",
            "decode_tiled_fp8", "decode_tiled_d256", "dma_bench", "fp8_convert", "flash_bwd",
-           "flash_stream")
+           "flash_stream", "flash_fwd_d256")
 # -Xptxas -v only reports each kernel's registers, stack and spills (kept in
 # BUILD_LOGS, summarised by ptxas_summary); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

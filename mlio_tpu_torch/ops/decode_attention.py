@@ -21,6 +21,11 @@ On CPU tensors :func:`decode_attention` runs :func:`decode_attention_plain`;
 on CUDA tensors it launches the kernel or raises: q must be bf16, the cache
 bf16 or int8. Head dims 80 (Phi-2) and 256 (Gemma) run the fp32 pass alone:
 one query head a KV head over a bf16 cache (:data:`FP32_ONLY_HEAD_DIMS`).
+At head dim 80 that pass is fed by TMA: a producer thread copies each
+block's slots in stages of :data:`RING_TOKENS` through the cache's tensor
+maps (:func:`cache_map`, encoded once per cache tensor and kept in
+``_build``'s map cache, never per launch); :func:`ring_stages` mirrors the
+stages a block takes.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ FP32_ONLY_HEAD_DIMS = (80, 256)  # G 1 over a bf16 cache only (ROADMAP.md A4, A5
 TOKEN_STEP, MAX_SPLIT = 128, 8
 # Blocks the split aims at: two for each of the H100's 132 SMs.
 BLOCK_TARGET = 2 * 132
+# The TMA pass (head dim 80): the slots of K and of V a ring stage
+# (csrc/decode_attn.cuh's kRingTokens), a divisor of TOKEN_STEP.
+TMA_HEAD_DIMS, RING_TOKENS = (80,), 32
 
 
 def split_plan(B: int, Hkv: int, Smax: int) -> tuple:
@@ -57,6 +65,43 @@ def split_plan(B: int, Hkv: int, Smax: int) -> tuple:
     else:  # the largest chunk that still gives at least `want` of them
         chunk = max(capped, (Smax - 1) // (want - 1) // TOKEN_STEP * TOKEN_STEP)
     return -(-Smax // chunk), chunk
+
+
+def ring_stages(n_b: int, rank: int, chunk: int) -> list:
+    """The stages block ``rank`` of a (sequence, KV head)'s cluster takes
+    in the TMA pass, as (first slot, slots below n_b) pairs: its chunk's
+    slots [rank * chunk, min(n_b, (rank + 1) * chunk)) in stages of
+    RING_TOKENS from the chunk's start; none where the chunk lies wholly at
+    or past n_b. A stage's slots at or past n_b are copied but not used."""
+    t_begin = rank * chunk
+    n = min(max(n_b, 0), t_begin + chunk)
+    return [(t0, min(RING_TOKENS, n - t0)) for t0 in range(t_begin, n, RING_TOKENS)]
+
+
+def cache_map(cache: torch.Tensor, what: str = "decode_attention") -> tuple:
+    """The TMA map of a [L, B, Smax, Hkv, D] bf16 cache as (dims, byte
+    strides, box): a 4-D map [D, Hkv, Smax, L * B] (innermost first) whose
+    box (D, 1, RING_TOKENS, 1) lands a stage of one (layer, sequence, KV
+    head)'s rows packed; the layer and sequence are a box coordinate. Raises
+    ``ValueError`` where TMA would refuse it: the head dim not contiguous,
+    a row not a multiple of 16 bytes, L and B not one stride apart, a
+    stride not a multiple of 16 bytes or past 2**40, or a start not 16-byte
+    aligned."""
+    L, B, Smax, Hkv, D = cache.shape
+    esz = cache.element_size()
+    st = [x * esz for x in cache.stride()]
+    if st[4] != esz or (D * esz) % 16 or (L > 1 and B > 1 and st[0] != B * st[1]):
+        raise ValueError(f"{what}: the cache's TMA map needs a contiguous head dim of a "
+                         f"multiple of 16 bytes and its layers and sequences one stride apart; "
+                         f"got shape {tuple(cache.shape)}, strides {cache.stride()}")
+    # L and B as one dim (a size-1 dim takes the other's stride)
+    lb = st[1] if B > 1 or L == 1 else st[0]
+    strides = (st[3] if Hkv > 1 else D * esz, st[2] if Smax > 1 else Hkv * D * esz, lb)
+    dims = (D, Hkv, Smax, L * B)
+    if any(x % 16 or x >= 1 << 40 for x in strides) or cache.data_ptr() % 16:
+        raise ValueError(f"{what}: TMA needs byte strides that are multiples of 16 below 2**40 "
+                         f"and a 16-byte aligned start; got byte strides {tuple(st)}")
+    return dims, strides, (D, 1, RING_TOKENS, 1)
 
 
 def decode_attention_plain(
@@ -109,9 +154,27 @@ def _entry():
     fn = lib.mlio_decode_attn
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p, p]
         fn.restype = i
+        lib.mlio_decode_attn_maps.argtypes = [p, p, p, p]
+        lib.mlio_decode_attn_maps.restype = i
+        lib.mlio_decode_attn_maps_bytes.argtypes = []
+        lib.mlio_decode_attn_maps_bytes.restype = i
     return lib, fn
+
+
+def _maps(lib, k_cache, v_cache):
+    """The caches' TMA maps (the TMA pass), encoded once per pair of cache
+    tensors (their addresses, shape and strides) and cached."""
+    dims, strides, box = cache_map(k_cache)
+    if cache_map(v_cache)[1] != strides:
+        raise ValueError("decode_attention: k_cache and v_cache must have the same strides")
+    geo = (ctypes.c_longlong * 11)(*dims, *strides, *box)
+    key = ("decode_attn", k_cache.data_ptr(), v_cache.data_ptr(), dims, strides, box)
+    return _build.tensor_maps(
+        key, lib.mlio_decode_attn_maps_bytes(),
+        lambda buf: lib.mlio_decode_attn_maps(k_cache.data_ptr(), v_cache.data_ptr(), geo, buf),
+        lib, "decode_attention (tensor maps)")
 
 
 def decode_attention(
@@ -168,9 +231,10 @@ def decode_attention(
     n_split, chunk = split_plan(B, Hkv, Smax)
     lib, fn = _entry()
     with torch.cuda.device(dev):
+        maps = _maps(lib, k_cache, v_cache) if D in TMA_HEAD_DIMS else None
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _build.ptr(k_scales),
                  _build.ptr(v_scales), context_lens.data_ptr(), out.data_ptr(), B, Smax, Hkv, G,
-                 D, layer, D ** -0.5 if scale is None else scale, n_split, chunk,
+                 D, layer, D ** -0.5 if scale is None else scale, n_split, chunk, maps,
                  _build.stream_handle(dev))
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1

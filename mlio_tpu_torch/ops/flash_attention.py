@@ -54,7 +54,12 @@ On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernel or raise. The kernels take bf16 queries and head dims 64
 and 128; K1 also takes head dims 80 (Phi-2) and 256 (Gemma), without a
 user mask, dropout or the lse (:data:`K1_ONLY_HEAD_DIMS`), which K9, K10
-and K13 do not (``ROADMAP.md`` A4). The kernels have no backward: the wrappers raise when asked for a
+and K13 do not (``ROADMAP.md`` A4). Head dim 256 has a kernel of its own,
+``csrc/flash_fwd_d256.cu``: K10's warp-specialised body (a TMA producer
+warp, two consumer warpgroups of 64 rows sharing one K/V ring) over 4-D
+tensor maps built from each tensor's strides (:func:`tma_map`), its
+blocks and tiles mirrored by :func:`d256_blocks` and
+:func:`d256_consumer`. The kernels have no backward: the wrappers raise when asked for a
 gradient (``_build.refuse_grad``); training goes through ``ops.attention``,
 whose training-shaped flash route (no mask) is
 :func:`~mlio_tpu_torch.ops.flash_attention_grad.flash_attention_diff`.
@@ -80,6 +85,9 @@ _LAYOUTS = ("bshd", "bhsd")
 # ``kv_vmem_budget``), read at call time so that a test may move the route.
 KV_VMEM_BUDGET = 6 << 20
 STREAM_BLOCK_KV = 128  # K10's K/V tile: the block of keys its plain version steps by
+# K1 at head dim 256 (csrc/flash_fwd_d256.cu): q rows a block (two
+# consumers of 64) and keys a K/V tile
+D256, D256_BQ, D256_BKV = 256, 128, 64
 
 
 def head_dim_error(what: str, D: int, runs: str = "") -> ValueError:
@@ -108,6 +116,65 @@ def k1_instance_error(what: str, D: int, *, quant: bool, lse: bool, dropout: boo
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def tma_map(t: torch.Tensor, layout: str, box_rows: int, what: str = "flash_attention",
+            arg: str = "q") -> tuple:
+    """The TMA map of a [B, S, H, D] tensor in ``layout`` ("bshd" or
+    "bhsd") as (dims, byte strides, box): a 4-D map [D, S, H, B] (innermost
+    first), the byte strides of S, H and B as the tensor has them (a dim of
+    size 1 takes D's row bytes: its coordinate is always 0), in boxes of 64
+    columns (the 128-byte swizzle's width) and ``box_rows`` rows. Rows past
+    S read as zeros, so a box never runs into the next head or sequence.
+    Raises ``ValueError`` where TMA would refuse the map: the head dim not
+    contiguous or its row not a multiple of 16 bytes, a stride not a
+    multiple of 16 bytes or past 2**40, or a start not 16-byte aligned."""
+    B, S, H, D = as_bshd(t, layout).shape
+    esz, row = t.element_size(), D * t.element_size()
+    sb, ss, sh = strides(t, layout)
+    byte = tuple(x * esz if n > 1 else row for x, n in ((ss, S), (sh, H), (sb, B)))
+    if t.stride(-1) != 1 or row % 16 or t.data_ptr() % 16 or any(
+            x % 16 or x >= 1 << 40 for x in byte):
+        raise ValueError(f"{what}: {arg} breaks TMA's rules at head dim {D} (a contiguous head "
+                         "dim, byte strides that are multiples of 16 below 2**40, a 16-byte "
+                         f"aligned start); got strides {t.stride()}")
+    return (D, S, H, B), byte, (64, box_rows, 1, 1)
+
+
+def d256_blocks(B: int, Sq: int, Hq: int, Hkv: int, sms: int = 132) -> list:
+    """K1's blocks at head dim 256 in launch order, as (b, h, q_start): the
+    (batch, KV head) pairs in groups of about as many blocks as the card
+    has SMs (``sms``, the H100 SXM's 132), a group's 128-row q tiles from
+    the last (the heaviest under causality) to the first, its pairs next,
+    the G query heads of a KV head fastest: the blocks on the card at once
+    share their K/V rows in L2, and each tile of a pair is read by blocks
+    that run apart. Mirrors csrc/flash_fwd_d256.cu's block map."""
+    n_qt, G = -(-Sq // D256_BQ), Hq // Hkv
+    group, npairs = max(1, sms // (G * n_qt)), B * Hkv
+    out = []
+    for first in range(0, npairs, group):
+        pairs = range(first, min(first + group, npairs))
+        out += [(p // Hkv, p % Hkv * G + g, qt * D256_BQ) for qt in reversed(range(n_qt))
+                for p in pairs for g in range(G)]
+    return out
+
+
+def d256_consumer(row0: int, Sq: int, kvl: int, causal: bool, q_offset: int):
+    """(n, n_full) of the consumer of q rows [row0, row0 + 64) at head dim
+    256: the 64-key tiles it computes (those below kvl and, under
+    causality, holding a key at or below its last row + q_offset) and the
+    interior ones among them, which take no mask (every key at or below its
+    first row + q_offset and below kvl); None where it has no row below Sq
+    (it then computes and stores nothing). kvl is min(kv_len, Skv). Mirrors
+    csrc/flash_fwd_d256.cu's consumer_tiles and consume."""
+    rows = min(64, Sq - row0)
+    if rows <= 0:
+        return None
+    tokens = min(kvl, row0 + rows + q_offset) if causal else kvl
+    n = -(-tokens // D256_BKV) if tokens > 0 else 0
+    first = row0 + q_offset
+    n_full = (first // D256_BKV if first > 0 else 0) if causal else n
+    return n, min(n_full, kvl // D256_BKV, n)
 
 
 def stream_route(Skv: int, D: int, itemsize: int, *,
@@ -384,7 +451,11 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # D, q_offset; scale; causal; the dropout seed, rate and 1 / (1 - rate).
 # mlio_flash_stream (K10): q, k, v, out, lse, kv_len; kv_len_scalar .. causal
 # as above; out's batch, row and head strides.
+# mlio_flash_fwd_d256 (K1 at head dim 256): q, k, v, out, kv_len, the host
+# array of the three maps' 33 values (tma_map's, flattened), out's 3
+# strides; kv_len_scalar, B, Sq, Skv, Hq, Hkv, q_offset; scale; causal.
 _ENTRIES = {"mlio_flash_fwd": ("flash_fwd", [_P] * 10 + [_I] * 8 + [_F, _I, _I, _F, _F]),
+            "mlio_flash_fwd_d256": ("flash_fwd_d256", [_P] * 7 + [_I] * 7 + [_F, _I]),
             "mlio_flash_stream": ("flash_stream", [_P] * 6 + [_I] * 8 + [_F, _I] + [_LL] * 3)}
 
 
@@ -461,6 +532,10 @@ def _launch(what, q, k, v, k_scale, v_scale, kind, m, *, causal, scale, q_offset
         raise err
     if k.stride() != v.stride() or (quant and k_scale.stride() != v_scale.stride()):
         raise ValueError(f"{what}: k and v (and their scales) must have the same strides")
+    if D == D256:
+        return _launch_d256(what, q, k, v, dev, causal=causal, scale=scale, q_offset=q_offset,
+                            kv_len=kv_len, q_layout=q_layout, kv_layout=kv_layout,
+                            out_layout=out_layout)
     _require_rows(what, 8, q=q)
     _require_rows(what, 16 if quant else 8, k=k, v=v)
     if m is not None and Skv > 1 and m.stride(-1) != 1:
@@ -482,6 +557,30 @@ def _launch(what, q, k, v, k_scale, v_scale, kind, m, *, causal, scale, q_offset
                  _build.stream_handle(dev))
     _build.check(lib, err, what)
     return (out, lse) if return_stats else out
+
+
+def _launch_d256(what, q, k, v, dev, *, causal, scale, q_offset, kv_len, q_layout, kv_layout,
+                 out_layout):
+    """K1 at head dim 256 (csrc/flash_fwd_d256.cu): q, k and v through their
+    TMA maps (tma_map raises on what TMA refuses, before any launch), out
+    written by its strides."""
+    B, Sq, Hq, D, Skv, Hkv = _dims(q, k, q_layout, kv_layout)
+    geo = (ctypes.c_longlong * 33)(*(
+        x for t, layout, rows, arg in ((q, q_layout, 64, "q"), (k, kv_layout, D256_BKV, "k"),
+                                       (v, kv_layout, D256_BKV, "v"))
+        for part in tma_map(t, layout, rows, what, arg) for x in part))
+    kv_arr, kv_scalar = _kv_len_arg(what, kv_len, B, Skv, dev)
+    out = torch.empty((B, Hq, Sq, D) if out_layout == "bhsd" else (B, Sq, Hq, D), dtype=q.dtype,
+                      device=dev)
+    out_st = (ctypes.c_longlong * 3)(*strides(out, out_layout))
+    lib, fn = _entry("mlio_flash_fwd_d256")
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(kv_arr),
+                 ctypes.addressof(geo), ctypes.addressof(out_st), kv_scalar, B, Sq, Skv, Hq, Hkv,
+                 int(q_offset), D ** -0.5 if scale is None else scale, int(causal),
+                 _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    return out
 
 
 def _canonical(mask, B, Hq, Sq, Skv):
